@@ -1,7 +1,8 @@
 """Build the CUDA kernels under ``ssip_tpu_torch/csrc/`` at first use.
 
-Route: ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes`` — no
+Route: ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` — one process
+per source, all started together — and links the objects into one shared
+library with a plain C interface, loaded with ``ctypes``. No
 ``torch/extension.h``, so a build takes seconds rather than the minutes a
 PyTorch extension build takes. (The idea of ``ssip_tpu/native/build.py``,
 which builds the JPEG decoder the same way, not its code.)
@@ -32,7 +33,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "ssip_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
@@ -75,17 +76,37 @@ def build() -> BuildResult:
     if target.is_file():
         return BuildResult(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    tag = f"{source_hash()}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = ""
+    procs = []
+    try:
+        for src, obj in zip(sources(), objects):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        for _, proc in procs:  # after a failure, stop the compiles still running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-    return BuildResult(target, seconds, log)
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return BuildResult(target, time.perf_counter() - t0, log)
 
 
 @lru_cache(maxsize=1)

@@ -1,4 +1,4 @@
-"""Seeded random init of the ResNet extractor, with numpy and no jax.
+"""Seeded random init of the ResNet, with numpy and no jax.
 
 Counterpart of ``ssip_tpu/models/host_init.py:20-57`` (``seeded_init_host``),
 leaf for leaf and bit for bit. The JAX version walks the Flax variable tree
@@ -10,7 +10,8 @@ the seeds are drawn from:
   (little endian) of ``sha256(f"{seed}:{name}")``, where ``name`` is the Flax
   key path as jax prints it, e.g. ``['params']/['layer1_0']/['conv1']/['kernel']``;
 - kernels draw ``normal(0, sqrt(1/fan_in))`` in their Flax shape
-  (fan_in = product of all but the last axis);
+  (fan_in = product of all but the last axis), the classifier's Dense
+  ``fc`` kernel [features, classes] included;
 - BN ``scale`` and ``var`` are ones; every other leaf is zeros.
 
 The result is the Flax-layout tree (nested dicts of numpy arrays);
@@ -20,7 +21,7 @@ The result is the Flax-layout tree (nested dicts of numpy arrays);
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -36,9 +37,9 @@ def _bn(collection_path: Tuple[str, ...], features: int) -> Iterator[Leaf]:
     yield ("batch_stats", *collection_path, "var"), (features,)
 
 
-def resnet_leaves(arch: str) -> Iterator[Leaf]:
-    """Every leaf of the Flax ResNet extractor's variable tree (no ``fc``
-    head), with its shape."""
+def resnet_leaves(arch: str, num_classes: Optional[int] = None) -> Iterator[Leaf]:
+    """Every leaf of the Flax ResNet's variable tree, with its shape; the
+    Dense ``fc`` head only for a classifier (``num_classes`` set)."""
     stages = MODEL_STAGES[arch]
     bottleneck = arch == "resnet50"
     expansion = 4 if bottleneck else 1
@@ -62,6 +63,9 @@ def resnet_leaves(arch: str) -> Iterator[Leaf]:
                 yield ("params", mod, "downsample_conv", "kernel"), (1, 1, cin, out)
                 yield from _bn((mod, "downsample_bn"), out)
             cin = out
+    if num_classes is not None:
+        yield ("params", "fc", "kernel"), (cin, num_classes)
+        yield ("params", "fc", "bias"), (num_classes,)
 
 
 def _path_rng(seed: int, path: Tuple[str, ...]) -> np.random.Generator:
@@ -70,10 +74,12 @@ def _path_rng(seed: int, path: Tuple[str, ...]) -> np.random.Generator:
     return np.random.default_rng(int.from_bytes(digest[:8], "little"))
 
 
-def seeded_init_host(arch: str, seed: int) -> Dict[str, Dict]:
-    """Flax-layout ``{"params": …, "batch_stats": …}`` tree for ``arch``."""
+def seeded_init_host(arch: str, seed: int, num_classes: Optional[int] = None) -> Dict[str, Dict]:
+    """Flax-layout ``{"params": …, "batch_stats": …}`` tree for ``arch``:
+    the extractor, or with ``num_classes`` the classifier of
+    ``ssip_tpu.models.resnet.ResNet(num_classes=…)``."""
     tree: Dict[str, Dict] = {}
-    for path, shape in resnet_leaves(arch):
+    for path, shape in resnet_leaves(arch, num_classes):
         leaf = path[-1]
         if leaf == "kernel":
             fan_in = int(np.prod(shape[:-1]))

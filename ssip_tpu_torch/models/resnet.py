@@ -1,4 +1,4 @@
-"""torchvision-topology ResNet in PyTorch, eval forward.
+"""torchvision-topology ResNet in PyTorch, eval and train forward.
 
 Counterpart of ``ssip_tpu/models/resnet.py:66-390``: the same blocks and
 stage layout, with torchvision's parameter and buffer names (``conv1.weight``,
@@ -8,9 +8,13 @@ with ``load_state_dict``.
 - ``forward`` takes NHWC like the Flax module. ``x.permute(0, 3, 1, 2)`` of a
   contiguous NHWC tensor is an NCHW view in channels_last memory, which is
   what cuDNN's fast convolutions want; no copy is made.
-- BatchNorm is eval-only with the math of ``MaskedBatchNorm``
-  (``resnet.py:136-137``): ``((x − mean)·rsqrt(var + eps))·scale + bias``
-  in float32, then cast to the compute dtype.
+- BatchNorm has the math of ``MaskedBatchNorm`` (``resnet.py:77-137``):
+  ``((x − mean)·rsqrt(var + eps))·scale + bias`` in float32, then cast to
+  the compute dtype. ``module.eval()`` normalizes with the running
+  statistics; ``module.train()`` with the batch statistics of the rows
+  where ``mask`` is true, and updates the running buffers.
+- ``forward(x_nhwc, mask=None)`` threads ``mask`` ([B] bool, the rows that
+  are real and not batch padding) through every BatchNorm.
 - The bfloat16 rounding points are explicit casts, not autocast, so CPU
   tests compare bfloat16 runs too: each conv casts its input and kernel to
   the compute dtype; BN computes in float32 and casts back; the global
@@ -33,6 +37,7 @@ RESNET34_STAGES: tuple[int, ...] = (3, 4, 6, 3)
 RESNET50_STAGES: tuple[int, ...] = (3, 4, 6, 3)
 STAGE_WIDTHS: tuple[int, ...] = (64, 128, 256, 512)
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # running = 0.9·running + 0.1·batch (torch's momentum 0.1)
 
 MODEL_STAGES = {
     "resnet18": RESNET18_STAGES,
@@ -57,11 +62,18 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d with ``MaskedBatchNorm``'s arithmetic.
+    """BatchNorm2d with ``MaskedBatchNorm``'s arithmetic.
 
     Holds torchvision's ``weight``/``bias`` parameters and
     ``running_mean``/``running_var``/``num_batches_tracked`` buffers, so
     checkpoints load unchanged.
+
+    Train mode (``resnet.py:107-135``): the statistics cover the rows where
+    ``mask`` is true, as float32 ``E[x²] − E[x]²`` clamped at 0 over
+    ``count = max(Σmask·H·W, 1)`` values (not ``F.batch_norm``, which cannot
+    leave rows out); normalization uses this biased variance, and the
+    running buffers move as ``0.9·old + 0.1·new`` with the unbiased
+    variance ``var·count/max(count − 1, 1)``.
     """
 
     def __init__(self, features: int, compute_dtype: torch.dtype):
@@ -73,12 +85,34 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        y = (x.to(torch.float32) - self.running_mean.view(shape)) * torch.rsqrt(
-            self.running_var.view(shape) + BN_EPS
-        )
+        xf = x.to(torch.float32)
+        if self.training:
+            mean, var = self._batch_stats(xf, mask)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(self.compute_dtype)
+
+    def _batch_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
+        axes = (0, 2, 3)
+        if mask is None:
+            count = torch.tensor(float(xf.numel() // xf.shape[1]), device=xf.device)
+            mean = xf.mean(axes)
+            var = (xf * xf).mean(axes) - mean * mean
+        else:
+            w = mask.to(torch.float32).view(-1, 1, 1, 1)
+            count = torch.clamp(w.sum() * float(xf.shape[2] * xf.shape[3]), min=1.0)
+            mean = (xf * w).sum(axes) / count
+            var = (xf * xf * w).sum(axes) / count - mean * mean
+        var = torch.clamp(var, min=0.0)
+        with torch.no_grad():
+            unbiased = var * (count / torch.clamp(count - 1.0, min=1.0))
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * unbiased)
+            self.num_batches_tracked += 1
+        return mean, var
 
 
 class BasicBlock(nn.Module):
@@ -94,11 +128,10 @@ class BasicBlock(nn.Module):
         self.bn2 = BatchNorm(features, compute_dtype)
         self.downsample = _projection(cin, features, stride, compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), mask))
+        y = self.bn2(self.conv2(y), mask)
+        return F.relu(y + _identity(self.downsample, x, mask))
 
 
 class Bottleneck(nn.Module):
@@ -117,20 +150,27 @@ class Bottleneck(nn.Module):
         self.bn3 = BatchNorm(out, compute_dtype)
         self.downsample = _projection(cin, out, stride, compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(y + identity)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x), mask))
+        y = F.relu(self.bn2(self.conv2(y), mask))
+        y = self.bn3(self.conv3(y), mask)
+        return F.relu(y + _identity(self.downsample, x, mask))
 
 
 def _projection(cin: int, cout: int, stride: int, compute_dtype) -> Optional[nn.Sequential]:
+    """torchvision's ``downsample``: ``Sequential(conv, bn)``, for its names."""
     if cin == cout and stride == 1:
         return None
     return nn.Sequential(
         Conv(cin, cout, 1, stride, compute_dtype), BatchNorm(cout, compute_dtype)
     )
+
+
+def _identity(downsample: Optional[nn.Sequential], x: torch.Tensor, mask) -> torch.Tensor:
+    if downsample is None:
+        return x
+    conv, bn = downsample
+    return bn(conv(x), mask)
 
 
 class ResNet(nn.Module):
@@ -162,12 +202,13 @@ class ResNet(nn.Module):
         self.num_features = cin
         self.fc = None if num_classes is None else nn.Linear(cin, num_classes)
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+    def forward(self, x_nhwc: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x_nhwc.permute(0, 3, 1, 2)  # channels_last NCHW view
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(self.conv1(x), mask))
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = block(x, mask)
         feats = x.to(torch.float32).mean(dim=(2, 3)).to(self.compute_dtype).to(torch.float32)
         return feats if self.fc is None else self.fc(feats)
 

@@ -1,6 +1,6 @@
-"""PIL-exact extraction preprocess: the plain PyTorch version.
+"""PIL-exact resizes and the extraction preprocess: the plain PyTorch versions.
 
-Counterpart of ``ssip_tpu/ops/resize.py:27-168``. The numpy helpers
+Counterpart of ``ssip_tpu/ops/resize.py:27-177``. The numpy helpers
 (``triangle_weights``, ``resize_target``, ``center_crop_bounds``) are copied
 expression for expression, because the JAX module imports ``jax.numpy``.
 
@@ -8,6 +8,10 @@ expression for expression, because the JAX module imports ``jax.numpy``.
 against the triangle-filter matrices, PIL's clip8 after each pass, then
 one affine normalize — and is what the CUDA kernel in ``ops/preproc.py`` is
 held against, and what its wrapper runs for a tensor on the CPU.
+``training_resize`` is the same matmul pair without the crop; it runs once
+per corpus, off the hot path. At sizes whose taps are not dyadic (512→224)
+the summation order can move a pixel by one uint8 step against the JAX
+package, as the JAX package documents against PIL.
 
 Rounding rules carried over exactly:
 
@@ -98,6 +102,33 @@ def normalize_imagenet_u8(x_u8: torch.Tensor, dtype=torch.float32) -> torch.Tens
     return ((x_u8.to(torch.float32) - off) * sc).to(dtype)
 
 
+def _resample(images: torch.Tensor, wv_np: np.ndarray, wh_np: np.ndarray) -> torch.Tensor:
+    """NHWC [..., H, W, 3] → float32 NHWC [..., rows(wv), rows(wh), 3],
+    uint8-valued: horizontal pass first, then vertical — PIL's order — with
+    clip8 after each."""
+    dev = images.device
+    wv = torch.from_numpy(wv_np).to(dev)
+    wh = torch.from_numpy(wh_np).to(dev)
+    x = images.to(torch.float32).movedim(-1, -3)  # [..., 3, H, W]
+    t = clip8(torch.matmul(x, wh.T))  # [..., 3, H, out_w]
+    return clip8(torch.matmul(wv, t)).movedim(-3, -1)  # [..., out_h, out_w, 3]
+
+
+def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Antialiased bilinear resize of NHWC images, float32 0..255 result
+    (``ssip_tpu/ops/resize.py:54-83`` with ``quantize=True``)."""
+    h, w = images.shape[-3], images.shape[-2]
+    return _resample(images, triangle_weights(h, out_h), triangle_weights(w, out_w))
+
+
+def training_resize(images_u8: torch.Tensor, image_size: int = 224) -> torch.Tensor:
+    """The training chain's ``Resize((S, S))``: uint8 NHWC in, uint8 NHWC
+    [..., S, S, 3] out (``ssip_tpu/ops/resize.py:171-177`` and the round to
+    uint8 of ``ssip_tpu/train/data.py:44-48``; clip8 already made every
+    value an integer in [0, 255])."""
+    return resize_bilinear(images_u8, image_size, image_size).to(torch.uint8)
+
+
 def extraction_preprocess(
     images_u8: torch.Tensor,
     resize: int = 256,
@@ -107,16 +138,6 @@ def extraction_preprocess(
     """Resize(short side) → CenterCrop → ToTensor → ImageNet-normalize.
 
     uint8 NHWC [B, H, W, 3] in, ``dtype`` NHWC [B, crop, crop, 3] out.
-    Horizontal pass first, then vertical — PIL's order — with clip8 after
-    each.
     """
     h, w = images_u8.shape[-3], images_u8.shape[-2]
-    wv_np, wh_np = crop_weights(h, w, resize, crop)
-    dev = images_u8.device
-    wv = torch.from_numpy(wv_np).to(dev)
-    wh = torch.from_numpy(wh_np).to(dev)
-
-    x = images_u8.to(torch.float32).movedim(-1, -3)  # [..., 3, H, W]
-    t = clip8(torch.matmul(x, wh.T))  # [..., 3, H, crop]
-    y = clip8(torch.matmul(wv, t))  # [..., 3, crop, crop]
-    return normalize_imagenet_u8(y.movedim(-3, -1), dtype=dtype)
+    return normalize_imagenet_u8(_resample(images_u8, *crop_weights(h, w, resize, crop)), dtype=dtype)

@@ -1,0 +1,168 @@
+"""The port's training augment and resize against the JAX package.
+
+Draws are made by JAX (``jax.random`` on the CPU, as the JAX train step
+makes them) and handed to both packages, so every comparison is of the same
+function on the same inputs: the fixed-point rotation index map, the
+rotation itself (against ``_rotate_gather`` and the Pallas kernel
+``_rotate_mxu`` in interpret mode) and the whole ``train_augment`` are held
+bit for bit; the training resize to one uint8 step.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ssip_tpu.ops import augment as jaug
+from ssip_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
+from ssip_tpu_torch.ops.augment import (
+    augment_coeffs,
+    index_bound,
+    rotate_gather,
+    rotation_index_map,
+    train_augment,
+)
+from ssip_tpu_torch.ops.resize import training_resize
+from ssip_tpu_torch.ops.rotate import augment_images
+from ssip_tpu_torch.runtime.prng import augment_draws
+
+torch.set_num_threads(2)
+
+
+def _jax_angles(seed: int, b: int, max_degrees: float) -> np.ndarray:
+    """Radians as ``random_rotate_nearest`` draws them (``augment.py:374-376``)."""
+    return np.asarray(
+        jax.random.uniform(jax.random.PRNGKey(seed), (b,), minval=-max_degrees, maxval=max_degrees)
+        * (jnp.pi / 180.0)
+    )
+
+
+def _coeffs(angles, flip=None) -> torch.Tensor:
+    flip = np.zeros(len(angles), bool) if flip is None else flip
+    return torch.from_numpy(augment_coeffs(flip, angles))
+
+
+@pytest.mark.parametrize("max_degrees", [10.0, 25.0])
+def test_icos_isin_match_jax_bitwise(max_degrees):
+    """``round(cos·2¹⁶)`` and ``round(sin·2¹⁶)`` over 2·10⁴ seeded angles:
+    every value equal to what ``_rotation_index_map`` computes."""
+    angles = _jax_angles(11, 20_000, max_degrees)
+    q = 1 << 16
+    want_cos = np.asarray(jnp.round(jnp.cos(jnp.asarray(angles)) * q).astype(jnp.int32))
+    want_sin = np.asarray(jnp.round(jnp.sin(jnp.asarray(angles)) * q).astype(jnp.int32))
+    got = augment_coeffs(np.zeros(len(angles), bool), angles)
+    np.testing.assert_array_equal(got[0], want_cos)
+    np.testing.assert_array_equal(got[1], want_sin)
+
+
+@pytest.mark.parametrize(
+    "shape,max_degrees",
+    [((2, 64, 96, 3), 10.0), ((3, 64, 64, 3), 25.0), ((2, 224, 224, 3), 10.0), ((4, 31, 17, 3), 25.0)],
+)
+def test_index_map_matches_jax_bitwise(shape, max_degrees):
+    b, h, w, _ = shape
+    for seed in (0, 1, 2):
+        angles = _jax_angles(seed, b, max_degrees)
+        want = jaug._rotation_index_map(jnp.asarray(angles), h, w)
+        c = _coeffs(angles)
+        got = rotation_index_map(c[0], c[1], h, w)
+        for g, r in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize(
+    "shape,max_degrees",
+    [((2, 64, 96, 3), 10.0), ((3, 64, 64, 3), 25.0), ((2, 224, 224, 3), 10.0)],
+)
+def test_rotation_matches_gather_and_mxu_kernel(shape, max_degrees):
+    """Bitwise against ``_rotate_gather`` and against the TPU kernel
+    ``_rotate_mxu`` run in interpret mode on the CPU."""
+    b, h, w, _ = shape
+    images = np.random.default_rng(7).integers(0, 256, shape, np.uint8)
+    angles = _jax_angles(0, b, max_degrees)
+    iy, ix, valid = jaug._rotation_index_map(jnp.asarray(angles), h, w)
+    ref = np.asarray(jaug._rotate_gather(jnp.asarray(images), iy, ix, valid))
+    mxu = np.asarray(jaug._rotate_mxu(jnp.asarray(images), iy, ix, valid, max_degrees, interpret=True))
+    c = _coeffs(angles)
+    got = rotate_gather(torch.from_numpy(images), *rotation_index_map(c[0], c[1], h, w)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, mxu)
+
+
+@pytest.mark.parametrize("max_degrees", [10.0, 25.0])
+def test_rotation_pinned_extreme_angles(max_degrees):
+    """Angles pinned at ±max_degrees, the band kernel's worst case."""
+    shape = (2, 64, 96, 3)
+    images = np.random.default_rng(3).integers(0, 256, shape, np.uint8)
+    angles = (np.asarray([max_degrees, -max_degrees], np.float32) * np.float32(np.pi / 180.0)).astype(np.float32)
+    iy, ix, valid = jaug._rotation_index_map(jnp.asarray(angles), 64, 96)
+    ref = np.asarray(jaug._rotate_gather(jnp.asarray(images), iy, ix, valid))
+    mxu = np.asarray(jaug._rotate_mxu(jnp.asarray(images), iy, ix, valid, max_degrees, interpret=True))
+    c = _coeffs(angles)
+    got = rotate_gather(torch.from_numpy(images), *rotation_index_map(c[0], c[1], 64, 96)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, mxu)
+
+
+@pytest.mark.parametrize("shape,seed", [((4, 64, 64, 3), 0), ((3, 48, 80, 3), 5), ((2, 224, 224, 3), 9)])
+def test_train_augment_matches_jax_bitwise(shape, seed):
+    """flip → rotate → normalize with the draws JAX makes from one key:
+    float32 bitwise, bfloat16 the float32 result rounded to nearest even,
+    and the CPU dispatch of the kernel wrapper is the plain version."""
+    key = jax.random.PRNGKey(seed)
+    k_flip, k_rot = jax.random.split(key)
+    flip = np.asarray(jax.random.bernoulli(k_flip, 0.5, (shape[0],)))
+    angles = np.asarray(jax.random.uniform(k_rot, (shape[0],), minval=-10.0, maxval=10.0) * (jnp.pi / 180.0))
+    images = np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
+    want = np.array(jaug.train_augment(jnp.asarray(images), key))
+    coeffs = _coeffs(angles, flip)
+    x = torch.from_numpy(images)
+    got = train_augment(x, coeffs).numpy()
+    np.testing.assert_array_equal(got, want)
+    launches = augment_images.launches
+    np.testing.assert_array_equal(augment_images(x, coeffs).numpy(), want)
+    torch.testing.assert_close(
+        augment_images(x, coeffs, torch.bfloat16), torch.from_numpy(want).to(torch.bfloat16), rtol=0, atol=0
+    )
+    assert augment_images.launches == launches  # a CPU tensor launches nothing
+
+
+def test_augment_draws_are_seeded_and_in_range():
+    flip, angles = augment_draws(42, "baseline", 3, 5, 4096, 10.0)
+    again = augment_draws(42, "baseline", 3, 5, 4096, 10.0)
+    other = augment_draws(42, "baseline", 3, 6, 4096, 10.0)
+    np.testing.assert_array_equal(flip, again[0])
+    np.testing.assert_array_equal(angles, again[1])
+    assert not np.array_equal(angles, other[1])
+    assert flip.dtype == bool and angles.dtype == np.float32
+    assert 0.45 < flip.mean() < 0.55
+    limit = np.float32(10.0) * np.float32(np.pi / 180.0)
+    assert np.all(np.abs(angles) <= limit) and angles.max() > 0.95 * limit and angles.min() < -0.95 * limit
+
+
+def test_augment_wrapper_rejects_bad_inputs():
+    x = torch.zeros((2, 8, 8, 3), dtype=torch.uint8)
+    coeffs = _coeffs(np.zeros(2, np.float32))
+    with pytest.raises(ValueError, match="uint8 NHWC"):
+        augment_images(x.float(), coeffs)
+    with pytest.raises(ValueError, match="coeffs"):
+        augment_images(x, coeffs[:, :1])
+    with pytest.raises(ValueError, match="out_dtype"):
+        augment_images(x, coeffs, torch.float16)
+    assert index_bound(10923, 10923) < 2**31 <= index_bound(10924, 10924)
+    with pytest.raises(ValueError, match="overflow"):
+        augment_images(torch.zeros((0, 10924, 10924, 3), dtype=torch.uint8), _coeffs(np.zeros(0, np.float32)))
+
+
+def test_training_resize_within_one_step_of_jax():
+    """512→224: the taps are not dyadic, so the two packages' summation
+    orders may put a pixel one uint8 step apart: 2 of the 301 056 values
+    at this seed (a share of 6.6e-6); the bound is one step and 1 %."""
+    images = np.random.default_rng(1).integers(0, 256, (2, 512, 512, 3), np.uint8)
+    want = np.asarray(jnp.round(jax_resize_bilinear(jnp.asarray(images), 224, 224, quantize=True)).astype(jnp.uint8))
+    got = training_resize(torch.from_numpy(images), 224).numpy()
+    assert got.dtype == np.uint8 and got.shape == (2, 224, 224, 3)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() < 0.01

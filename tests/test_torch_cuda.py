@@ -1,4 +1,4 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernel and the
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels and the
 pinned device feed against their plain versions, on the card.
 
 They are marked ``cuda`` and skip without a card. This file imports no jax,
@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
+from ssip_tpu_torch.ops.augment import augment_coeffs, train_augment
 from ssip_tpu_torch.ops.preproc import preprocess_images
 from ssip_tpu_torch.ops.resize import IMAGENET_STD, extraction_preprocess
+from ssip_tpu_torch.ops.rotate import augment_images
 from ssip_tpu_torch.runtime.device import configure_precision
+from ssip_tpu_torch.runtime.prng import augment_draws
 
 # one uint8 step before the normalize, after it
 ONE_STEP = 1.0 / (255.0 * min(IMAGENET_STD)) + 1e-6
@@ -25,7 +28,7 @@ ONE_STEP = 1.0 / (255.0 * min(IMAGENET_STD)) + 1e-6
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel and the pinned feed have no CPU mode")
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels and the pinned feed have no CPU mode")
     return torch.device("cuda")
 
 
@@ -70,3 +73,31 @@ def test_iter_device_batches_on_cuda(cuda):
     got = torch.cat([b.data[: b.valid] for b in batches]).cpu().numpy()
     np.testing.assert_array_equal(got, images)
     assert not batches[-1].data[3:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 224, 224, 3), (4, 224, 160, 3), (3, 64, 96, 3)])
+def test_augment_kernel_matches_plain_on_cuda(cuda, shape):
+    """flip → rotate → normalize: float32 bitwise equal to the plain
+    ``train_augment``, bfloat16 its float32 result rounded to nearest even;
+    drawn angles in ±10° with the first two pinned at ±25°."""
+    b = shape[0]
+    flip, angles = augment_draws(0, "test", 0, 0, b, 10.0)
+    angles[:2] = np.float32([25.0, -25.0]) * np.float32(np.pi / 180.0)
+    coeffs = torch.from_numpy(augment_coeffs(flip, angles)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    before = augment_images.launches
+    got = augment_images(x, coeffs, torch.float32)
+    got_bf16 = augment_images(x, coeffs, torch.bfloat16)
+    assert augment_images.launches == before + 2
+    ref = train_augment(x, coeffs, torch.float32)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(got_bf16, ref.to(torch.bfloat16), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_augment_kernel_rejects_non_contiguous(cuda):
+    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
+    coeffs = torch.from_numpy(augment_coeffs(np.zeros(2, bool), np.zeros(2, np.float32))).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        augment_images(x[:, ::2], coeffs)

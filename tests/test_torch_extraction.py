@@ -140,10 +140,11 @@ def test_port_imports_no_jax_flax_or_triton(tiny_image_tree, tmp_path):
         "from ssip_tpu_torch.cli.feature_extraction import main\n"
         f"main(['--data-dir', {str(tiny_image_tree)!r}, '--device', 'cpu', '--batch-size', '8',\n"
         f"      '--output-dir', {str(tmp_path / 'o')!r}, '--no-cache'])\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'triton') if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'triton', 'sklearn', 'pandas') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "shared = {'ssip_tpu', 'ssip_tpu.data', 'ssip_tpu.data.discovery', 'ssip_tpu.runtime',\n"
-        "          'ssip_tpu.runtime.artifacts', 'ssip_tpu.runtime.logging'}\n"
+        "          'ssip_tpu.runtime.artifacts', 'ssip_tpu.runtime.logging', 'ssip_tpu.pipelines',\n"
+        "          'ssip_tpu.pipelines.train_config', 'ssip_tpu.ops', 'ssip_tpu.ops.thresholds'}\n"
         "extra = {m for m in sys.modules if m.split('.')[0] == 'ssip_tpu'} - shared\n"
         "assert not extra, extra\n"
         "print('CLEAN')\n"
