@@ -1,10 +1,10 @@
-"""CLI: frozen ResNet-18 512-D feature extraction on PyTorch (CUDA or CPU).
+"""CLI: frozen-backbone feature extraction on PyTorch (CUDA or CPU).
 
 Counterpart of ``src/feature_extraction.py``, with the same flags and
 defaults. Flags whose code paths are not ported yet are accepted by the
 parser and refused with an error naming the ROADMAP entry:
 ``--compute-dtype int8``, ``--streaming always``, ``--fast-decode``,
-``--host-preproc``, ``--shard-size > 0`` and the ViT archs. With
+``--host-preproc``, ``--shard-size > 0`` and the MoE archs. With
 ``--streaming auto`` a corpus above the host budget, which the JAX CLI
 would stream, is refused the same way.
 
@@ -42,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
             "vit_moe_t16", "vit_moe_s16",
         ],
         default="resnet18",
-        help="backbone architecture (the ViT archs are not ported yet)",
+        help="backbone architecture (the vit_moe archs are not ported yet)",
     )
     parser.add_argument("--no-cache", action="store_true", help="skip decode cache")
     parser.add_argument(

@@ -1,11 +1,12 @@
-"""CLI: supervised ResNet-18 baseline on PyTorch (CUDA or CPU).
+"""CLI: supervised baseline on PyTorch (CUDA or CPU), ResNet or ViT backbone.
 
 Counterpart of ``src/supervised_training.py``, with the same flags, defaults
 and flag-to-config mapping (copied here: that module imports the JAX
 pipeline). Flags whose code paths are not ported yet are accepted by the
 parser and refused with an error naming the ROADMAP entry: ``--resume``,
 ``--num-seeds > 1``, ``--cv-folds``, ``--mesh-model > 1``, ``--fsdp`` and the
-ViT and MoE archs. ``--remat`` is ignored for the ResNet archs, as in JAX.
+MoE archs. ``--remat`` checkpoints the ViT encoder blocks and is ignored for
+the ResNet archs, as in JAX.
 
     python -m ssip_tpu_torch.cli.supervised_training --strong-data-dir DATA/avec_labels --device cuda
 """
@@ -16,8 +17,8 @@ import argparse
 import logging
 from pathlib import Path
 
-from ssip_tpu.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.pipelines.supervised import run_supervised
+from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 
 
 def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
@@ -51,7 +52,7 @@ def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
             "vit_moe_t16", "vit_moe_s16",
         ],
         default="resnet18",
-        help="backbone architecture (the ViT and MoE archs are not ported yet)",
+        help="backbone architecture (the vit_moe archs are not ported yet)",
     )
     parser.add_argument("--mesh-model", type=int, default=1, help="values above 1 are not ported yet")
     parser.add_argument("--remat", action="store_true", help="ViT only; ignored for resnet archs")

@@ -26,8 +26,8 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ssip_tpu.runtime.logging import get_logger
 from ssip_tpu_torch.data.decode import decode_batch
+from ssip_tpu_torch.runtime.logging import get_logger
 
 LOGGER = get_logger(__name__)
 

@@ -216,12 +216,10 @@ class ResNet(nn.Module):
 def build_resnet(
     arch: str, num_classes: Optional[int] = None, compute_dtype: torch.dtype = torch.float32
 ) -> ResNet:
-    """``--arch`` → module. The ViT and MoE archs are not ported yet."""
+    """``--arch resnet18|resnet34|resnet50`` → module; the other archs are
+    built by ``models/registry.py:build_model``."""
     if arch not in MODEL_STAGES:
-        raise ValueError(
-            f"--arch {arch} is not ported to ssip_tpu_torch yet (ROADMAP.md, "
-            "Queue 1 slice 6: ViT family); ported: " + ", ".join(MODEL_STAGES)
-        )
+        raise ValueError(f"--arch {arch} is not a ResNet arch; those are: " + ", ".join(MODEL_STAGES))
     return ResNet(
         MODEL_STAGES[arch], num_classes=num_classes, compute_dtype=compute_dtype,
         bottleneck=arch == "resnet50",

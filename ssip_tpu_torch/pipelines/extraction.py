@@ -1,4 +1,4 @@
-"""Frozen ResNet embedding extraction — the port's main path.
+"""Frozen-backbone embedding extraction — the port's main path.
 
 Counterpart of ``ssip_tpu/pipelines/extraction.py``: the config and weight
 resolution (``:59-185``), the sanity checks and neighbour probe
@@ -6,9 +6,11 @@ resolution (``:59-185``), the sanity checks and neighbour probe
 set (``:623-879``):
 
 discovery → decode-once ``ImageStore`` → uint8 batches on the device →
-``preprocess_images`` (the CUDA kernel on the card) → ResNet eval forward
-→ 512-D embeddings → ``embeddings.npy/.csv``, ``metadata.json``,
-``feature_summary.md`` and the log, at the paths ``ArtifactRegistry`` names.
+``preprocess_images`` (the CUDA kernel on the card) → eval forward of the
+``--arch`` backbone (ResNet-18/34/50, or ViT-T/S/B/16 with its LayerNorm and
+attention kernels) → embeddings as wide as the model (512, 2048, 192, 384 or
+768) → ``embeddings.npy/.csv``, ``metadata.json``, ``feature_summary.md``
+and the log, at the paths ``ArtifactRegistry`` names.
 
 Execution shapes:
 
@@ -20,7 +22,7 @@ Execution shapes:
 
 Not ported yet (refused with an error naming the ROADMAP entry): the
 streamed shape with its host-preproc and fast-decode variants, sharded
-extraction, int8 PTQ, the folded-BN forward and the ViT archs. A corpus
+extraction, int8 PTQ, the folded-BN forward and the MoE archs. A corpus
 that ``streaming="auto"`` would stream (above ``_HOST_STAGE_BUDGET_BYTES``
 decoded, ``:410-424``) is refused the same way rather than decoded whole
 into host memory.
@@ -40,17 +42,17 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-# The three jax-free ssip_tpu modules the port shares (discovery, the artifact
-# names, logging); callers of the port take these names from here.
-from ssip_tpu.data.discovery import ImageRecord, compute_dataset_digest, discover_image_records
-from ssip_tpu.runtime.artifacts import ArtifactRegistry
-from ssip_tpu.runtime.logging import configure_logging, get_logger
+from torch import nn
+
+from ssip_tpu_torch.data.discovery import ImageRecord, compute_dataset_digest, discover_image_records
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
 from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import load_flax_variables, load_state_dict_arrays, read_torch_checkpoint
-from ssip_tpu_torch.models.resnet import ResNet, build_resnet
+from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
 from ssip_tpu_torch.ops.preproc import preprocess_images
+from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
+from ssip_tpu_torch.runtime.logging import configure_logging, get_logger
 
 LOGGER = get_logger(__name__)
 
@@ -103,7 +105,7 @@ class ExtractionConfig:
                 f"--crop ({self.crop}) must be <= --resize ({self.resize}): "
                 "the resized short side cannot satisfy a larger center crop"
             )
-        build_resnet(self.arch)  # refuses the archs that are not ported
+        refuse_unported_arch(self.arch)
 
 
 @dataclass
@@ -119,7 +121,7 @@ class ExtractionSummary:
     embed_seconds: float  # the embed loop alone (CUDA events on the card)
 
 
-def _resolve_weights(cfg: ExtractionConfig, model: ResNet) -> str:
+def _resolve_weights(cfg: ExtractionConfig, model: nn.Module) -> str:
     """Load weights into ``model``; returns the ``metadata.json`` source.
 
     Candidates in order: ``--weights``, ``$SSIP_RESNET18_WEIGHTS``,
@@ -158,7 +160,7 @@ def _resolve_weights(cfg: ExtractionConfig, model: ResNet) -> str:
         "No pretrained checkpoint found — using seeded random init "
         "(embeddings will NOT match the torchvision reference)."
     )
-    load_flax_variables(model, seeded_init_host(cfg.arch, cfg.seed))
+    load_flax_variables(model, seeded_init_host(cfg.arch, cfg.seed, image_size=cfg.crop))
     return f"random_init:seed={cfg.seed}"
 
 
@@ -284,7 +286,7 @@ def extract_embeddings(
     configure_precision(cfg.compute_dtype)
     LOGGER.info("Extraction on %s (%s)", device_label(device), cfg.compute_dtype)
 
-    model = build_resnet(cfg.arch, compute_dtype=dtype)
+    model = build_model(cfg.arch, compute_dtype=dtype, image_size=cfg.crop)
     weights_source = _resolve_weights(cfg, model)
     model = model.to(device).eval()
     if device.type == "cuda":

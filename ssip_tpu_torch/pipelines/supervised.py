@@ -2,7 +2,7 @@
 
 Counterpart of ``ssip_tpu/pipelines/supervised.py:39-105`` and ``:236-361``.
 Flow: seeded stratified split (index for index the JAX package's) →
-ResNet classifier trained by ``train/engine.py`` (balanced sampler, device
+``--arch`` classifier (ResNet or ViT) trained by ``train/engine.py`` (balanced sampler, device
 augmentation, plateau LR, early stop, best-state checkpoint) → argmax test
 eval → optional recall-first threshold calibration on val → thresholded
 test eval → ``models/baseline_resnet18.pt``,
@@ -11,7 +11,7 @@ the paths ``ArtifactRegistry`` names and with the JAX run's schemas.
 
 Not ported yet, refused with an error naming the ROADMAP entry: ``--resume``
 snapshots, the seed and cross-validation fan-outs, tensor parallelism and
-FSDP, and the ViT and MoE archs. The four training figures
+FSDP, and the MoE archs. The four training figures
 (``report/plots.py``) are not drawn yet either.
 """
 
@@ -27,20 +27,15 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-# The jax-free ssip_tpu modules this pipeline shares (the config, the
-# threshold policy, discovery, the artifact names, logging); callers of the
-# port take these names from here.
-from ssip_tpu.data.discovery import labeled_folder
-from ssip_tpu.ops.thresholds import select_operating_threshold
-from ssip_tpu.pipelines.train_config import TrainingConfig
-from ssip_tpu.runtime.artifacts import ArtifactRegistry
-from ssip_tpu.runtime.logging import get_logger
 from ssip_tpu_torch.data.splits import split_dict
 from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import load_state_dict_arrays, read_torch_checkpoint, state_dict_from_flax
-from ssip_tpu_torch.models.resnet import MODEL_STAGES, build_resnet
+from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
+from ssip_tpu_torch.ops.thresholds import select_operating_threshold
 from ssip_tpu_torch.pipelines.extraction import DEFAULT_WEIGHTS_ENV
+from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
+from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.train.checkpoints import save_checkpoint
 from ssip_tpu_torch.train.data import load_labeled_dataset, subset
 from ssip_tpu_torch.train.engine import DeviceDataset, TrainState, train_model
@@ -59,10 +54,10 @@ def refuse_unported(config: TrainingConfig) -> None:
         ("--cv-folds", config.cv_folds != 0, "Queue 1 item 18: seed and CV fan-out"),
         ("--mesh-model > 1", config.mesh_model > 1, "Queue 1 item 22: parallelism"),
         ("--fsdp", config.mesh_fsdp, "Queue 1 item 22: parallelism"),
-        (f"--arch {config.arch}", config.arch not in MODEL_STAGES, "Queue 1 slice 6: ViT family"),
     ):
         if on:
             raise ValueError(f"{setting} " + _NOT_PORTED.format(item=item))
+    refuse_unported_arch(config.arch)
 
 
 def build_classifier_state(
@@ -71,13 +66,19 @@ def build_classifier_state(
     """Fresh classifier on ``device``: the seeded init with its ``fc`` head
     (bit for bit the JAX package's), or a ported torchvision backbone from
     ``--pretrained-weights`` / ``$SSIP_RESNET18_WEIGHTS`` with the fresh
-    ``fc`` kept."""
-    model = build_resnet(config.arch, num_classes=num_classes, compute_dtype=compute_dtype(config.compute_dtype))
-    arrays = state_dict_from_flax(seeded_init_host(config.arch, config.seed, num_classes))
+    head (``fc``, or a ViT's ``heads.head``) kept. ``--remat`` checkpoints a
+    ViT's encoder blocks (``ssip_tpu/pipelines/supervised.py:53-56``)."""
+    model = build_model(
+        config.arch, num_classes=num_classes, compute_dtype=compute_dtype(config.compute_dtype),
+        remat=config.remat, image_size=config.image_size,
+    )
+    arrays = state_dict_from_flax(
+        seeded_init_host(config.arch, config.seed, num_classes, image_size=config.image_size)
+    )
     weights = config.pretrained_weights or os.environ.get(DEFAULT_WEIGHTS_ENV)
     if weights and Path(weights).exists():
         LOGGER.info("Porting pretrained backbone from %s", weights)
-        head = {k: v for k, v in arrays.items() if k.startswith("fc.")}
+        head = {k: v for k, v in arrays.items() if k.startswith(("fc.", "heads."))}
         arrays = {**read_torch_checkpoint(Path(weights)), **head}
     load_state_dict_arrays(model, arrays, weights or "<seeded init>")
     model = model.to(device)

@@ -3,8 +3,9 @@
 Counterpart of ``ssip_tpu/train/checkpoints.py:30-49`` (``save_checkpoint``).
 The reference persists best-val-loss state_dicts at
 ``outputs/models/baseline_resnet18.pt`` (reference common.py:418-424); the
-port's module already carries torchvision's names, so ``save_checkpoint``
-writes ``model.state_dict()`` as it is. The JAX package also writes a Flax
+port's modules already carry torchvision's names (a ViT's
+``encoder.layers.encoder_layer_0.…`` and ``heads.head`` included), so
+``save_checkpoint`` writes ``model.state_dict()`` as it is. The JAX package also writes a Flax
 ``.msgpack`` beside it; that needs flax, so the port does not write it, and
 the JAX package's ``load_checkpoint`` (``:141-152``) ports the ``.pt`` when
 no ``.msgpack`` is there.
@@ -17,8 +18,8 @@ from pathlib import Path
 import torch
 from torch import nn
 
-from ssip_tpu.runtime.logging import get_logger
 from ssip_tpu_torch.models.port import load_state_dict_arrays
+from ssip_tpu_torch.runtime.logging import get_logger
 
 LOGGER = get_logger(__name__)
 

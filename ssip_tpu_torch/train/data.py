@@ -16,8 +16,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ssip_tpu.data.discovery import labeled_folder
 from ssip_tpu_torch.data.decode import decode_batch
+from ssip_tpu_torch.data.discovery import labeled_folder
 from ssip_tpu_torch.ops.resize import training_resize
 from ssip_tpu_torch.train.engine import DeviceDataset
 

@@ -6,9 +6,12 @@ Counterpart of ``ssip_tpu/train/engine.py``: the train state and optimizer
 (``train_model``, ``:422-610``).
 
 - One step: train augment (the CUDA kernel of ``ops/rotate.py`` on the
-  card) or the eval normalize, the train-mode forward with masked
-  BatchNorm, the masked mean cross-entropy ``Σ(ce·w)/max(Σw, 1)``, autograd
-  backward (cuDNN on the card, as XLA derived it on the TPU) and AdamW.
+  card) or the eval normalize, the train-mode forward (masked BatchNorm in
+  a ResNet; a ViT has no batch statistics and ignores the mask, the
+  counterpart of ``:138-139`` and ``:393-397``), the masked mean
+  cross-entropy ``Σ(ce·w)/max(Σw, 1)``, autograd backward (cuDNN and cuBLAS
+  on the card, and the LayerNorm and attention backward kernels for a ViT)
+  and AdamW.
 - The dataset stays on the device as resized uint8; an epoch's batch
   indices, valid masks and augmentation coefficients go to the device in
   one copy each, and the per-step losses and predictions come back in one
@@ -35,13 +38,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
-from ssip_tpu.runtime.logging import get_logger
 from ssip_tpu_torch.data.splits import balanced_epoch_indices
-from ssip_tpu_torch.models.resnet import ResNet
 from ssip_tpu_torch.ops.augment import augment_coeffs, eval_preprocess
 from ssip_tpu_torch.ops.metrics import accuracy_f1
 from ssip_tpu_torch.ops.rotate import augment_images
+from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.runtime.prng import augment_draws, host_rng
 
 LOGGER = get_logger(__name__)
@@ -53,12 +56,12 @@ ROTATE_DEGREES = 10.0  # torchvision RandomRotation(10), the train transform
 class TrainState:
     """The model, its AdamW optimizer and the count of optimizer steps."""
 
-    model: ResNet
+    model: nn.Module  # a ported arch of models/registry.py
     optimizer: torch.optim.AdamW
     step: int = 0
 
     @classmethod
-    def create(cls, model: ResNet, learning_rate: float, weight_decay: float) -> "TrainState":
+    def create(cls, model: nn.Module, learning_rate: float, weight_decay: float) -> "TrainState":
         """AdamW with torch's default betas and eps, decay on every
         parameter (``make_optimizer``, ``ssip_tpu/train/engine.py:58-69``)."""
         optimizer = torch.optim.AdamW(
@@ -196,7 +199,7 @@ def run_train_epoch(
 
 @torch.no_grad()
 def run_eval_epoch(
-    model: ResNet, dataset: DeviceDataset, batch_size: int
+    model: nn.Module, dataset: DeviceDataset, batch_size: int
 ) -> Tuple[float, np.ndarray, np.ndarray, np.ndarray]:
     """(avg_loss, y_true, y_pred, y_prob [N, C]) over the dataset in order.
 
@@ -259,7 +262,7 @@ def train_model(
     """Epoch driver with reference-parity control flow (common.py:345-432).
 
     Trains ``state`` in place and returns it restored to its best
-    validation loss (parameters, BN statistics, optimizer moments and
+    validation loss (parameters, BN statistics where the model has them, optimizer moments and
     learning rate, step count), with the per-epoch history.
     ``checkpoint_fn(state)`` runs at each new best, as in the JAX package.
     """

@@ -13,13 +13,14 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ssip_tpu_torch.models.resnet import ResNet
+from torch import nn
+
 from ssip_tpu_torch.ops.metrics import accuracy, precision_recall_f1
 from ssip_tpu_torch.train.engine import DeviceDataset, run_eval_epoch
 
 
 def evaluate_model(
-    model: ResNet,
+    model: nn.Module,
     dataset: DeviceDataset,
     batch_size: int,
     pos_index: Optional[int] = None,

@@ -96,7 +96,7 @@ def test_bf16_slice_tracks_jax_bf16(tiny_image_tree, tmp_path):
         ["--fast-decode"],
         ["--host-preproc"],
         ["--shard-size", "4"],
-        ["--arch", "vit_b16"],
+        ["--arch", "vit_moe_t16"],
     ],
 )
 def test_unported_flags_refused(extra, tmp_path):
@@ -131,7 +131,8 @@ def test_auto_refuses_what_jax_would_stream(budget, tiny_image_tree, tmp_path, m
 def test_port_imports_no_jax_flax_or_triton(tiny_image_tree, tmp_path):
     """Every module of the port, and a CPU run of the slice, in a fresh
     interpreter: jax, flax, optax and triton stay out of ``sys.modules``,
-    and of ``ssip_tpu`` only the jax-free modules the port shares load."""
+    and no module of the JAX package (``ssip_tpu``) loads: the port keeps
+    its own copies of the jax-free modules it needs."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ssip_tpu_torch\n"
@@ -142,11 +143,8 @@ def test_port_imports_no_jax_flax_or_triton(tiny_image_tree, tmp_path):
         f"      '--output-dir', {str(tmp_path / 'o')!r}, '--no-cache'])\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'triton', 'sklearn', 'pandas') if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "shared = {'ssip_tpu', 'ssip_tpu.data', 'ssip_tpu.data.discovery', 'ssip_tpu.runtime',\n"
-        "          'ssip_tpu.runtime.artifacts', 'ssip_tpu.runtime.logging', 'ssip_tpu.pipelines',\n"
-        "          'ssip_tpu.pipelines.train_config', 'ssip_tpu.ops', 'ssip_tpu.ops.thresholds'}\n"
-        "extra = {m for m in sys.modules if m.split('.')[0] == 'ssip_tpu'} - shared\n"
-        "assert not extra, extra\n"
+        "jax_package = sorted(m for m in sys.modules if m.split('.')[0] == 'ssip_tpu')\n"
+        "assert not jax_package, jax_package\n"
         "print('CLEAN')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")

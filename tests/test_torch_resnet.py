@@ -15,6 +15,7 @@ from ssip_tpu.models.host_init import seeded_init_host as jax_seeded_init_host
 from ssip_tpu.models.resnet import MODEL_FACTORIES
 from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import load_flax_variables, state_dict_from_flax
+from ssip_tpu_torch.models.registry import build_model
 from ssip_tpu_torch.models.resnet import build_resnet
 
 torch.set_num_threads(2)
@@ -153,5 +154,13 @@ def test_wrong_arch_tree_is_refused():
 
 @pytest.mark.parametrize("arch", ["vit_b16", "vit_moe_t16"])
 def test_vit_archs_refused_with_roadmap_pointer(arch):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """``build_resnet`` builds ResNets only; the arch registry builds the
+    dense ViTs and refuses the MoE archs with their ROADMAP item."""
+    with pytest.raises(ValueError, match="not a ResNet arch"):
         build_resnet(arch)
+    if arch == "vit_b16":
+        with torch.device("meta"):
+            assert build_model(arch).num_features == 768
+    else:
+        with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 1 slice 6 item 20"):
+            build_model(arch)

@@ -4,6 +4,7 @@ package's), ``run_supervised`` on a tiny JPEG tree with artifacts the JAX
 tooling reads, and the training CLI's flags.
 """
 
+import dataclasses
 import io
 import json
 
@@ -204,7 +205,7 @@ def test_jax_threshold_sweep_consumes_the_port_outputs(port_run, capsys):
         (["--cv-folds", "3"], "item 18"),
         (["--mesh-model", "2"], "item 22"),
         (["--fsdp"], "item 22"),
-        (["--arch", "vit_t16"], "slice 6"),
+        (["--arch", "vit_moe_t16"], "slice 6"),
         (["--arch", "vit_moe_s16"], "slice 6"),
     ],
 )
@@ -221,4 +222,7 @@ def test_cli_refuses_unported_flags(tmp_path, argv, item):
 def test_cli_flags_and_config_match_the_jax_cli(argv):
     argv = ["--strong-data-dir", "d", *argv]
     assert vars(cli.parse_args(argv)) == vars(jax_cli.parse_args(argv))
-    assert cli.config_from_args(cli.parse_args(argv)) == jax_cli.config_from_args(jax_cli.parse_args(argv))
+    # the port keeps its own copy of TrainingConfig: same fields, same values
+    assert dataclasses.asdict(cli.config_from_args(cli.parse_args(argv))) == dataclasses.asdict(
+        jax_cli.config_from_args(jax_cli.parse_args(argv))
+    )
