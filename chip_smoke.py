@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's extraction and training slices once on one NVIDIA GPU,
-for the ResNet family and the ViT family.
+for the ResNet family and the ViT family, int8 ViT extraction included.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -17,6 +17,8 @@ non-zero without printing the final line:
    the data-sheet peak of their type, whichever is larger):
    kernel  ``preprocess_images``: bitwise in float32 and bfloat16 at
            [128, 512, 512, 3] → 256 → 224, one uint8 step at 384² and 320×448;
+           its int8 form (``quant_inv_scale``) bitwise at the first shape and
+           within that step times the scale elsewhere;
    rotate  ``augment_images`` (flip → rotate → normalize): bitwise in
            float32 and bfloat16 at [128, 224, 224, 3], [16, 224, 160, 3] and
            [8, 64, 96, 3], drawn angles in ±10° and pinned ±10°, ±25°;
@@ -28,6 +30,13 @@ non-zero without printing the final line:
            [128, 197, 2304] and at [128, 208, 2304] with ``kv_len`` 197, in
            bfloat16 and float32, and at the 3 heads of vit_t16; pad-query
            rows are compared too and get a non-zero dO.
+   qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
+           float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
+           off the plain version by more than 1e-5 (absolute and relative),
+           none by more than 2·127·max(m2); the counts are printed;
+   attn4   ``fused_attention`` and ``attention_bwd`` on q, k, v
+           [128, 12, 197, 64] in bfloat16 and float32, 3 heads, and
+           [8, 2, 50, 32], at attn's tolerances;
    Tolerances of ln and attn (kernel and plain version sum in another
    order): float32 outputs within 2e-5 of O(1) values, bfloat16 outputs
    within one bfloat16 step of the plain value (2e-5 where a step is
@@ -44,8 +53,18 @@ non-zero without printing the final line:
            per-batch shape (pinned, double-buffered feed) on 263 images with
            one decode failure; for vit_b16 a ``torch.profiler`` split of the
            bfloat16 run by kernel name with the idle share of the embed loop;
+   int8    the same corpus through ``run_extraction`` with
+           ``compute_dtype="int8"`` for vit_b16 (calibrated on its first 32
+           images, twice, the second run timed): finite, ``weights`` ends in
+           ``+int8_ptq``, cosine against the float32 run of the same weights
+           above 0.98 on every image, per forward 1 preprocess-quantize, 25
+           LayerNorm, 12 attention and 12 MLP launches; a profiled run;
+   entry   ``fused_attention`` (no pipeline calls it, in either package)
+           driven through autograd on the q, k, v of one vit_b16 attention
+           sublayer at batch 128, float32 and bfloat16, against the packed
+           pair on the same values;
 5. cli     the extraction CLI on a small 512² JPEG tree (needs Pillow), with
-           resnet18 and with vit_t16;
+           resnet18, with vit_t16 and with vit_t16 in int8;
 6. train   a seeded 100-image 512² JPEG tree ``avec_labels/{cancer,normal}``
            (50 + 50) through ``run_supervised`` on cuda at 224², 2 classes,
            batch 16, target recall 0.9: resnet18 for 2 epochs in float32
@@ -72,7 +91,7 @@ non-zero without printing the final line:
            under ``torch.profiler``: device time by layer, the top kernels
            and the idle share;
 8. imports no jax module and no module of the JAX package;
-9. the kernels JSON line (all six kernels), then ``{"ok": true, "device": {...}}`` last.
+9. the kernels JSON line (all ten kernels), then ``{"ok": true, "device": {...}}`` last.
 
 Needs no network and no data: everything is made from seeds. It builds the
 kernels from the checkout, so a fresh clone is enough. It imports only
@@ -122,13 +141,44 @@ KERNELS = {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
         "replaces": "ssip_tpu/ops/attention.py:256",
     },
+    "preprocess_quantize": {
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
+        "replaces": "ssip_tpu/ops/pallas_preproc.py:65",
+    },
+    "quantized_mlp": {
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/qmlp.cu",
+        "replaces": "ssip_tpu/ops/qmlp.py:78",
+    },
+    "attention": {
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
+        "replaces": "ssip_tpu/ops/attention.py:59",
+    },
+    "attention_bwd": {
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
+        "replaces": "ssip_tpu/ops/attention.py:109",
+    },
 }
 # Data-sheet peaks of one H100 SXM, for the bounds: device memory rate, and
 # dense operation rates by operand type (float32 outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
-VIT_ARCH, VIT_WIDTH, VIT_TOKENS, VIT_HEADS = "vit_b16", 768, 197, 12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+VIT_ARCH, VIT_WIDTH, VIT_TOKENS, VIT_HEADS, VIT_MLP = "vit_b16", 768, 197, 12, 3072
 VIT_LN_PER_FORWARD, VIT_ATTN_PER_FORWARD, VIT_BLOCKS = 25, 12, 12
+INT8_COSINE_FLOOR = 0.98  # int8 vs float32 embeddings, per image (the JAX pipeline's own floor)
+# a stem scale as calibration gives it: normalized pixels reach about ±2.64
+QUANT_INV_SCALE = 127.0 / 2.64
+# (rows, width, hidden, type): 128 images of 197 tokens, then two ragged row counts
+QMLP_SHAPES = (
+    (128 * 197, 768, 3072, "bfloat16"), (128 * 197, 768, 3072, "float32"),
+    (300, 192, 768, "bfloat16"), (1001, 384, 1536, "float32"),
+)
+QMLP_ATOL = QMLP_RTOL = 1e-5
+QMLP_MAX_SHARE_OFF = 1e-3
+# (batch, heads, tokens, head width, type)
+UNPACKED_ATTN_SHAPES = (
+    (128, 12, 197, 64, "bfloat16"), (128, 12, 197, 64, "float32"), (128, 3, 197, 64, "bfloat16"),
+    (8, 2, 50, 32, "float32"),
+)
 VIT_N_CPU_CHECK = 8
 # (rows, width, type): 128 images of 197 tokens and of 208 (the token axis
 # padded to 16), the final LayerNorm, and a ragged row count
@@ -205,19 +255,22 @@ def bound_ms(nbytes: float, ops: float, ops_dtype: str) -> dict:
 
 
 class LaunchCounts:
-    """The six wrappers' launch counters: set to 0 just before a path is
+    """The ten wrappers' launch counters: set to 0 just before a path is
     driven, read just after, summed over the paths for the kernels line."""
 
     def __init__(self):
-        from ssip_tpu_torch.ops.attention import attention_qkv_bwd, fused_attention_qkv
+        from ssip_tpu_torch.ops.attention import attention_bwd, attention_qkv_bwd, fused_attention, fused_attention_qkv
         from ssip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd
-        from ssip_tpu_torch.ops.preproc import preprocess_images
+        from ssip_tpu_torch.ops.preproc import preprocess_images, preprocess_quantize_images
+        from ssip_tpu_torch.ops.qmlp import quantized_mlp
         from ssip_tpu_torch.ops.rotate import augment_images
 
         self.wrappers = {
             "preprocess_images": preprocess_images, "augment_images": augment_images,
             "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd,
             "attention_qkv": fused_attention_qkv, "attention_qkv_bwd": attention_qkv_bwd,
+            "preprocess_quantize": preprocess_quantize_images, "quantized_mlp": quantized_mlp,
+            "attention": fused_attention, "attention_bwd": attention_bwd,
         }
         self.total = dict.fromkeys(self.wrappers, 0)
 
@@ -279,7 +332,10 @@ def phase_build() -> None:
 
 
 def phase_kernel(torch, np) -> dict:
+    """``preprocess_images`` in its float forms and its int8 form against
+    their plain versions on the card; times at [128, 512, 512, 3]."""
     from ssip_tpu_torch.ops.preproc import preprocess_images, tap_table
+    from ssip_tpu_torch.ops.quant import quantize
     from ssip_tpu_torch.ops.resize import IMAGENET_STD, crop_weights, extraction_preprocess
     from ssip_tpu_torch.runtime.device import configure_precision
 
@@ -306,6 +362,14 @@ def phase_kernel(torch, np) -> dict:
                 raise AssertionError(f"bf16 kernel not bitwise equal to plain f32 cast RNE at {shape}: {err16}")
         elif err32 > one_step:
             raise AssertionError(f"kernel off by {err32} > {one_step} at {shape}")
+        # the int8 epilogue against quantizing the plain float32 result
+        kq = preprocess_images(x, RESIZE, CROP, quant_inv_scale=QUANT_INV_SCALE)
+        pq = quantize(p32, QUANT_INV_SCALE)
+        torch.cuda.synchronize()
+        errq = (kq.int() - pq.int()).abs().max().item()
+        steps = 0 if exact else int(one_step * QUANT_INV_SCALE) + 1
+        if kq.dtype != torch.int8 or kq.shape != pq.shape or errq > steps:
+            raise AssertionError(f"int8 kernel off the plain version by {errq} int8 steps at {shape}, allowed {steps}")
 
         def kernel(dtype):
             return lambda: preprocess_images(x, RESIZE, CROP, dtype)
@@ -328,9 +392,22 @@ def phase_kernel(torch, np) -> dict:
             max_abs_err_bf16=err16, bf16_ms=f"{k_ms:.4f}", plain_bf16_ms=f"{p_ms:.4f}",
             f32_ms=f"{k32_ms:.4f}", plain_f32_ms=f"{p32_ms:.4f}", bound_bf16_ms=f"{bound['bound_ms']:.4f}",
             bound_by=bound["bound_by"], library="none")
+        q_ms, pq_ms = timed_pair(
+            torch, lambda: preprocess_images(x, RESIZE, CROP, quant_inv_scale=QUANT_INV_SCALE),
+            lambda: quantize(extraction_preprocess(x, RESIZE, CROP, torch.float32), QUANT_INV_SCALE))
+        # one more multiplication per output value than the float forms
+        qbound = bound_ms(x.numel() + kq.numel(), ops + kq.numel(), "float32")
+        say("kernel", form="int8", shape="x".join(map(str, shape)), tol="bitwise" if exact else f"<= {steps} steps",
+            max_abs_err_int8=errq, int8_ms=f"{q_ms:.4f}", plain_int8_ms=f"{pq_ms:.4f}",
+            bound_int8_ms=f"{qbound['bound_ms']:.4f}", bound_by=qbound["bound_by"], library="none")
         if exact:
-            result = {"max_abs_err": max(err32, err16), "ms": k_ms, "plain_ms": p_ms, **bound, "library_ms": None}
-        del x, k32, k16, p32
+            result = {
+                "preprocess_images": {"max_abs_err": max(err32, err16), "ms": k_ms, "plain_ms": p_ms, **bound,
+                                      "library_ms": None},
+                "preprocess_quantize": {"max_abs_err": float(errq), "ms": q_ms, "plain_ms": pq_ms, **qbound,
+                                        "library_ms": None},
+            }
+        del x, k32, k16, p32, kq, pq
     torch.cuda.empty_cache()
     return result
 
@@ -513,6 +590,178 @@ def phase_attention_kernels(torch, np) -> dict:
     return result
 
 
+def _qmlp_block(torch, np, rng, d: int, hidden: int):
+    """Two int8 sites with seeded kernels and scales that keep the hidden
+    values O(1), as calibration would, on the card."""
+    from types import SimpleNamespace
+
+    from ssip_tpu_torch.ops.quant import QuantSite
+
+    def site(cin, cout, mult):
+        return QuantSite(
+            rng.integers(-127, 128, (cin, cout)).astype(np.int8),
+            (mult * rng.uniform(0.5, 1.5, cout)).astype(np.float32),
+            rng.normal(0.0, 0.1, cout).astype(np.float32), np.float32(127.0 / 4.0), transposed=True,
+        ).cuda()
+
+    return SimpleNamespace(mlp_1=site(d, hidden, 1.0 / (np.sqrt(d) * 32.0 * 73.0)),
+                           mlp_2=site(hidden, d, 1.0 / (np.sqrt(hidden) * 25.0 * 73.0)))
+
+
+def phase_qmlp_kernel(torch, np) -> dict:
+    """``quantized_mlp`` against its plain version on the card; times at the
+    main path's shape, [25216, 768] bfloat16 with hidden 3072. The library
+    column is the plain composition itself (two ``torch._int_mm`` and the
+    elementwise passes between), timed once more on its own."""
+    from ssip_tpu_torch.ops.qmlp import quantized_mlp, quantized_mlp_plain
+
+    rng = np.random.default_rng(SEED + 8)
+    result = {}
+    for rows, d, hidden, dtype_name in QMLP_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        blk = _qmlp_block(torch, np, rng, d, hidden)
+        y = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).cuda().to(dtype)
+        got = quantized_mlp(y, blk)
+        ref = quantized_mlp_plain(y, blk)
+        torch.cuda.synchronize()
+        err = (got - ref).abs()
+        off = int((err > QMLP_ATOL + QMLP_RTOL * ref.abs()).sum().item())
+        unequal = int((got != ref).sum().item())
+        worst, allowed = err.max().item(), 2 * 127 * blk.mlp_2.mult.max().item()
+        tag = f"quantized_mlp {rows}x{d} hidden {hidden} {dtype_name}"
+        if got.dtype != torch.float32 or got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: {got.dtype} {tuple(got.shape)}")
+        if off > QMLP_MAX_SHARE_OFF * got.numel() or worst > allowed:
+            raise AssertionError(f"{tag}: {off} of {got.numel()} elements off by more than 1e-5, max |d| {worst} "
+                                 f"(allowed {QMLP_MAX_SHARE_OFF:g} of them and {allowed})")
+        k_ms, p_ms = timed_pair(torch, lambda: quantized_mlp(y, blk), lambda: quantized_mlp_plain(y, blk))
+        lib_ms = median_ms(torch, lambda: quantized_mlp_plain(y, blk))
+        nbytes = rows * d * (y.element_size() + 4) + 2 * d * hidden + 2 * (d + hidden) * 4
+        bound = bound_ms(nbytes, 4 * rows * d * hidden, "int8")
+        say("qmlp", shape=f"{rows}x{d}", hidden=hidden, dtype=dtype_name, elements=got.numel(), off_by_1e_5=off,
+            not_bit_equal=unequal, max_abs_err=worst, allowed_max=f"{allowed:.4g}", ms=f"{k_ms:.4f}",
+            plain_ms=f"{p_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
+            bound_by=bound["bound_by"], tops=f"{4 * rows * d * hidden / k_ms / 1e9:.1f}")
+        if (rows, d, hidden, dtype_name) == QMLP_SHAPES[0]:
+            result = {"quantized_mlp": {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **bound,
+                                        "library_ms": lib_ms}}
+        del y, got, ref, err, blk
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_unpacked_attention_kernels(torch, np) -> dict:
+    """``fused_attention`` and ``attention_bwd`` on q, k, v [B, H, S, Dh]
+    against their plain versions on the card; times at [128, 12, 197, 64]
+    bfloat16."""
+    import torch.nn.functional as F
+
+    from ssip_tpu_torch.ops.attention import (
+        attention_bwd, attention_bwd_plain, attention_unrounded_plain, fused_attention,
+    )
+    from ssip_tpu_torch.runtime.device import configure_precision
+
+    configure_precision("float32")  # the plain version's matmuls in true f32
+    rng = np.random.default_rng(SEED + 9)
+    result = {}
+    for b, heads, s, dh, dtype_name in UNPACKED_ATTN_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, d_o = (torch.from_numpy(rng.standard_normal((b, heads, s, dh)).astype(np.float32)).cuda().to(dtype)
+                        for _ in range(4))
+        out = fused_attention(q, k, v)
+        grads = attention_bwd(q, k, v, d_o)
+        torch.cuda.synchronize()
+        tag = f"fused_attention {b}x{heads}x{s}x{dh} {dtype_name}"
+        err_o = output_error(torch, out, attention_unrounded_plain(q, k, v), tag)
+        ref = attention_bwd_plain(q, k, v, d_o)
+        rels = [grad_error(g, r, dtype_name, f"{tag} d{part}") for g, r, part in zip(grads, ref, "qkv")]
+        err_g = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref))
+        del ref
+
+        fwd_ms, fwd_plain_ms = timed_pair(torch, lambda: fused_attention(q, k, v),
+                                          lambda: attention_unrounded_plain(q, k, v))
+        bwd_ms, bwd_plain_ms = timed_pair(torch, lambda: attention_bwd(q, k, v, d_o),
+                                          lambda: attention_bwd_plain(q, k, v, d_o))
+        # the library's yardstick, timed here and called nowhere in the port
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_fwd_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+        o_lib = F.scaled_dot_product_attention(*leaves)
+        lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(o_lib, leaves, d_o, retain_graph=True))
+        item = q.element_size()
+        fwd_bound = bound_ms(4 * q.numel() * item, 4 * b * heads * s * s * dh, dtype_name)
+        bwd_bound = bound_ms(7 * q.numel() * item, 10 * b * heads * s * s * dh, dtype_name)
+        say("attn4", shape=f"{b}x{heads}x{s}x{dh}", dtype=dtype_name, max_abs_err=err_o, dq_rel=rels[0],
+            dk_rel=rels[1], dv_rel=rels[2], fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}",
+            fwd_library_ms=f"{lib_fwd_ms:.4f}", fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}", bwd_ms=f"{bwd_ms:.4f}",
+            bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_library_ms=f"{lib_bwd_ms:.4f}",
+            bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", bound_by=fwd_bound["bound_by"])
+        if (b, heads, s, dh, dtype_name) == UNPACKED_ATTN_SHAPES[0]:
+            result = {
+                "attention": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound,
+                              "library_ms": lib_fwd_ms},
+                "attention_bwd": {"max_abs_err": err_g, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_bound,
+                                  "library_ms": lib_bwd_ms},
+            }
+        del q, k, v, d_o, out, grads, leaves, o_lib
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_attention_entry(torch, np, counts: LaunchCounts) -> None:
+    """The public entry ``fused_attention`` as a caller uses it, through
+    autograd: one vit_b16 attention sublayer at batch 128 (seeded qkv
+    projection, heads split out to [B, H, S, Dh], loss = Σ o·w), forward and
+    backward, in float32 and bfloat16. No pipeline of either package calls
+    this entry, so this is its main path. Checked against the packed pair on
+    the same values: in float32 the two are one function (2e-5, gradients
+    1e-5 of max); in bfloat16 the packed pair rounds p and ds first, which
+    moves an output by up to two bfloat16 steps or 2⁻⁸ of the largest, and a
+    gradient by up to 2e-2 of its tensor's largest entry."""
+    from ssip_tpu_torch.ops.attention import fused_attention, fused_attention_qkv
+
+    rng = np.random.default_rng(SEED + 10)
+    b, s, d, heads = BATCH, VIT_TOKENS, VIT_WIDTH, VIT_HEADS
+    x32 = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).cuda()
+    w32 = torch.from_numpy((rng.standard_normal((d, 3 * d)) * d**-0.5).astype(np.float32)).cuda()
+    weight32 = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).cuda()
+    counts.reset()  # count only this path's launches
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        qkv = (x32.to(dtype) @ w32.to(dtype)).detach().requires_grad_()
+        parts = qkv.view(b, s, 3, heads, d // heads)
+        q, k, v = (parts[:, :, i].permute(0, 2, 1, 3).contiguous() for i in range(3))
+        o = fused_attention(q, k, v).permute(0, 2, 1, 3).reshape(b, s, d)
+        (grad,) = torch.autograd.grad((o.float() * weight32).sum(), qkv)
+        packed = qkv.detach().clone().requires_grad_()
+        o_packed = fused_attention_qkv(packed, heads)
+        (grad_packed,) = torch.autograd.grad((o_packed.float() * weight32).sum(), packed)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(o).all() and torch.isfinite(grad).all()):
+            raise AssertionError(f"fused_attention entry {dtype_name}: non-finite values")
+        err = (o.float() - o_packed.float()).abs()
+        if dtype_name == "float32":
+            tol = torch.full_like(err, F32_ATOL)
+            grad_tol = GRAD_RTOL["float32"]
+        else:
+            step = torch.exp2(torch.floor(torch.log2(o_packed.float().abs().clamp_min(1e-30))) - 7)
+            tol = torch.maximum(2 * step, o_packed.float().abs().max() * 2.0**-8)
+            grad_tol = 2e-2
+        rels = [((grad[..., i * d:(i + 1) * d].float() - grad_packed[..., i * d:(i + 1) * d].float()).abs().max()
+                 / grad_packed[..., i * d:(i + 1) * d].float().abs().max()).item() for i in range(3)]
+        if not bool((err <= tol).all()) or max(rels) > grad_tol:
+            raise AssertionError(f"fused_attention entry {dtype_name}: vs the packed pair max |d| {err.max().item()}, "
+                                 f"gradients {rels} of max (allowed {grad_tol})")
+        say("entry", fn="fused_attention", shape=f"{b}x{heads}x{s}x{d // heads}", dtype=dtype_name,
+            vs_packed_max_abs=err.max().item(), dq_rel=rels[0], dk_rel=rels[1], dv_rel=rels[2])
+        del qkv, parts, q, k, v, o, grad, packed, o_packed, grad_packed
+    launches = counts.read()
+    want = {"attention": 2, "attention_bwd": 2}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"the fused_attention entry launched {launches}, expected {want}")
+    say("entry", launches={k: v for k, v in launches.items() if v})
+    torch.cuda.empty_cache()
+
+
 def _synthetic_tree(root: Path, n: int) -> None:
     """``n`` placeholder files in the dataset layout (32 + 32 labeled, the
     rest unlabeled); the pixels live in the in-memory store."""
@@ -544,10 +793,11 @@ def _unit(np, a):
     return a / np.linalg.norm(a, axis=1, keepdims=True)
 
 
-def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, width: int, n_cpu: int) -> None:
+def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, width: int, n_cpu: int) -> dict:
     """``run_extraction`` of ``arch`` on the corpus, resident shape, bfloat16
     and float32; for the ViT a profile of the bfloat16 run, for the ResNet
-    the per-batch shape too."""
+    the per-batch shape too. Returns each type's (embeddings, imgs/s, peak
+    GiB)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ssip_tpu_torch.data.pipeline import ImageStore
@@ -562,7 +812,7 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
     vit = arch == VIT_ARCH
     batches = N_IMAGES // BATCH
     counts.reset()  # count only the main path's launches
-    embeddings = {}
+    embeddings, rates = {}, {}
     for dtype in ("bfloat16", "float32"):
         out = tmp / f"out_{arch}_{dtype}"
         cfg = ExtractionConfig(
@@ -586,6 +836,7 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
                 or meta["embedding_dimension"] != width or meta["architecture"] != arch):
             raise AssertionError(f"{arch} {dtype}: metadata {meta['num_images']} {meta['weights']}")
         embeddings[dtype] = emb
+        rates[dtype] = (N_IMAGES / summary.embed_seconds, peak_gib)
         say("slice", arch=arch, dtype=dtype, images=N_IMAGES, batch=BATCH, embed_s=f"{summary.embed_seconds:.4f}",
             imgs_per_s=f"{N_IMAGES / summary.embed_seconds:.1f}", e2e_s=f"{summary.total_seconds:.3f}",
             peak_mem_gib=f"{peak_gib:.2f}")
@@ -647,6 +898,77 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
         raise AssertionError(f"{arch}: cuda f32 vs cpu f32 relative error {rel} > 1e-4 (TF32 on?)")
     say("slice", arch=arch, launches=got, cos_bf16_f32_min=f"{cos.min():.6f}", cuda_vs_cpu_f32_rel=rel,
         cpu_checked=n_cpu)
+    return {dtype: (embeddings[dtype], *rates[dtype]) for dtype in embeddings}
+
+
+def phase_slice_int8(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense: dict) -> None:
+    """``run_extraction`` of vit_b16 with ``compute_dtype="int8"`` on the
+    corpus, resident shape, beside the bfloat16 and float32 runs of the same
+    seeded weights (``dense``, from ``phase_slice``), then a profiled run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, extract_embeddings, run_extraction
+    from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
+
+    data, records, _, store = corpus
+    arch, batches, runs = VIT_ARCH, N_IMAGES // BATCH, 2
+    out = tmp / f"out_{arch}_int8"
+    cfg = ExtractionConfig(data_dir=data, output_dir=out, batch_size=BATCH, device="cuda", compute_dtype="int8",
+                           cache_decoded=False, arch=arch)
+    counts.reset()  # count only the main path's launches
+    run_extraction(cfg, store=store)  # warm: cuBLASLt and allocator set-up
+    torch.cuda.reset_peak_memory_stats()
+    summary = run_extraction(cfg, store=store)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts.read()
+    emb = summary.embeddings
+    if emb.shape != (N_IMAGES, VIT_WIDTH) or not np.isfinite(emb).all():
+        raise AssertionError(f"{arch} int8: embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
+    reg = ArtifactRegistry(out)
+    for path in (reg.embeddings_npy, reg.embeddings_csv, reg.features_metadata_json, reg.feature_summary_md,
+                 reg.extraction_log):
+        if not path.is_file():
+            raise AssertionError(f"{arch} int8: missing artifact {path}")
+    meta = json.loads(reg.features_metadata_json.read_text())
+    if (meta["weights"] != "random_init:seed=42+int8_ptq" or summary.weights_source != meta["weights"]
+            or meta["num_images"] != N_IMAGES or meta["embedding_dimension"] != VIT_WIDTH):
+        raise AssertionError(f"{arch} int8: metadata {meta['weights']} {meta['num_images']}")
+    # each run: one float32 calibration forward (LayerNorm and attention
+    # kernels, no preprocess kernel and no MLP kernel), then a forward a batch
+    want = {
+        "preprocess_quantize": runs * batches, "quantized_mlp": runs * batches * VIT_BLOCKS,
+        "layer_norm": runs * (batches + 1) * VIT_LN_PER_FORWARD,
+        "attention_qkv": runs * (batches + 1) * VIT_ATTN_PER_FORWARD, "preprocess_images": 0,
+    }
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{arch} int8: the extraction path launched {got}, expected {want}")
+    f32_emb, f32_rate, f32_peak = dense["float32"]
+    _, bf16_rate, bf16_peak = dense["bfloat16"]
+    cos = (_unit(np, emb) * _unit(np, f32_emb)).sum(axis=1)
+    if not cos.min() > INT8_COSINE_FLOOR:
+        raise AssertionError(f"{arch}: int8 vs f32 per-image cosine min {cos.min()}, floor {INT8_COSINE_FLOOR}")
+    rate = N_IMAGES / summary.embed_seconds
+    say("int8", arch=arch, images=N_IMAGES, batch=BATCH, embed_s=f"{summary.embed_seconds:.4f}",
+        imgs_per_s=f"{rate:.1f}", bf16_imgs_per_s=f"{bf16_rate:.1f}", f32_imgs_per_s=f"{f32_rate:.1f}",
+        vs_bf16=f"{rate / bf16_rate:.3f}", e2e_s=f"{summary.total_seconds:.3f}", peak_mem_gib=f"{peak_gib:.2f}",
+        bf16_peak_mem_gib=f"{bf16_peak:.2f}", f32_peak_mem_gib=f"{f32_peak:.2f}", weights=meta["weights"])
+    say("int8", arch=arch, launches=got, per_forward={"preprocess_quantize": 1, "layer_norm": VIT_LN_PER_FORWARD,
+                                                       "attention_qkv": VIT_ATTN_PER_FORWARD,
+                                                       "quantized_mlp": VIT_BLOCKS},
+        cos_int8_f32_min=f"{cos.min():.6f}", cos_int8_f32_mean=f"{cos.mean():.6f}", floor=INT8_COSINE_FLOOR)
+
+    # once more under the profiler; the embed loop begins at the first
+    # preprocess kernel (calibration launches none), so kernels before it are
+    # left out of the shares
+    cfg = ExtractionConfig(data_dir=data, output_dir=tmp / f"out_{arch}_int8_profiled", batch_size=BATCH,
+                           device="cuda", compute_dtype="int8", cache_decoded=False, arch=arch)
+    counts.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        summary = extract_embeddings(records, cfg, store=store)
+    counts.read()
+    _profile_breakdown(torch, prof, summary.embed_seconds * 1e3, f"{arch}_embed_int8", _INT8_PROFILE_CLASSES,
+                       start_at="preproc_taps_kernel")
 
 
 def phase_cli(np, tmp: Path) -> None:
@@ -659,19 +981,21 @@ def phase_cli(np, tmp: Path) -> None:
                 "sans_label/c.jpg", "sans_label/d.jpg"):
         (data / rel).parent.mkdir(parents=True, exist_ok=True)
         Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(data / rel)
-    for arch, width in (("resnet18", 512), ("vit_t16", 192)):
-        out = tmp / f"cli_out_{arch}"
+    for arch, width, dtype in (("resnet18", 512, "bfloat16"), ("vit_t16", 192, "bfloat16"), ("vit_t16", 192, "int8")):
+        out = tmp / f"cli_out_{arch}_{dtype}"
         subprocess.run(
             [sys.executable, "-m", "ssip_tpu_torch.cli.feature_extraction", "--data-dir", str(data),
-             "--device", "cuda", "--batch-size", "4", "--compute-dtype", "bfloat16", "--arch", arch,
+             "--device", "cuda", "--batch-size", "4", "--compute-dtype", dtype, "--arch", arch,
              "--output-dir", str(out)],
             cwd=Path(__file__).resolve().parent, check=True, timeout=600,
         )
         emb = np.load(out / "features" / "embeddings.npy")
         meta = json.loads((out / "features" / "metadata.json").read_text())
         if emb.shape != (4, width) or not np.isfinite(emb).all() or meta["device"] != "cuda:1":
-            raise AssertionError(f"cli {arch}: embeddings {emb.shape}, device {meta['device']}")
-        say("cli", arch=arch, images=4, width=width,
+            raise AssertionError(f"cli {arch} {dtype}: embeddings {emb.shape}, device {meta['device']}")
+        if meta["weights"].endswith("+int8_ptq") != (dtype == "int8"):
+            raise AssertionError(f"cli {arch} {dtype}: weights {meta['weights']}")
+        say("cli", arch=arch, dtype=dtype, images=4, width=width, weights=meta["weights"],
             csv_rows=len((out / "features" / "embeddings.csv").read_text().splitlines()) - 1)
 
 
@@ -815,14 +1139,29 @@ _VIT_PROFILE_CLASSES = (
 )
 
 
-def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE_CLASSES) -> None:
+# the same for the int8 embed loop: every GEMM in it is a ``torch._int_mm``
+_INT8_PROFILE_CLASSES = (
+    ("int8 MLP kernel", ("qmlp_kernel",)),
+    ("LayerNorm kernels", ("ln_fwd_kernel",)),
+    ("attention kernels", ("attn_qkv",)),
+    ("preprocess kernel (int8 form)", ("preproc_taps_kernel",)),
+    ("int8 GEMMs: stem, qkv, out (torch._int_mm, cuBLASLt)", _VIT_PROFILE_CLASSES[5][1] + ("imma", "igemm", "i8")),
+    ("quantize, dequantize, casts and adds (elementwise)", _VIT_PROFILE_CLASSES[6][1]),
+)
+
+
+def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE_CLASSES, start_at=None) -> None:
     """Device time of the profiled steps by layer and by kernel, and the
-    idle share of the window."""
+    idle share of the window. ``start_at``: a kernel-name fragment; kernels
+    before the first kernel that holds it are left out."""
     cuda = torch.autograd.DeviceType.CUDA
     # kernels only: copies between host and card (a corpus being staged) are
     # not work of the window that is measured
-    kernels = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-               if e.device_type == cuda and not e.name.startswith(("Memcpy", "Memset"))]
+    kernels = sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                      if e.device_type == cuda and not e.name.startswith(("Memcpy", "Memset"))), key=lambda k: k[1])
+    if start_at is not None:
+        first = next((i for i, k in enumerate(kernels) if start_at in k[0]), len(kernels))
+        kernels = kernels[first:]
     if not kernels:
         raise AssertionError("torch.profiler saw no kernel on the card")
     by_layer: dict = {}
@@ -1014,14 +1353,17 @@ def main() -> int:
     phase_env(torch)
     phase_build()
     counts = LaunchCounts()
-    measured = {"preprocess_images": phase_kernel(torch, np), "augment_images": phase_rotate_kernel(torch, np),
-                **phase_layer_norm_kernels(torch, np), **phase_attention_kernels(torch, np)}
+    measured = {**phase_kernel(torch, np), "augment_images": phase_rotate_kernel(torch, np),
+                **phase_layer_norm_kernels(torch, np), **phase_attention_kernels(torch, np),
+                **phase_qmlp_kernel(torch, np), **phase_unpacked_attention_kernels(torch, np)}
+    phase_attention_entry(torch, np, counts)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         corpus = make_corpus(np, tmp)
         phase_slice(torch, np, tmp, corpus, counts, "resnet18", 512, N_CPU_CHECK)
-        phase_slice(torch, np, tmp, corpus, counts, VIT_ARCH, VIT_WIDTH, VIT_N_CPU_CHECK)
-        del corpus
+        dense = phase_slice(torch, np, tmp, corpus, counts, VIT_ARCH, VIT_WIDTH, VIT_N_CPU_CHECK)
+        phase_slice_int8(torch, np, tmp, corpus, counts, dense)
+        del corpus, dense
         phase_cli(np, tmp)
         train_tree = make_train_tree(np, tmp)
         phase_train(torch, np, tmp, train_tree, counts, "resnet18",

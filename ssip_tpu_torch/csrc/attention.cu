@@ -37,6 +37,16 @@
 // qkv value read once), but this form is held back by shared-memory loads,
 // about one for every two FMAs.
 //
+// The same two bodies also serve q, k, v given apart as [B, H, S, Dh]
+// (contiguous, so a head's rows are Dh apart instead of 3D): they replace
+// ssip_tpu/ops/attention.py:_attn_kernel and :_attn_bwd_kernel (behind
+// fused_attention and its custom VJP). Those TPU kernels pad S to 128 lanes
+// and mask the pad keys; here S is exact and no pad exists. They also keep p
+// and ds in float32 for their products where the packed pair rounds both to
+// the input type, so the bodies take the rounding as a template flag and the
+// unpacked kernels compute what the TPU kernels compute: o = p v with
+// float32 p, dv = pT dO, dq = ds k, dk = dsT q with float32 p and ds.
+//
 // Shapes: Dh 32 or 64, S at most 256 (8 key or query chunks of 32 a lane).
 // The wrapper raises on anything else.
 
@@ -83,10 +93,10 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// v rounded to T, as a float.
-template <typename T>
+// v rounded to T, as a float; v itself where the kernel keeps float32.
+template <typename T, bool ROUND = true>
 __device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
+  return ROUND ? to_float(from_float<T>(v)) : v;
 }
 
 // Row stride, in elements, of a staged [rows, DH] matrix: an odd number of
@@ -243,17 +253,17 @@ struct Layout {
   }
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    attn_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
-                        int heads, int s_len, int kv, float scale) {
+// One (image, head) forward. q_g, k_g, v_g point at the head's first row,
+// rows `pitch` elements apart; o_g likewise with `o_pitch`. ROUND: p is
+// rounded to T before p v.
+template <typename T, int DH, bool ROUND>
+__device__ __forceinline__ void attn_fwd_body(
+    const T* __restrict__ q_g, const T* __restrict__ k_g,
+    const T* __restrict__ v_g, T* __restrict__ o_g, int pitch, int o_pitch,
+    int s_len, int kv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   using L = Layout<T, DH>;
   constexpr int DPL = DH / 32;
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x - b * heads;
-  const int d_model = heads * DH;
-  const int pitch = 3 * d_model;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -264,14 +274,12 @@ __global__ void __launch_bounds__(kThreads)
   float* q_vec = reinterpret_cast<float*>(mine);
   float* p_w = reinterpret_cast<float*>(mine + L::vec());
 
-  const T* base = qkv + static_cast<size_t>(b) * s_len * pitch + h * DH;
-  stage<T, DH>(k_s, base + d_model, kv, pitch);
-  stage<T, DH>(v_s, base + 2 * d_model, kv, pitch);
+  stage<T, DH>(k_s, k_g, kv, pitch);
+  stage<T, DH>(v_s, v_g, kv, pitch);
   __syncthreads();
 
-  T* o_base = o + static_cast<size_t>(b) * s_len * d_model + h * DH;
   for (int i0 = warp * kRows; i0 < s_len; i0 += kWarps * kRows) {
-    load_rows<T, DH>(q_vec, base, i0, s_len - 1, pitch, lane);
+    load_rows<T, DH>(q_vec, q_g, i0, s_len - 1, pitch, lane);
     __syncwarp();
     float p[kRows][kChunks];
     dot_rows<T, DH>(k_s, kv, q_vec, lane, p);
@@ -284,9 +292,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < kChunks; ++c) {
       const int j = c * 32 + lane;
       if (j < kv) {
-        *reinterpret_cast<float4*>(p_w + j * kRows) =
-            make_float4(round_to<T>(p[0][c]), round_to<T>(p[1][c]),
-                        round_to<T>(p[2][c]), round_to<T>(p[3][c]));
+        *reinterpret_cast<float4*>(p_w + j * kRows) = make_float4(
+            round_to<T, ROUND>(p[0][c]), round_to<T, ROUND>(p[1][c]),
+            round_to<T, ROUND>(p[2][c]), round_to<T, ROUND>(p[3][c]));
       }
     }
     __syncwarp();
@@ -297,7 +305,7 @@ __global__ void __launch_bounds__(kThreads)
       if (i0 + r < s_len) {
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
-          o_base[static_cast<size_t>(i0 + r) * d_model + lane * DPL + t] =
+          o_g[static_cast<size_t>(i0 + r) * o_pitch + lane * DPL + t] =
               from_float<T>(acc[r][t]);
         }
       }
@@ -306,18 +314,45 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Packed qkv [B, S, 3D] -> o [B, S, D]; block = (image, head).
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
-    attn_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ d_o,
-                        T* __restrict__ dqkv, int heads, int s_len, int kv,
-                        float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  using L = Layout<T, DH>;
-  constexpr int DPL = DH / 32;
+    attn_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
+                        int heads, int s_len, int kv, float scale) {
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x - b * heads;
   const int d_model = heads * DH;
   const int pitch = 3 * d_model;
+  const T* base = qkv + static_cast<size_t>(b) * s_len * pitch + h * DH;
+  attn_fwd_body<T, DH, true>(
+      base, base + d_model, base + 2 * d_model,
+      o + static_cast<size_t>(b) * s_len * d_model + h * DH, pitch, d_model,
+      s_len, kv, scale);
+}
+
+// q, k, v [B*H, S, DH] -> o [B*H, S, DH]; block = (image, head); float32 p.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+    attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ o, int s_len,
+                    float scale) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * s_len * DH;
+  attn_fwd_body<T, DH, false>(q + at, k + at, v + at, o + at, DH, DH, s_len,
+                              s_len, scale);
+}
+
+// One (image, head) backward. q_g, k_g, v_g and dq_g, dk_g, dv_g point at
+// the head's first row, rows `pitch` elements apart; do_g likewise with
+// `do_pitch`. ROUND: p and ds are rounded to T before their products.
+template <typename T, int DH, bool ROUND>
+__device__ __forceinline__ void attn_bwd_body(
+    const T* __restrict__ q_g, const T* __restrict__ k_g,
+    const T* __restrict__ v_g, const T* __restrict__ do_g,
+    T* __restrict__ dq_g, T* __restrict__ dk_g, T* __restrict__ dv_g,
+    int pitch, int do_pitch, int s_len, int kv, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using L = Layout<T, DH>;
+  constexpr int DPL = DH / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -336,22 +371,13 @@ __global__ void __launch_bounds__(kThreads)
   float* w_b = reinterpret_cast<float*>(mine + 2 * L::vec() +
                                         L::weights(s_len));
 
-  const size_t image = static_cast<size_t>(b) * s_len;
-  const T* q_g = qkv + image * pitch + h * DH;
-  const T* k_g = q_g + d_model;
-  const T* v_g = q_g + 2 * d_model;
-  const T* do_g = d_o + image * d_model + h * DH;
-  T* dq_g = dqkv + image * pitch + h * DH;
-  T* dk_g = dq_g + d_model;
-  T* dv_g = dq_g + 2 * d_model;
-
   // Pass A: K and V staged, a warp per group of query rows.
   stage<T, DH>(mat_a, k_g, kv, pitch);
   stage<T, DH>(mat_b, v_g, kv, pitch);
   __syncthreads();
   for (int i0 = warp * kRows; i0 < s_len; i0 += kWarps * kRows) {
     load_rows<T, DH>(vec_a, q_g, i0, s_len - 1, pitch, lane);
-    load_rows<T, DH>(vec_b, do_g, i0, s_len - 1, d_model, lane);
+    load_rows<T, DH>(vec_b, do_g, i0, s_len - 1, do_pitch, lane);
     __syncwarp();
     float p[kRows][kChunks], dp[kRows][kChunks];
     dot_rows<T, DH>(mat_a, kv, vec_a, lane, p);
@@ -366,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
       delta = warp_sum(delta);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        dp[r][c] = round_to<T>(p[r][c] * (dp[r][c] - delta));  // ds
+        dp[r][c] = round_to<T, ROUND>(p[r][c] * (dp[r][c] - delta));  // ds
       }
       if (lane == 0 && i0 + r < s_len) {
         row_max[i0 + r] = mx;
@@ -401,7 +427,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // Pass B: q and dO staged, a warp per group of key rows.
   stage<T, DH>(mat_a, q_g, s_len, pitch);
-  stage<T, DH>(mat_b, do_g, s_len, d_model);
+  stage<T, DH>(mat_b, do_g, s_len, do_pitch);
   __syncthreads();
   for (int j0 = warp * kRows; j0 < s_len; j0 += kWarps * kRows) {
     float acc_v[kRows][DPL] = {}, acc_k[kRows][DPL] = {};
@@ -422,8 +448,8 @@ __global__ void __launch_bounds__(kThreads)
           for (int r = 0; r < kRows; ++r) {
             const float pr = __fdiv_rn(
                 probability_numerator(__fmul_rn(p[r][c], scale), mx), sum);
-            pc[r] = round_to<T>(pr);
-            dsc[r] = round_to<T>(pr * (dp[r][c] - delta));
+            pc[r] = round_to<T, ROUND>(pr);
+            dsc[r] = round_to<T, ROUND>(pr * (dp[r][c] - delta));
           }
           *reinterpret_cast<float4*>(w_a + i * kRows) =
               make_float4(pc[0], pc[1], pc[2], pc[3]);
@@ -452,6 +478,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Packed qkv [B, S, 3D] and dO [B, S, D] -> packed dqkv; block = (image, head).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+    attn_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ d_o,
+                        T* __restrict__ dqkv, int heads, int s_len, int kv,
+                        float scale) {
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x - b * heads;
+  const int d_model = heads * DH;
+  const int pitch = 3 * d_model;
+  const size_t image = static_cast<size_t>(b) * s_len;
+  const T* q_g = qkv + image * pitch + h * DH;
+  T* dq_g = dqkv + image * pitch + h * DH;
+  attn_bwd_body<T, DH, true>(q_g, q_g + d_model, q_g + 2 * d_model,
+                             d_o + image * d_model + h * DH, dq_g,
+                             dq_g + d_model, dq_g + 2 * d_model, pitch,
+                             d_model, s_len, kv, scale);
+}
+
+// q, k, v, dO [B*H, S, DH] -> dq, dk, dv of the same shape; float32 p and ds.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+    attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ d_o,
+                    T* __restrict__ dq, T* __restrict__ dk,
+                    T* __restrict__ dv, int s_len, float scale) {
+  const size_t at = static_cast<size_t>(blockIdx.x) * s_len * DH;
+  attn_bwd_body<T, DH, false>(q + at, k + at, v + at, d_o + at, dq + at,
+                              dk + at, dv + at, DH, DH, s_len, s_len, scale);
+}
+
 template <typename T, int DH>
 int launch_fwd(const void* qkv, void* o, int batch, int heads, int s_len,
                int kv, float scale, cudaStream_t stream) {
@@ -477,6 +534,39 @@ int launch_bwd(const void* qkv, const void* d_o, void* dqkv, int batch,
   attn_qkv_bwd_kernel<T, DH><<<batch * heads, kThreads, bytes, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(d_o),
       static_cast<T*>(dqkv), heads, s_len, kv, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DH>
+int launch_unpacked_fwd(const void* q, const void* k, const void* v, void* o,
+                        int batch_heads, int s_len, float scale,
+                        cudaStream_t stream) {
+  const size_t bytes = Layout<T, DH>::forward_bytes(s_len);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_kernel<T, DH><<<batch_heads, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), s_len, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DH>
+int launch_unpacked_bwd(const void* q, const void* k, const void* v,
+                        const void* d_o, void* dq, void* dk, void* dv,
+                        int batch_heads, int s_len, float scale,
+                        cudaStream_t stream) {
+  const size_t bytes = Layout<T, DH>::backward_bytes(s_len);
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_bwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_kernel<T, DH><<<batch_heads, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(d_o),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), s_len,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -531,6 +621,56 @@ extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
                                                    heads, s_len, kv, scale, s)
                    : launch_bwd<float, 32>(qkv, d_o, dqkv, batch, heads, s_len,
                                            kv, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The unpacked pair: q, k, v (and dO, dq, dk, dv) contiguous
+// [batch_heads, s_len, dh], 1 <= s_len <= 256, every key real.
+
+extern "C" int ssip_attention_fwd(const void* q, const void* k, const void* v,
+                                  void* o, int is_bf16, int batch_heads,
+                                  int s_len, int dh, float scale,
+                                  void* stream) {
+  if (batch_heads == 0 || s_len == 0) return 0;
+  if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64) {
+    return is_bf16 ? launch_unpacked_fwd<__nv_bfloat16, 64>(
+                         q, k, v, o, batch_heads, s_len, scale, s)
+                   : launch_unpacked_fwd<float, 64>(q, k, v, o, batch_heads,
+                                                    s_len, scale, s);
+  }
+  if (dh == 32) {
+    return is_bf16 ? launch_unpacked_fwd<__nv_bfloat16, 32>(
+                         q, k, v, o, batch_heads, s_len, scale, s)
+                   : launch_unpacked_fwd<float, 32>(q, k, v, o, batch_heads,
+                                                    s_len, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int ssip_attention_bwd(const void* q, const void* k, const void* v,
+                                  const void* d_o, void* dq, void* dk,
+                                  void* dv, int is_bf16, int batch_heads,
+                                  int s_len, int dh, float scale,
+                                  void* stream) {
+  if (batch_heads == 0 || s_len == 0) return 0;
+  if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dh == 64) {
+    return is_bf16 ? launch_unpacked_bwd<__nv_bfloat16, 64>(
+                         q, k, v, d_o, dq, dk, dv, batch_heads, s_len, scale, s)
+                   : launch_unpacked_bwd<float, 64>(q, k, v, d_o, dq, dk, dv,
+                                                    batch_heads, s_len, scale,
+                                                    s);
+  }
+  if (dh == 32) {
+    return is_bf16 ? launch_unpacked_bwd<__nv_bfloat16, 32>(
+                         q, k, v, d_o, dq, dk, dv, batch_heads, s_len, scale, s)
+                   : launch_unpacked_bwd<float, 32>(q, k, v, d_o, dq, dk, dv,
+                                                    batch_heads, s_len, scale,
+                                                    s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,9 @@
 """Host image decode with PIL, one thread pool per batch.
 
 Counterpart of ``ssip_tpu/data/decode.py:30-57`` (``decode_image``,
-``try_decode_image``) and ``:109-168`` (``decode_batch``, PIL branch). The
+``try_decode_image``), ``:69-108`` (``preprocess_host_exact``, PIL branch:
+the int8 calibration batch takes it) and ``:109-168`` (``decode_batch``,
+PIL branch). The
 channel policy is the same: no RGB conversion unless asked, grayscale
 stacked to 3 channels. PIL is imported inside the functions, so the rest
 of the port runs on a machine without it; the native libjpeg decoder of
@@ -41,6 +43,32 @@ def try_decode_image(path: Path, convert_rgb: bool = False) -> Optional[np.ndarr
     except Exception as exc:  # noqa: BLE001 — any decode failure is tolerated
         LOGGER.warning("Failed to decode %s: %s", path, exc)
         return None
+
+
+def preprocess_host_exact(arr: np.ndarray, resize: int, crop: int) -> np.ndarray:
+    """The extraction chain's resize and crop on the host, uint8 in and out:
+    short side to ``resize`` with PIL's bilinear filter (long side
+    int-truncated, torchvision's rule), then the center crop. The same chain
+    the device computes (``ops/resize.py``)."""
+    if crop > resize:
+        raise ValueError(
+            f"crop ({crop}) must be <= resize ({resize}) for the exact "
+            "host preprocessing chain"
+        )
+    from PIL import Image
+
+    from ssip_tpu_torch.ops.resize import resize_target
+
+    h0, w0 = arr.shape[:2]
+    th, tw = resize_target(h0, w0, resize)
+    if (h0, w0) != (th, tw):
+        arr = np.asarray(Image.fromarray(arr).resize((tw, th), Image.BILINEAR))
+        if arr.ndim == 2:
+            arr = np.stack([arr] * 3, axis=-1)
+    # torchvision CenterCrop offset: round((size - crop) / 2)
+    top = int(round((arr.shape[0] - crop) / 2.0))
+    left = int(round((arr.shape[1] - crop) / 2.0))
+    return arr[top : top + crop, left : left + crop]
 
 
 def decode_batch(

@@ -13,6 +13,12 @@ names). Layouts:
   LayerNorm ``scale/bias`` → ``weight/bias``;
 - the ViT's ``cls_token`` → ``class_token``, ``pos_embedding`` →
   ``encoder.pos_embedding``.
+
+The int8 ViT tree (``quantize_vit_extractor``'s output in either package, as
+numpy arrays) carries over unchanged in layout: ``quantized_vit_from_tree``
+builds the port's ``QuantizedVisionTransformer`` from it after checking every
+leaf's size and type against the arch, ``tree_from_quantized_vit`` is the way
+back.
 """
 
 from __future__ import annotations
@@ -172,3 +178,63 @@ def read_torch_checkpoint(path: Path) -> Dict[str, torch.Tensor]:
             key = key.replace(old, new)
         out[key] = value
     return out
+
+
+_QSITES = ("qkv", "out", "mlp_1", "mlp_2")
+
+
+def _check_quantized_tree(tree: Mapping[str, Any], arch: str) -> None:
+    """Raise unless ``tree`` is an int8 tree of ``arch``: the layer count,
+    every kernel's shape and int8 type, ``mult`` and ``bias`` as wide as the
+    kernel's output."""
+    from ssip_tpu_torch.models.vit import VIT_CONFIGS
+
+    cfg = VIT_CONFIGS[arch]
+    d, mlp, p = cfg["hidden_dim"], cfg["mlp_dim"], cfg["patch_size"]
+    if len(tree["blocks"]) != cfg["num_layers"]:
+        raise ValueError(f"the int8 tree has {len(tree['blocks'])} blocks, {arch} has {cfg['num_layers']}")
+    want = {"qkv": (d, 3 * d), "out": (d, d), "mlp_1": (d, mlp), "mlp_2": (mlp, d)}
+    sites = [("stem", tree["stem"], (p, p, 3, d))]
+    for i, blk in enumerate(tree["blocks"]):
+        sites += [(f"block{i}.{name}", blk[name], want[name]) for name in _QSITES]
+    for name, site, shape in sites:
+        kernel = np.asarray(site["kernel"])
+        if kernel.dtype != np.int8 or kernel.shape != shape:
+            raise ValueError(f"{name}.kernel is {kernel.dtype} {kernel.shape}, {arch} wants int8 {shape}")
+        for leaf in ("mult", "bias"):
+            if np.shape(site[leaf]) != (shape[-1],):
+                raise ValueError(f"{name}.{leaf} has shape {np.shape(site[leaf])}, {arch} wants ({shape[-1]},)")
+    if np.shape(tree["cls_token"]) != (1, 1, d) or np.shape(tree["pos_embedding"])[::2] != (1, d):
+        raise ValueError(
+            f"cls_token {np.shape(tree['cls_token'])} or pos_embedding {np.shape(tree['pos_embedding'])} "
+            f"is not {arch}'s (width {d})"
+        )
+
+
+def quantized_vit_from_tree(
+    tree: Mapping[str, Any], arch: str, inter_dtype: torch.dtype = torch.bfloat16, stem_prequantized: bool = False
+) -> nn.Module:
+    """The int8 tree of either package (numpy or anything ``np.asarray``
+    takes) → the port's quantized module."""
+    from ssip_tpu_torch.models.quantized_vit import QuantizedVisionTransformer
+
+    _check_quantized_tree(tree, arch)
+    return QuantizedVisionTransformer(arch, tree, inter_dtype=inter_dtype, stem_prequantized=stem_prequantized)
+
+
+def tree_from_quantized_vit(module: nn.Module) -> Dict[str, Any]:
+    """The way back: the module's buffers as the int8 tree (numpy)."""
+
+    def ln(mod: nn.Module) -> Dict[str, np.ndarray]:
+        return {"scale": mod.scale.cpu().numpy(), "bias": mod.bias.cpu().numpy()}
+
+    return {
+        "stem": module.stem.leaves(),
+        "cls_token": module.cls_token.cpu().numpy(),
+        "pos_embedding": module.pos_embedding.cpu().numpy(),
+        "blocks": [
+            {"ln_1": ln(blk.ln_1), "ln_2": ln(blk.ln_2), **{name: getattr(blk, name).leaves() for name in _QSITES}}
+            for blk in module.blocks
+        ],
+        "ln": ln(module.ln),
+    }

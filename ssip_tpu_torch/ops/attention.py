@@ -1,4 +1,5 @@
-"""Multi-head attention off the packed qkv tensor: plain version and CUDA kernels.
+"""Multi-head attention, off the packed qkv tensor and on q, k, v apart:
+plain versions and CUDA kernels.
 
 Counterpart of ``ssip_tpu/ops/attention.py``: ``attention_plain`` after
 ``attention_xla`` (``:43-56``), ``attention_qkv_plain`` after
@@ -14,6 +15,16 @@ of ``csrc/attention.cu`` (which replace ``_attn_qkv_kernel`` and
 ≥ ``kv_len`` left out, float32 softmax, ``p`` rounded to the input type,
 ``o = p·v`` summed in float32 and rounded once. Saved for backward: ``qkv``
 only; the backward recomputes the probabilities.
+
+``fused_attention(q, k, v)`` on [B, H, S, Dh] is the counterpart of the
+entry of the same name (``:445-467``) with its custom VJP (``:187-205``):
+its forward and backward kernels replace ``_attn_kernel`` (``:59-75``) and
+``_attn_bwd_kernel`` (``:109-148``). Those two keep ``p`` and ``ds`` in
+float32 for their products (``:73``, ``:135-145``) where the packed pair
+rounds both to the input type, so this entry has plain versions of its own,
+``attention_unrounded_plain`` and ``attention_bwd_plain``; in float32 the two
+forms are the same function. No pad to 128 tokens exists here and every key
+is real.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version (autograd differentiates it); a CUDA tensor launches the
@@ -48,6 +59,30 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     s = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2)) * _scale(q.shape[-1])
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.matmul(p.to(torch.float32), v.to(torch.float32)).to(q.dtype)
+
+
+def attention_unrounded_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``attention_plain`` with the float32 probabilities left unrounded in
+    the second product, as ``_attn_kernel`` computes it."""
+    f32 = torch.float32
+    s = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * _scale(q.shape[-1])
+    return torch.matmul(torch.softmax(s, dim=-1), v.to(f32)).to(q.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
+    """(dq, dk, dv) as ``_attn_bwd_kernel`` computes them, written out
+    (``ssip_tpu/ops/attention.py:122-148``): ``p`` recomputed, every product
+    in float32, one rounding to the input type at the end."""
+    f32 = torch.float32
+    qf, kf, vf, do = (t.to(f32) for t in (q, k, v, d_o))
+    scale = _scale(q.shape[-1])
+    p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _unpack(qkv: torch.Tensor, num_heads: int):
@@ -104,6 +139,19 @@ def _kernel_entries():
     fwd, bwd = lib.ssip_attention_qkv_fwd, lib.ssip_attention_qkv_bwd
     fwd.argtypes = [p, p, i, i, i, i, i, i, f, p]  # qkv, o, is_bf16, batch, heads, s, dh, kv, scale, stream
     bwd.argtypes = [p, p, p, i, i, i, i, i, i, f, p]  # qkv, dO, dqkv, is_bf16, batch, heads, s, dh, kv, scale, stream
+    fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+@lru_cache(maxsize=1)
+def _unpacked_kernel_entries():
+    from ssip_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd, bwd = lib.ssip_attention_fwd, lib.ssip_attention_bwd
+    fwd.argtypes = [p, p, p, p, i, i, i, i, f, p]  # q, k, v, o, is_bf16, batch·heads, s, dh, scale, stream
+    bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]  # q, k, v, dO, dq, dk, dv, is_bf16, batch·heads, s, dh, scale, stream
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -217,3 +265,96 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, kv_len: int = 0) -> t
 
 
 fused_attention_qkv.launches = 0
+
+
+def _check_unpacked(q: torch.Tensor, *others: torch.Tensor) -> None:
+    """q [B, H, S, Dh]; every other operand of q's shape, type and device."""
+    if q.dim() != 4:
+        raise ValueError(f"fused_attention expects q, k, v [B, H, S, Dh], got {tuple(q.shape)}")
+    for t in others:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"fused_attention expects operands of one shape, type and device, got {tuple(q.shape)} "
+                f"{q.dtype} on {q.device} and {tuple(t.shape)} {t.dtype} on {t.device}"
+            )
+
+
+def _check_unpacked_cuda(*operands: torch.Tensor) -> None:
+    q = operands[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"attention runs on cpu or cuda tensors, got {q.device}")
+    if not all(t.is_contiguous() for t in operands):
+        raise ValueError("attention kernel needs contiguous q, k, v and dO")
+    _check_cuda_operands(q, q.shape[2], q.shape[3])
+
+
+def _launch_unpacked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    _check_unpacked_cuda(q, k, v)
+    b, h, s, dh = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):  # the launch's device; restored after
+        err = _unpacked_kernel_entries()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
+            b * h, s, dh, _scale(dh), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+    fused_attention.launches += 1
+    return out
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
+    """(dq, dk, dv), each [B, H, S, Dh] in the inputs' type, from the saved
+    q, k, v and the incoming ``d_o``. ``attention_bwd.launches`` counts
+    kernel launches."""
+    _check_unpacked(q, k, v, d_o)
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, d_o)
+    _check_unpacked_cuda(q, k, v, d_o)
+    b, h, s, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    if q.numel() == 0:
+        return dq, dk, dv
+    with torch.cuda.device(q.device):
+        err = _unpacked_kernel_entries()[1](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(q.dtype == torch.bfloat16), b * h, s, dh, _scale(dh),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
+    attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd.launches = 0
+
+
+class _UnpackedAttentionKernel(torch.autograd.Function):
+    """The two kernels as one differentiable function of q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _launch_unpacked_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, d_o):
+        return attention_bwd(*ctx.saved_tensors, d_o.contiguous())
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention on q, k, v [B, H, S, Dh] → [B, H, S, Dh]:
+    float32 scores and softmax, float32 probabilities times ``v``, one
+    rounding to the input type. ``fused_attention.launches`` counts
+    forward-kernel launches (CPU calls and empty inputs launch nothing and
+    count nothing)."""
+    _check_unpacked(q, k, v)
+    if q.device.type == "cpu":
+        return attention_unrounded_plain(q, k, v)
+    return _UnpackedAttentionKernel.apply(q, k, v)
+
+
+fused_attention.launches = 0

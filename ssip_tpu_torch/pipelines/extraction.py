@@ -12,6 +12,13 @@ attention kernels) → embeddings as wide as the model (512, 2048, 192, 384 or
 768) → ``embeddings.npy/.csv``, ``metadata.json``, ``feature_summary.md``
 and the log, at the paths ``ArtifactRegistry`` names.
 
+``compute_dtype="int8"`` (the dense ViTs only) is post-training quantized
+extraction (``:205-250, 427-485, 640-642`` there): the float32 model is
+calibrated on the corpus's first 32 readable images, quantized
+(``models/quantized_vit.py``), and the embed step becomes
+``preprocess_images(quant_inv_scale=stem scale)`` → the quantized forward on
+the prequantized int8 images; ``weights_source`` gains ``+int8_ptq``.
+
 Execution shapes:
 
 - resident: the whole uint8 corpus is copied to the device once, then a
@@ -22,7 +29,7 @@ Execution shapes:
 
 Not ported yet (refused with an error naming the ROADMAP entry): the
 streamed shape with its host-preproc and fast-decode variants, sharded
-extraction, int8 PTQ, the folded-BN forward and the MoE archs. A corpus
+extraction, int8 PTQ of the ResNets, the folded-BN forward and the MoE archs. A corpus
 that ``streaming="auto"`` would stream (above ``_HOST_STAGE_BUDGET_BYTES``
 decoded, ``:410-424``) is refused the same way rather than decoded whole
 into host memory.
@@ -45,11 +52,17 @@ import torch
 from torch import nn
 
 from ssip_tpu_torch.data.discovery import ImageRecord, compute_dataset_digest, discover_image_records
+from ssip_tpu_torch.data.decode import preprocess_host_exact
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
 from ssip_tpu_torch.models.host_init import seeded_init_host
-from ssip_tpu_torch.models.port import load_flax_variables, load_state_dict_arrays, read_torch_checkpoint
+from ssip_tpu_torch.models.port import (
+    load_flax_variables, load_state_dict_arrays, quantized_vit_from_tree, read_torch_checkpoint,
+)
+from ssip_tpu_torch.models.quantized_vit import quantize_vit_extractor
 from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
+from ssip_tpu_torch.models.vit import VIT_CONFIGS
 from ssip_tpu_torch.ops.preproc import preprocess_images
+from ssip_tpu_torch.ops.resize import IMAGENET_MEAN, IMAGENET_STD
 from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
 from ssip_tpu_torch.runtime.logging import configure_logging, get_logger
@@ -83,7 +96,7 @@ class ExtractionConfig:
     crop: int = 224
     seed: int = 42
     neighbor_sample: int = 8
-    compute_dtype: str = "float32"  # "float32" (parity) | "bfloat16" (throughput)
+    compute_dtype: str = "float32"  # "float32" (parity) | "bfloat16" (throughput) | "int8" (PTQ, dense ViTs)
     arch: str = "resnet18"
     cache_decoded: bool = True
     num_decode_threads: int = 8
@@ -95,11 +108,19 @@ class ExtractionConfig:
         if self.streaming == "always":
             raise ValueError(f"--streaming always {_STREAMED_NOT_PORTED}")
         if self.compute_dtype == "int8":
-            raise ValueError(
-                "--compute-dtype int8 is not ported to ssip_tpu_torch yet "
-                "(ROADMAP.md, Queue 1 slice 3: int8 extraction)"
-            )
-        compute_dtype(self.compute_dtype)  # validates the name
+            if self.arch.startswith("vit_moe"):
+                raise ValueError(
+                    "int8 PTQ is implemented for the dense ViTs only; run "
+                    f"--arch {self.arch} with --compute-dtype float32/bfloat16"
+                )
+            if self.arch not in VIT_CONFIGS:
+                raise ValueError(
+                    f"--compute-dtype int8 --arch {self.arch} is not ported to ssip_tpu_torch yet "
+                    "(ROADMAP.md, Queue 1 slice 3 item 16: models/quantized.py, the ResNets' int8 "
+                    "convolutions); ported for: " + ", ".join(VIT_CONFIGS)
+                )
+        else:
+            compute_dtype(self.compute_dtype)  # validates the name
         if self.crop > self.resize:
             raise ValueError(
                 f"--crop ({self.crop}) must be <= --resize ({self.resize}): "
@@ -273,6 +294,41 @@ def _refuse_streamed_corpus(cfg: ExtractionConfig, paths: List[Path], digest: st
         )
 
 
+_CALIBRATION_IMAGES = 32
+
+
+def _calibration_batch(cfg: ExtractionConfig, store: ImageStore) -> torch.Tensor:
+    """Normalized float32 [n, crop, crop, 3] batch for the int8 calibration:
+    the readable ones of the corpus's first 32 images (discovery order, so
+    deterministic), taken from the decode-once store, through the exact host
+    chain (short-side resize → center crop), normalized on the host with the
+    JAX package's expression (``ssip_tpu/pipelines/extraction.py:455-458``)."""
+    frames = [
+        preprocess_host_exact(np.asarray(store.get(int(i))), cfg.resize, cfg.crop)
+        for i in store.valid_indices() if i < _CALIBRATION_IMAGES
+    ]
+    frames = [f for f in frames if f.shape == (cfg.crop, cfg.crop, 3)]
+    if not frames:
+        raise RuntimeError(
+            "int8 calibration failed: no decodable images in the corpus's "
+            f"first {_CALIBRATION_IMAGES} files"
+        )
+    x = np.stack(frames).astype(np.float32)
+    mean = 255.0 * np.asarray(IMAGENET_MEAN, np.float32)
+    inv_std = 1.0 / (255.0 * np.asarray(IMAGENET_STD, np.float32))
+    return torch.from_numpy((x - mean) * inv_std)
+
+
+def _quantize_variables(cfg: ExtractionConfig, model: nn.Module, store: ImageStore, device: torch.device) -> nn.Module:
+    """The float32 dense ViT → its int8 module for this corpus, on
+    ``device``, taking the images the preprocess kernel's int8 epilogue
+    wrote (``stem_prequantized``)."""
+    calib = _calibration_batch(cfg, store).to(device)
+    tree = quantize_vit_extractor(model, calib, arch=cfg.arch)
+    LOGGER.info("int8 PTQ: calibrated activation scales on %d images", calib.shape[0])
+    return quantized_vit_from_tree(tree, cfg.arch, stem_prequantized=True).to(device).eval()
+
+
 def extract_embeddings(
     records: List[ImageRecord],
     cfg: ExtractionConfig,
@@ -282,8 +338,10 @@ def extract_embeddings(
     (in dataset order); otherwise it is decoded here (or read from the
     decode cache)."""
     device = resolve_device(cfg.device)
-    dtype = compute_dtype(cfg.compute_dtype)
-    configure_precision(cfg.compute_dtype)
+    int8 = cfg.compute_dtype == "int8"
+    # the model that int8 calibrates and quantizes is the float32 one
+    dtype = torch.float32 if int8 else compute_dtype(cfg.compute_dtype)
+    configure_precision("float32" if int8 else cfg.compute_dtype)
     LOGGER.info("Extraction on %s (%s)", device_label(device), cfg.compute_dtype)
 
     model = build_model(cfg.arch, compute_dtype=dtype, image_size=cfg.crop)
@@ -309,8 +367,18 @@ def extract_embeddings(
     valid = store.valid_indices()
     batch = cfg.batch_size
 
-    def embed(u8: torch.Tensor) -> torch.Tensor:
-        return model(preprocess_images(u8, resize=cfg.resize, crop=cfg.crop, out_dtype=dtype))
+    if int8:
+        model = _quantize_variables(cfg, model, store, device)
+        weights_source += "+int8_ptq"
+        stem_inv_scale = model.stem.inv_scale
+
+        def embed(u8: torch.Tensor) -> torch.Tensor:
+            # the preprocess kernel's epilogue writes the stem's int8 operand
+            return model(preprocess_images(u8, resize=cfg.resize, crop=cfg.crop, quant_inv_scale=stem_inv_scale))
+    else:
+
+        def embed(u8: torch.Tensor) -> torch.Tensor:
+            return model(preprocess_images(u8, resize=cfg.resize, crop=cfg.crop, out_dtype=dtype))
 
     corpus_bytes = int(np.prod(store.image_shape)) * len(valid)
     resident = corpus_bytes <= _RESIDENT_BUDGET_BYTES and not store.failures

@@ -1,5 +1,6 @@
 """The port's packed-qkv attention against the JAX package's, forward and
-gradients, with and without the ``kv_len`` key mask.
+gradients, with and without the ``kv_len`` key mask; and the port's
+``fused_attention`` on q, k, v apart against the JAX entry of that name.
 
 The same numpy-seeded inputs go through
 ``ssip_tpu.ops.attention.fused_attention_qkv`` (the Pallas kernels in
@@ -7,6 +8,14 @@ interpret mode, and the XLA reference) and the port's plain version, which
 is what the port's ``fused_attention_qkv`` runs for a CPU tensor. float32
 agrees within 1e-5; bfloat16 within one bfloat16 step of the JAX value
 (gradients within 1e-2 of each tensor's largest entry).
+
+``fused_attention`` keeps the probabilities in float32 for ``p·v``, as the
+Pallas kernels behind the JAX entry do, where ``attention_xla`` rounds them to
+the input type first. In float32 that is the same function; in bfloat16 the
+port is held to the Pallas kernels (interpret mode) at the tolerances above,
+and to ``attention_xla`` within two bfloat16 steps of the value or 2⁻⁸ of the
+tensor's largest entry, whichever is larger: rounding 197 probabilities to 8
+bits moves a sum of them by up to that.
 """
 
 import jax
@@ -16,9 +25,11 @@ import pytest
 import torch
 
 from ssip_tpu.ops.attention import attention_qkv_xla, attention_xla
+from ssip_tpu.ops.attention import fused_attention as jax_fused_attention
 from ssip_tpu.ops.attention import fused_attention_qkv as jax_fused_attention_qkv
 from ssip_tpu_torch.ops.attention import (
-    MAX_KERNEL_SEQ, attention_plain, attention_qkv_bwd, attention_qkv_plain, fused_attention_qkv,
+    MAX_KERNEL_SEQ, attention_bwd, attention_bwd_plain, attention_plain, attention_qkv_bwd, attention_qkv_plain,
+    attention_unrounded_plain, fused_attention, fused_attention_qkv,
 )
 
 torch.set_num_threads(2)
@@ -133,3 +144,79 @@ def test_wrapper_raises_on_wrong_operands():
     # the plain version has no sequence limit; the kernel's is checked on the card
     long = torch.zeros((1, MAX_KERNEL_SEQ + 8, 3 * 8))
     assert fused_attention_qkv(long, 1).shape == (1, MAX_KERNEL_SEQ + 8, 8)
+
+
+# (batch, heads, tokens, head width, type)
+UNPACKED_CASES = [
+    (2, 3, 11, 16, "float32"), (1, 2, 50, 64, "float32"), (2, 1, 197, 32, "float32"),
+    (2, 3, 11, 16, "bfloat16"), (1, 2, 50, 64, "bfloat16"), (1, 1, 197, 64, "bfloat16"),
+]
+
+
+def _unpacked_inputs(case, seed: int = 0):
+    b, h, s, dh, dtype = case
+    rng = np.random.default_rng(seed + b * h * s)
+    arrays = [rng.standard_normal((b, h, s, dh)).astype(np.float32) for _ in range(4)]  # q, k, v, dO
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    return [jnp.asarray(a).astype(jdt) for a in arrays], [torch.from_numpy(a).to(tdt) for a in arrays]
+
+
+def _assert_close_to_rounded_p(got, want, dtype: str, what: str) -> None:
+    """Against ``attention_xla``, which rounds ``p`` to the input type."""
+    if dtype == "float32":
+        return _assert_close(got, want, dtype, what)
+    got, want = _f32(got), _f32(want)
+    step = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    tol = np.maximum(2 * step, np.abs(want).max() * 2.0**-8)
+    assert (np.abs(got - want) <= tol).all(), (what, np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("case", UNPACKED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_unpacked_forward_matches_pallas_interpret_and_xla(case):
+    dtype = case[-1]
+    (jq, jk, jv, _), (tq, tk, tv, _) = _unpacked_inputs(case)
+    before = fused_attention.launches
+    got = fused_attention(tq, tk, tv)
+    assert fused_attention.launches == before  # a CPU call launches nothing
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _assert_close(got, jax_fused_attention(jq, jk, jv, interpret=True), dtype, "interpret")
+    _assert_close_to_rounded_p(got, attention_xla(jq, jk, jv), dtype, "xla")
+    assert torch.equal(got, attention_unrounded_plain(tq, tk, tv))  # a CPU tensor takes the plain version
+    if dtype == "float32":  # no rounding of p to speak of: the packed pair's plain version is the same function
+        _assert_close(got, attention_plain(tq, tk, tv), dtype, "attention_plain")
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("case", UNPACKED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_unpacked_gradients_match_jax_vjp(case, use_pallas):
+    """Autograd through the plain version, and the backward written out as
+    the kernel computes it, against ``jax.vjp`` of the Pallas custom VJP
+    (interpret mode) and of ``attention_xla``."""
+    dtype = case[-1]
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _unpacked_inputs(case, seed=1)
+    kwargs = {"interpret": True} if use_pallas else {"use_pallas": False}
+    _, vjp = jax.vjp(lambda *a: jax_fused_attention(*a, **kwargs), jq, jk, jv)
+    want = vjp(jdo)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    got = torch.autograd.grad(fused_attention(*leaves), leaves, tdo)
+    written_out = attention_bwd(tq, tk, tv, tdo)
+    assert all(torch.equal(a, b) for a, b in zip(written_out, attention_bwd_plain(tq, tk, tv, tdo)))
+    for name, g, w_out, w in zip("qkv", got, written_out, want):
+        assert g.dtype == w_out.dtype == tq.dtype and g.shape == tq.shape
+        _assert_grad_close(g, w, dtype, f"autograd d{name}")
+        _assert_grad_close(w_out, w, dtype, f"written out d{name}")
+
+
+def test_unpacked_wrapper_raises_on_wrong_operands():
+    q = torch.zeros((2, 2, 4, 8))
+    with pytest.raises(ValueError, match=r"q, k, v \[B, H, S, Dh\]"):
+        fused_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="one shape, type and device"):
+        fused_attention(q, q[:, :1], q)
+    with pytest.raises(ValueError, match="one shape, type and device"):
+        fused_attention(q, q, q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="one shape, type and device"):
+        attention_bwd(q, q, q, q[..., :4])
+    # the plain version has no sequence limit; the kernel's is checked on the card
+    long = torch.zeros((1, 1, MAX_KERNEL_SEQ + 8, 8))
+    assert fused_attention(long, long, long).shape == long.shape

@@ -1,4 +1,4 @@
-"""Tests of the port that need an NVIDIA GPU: the six CUDA kernels and the
+"""Tests of the port that need an NVIDIA GPU: the ten CUDA kernels and the
 pinned device feed against their plain versions, on the card.
 
 They are marked ``cuda`` and skip without a card. This file imports no jax,
@@ -8,6 +8,7 @@ so it also runs where only torch is installed:
 """
 
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -15,11 +16,14 @@ import torch
 
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
 from ssip_tpu_torch.ops.attention import (
-    MAX_KERNEL_SEQ, attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, fused_attention_qkv,
+    MAX_KERNEL_SEQ, attention_bwd, attention_bwd_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
+    attention_qkv_plain, attention_unrounded_plain, fused_attention, fused_attention_qkv,
 )
 from ssip_tpu_torch.ops.augment import augment_coeffs, train_augment
 from ssip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain
-from ssip_tpu_torch.ops.preproc import preprocess_images
+from ssip_tpu_torch.ops.preproc import preprocess_images, preprocess_quantize_images
+from ssip_tpu_torch.ops.qmlp import quantized_mlp, quantized_mlp_plain
+from ssip_tpu_torch.ops.quant import QuantSite, quantize
 from ssip_tpu_torch.ops.resize import IMAGENET_STD, extraction_preprocess
 from ssip_tpu_torch.ops.rotate import augment_images
 from ssip_tpu_torch.runtime.device import configure_precision
@@ -209,3 +213,122 @@ def test_attention_kernel_refuses_long_sequences_with_roadmap_pointer(cuda):
         fused_attention_qkv(qkv, 1)
     with pytest.raises(ValueError, match="head widths"):
         fused_attention_qkv(torch.zeros((1, 8, 3 * 16), device=cuda), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,exact",
+    [((4, 512, 512, 3), True), ((4, 384, 384, 3), False), ((4, 320, 448, 3), False)],
+)
+def test_preprocess_quantize_kernel_matches_plain_on_cuda(cuda, shape, exact):
+    """The int8 epilogue: bitwise ``quantize(extraction_preprocess(u8))`` at
+    the extraction size; at non-dyadic sizes one uint8 step before the
+    normalize is up to ``ONE_STEP·inv_scale`` int8 steps after it."""
+    configure_precision("float32")  # the plain version's matmuls in true f32
+    inv = float(np.float32(127.0 / 2.64))
+    x = torch.from_numpy(np.random.default_rng(11).integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    before = preprocess_quantize_images.launches, preprocess_images.launches
+    got = preprocess_images(x, 256, 224, quant_inv_scale=inv)
+    assert (preprocess_quantize_images.launches, preprocess_images.launches) == (before[0] + 1, before[1])
+    ref = quantize(extraction_preprocess(x, 256, 224, torch.float32), inv)
+    assert got.dtype == torch.int8 and got.shape == ref.shape
+    if exact:
+        assert torch.equal(got, ref)
+    else:
+        assert (got.int() - ref.int()).abs().max().item() <= int(ONE_STEP * inv) + 1
+
+
+def _mlp_block(rng, d: int, hidden: int, device) -> SimpleNamespace:
+    """Two int8 sites with random kernels and scales that keep the hidden
+    values O(1), as calibration would."""
+
+    def site(cin, cout, inv_scale, mult):
+        return QuantSite(
+            rng.integers(-127, 128, (cin, cout)).astype(np.int8),
+            (mult * rng.uniform(0.5, 1.5, cout)).astype(np.float32),
+            rng.normal(0.0, 0.1, cout).astype(np.float32), np.float32(inv_scale), transposed=True,
+        ).to(device)
+
+    return SimpleNamespace(
+        mlp_1=site(d, hidden, 127.0 / 4.0, 1.0 / (np.sqrt(d) * 32.0 * 73.0)),
+        mlp_2=site(hidden, d, 127.0 / 4.0, 1.0 / (np.sqrt(hidden) * 25.0 * 73.0)),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "rows,d,hidden,dtype",
+    [(300, 192, 768, torch.float32), (300, 192, 768, torch.bfloat16), (4 * 197, 768, 3072, torch.bfloat16),
+     (1000, 384, 1536, torch.float32), (33, 768, 3072, torch.float32), (1, 192, 256, torch.bfloat16)],
+)
+def test_quantized_mlp_kernel_matches_plain_on_cuda(cuda, rows, d, hidden, dtype):
+    """Integer sums are exact and every float operation is the plain
+    version's, so the outputs differ only where the two ``exp`` differ by an
+    ulp across a ``.5`` tie: at most 1e-3 of the elements off by more than
+    1e-5 (absolute and relative), none by more than ``2·127·max(m2)``."""
+    rng = np.random.default_rng(rows + d)
+    blk = _mlp_block(rng, d, hidden, cuda)
+    y = torch.from_numpy(rng.standard_normal((rows, d)).astype(np.float32)).to(cuda, dtype)
+    before = quantized_mlp.launches
+    got = quantized_mlp(y, blk)
+    torch.cuda.synchronize()
+    assert quantized_mlp.launches == before + 1
+    ref = quantized_mlp_plain(y, blk) if rows > 16 else quantized_mlp_plain(y.cpu(), SimpleNamespace(
+        mlp_1=blk.mlp_1.cpu(), mlp_2=blk.mlp_2.cpu())).to(cuda)  # the card's int8 product wants more than 16 rows
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    err = (got - ref).abs()
+    off = err > 1e-5 + 1e-5 * ref.abs()
+    assert off.float().mean().item() <= 1e-3, off.sum().item()
+    assert err.max().item() <= 2 * 127 * blk.mlp_2.mult.max().item()
+    assert ref.abs().mean().item() > 0.1  # the scales give O(1) outputs
+
+
+@pytest.mark.cuda
+def test_quantized_mlp_kernel_rejects_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    with pytest.raises(ValueError, match="stream widths"):
+        quantized_mlp(torch.zeros((32, 128), device=cuda), _mlp_block(rng, 128, 256, cuda))
+    with pytest.raises(ValueError, match="multiples of 256"):
+        quantized_mlp(torch.zeros((32, 192), device=cuda), _mlp_block(rng, 192, 384, cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quantized_mlp(torch.zeros((32, 192), device=cuda, dtype=torch.float16), _mlp_block(rng, 192, 768, cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        quantized_mlp(torch.zeros((32, 384), device=cuda)[:, ::2], _mlp_block(rng, 192, 768, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,heads,s,dh,dtype",
+    [(4, 12, 197, 64, torch.bfloat16), (2, 12, 197, 64, torch.float32), (3, 2, 50, 32, torch.float32),
+     (2, 2, MAX_KERNEL_SEQ, 64, torch.bfloat16), (2, 1, 5, 32, torch.bfloat16), (2, 3, 208, 64, torch.bfloat16)],
+)
+def test_unpacked_attention_kernels_match_plain_on_cuda(cuda, b, heads, s, dh, dtype):
+    """``fused_attention`` on q, k, v [B, H, S, Dh], and its backward through
+    autograd, against the plain versions that keep ``p`` and ``ds`` in
+    float32, at the tolerances of the packed pair."""
+    configure_precision("float32")  # the plain version's matmuls in true f32
+    rng = np.random.default_rng(b * s * heads)
+    q, k, v, d_o = (
+        torch.from_numpy(rng.standard_normal((b, heads, s, dh)).astype(np.float32)).to(cuda, dtype) for _ in range(4))
+    before = fused_attention.launches, attention_bwd.launches
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fused_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, d_o)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _assert_output_close(out.detach(), attention_unrounded_plain(q, k, v))
+    for got, ref in zip(grads, attention_bwd_plain(q, k, v, d_o)):
+        _assert_grad_close(got, ref)
+
+
+@pytest.mark.cuda
+def test_unpacked_attention_kernel_refuses_what_it_does_not_take(cuda):
+    long = torch.zeros((1, 1, MAX_KERNEL_SEQ + 1, 64), device=cuda)
+    with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 2 #5a"):
+        fused_attention(long, long, long)
+    narrow = torch.zeros((1, 1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="head widths"):
+        fused_attention(narrow, narrow, narrow)
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_attention(q, q, q.transpose(1, 2).contiguous().transpose(1, 2))
