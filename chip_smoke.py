@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction and training slices once on one NVIDIA GPU,
-for the ResNet family and the ViT family, int8 ViT extraction included.
+"""Drive the PyTorch port's extraction, training and semi-supervised slices once on
+one NVIDIA GPU, for the ResNet family and the ViT family, int8 ViT extraction included.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -22,6 +22,12 @@ non-zero without printing the final line:
    rotate  ``augment_images`` (flip → rotate → normalize): bitwise in
            float32 and bfloat16 at [128, 224, 224, 3], [16, 224, 160, 3] and
            [8, 64, 96, 3], drawn angles in ±10° and pinned ±10°, ±25°;
+   rotate_u8  ``rotate_images`` (flip → rotate, uint8 in and out): bitwise
+           against ``rotate_nearest`` at [128, 224, 224, 3], [16, 224, 160, 3],
+           [8, 64, 96, 3] and [4, 64, 36, 3], with drawn angles in ±10° (two
+           pinned at ±10°) and in ±25° (four pinned at ±10° and ±25°), flip
+           flags mixed and all off; its time is the wrapper's call, the
+           kernel's own device time is printed beside it (``torch.profiler``);
    ln      ``layer_norm`` and ``layer_norm_bwd`` at [25216, 768] and
            [26624, 768] (128 images of 197 and of 208 tokens) in bfloat16 and
            float32, [128, 768] float32 (the final LayerNorm) and
@@ -90,8 +96,33 @@ non-zero without printing the final line:
            step, peak device memory, launches per step; then 10 more steps
            under ``torch.profiler``: device time by layer, the top kernels
            and the idle share;
-8. imports no jax module and no module of the JAX package;
-9. the kernels JSON line (all ten kernels), then ``{"ok": true, "device": {...}}`` last.
+8. semi    the same labeled tree plus a flat ``sans_label/`` pool of 256
+           seeded 512² JPEGs through ``run_pipeline`` (baseline → pseudo-label
+           → head-only pretrain → FixMatch fine-tune with an EMA teacher) on
+           cuda at 224², batch 16, 2 + 1 + 2 epochs, both thresholds 0.5:
+           resnet18 in float32 and bfloat16, vit_b16 in bfloat16. Every
+           artifact is written, the histories are finite, pseudo-labels were
+           kept and the mean keep rate is above 0, after the pretrain only
+           the head differs from the seeded init while BN running means do
+           differ, both ``.pt`` load, one ``rotate_images`` launch per
+           FixMatch step and one ``augment_images`` launch per augmented
+           step, and for vit_b16 2 × 25 LayerNorm and 2 × 12 attention
+           backward launches per FixMatch step and none in the head-only
+           pretrain; then the semi-supervised CLI
+           for one epoch per phase as a subprocess (resnet18, vit_t16);
+9. fixmatch_step  one FixMatch step on cuda against the same step on the
+           CPU (float32, TF32 off, 8 labeled + 8 unlabeled, same weights and
+           draws, EMA teacher): loss ≤ 1e-5 relative, gradients ≤ 1e-2 of
+           each tensor's max and ≤ 1e-4 in L2 over all tensors (see
+           ``FIXMATCH_GRAD_RTOL``; resnet18 at the kink-free weights, its
+           stem ≤ 1e-2 in L2; vit_b16 at the seeded ones). Then the steady-state step at
+           128 + 128 in bfloat16 and float32 (3 warm-ups, 10 timed): imgs/s
+           (labeled + unlabeled), ms a step, peak memory, launches a step
+           (vit_b16: 3 × 25 and 3 × 12 forward, 2 × 25 and 2 × 12 backward),
+           the strong view's time alone and its share of the step, and a
+           ``torch.profiler`` split with the idle share;
+10. imports no jax module and no module of the JAX package;
+11. the kernels JSON line (all eleven kernels), then ``{"ok": true, "device": {...}}`` last.
 
 Needs no network and no data: everything is made from seeds. It builds the
 kernels from the checkout, so a fresh clone is enough. It imports only
@@ -157,6 +188,10 @@ KERNELS = {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
         "replaces": "ssip_tpu/ops/attention.py:109",
     },
+    "rotate_images": {
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/rotate.cu",
+        "replaces": "ssip_tpu/ops/augment.py:205",
+    },
 }
 # Data-sheet peaks of one H100 SXM, for the bounds: device memory rate, and
 # dense operation rates by operand type (float32 outside the tensor cores).
@@ -196,7 +231,12 @@ ATTN_SHAPES = (
 F32_ATOL = 2e-5
 GRAD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 AUG_SHAPES = ((128, 224, 224, 3), (16, 224, 160, 3), (8, 64, 96, 3))
+ROTATE_U8_SHAPES = AUG_SHAPES + ((4, 64, 36, 3),)  # 64 x 36: the TPU geometry has no block for it
 PINNED_DEGREES = (10.0, -10.0, 25.0, -25.0)
+POOL_IMAGES = 256  # the flat unlabeled pool of the semi-supervised runs
+SEMI_EPOCHS = (2, 1, 2)  # baseline, weak pretrain, fine-tune
+SEMI_THRESHOLD = 0.5  # pseudo-label and consistency thresholds: the seeded init keeps rows at 0.5
+SEMI_EMA_DECAY = 0.99
 TRAIN_PER_CLASS = 50  # the real labeled layout: avec_labels/{cancer,normal}, 50 + 50
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SIZE = 16, 2, 224
 STEP_CHECK_BATCH, STEP_TIMED_BATCH, STEP_WARMUP, STEP_TIMED = 8, 128, 3, 10
@@ -213,6 +253,18 @@ STEP_CHECK_BATCH, STEP_TIMED_BATCH, STEP_WARMUP, STEP_TIMED = 8, 128, 3, 10
 # perturbation), so it is held in L2. Loss, argmax and BN statistics are
 # checked at the seeded weights themselves.
 KINK_FREE_BN_BIAS = 4.0
+# The FixMatch step's gradients are held to 1e-2 of each tensor's max and to
+# 1e-4 in L2 over all of them together, not to the train step's 1e-3, and the
+# count of tensors beyond 1e-3 is printed. The step sums two views' gradients,
+# and some tensors' gradients are residues of cancelling sums. ResNet-18: at
+# kink-free weights a ReLU is all but linear, so a BatchNorm that feeds a conv
+# and another train-mode BatchNorm has a bias gradient that is zero but for
+# rounding (the next layer's batch statistics remove a mean shift):
+# layer2.0.bn1.bias differs by 3.4e-6 absolute, 7.6e-3 of a max |g| of 4.5e-4,
+# while all gradients together differ by 1.1e-6 in L2. vit_b16: the final
+# LayerNorm's bias, 1.45e-3 of its max (3.7e-6 in L2 over all tensors).
+FIXMATCH_GRAD_RTOL = 1e-2
+FIXMATCH_GRAD_L2_ALL = 1e-4
 STEM_GRAD = "conv1.weight"
 
 
@@ -255,7 +307,7 @@ def bound_ms(nbytes: float, ops: float, ops_dtype: str) -> dict:
 
 
 class LaunchCounts:
-    """The ten wrappers' launch counters: set to 0 just before a path is
+    """The eleven wrappers' launch counters: set to 0 just before a path is
     driven, read just after, summed over the paths for the kernels line."""
 
     def __init__(self):
@@ -263,14 +315,14 @@ class LaunchCounts:
         from ssip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd
         from ssip_tpu_torch.ops.preproc import preprocess_images, preprocess_quantize_images
         from ssip_tpu_torch.ops.qmlp import quantized_mlp
-        from ssip_tpu_torch.ops.rotate import augment_images
+        from ssip_tpu_torch.ops.rotate import augment_images, rotate_images
 
         self.wrappers = {
             "preprocess_images": preprocess_images, "augment_images": augment_images,
             "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd,
             "attention_qkv": fused_attention_qkv, "attention_qkv_bwd": attention_qkv_bwd,
             "preprocess_quantize": preprocess_quantize_images, "quantized_mlp": quantized_mlp,
-            "attention": fused_attention, "attention_bwd": attention_bwd,
+            "attention": fused_attention, "attention_bwd": attention_bwd, "rotate_images": rotate_images,
         }
         self.total = dict.fromkeys(self.wrappers, 0)
 
@@ -457,6 +509,63 @@ def phase_rotate_kernel(torch, np) -> dict:
         if shape == AUG_SHAPES[0]:
             result = {"max_abs_err": max(err32, err16), "ms": k_ms, "plain_ms": p_ms, **bound, "library_ms": None}
         del x, k32, k16, p32
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_rotate_u8_kernel(torch, np) -> dict:
+    """``rotate_images`` against the plain ``rotate_nearest`` on the card,
+    bitwise; times at [128, 224, 224, 3] within ±10°."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest
+    from ssip_tpu_torch.ops.rotate import rotate_images
+    from ssip_tpu_torch.runtime.prng import augment_draws
+
+    rng = np.random.default_rng(SEED + 11)
+    deg_to_rad = np.float32(np.pi / 180.0)
+    result = {}
+    for shape in ROTATE_U8_SHAPES:
+        b = shape[0]
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).cuda()
+        for max_degrees, pinned in ((10.0, PINNED_DEGREES[:2]), (25.0, PINNED_DEGREES)):
+            flip, angles = augment_draws(SEED, "smoke_u8", 0, int(max_degrees), b, max_degrees)
+            angles[: len(pinned)] = np.asarray(pinned, np.float32)[:b] * deg_to_rad
+            coeffs = torch.from_numpy(augment_coeffs(flip, angles)).cuda()
+            bare = coeffs.clone()
+            bare[2] = 0  # no flip: the bare rotation of the TPU kernel
+            for tag, c in (("flips mixed", coeffs), ("no flip", bare)):
+                got = rotate_images(x, c)
+                want = rotate_nearest(x, c)
+                torch.cuda.synchronize()
+                if got.dtype != torch.uint8 or not torch.equal(got, want):
+                    diff = int((got != want).sum().item())
+                    raise AssertionError(f"rotate kernel not bitwise equal to plain at {shape} ±{max_degrees}° "
+                                         f"({tag}): {diff} values differ")
+            say("rotate_u8", shape="x".join(map(str, shape)), max_degrees=max_degrees, tol="bitwise",
+                flips=int(flip.sum()), pinned=list(pinned[:b]), zero_fill_share=f"{(want == 0).float().mean().item():.4f}")
+        if shape == ROTATE_U8_SHAPES[0]:
+            flip, angles = augment_draws(SEED, "smoke_u8", 0, 0, b, 10.0)
+            coeffs = torch.from_numpy(augment_coeffs(flip, angles)).cuda()
+            k_ms, p_ms = timed_pair(torch, lambda: rotate_images(x, coeffs), lambda: rotate_nearest(x, coeffs))
+            # the kernel's own device time, without the wrapper's host work
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(TIMED_LAUNCHES):
+                    rotate_images(x, coeffs)
+                torch.cuda.synchronize()
+            device_us = sorted(e.time_range.end - e.time_range.start for e in prof.events()
+                               if e.device_type == torch.autograd.DeviceType.CUDA and "rotate_u8_kernel" in e.name)
+            if len(device_us) != TIMED_LAUNCHES:
+                raise AssertionError(f"torch.profiler saw {len(device_us)} rotate kernels of {TIMED_LAUNCHES}")
+            device_ms = device_us[len(device_us) // 2] / 1000.0
+            # about 25 integer operations a pixel for the index map, counted
+            # at the float32 rate: far below the bytes
+            bound = bound_ms(2 * x.numel() + coeffs.numel() * 4, 25 * x.numel() // 3, "float32")
+            say("rotate_u8", shape="x".join(map(str, shape)), ms=f"{k_ms:.4f}", kernel_device_ms=f"{device_ms:.4f}",
+                plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+                gb_per_s=f"{2 * x.numel() / device_ms / 1e6:.1f}", library="none")
+            result = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound, "library_ms": None}
+        del x
     torch.cuda.empty_cache()
     return result
 
@@ -1331,6 +1440,295 @@ def phase_vit_step(torch, np, counts: LaunchCounts) -> None:
     _timed_steps(torch, np, VIT_ARCH, counts, _VIT_PROFILE_CLASSES)
 
 
+def make_unlabeled_pool(np, train_tree: Path) -> Path:
+    """The seeded flat pool ``sans_label/`` beside the labeled tree."""
+    from PIL import Image
+
+    pool = train_tree.parent / "sans_label"
+    pool.mkdir()
+    rng = np.random.default_rng(SEED + 12)
+    for i in range(POOL_IMAGES):
+        Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(pool / f"unlabeled_{i:04d}.jpg")
+    return pool
+
+
+SEMI_ARTIFACTS = (
+    "models/baseline_resnet18.pt", "models/semi_resnet18.pt", "tables/results_comparison.csv",
+    "tables/results_comparison_detailed.csv", "tables/unlabeled_predictions_semi.csv",
+    "notes/training_history.json", "notes/operating_point.json",
+)
+
+
+def _check_semi_outputs(np, out: Path, arch: str, epochs, tag: str) -> dict:
+    """Every artifact of a semi-supervised run, its histories and its two
+    checkpoints; returns the history payload."""
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.train.checkpoints import load_checkpoint
+
+    for rel in SEMI_ARTIFACTS:
+        if not (out / rel).is_file():
+            raise AssertionError(f"{tag}: missing artifact {out / rel}")
+    payload = json.loads((out / "notes" / "training_history.json").read_text())
+    for phase, n in zip(("baseline", "semi_pretrain", "semi_finetune"), epochs):
+        hist = payload[phase]
+        if len(hist["val_loss"]) != n or not np.isfinite(hist["train_loss"] + hist["val_loss"]).all():
+            raise AssertionError(f"{tag}: {phase} history {hist}")
+    if payload["arch"] != arch or not 0 < payload["pseudo_label_count"] <= POOL_IMAGES or "splits" not in payload:
+        raise AssertionError(f"{tag}: arch {payload['arch']}, pseudo_label_count {payload['pseudo_label_count']}")
+    triage_rows = len((out / "tables" / "unlabeled_predictions_semi.csv").read_text().splitlines()) - 1
+    detailed_rows = len((out / "tables" / "results_comparison_detailed.csv").read_text().splitlines()) - 1
+    if triage_rows != POOL_IMAGES or detailed_rows != 4:
+        raise AssertionError(f"{tag}: triage rows {triage_rows}, detailed rows {detailed_rows}")
+    for name in ("baseline_resnet18.pt", "semi_resnet18.pt"):
+        load_checkpoint(out / "models" / name, build_model(arch, num_classes=2, image_size=TRAIN_SIZE))
+    return payload
+
+
+def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCounts, arch: str, dtypes, cli_arch: str) -> None:
+    """``run_pipeline`` of ``arch`` with the FixMatch fine-tune on the JPEG
+    tree and pool, once per compute type, then the semi-supervised CLI with
+    ``cli_arch`` for one epoch per phase. The pipeline's two epoch loops are
+    wrapped to read what no artifact holds: the state after the weak
+    pretrain, and the keep rates (cut from the history file)."""
+    from ssip_tpu_torch.data.discovery import labeled_folder
+    from ssip_tpu_torch.data.splits import split_dict
+    from ssip_tpu_torch.pipelines import semi_supervised as semi
+    from ssip_tpu_torch.pipelines.supervised import TrainingConfig
+    from ssip_tpu_torch.train.engine import head_only_mask
+
+    _, targets, _ = labeled_folder(data)
+    steps_per_epoch = -(-len(split_dict(targets, 0.2, 0.2, 42)["train"]) // TRAIN_BATCH)
+    real_train_model, real_train_fixmatch = semi.train_model, semi.train_fixmatch
+    seen = {}
+
+    def train_model_spy(state, *args, **kwargs):
+        before = {k: v.clone() for k, v in state.model.state_dict().items()}
+        result = real_train_model(state, *args, **kwargs)
+        if kwargs["stream_name"] == "semi_pretrain":
+            seen["mask"] = kwargs["trainable_mask"] == head_only_mask(state.model)
+            after = state.model.state_dict()
+            seen["moved"] = sorted(k for k in before if not torch.equal(before[k], after[k]))
+        return result
+
+    def train_fixmatch_spy(*args, **kwargs):
+        state, history = real_train_fixmatch(*args, **kwargs)
+        seen["keep_rate"] = float(np.mean(history["consistency_keep_rate"]))
+        seen["cons_loss"] = history["consistency_loss"]
+        return state, history
+
+    for dtype in dtypes:
+        out = tmp / f"semi_out_{arch}_{dtype}"
+        cfg = TrainingConfig(
+            strong_data_dir=data, weak_data_dir=pool, output_dir=out, device="cuda", batch_size=TRAIN_BATCH, arch=arch,
+            image_size=TRAIN_SIZE, baseline_epochs=SEMI_EPOCHS[0], weak_pretrain_epochs=SEMI_EPOCHS[1],
+            finetune_epochs=SEMI_EPOCHS[2], target_recall=0.9, compute_dtype=dtype,
+            pseudo_label_threshold=SEMI_THRESHOLD, consistency_weight=1.0, consistency_threshold=SEMI_THRESHOLD,
+            ema_decay=SEMI_EMA_DECAY,
+        )
+        seen.clear()
+        semi.train_model, semi.train_fixmatch = train_model_spy, train_fixmatch_spy
+        counts.reset()  # count only the main path's launches
+        t0 = time.perf_counter()
+        try:
+            results = semi.run_pipeline(cfg)
+        finally:
+            semi.train_model, semi.train_fixmatch = real_train_model, real_train_fixmatch
+        seconds = time.perf_counter() - t0
+        launches = counts.read()
+        tag = f"semi {arch} {dtype}"
+        payload = _check_semi_outputs(np, out, arch, SEMI_EPOCHS, tag)
+        if not (seen["keep_rate"] > 0 and np.isfinite(seen["cons_loss"]).all()):
+            raise AssertionError(f"{tag}: keep rate {seen['keep_rate']}, consistency losses {seen['cons_loss']}")
+        # after the weak pretrain: of the parameters only the head moved; a
+        # ResNet's frozen backbone still moved its BatchNorm running means
+        head = ("fc.", "heads.head.")
+        moved_params = [k for k in seen["moved"] if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+        moved_means = [k for k in seen["moved"] if k.endswith("running_mean")]
+        if not seen["mask"] or not moved_params or not all(k.startswith(head) for k in moved_params):
+            raise AssertionError(f"{tag}: the weak pretrain moved {moved_params[:6]}")
+        if arch != VIT_ARCH and not moved_means:
+            raise AssertionError(f"{tag}: the weak pretrain left every BN running mean where it was")
+        fix_steps = SEMI_EPOCHS[2] * steps_per_epoch
+        pretrain_steps = SEMI_EPOCHS[1] * -(-payload["pseudo_label_count"] // TRAIN_BATCH)
+        backward_steps = SEMI_EPOCHS[0] * steps_per_epoch + pretrain_steps + fix_steps
+        want = {"rotate_images": fix_steps, "augment_images": backward_steps}
+        if arch == VIT_ARCH:
+            # a FixMatch step's backward runs through the labeled and the
+            # strong view; the weak pretrain's stops at the head (the frozen
+            # backbone needs no gradient), so it launches no backward kernel
+            backwards = SEMI_EPOCHS[0] * steps_per_epoch + 2 * fix_steps
+            want.update(layer_norm_bwd=backwards * VIT_LN_PER_FORWARD,
+                        attention_qkv_bwd=backwards * VIT_ATTN_PER_FORWARD)
+            forwards = launches["attention_qkv"] // VIT_ATTN_PER_FORWARD
+            if forwards <= backward_steps + 2 * fix_steps or launches["layer_norm"] != forwards * VIT_LN_PER_FORWARD:
+                raise AssertionError(f"{tag}: forward launches {launches}")
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{tag}: the semi-supervised path launched {got}, expected {want}")
+        thr = results["semi_thresholded"]
+        say("semi", arch=arch, dtype=dtype, labeled=2 * TRAIN_PER_CLASS, pool=POOL_IMAGES, batch=TRAIN_BATCH,
+            epochs=SEMI_EPOCHS, seconds=f"{seconds:.2f}", pseudo_labels=payload["pseudo_label_count"],
+            fixmatch_steps=fix_steps, keep_rate=f"{seen['keep_rate']:.3f}",
+            cons_loss=f"{seen['cons_loss'][-1]:.4f}", val_loss=f"{payload['semi_finetune']['val_loss'][-1]:.4f}",
+            test_f1=f"{thr['f1']:.4f}", threshold=f"{thr['threshold']:.4f}", pretrain_moved=len(moved_params),
+            bn_means_moved=len(moved_means), launches={k: v for k, v in launches.items() if v})
+
+    out = tmp / f"semi_cli_out_{cli_arch}"
+    subprocess.run(
+        [sys.executable, "-m", "ssip_tpu_torch.cli.semi_supervised_training", "--strong-data-dir", str(data),
+         "--weak-data-dir", str(pool), "--device", "cuda", "--baseline-epochs", "1", "--weak-pretrain-epochs", "1",
+         "--finetune-epochs", "1", "--target-recall", "0.9", "--arch", cli_arch, "--pseudo-threshold",
+         str(SEMI_THRESHOLD), "--consistency-weight", "1.0", "--consistency-threshold", str(SEMI_THRESHOLD),
+         "--ema-decay", str(SEMI_EMA_DECAY), "--output-dir", str(out)],
+        cwd=Path(__file__).resolve().parent, check=True, timeout=600,
+    )
+    payload = _check_semi_outputs(np, out, cli_arch, (1, 1, 1), f"semi cli {cli_arch}")
+    say("semi", cli="semi_supervised_training", arch=cli_arch, epochs=(1, 1, 1),
+        pseudo_labels=payload["pseudo_label_count"], val_loss=f"{payload['semi_finetune']['val_loss'][0]:.4f}")
+
+
+def _fixmatch_inputs(torch, np, b: int, padded_rows: int = 0):
+    """(labeled batch, unlabeled images) on the CPU, seeded."""
+    rng = np.random.default_rng(SEED + 13 + b)
+    unlabeled = torch.from_numpy(rng.integers(0, 256, (b, TRAIN_SIZE, TRAIN_SIZE, 3), dtype=np.uint8))
+    return _step_inputs(torch, np, b, padded_rows), unlabeled
+
+
+def _one_fixmatch_step(torch, arch: str, dev, batch, unlabeled, draws, kink_free: bool = False):
+    """One float32 FixMatch step with an EMA teacher at the seeded weights on
+    ``dev``: (losses and keep rate, gradients, BN running statistics), on
+    the CPU."""
+    from ssip_tpu_torch.train.consistency import fixmatch_step, init_ema
+
+    state = _seeded_state(torch, dev, torch.float32, arch, kink_free)
+    out = fixmatch_step(
+        state, init_ema(state.model), *(t.to(dev) for t in batch), unlabeled.to(dev), draws.to(dev),
+        consistency_weight=1.0, confidence_threshold=SEMI_THRESHOLD, ema_decay=SEMI_EMA_DECAY,
+    )
+    return ([t.cpu() for t in out[:4]], {k: p.grad.cpu() for k, p in state.model.named_parameters()},
+            {k: v.cpu() for k, v in state.model.state_dict().items() if "running" in k})
+
+
+def _fixmatch_cuda_vs_cpu(torch, np, arch: str, kink_free: bool) -> dict:
+    from ssip_tpu_torch.train.consistency import epoch_view_draws
+
+    b = STEP_CHECK_BATCH
+    batch, unlabeled = _fixmatch_inputs(torch, np, b, padded_rows=1)
+    draws = epoch_view_draws(SEED, "smoke_fixmatch", 0, 1, b, b, torch.device("cpu"))[0]
+    (m_cpu, g_cpu, s_cpu), (m_gpu, g_gpu, s_gpu) = (
+        _one_fixmatch_step(torch, arch, torch.device(dev), batch, unlabeled, draws, kink_free) for dev in ("cpu", "cuda")
+    )
+    stem = STEM_GRAD if arch == "resnet18" else None
+    r = {
+        "loss": m_cpu[0].item(), "cons_loss": m_cpu[2].item(), "keep_rate": m_cpu[3].item(),
+        "loss_rel": _rel(m_gpu[0], m_cpu[0]), "keep_equal": torch.equal(m_gpu[3], m_cpu[3]),
+        "grad_rel": max(_rel(g_gpu[k], g_cpu[k]) for k in g_cpu if k != stem),
+        "grad_worst": max((k for k in g_cpu if k != stem), key=lambda k: _rel(g_gpu[k], g_cpu[k])),
+        "grads_beyond_1e_3": sum(_rel(g_gpu[k], g_cpu[k]) > 1e-3 for k in g_cpu if k != stem),
+        "grad_l2_all": float(sum((g_gpu[k] - g_cpu[k]).double().pow(2).sum() for k in g_cpu).sqrt()
+                             / sum(g_cpu[k].double().pow(2).sum() for k in g_cpu).sqrt()),
+    }
+    if stem:
+        r["stem_l2"] = float((g_gpu[stem] - g_cpu[stem]).norm() / g_cpu[stem].norm())
+        r["stat_rel"] = max(_rel(s_gpu[k], s_cpu[k]) for k in s_cpu)
+    return r
+
+
+def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes) -> None:
+    """The steady-state FixMatch step at 128 labeled + 128 unlabeled in
+    bfloat16 and float32: timed, the strong view alone beside it, then
+    profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssip_tpu_torch.ops.augment import strong_augment
+    from ssip_tpu_torch.train.consistency import epoch_view_draws, fixmatch_step, init_ema
+
+    b = STEP_TIMED_BATCH
+    dev = torch.device("cuda")
+    batch, unlabeled = _fixmatch_inputs(torch, np, b)
+    images, labels, valid = (t.to(dev) for t in batch)
+    unlabeled = unlabeled.to(dev)
+    n_steps = STEP_WARMUP + STEP_TIMED
+    draws = epoch_view_draws(SEED, "smoke_fixmatch", 1, 2 * n_steps, b, b, dev)
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        state = _seeded_state(torch, dev, dtype, arch)
+        ema = init_ema(state.model)
+
+        def step(s):
+            return fixmatch_step(state, ema, images, labels, valid, unlabeled, draws[s], consistency_weight=1.0,
+                                 confidence_threshold=SEMI_THRESHOLD, ema_decay=SEMI_EMA_DECAY)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(STEP_WARMUP):
+            step(s)
+        counts.reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for s in range(STEP_WARMUP, n_steps):
+            loss, _, cons, keep, _ = step(s)
+        end.record()
+        end.synchronize()
+        launches = {k: v / STEP_TIMED for k, v in counts.read().items() if v}
+        step_ms = start.elapsed_time(end) / STEP_TIMED
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if not (torch.isfinite(loss) and torch.isfinite(cons)):
+            raise AssertionError(f"{arch} {dtype_name} FixMatch step loss {loss.item()}, consistency {cons.item()}")
+        want = {"augment_images": 1.0, "rotate_images": 1.0}
+        if arch == VIT_ARCH:
+            want.update(layer_norm=3 * VIT_LN_PER_FORWARD, layer_norm_bwd=2 * VIT_LN_PER_FORWARD,
+                        attention_qkv=3 * VIT_ATTN_PER_FORWARD, attention_qkv_bwd=2 * VIT_ATTN_PER_FORWARD)
+        if launches != want:
+            raise AssertionError(f"{arch} {dtype_name}: launches per FixMatch step {launches}, expected {want}")
+        d = draws[0]
+        strong_ms = median_ms(torch, lambda: strong_augment(unlabeled, d.strong_coeffs, d.brightness, d.contrast,
+                                                            dtype))
+        counts.reset()  # the strong view timed alone is no launch of the path
+        say("fixmatch_step", arch=arch, dtype=dtype_name, labeled=b, unlabeled=b, timed_steps=STEP_TIMED,
+            ms_per_step=f"{step_ms:.3f}", imgs_per_s=f"{2 * b / step_ms * 1000:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
+            keep_rate=f"{keep.item():.3f}", strong_view_ms=f"{strong_ms:.4f}",
+            strong_view_share=f"{strong_ms / step_ms:.5f}", launches_per_step=launches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            for s in range(n_steps, n_steps + STEP_TIMED):
+                step(s)
+            end.record()
+            end.synchronize()
+        counts.read()
+        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_fixmatch_step_{dtype_name}", classes)
+        del state, ema
+    torch.cuda.empty_cache()
+
+
+def phase_fixmatch_step(torch, np, counts: LaunchCounts) -> None:
+    """One FixMatch step cuda vs CPU for each arch, then the steady-state
+    step."""
+    from ssip_tpu_torch.runtime.device import configure_precision
+
+    configure_precision("float32")
+    # ResNet-18: loss, keep mask and BN statistics at the seeded weights;
+    # gradients where no ReLU input sits at the kink (KINK_FREE_BN_BIAS)
+    seeded = _fixmatch_cuda_vs_cpu(torch, np, "resnet18", False)
+    shifted = _fixmatch_cuda_vs_cpu(torch, np, "resnet18", True)
+    for tag, r in (("seeded", seeded), ("kink_free", shifted)):
+        say("fixmatch_step", arch="resnet18", check=f"cuda_vs_cpu_f32_{tag}", labeled=STEP_CHECK_BATCH,
+            unlabeled=STEP_CHECK_BATCH, padded_rows=1, **r)
+    if (seeded["loss_rel"] > 1e-5 or seeded["stat_rel"] > 1e-5 or not seeded["keep_equal"]
+            or shifted["loss_rel"] > 1e-5 or shifted["grad_rel"] > FIXMATCH_GRAD_RTOL
+            or shifted["grad_l2_all"] > FIXMATCH_GRAD_L2_ALL or shifted["stem_l2"] > 1e-2):
+        raise AssertionError(f"FixMatch step cuda vs cpu out of bounds: seeded {seeded}, kink-free {shifted}")
+    _timed_fixmatch_steps(torch, np, "resnet18", counts, (("rotate kernel", ("rotate_u8_kernel",)),) + _PROFILE_CLASSES)
+
+    r = _fixmatch_cuda_vs_cpu(torch, np, VIT_ARCH, False)
+    say("fixmatch_step", arch=VIT_ARCH, check="cuda_vs_cpu_f32_seeded", labeled=STEP_CHECK_BATCH,
+        unlabeled=STEP_CHECK_BATCH, padded_rows=1, **r)
+    if (r["loss_rel"] > 1e-5 or r["grad_rel"] > FIXMATCH_GRAD_RTOL or r["grad_l2_all"] > FIXMATCH_GRAD_L2_ALL
+            or not r["keep_equal"]):
+        raise AssertionError(f"{VIT_ARCH} FixMatch step cuda vs cpu out of bounds: {r}")
+    _timed_fixmatch_steps(torch, np, VIT_ARCH, counts, (("rotate kernel", ("rotate_u8_kernel",)),) + _VIT_PROFILE_CLASSES)
+
+
 def phase_imports() -> None:
     """The run loaded nothing of jax and nothing of the JAX package: the
     port keeps its own copies of the jax-free modules it needs."""
@@ -1355,7 +1753,8 @@ def main() -> int:
     counts = LaunchCounts()
     measured = {**phase_kernel(torch, np), "augment_images": phase_rotate_kernel(torch, np),
                 **phase_layer_norm_kernels(torch, np), **phase_attention_kernels(torch, np),
-                **phase_qmlp_kernel(torch, np), **phase_unpacked_attention_kernels(torch, np)}
+                **phase_qmlp_kernel(torch, np), **phase_unpacked_attention_kernels(torch, np),
+                "rotate_images": phase_rotate_u8_kernel(torch, np)}
     phase_attention_entry(torch, np, counts)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
@@ -1370,10 +1769,14 @@ def main() -> int:
                     (("float32", TRAIN_EPOCHS), ("bfloat16", TRAIN_EPOCHS)), "resnet18")
         phase_train(torch, np, tmp, train_tree, counts, VIT_ARCH,
                     (("bfloat16", TRAIN_EPOCHS), ("float32", 1)), "vit_t16")
+        pool = make_unlabeled_pool(np, train_tree)
+        phase_semi(torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"), "resnet18")
+        phase_semi(torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_step(torch, np, counts)
     phase_vit_step(torch, np, counts)
+    phase_fixmatch_step(torch, np, counts)
     phase_imports()
     never = [name for name, n in counts.total.items() if n == 0]
     if never:

@@ -1,0 +1,60 @@
+"""CLI: semi-supervised training pipeline on PyTorch (CUDA or CPU).
+
+Counterpart of ``src/semi_supervised_training.py``, with the same flags and
+defaults (copied here: that module imports the JAX pipeline) and the shared
+flags of ``cli/supervised_training.py``. Flags whose code paths are not
+ported yet are accepted by the parser and refused with an error naming the
+ROADMAP entry: ``--strong-augment randaugment`` and what the supervised CLI
+refuses (``--resume``, ``--num-seeds > 1``, ``--cv-folds``,
+``--mesh-model > 1``, ``--fsdp`` and the MoE archs).
+
+    python -m ssip_tpu_torch.cli.semi_supervised_training \\
+        --strong-data-dir DATA/avec_labels --weak-data-dir DATA/sans_label --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from pathlib import Path
+
+from ssip_tpu_torch.cli.supervised_training import add_common_training_flags, config_from_args
+from ssip_tpu_torch.pipelines.semi_supervised import run_pipeline
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--strong-data-dir", type=Path, required=True)
+    parser.add_argument("--weak-data-dir", type=Path, required=True)
+    add_common_training_flags(parser)
+    parser.add_argument("--weak-pretrain-epochs", type=int, default=5)
+    parser.add_argument("--finetune-epochs", type=int, default=8)
+    parser.add_argument("--pseudo-threshold", type=float, default=0.7)
+    parser.add_argument("--unlabeled-cohort-csv", type=Path, default=None)
+    parser.add_argument(
+        "--consistency-weight", type=float, default=0.0,
+        help="FixMatch-style augmentation-consistency loss weight during "
+        "fine-tuning (0 = off, reference-equivalent)",
+    )
+    parser.add_argument("--consistency-threshold", type=float, default=0.95)
+    parser.add_argument(
+        "--strong-augment", choices=("jitter", "randaugment"), default="jitter",
+        help="strong view for the consistency loss: 'jitter' (flip/rotate/"
+        "brightness/contrast); 'randaugment' is not ported yet",
+    )
+    parser.add_argument(
+        "--ema-decay", type=float, default=0.0,
+        help="Mean-Teacher EMA decay for the consistency pseudo-target "
+        "teacher (0 = off, teacher is the live student; 0.999 typical). "
+        "Validation and the returned best model follow the EMA average.",
+    )
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    print(run_pipeline(config_from_args(parse_args(argv))))
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,7 @@ artifact contract — ``embeddings.csv`` row order must be reproducible —
 so everything is sorted (semantics: reference feature_extraction.py:125-181).
 
 The port's own copy of ``ssip_tpu/data/discovery.py`` (the port imports
-nothing of the JAX package), without ``unlabeled_files``, which no ported
-pipeline reads yet.
+nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -91,6 +90,16 @@ def labeled_folder(root: Path) -> Tuple[List[Path], List[int], List[str]]:
     if not paths:
         raise RuntimeError(f"No images found under {root}")
     return paths, targets, classes
+
+
+def unlabeled_files(root: Path) -> List[Path]:
+    """Flat unlabeled dir with suffix filter, sorted."""
+    root = Path(root)
+    if not root.exists():
+        raise FileNotFoundError(f"Unlabeled directory not found: {root}")
+    return sorted(
+        p for p in root.iterdir() if p.is_file() and p.suffix.lower() in IMAGE_SUFFIXES
+    )
 
 
 def compute_dataset_digest(records: Sequence[ImageRecord]) -> str:

@@ -1,12 +1,16 @@
 """Training augmentations: the plain PyTorch versions.
 
 Counterpart of ``ssip_tpu/ops/augment.py:22-81`` (``random_flip``,
-``_rotation_index_map``, ``_rotate_gather``) and ``:391-404``
-(``train_augment``, ``eval_preprocess``). The random draws are inputs here:
-a flip flag and an angle per image (``runtime/prng.py:augment_draws`` makes
-them), so each op is held bit for bit to the JAX package given the same
-draws. ``ops/rotate.py:augment_images`` runs ``train_augment`` as one CUDA
-kernel on the card and calls this module for a tensor on the CPU.
+``_rotation_index_map``, ``_rotate_gather``), ``:391-404``
+(``train_augment``, ``eval_preprocess``) and ``:407-426`` (the FixMatch views
+``weak_augment`` and ``strong_augment``). The random draws are inputs here:
+a flip flag and an angle per image, and a brightness and a contrast for the
+strong view (``runtime/prng.py`` makes them), so each op is held to the JAX
+package given the same draws: bit for bit, except the strong view's jitter,
+whose per-image mean sums in another order. ``ops/rotate.py`` runs
+``train_augment`` (``augment_images``) and ``rotate_nearest``
+(``rotate_images``) as one CUDA kernel each on the card and calls this module
+for a tensor on the CPU.
 
 The rotation index map is the JAX package's fixed-point one: ``cos`` and
 ``sin`` quantized once per image to 2⁻¹⁶ (``augment_coeffs``), then int32
@@ -104,6 +108,15 @@ def random_flip(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
     return torch.where(flip.to(torch.bool)[:, None, None, None], images.flip(2), images)
 
 
+def rotate_nearest(images_u8: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """flip → nearest-neighbour rotation (zero fill), uint8 NHWC in and out:
+    ``random_flip`` then ``random_rotate_nearest`` given the draws. The plain
+    version of ``ops/rotate.py:rotate_images``."""
+    _, h, w, _ = images_u8.shape
+    x = random_flip(images_u8, coeffs[2])
+    return rotate_gather(x, *rotation_index_map(coeffs[0], coeffs[1], h, w))
+
+
 def train_augment(images_u8: torch.Tensor, coeffs: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """flip → nearest-neighbour rotation (zero fill) → ImageNet-normalize.
 
@@ -115,6 +128,38 @@ def train_augment(images_u8: torch.Tensor, coeffs: torch.Tensor, dtype=torch.flo
     x = random_flip(images_u8, coeffs[2])
     iy, ix, valid = rotation_index_map(coeffs[0], coeffs[1], h, w)
     return normalize_imagenet_u8(rotate_gather(x, iy, ix, valid), dtype=dtype)
+
+
+def weak_augment(images_u8: torch.Tensor, flip: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """FixMatch weak view: horizontal flip only → normalize."""
+    return normalize_imagenet_u8(random_flip(images_u8, flip), dtype=dtype)
+
+
+def strong_augment(
+    images_u8: torch.Tensor,
+    coeffs: torch.Tensor,
+    brightness: torch.Tensor,
+    contrast: torch.Tensor,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """FixMatch strong view: flip → rotate → brightness and contrast jitter
+    about the rotated image's own mean → clip to [0, 255] → normalize.
+
+    ``coeffs`` is ``augment_coeffs`` of the view's flips and angles;
+    ``brightness`` (U(−32, 32)) and ``contrast``
+    (U(0.7, 1.3)) are float32 [B] on the images' device. The rotation is
+    ``ops/rotate.py:rotate_images``: the CUDA kernel on the card,
+    ``rotate_nearest`` on the CPU. The mean is over H, W and C in float32;
+    the jitter and the normalize stay plain PyTorch (plain XLA in the JAX
+    package); bfloat16 is the float32 result rounded.
+    """
+    from ssip_tpu_torch.ops.rotate import rotate_images  # it imports this module
+
+    x = rotate_images(images_u8, coeffs).to(torch.float32)
+    mean = x.mean(dim=(1, 2, 3), keepdim=True)
+    shape = (-1, 1, 1, 1)
+    x = ((x - mean) * contrast.view(shape) + mean + brightness.view(shape)).clamp(0.0, 255.0)
+    return normalize_imagenet_u8(x, dtype=dtype)
 
 
 def eval_preprocess(images_u8: torch.Tensor, dtype=torch.float32) -> torch.Tensor:

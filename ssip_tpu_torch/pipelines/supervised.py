@@ -9,6 +9,10 @@ test eval → ``models/baseline_resnet18.pt``,
 ``tables/results_comparison.csv`` and ``notes/training_history.json``, at
 the paths ``ArtifactRegistry`` names and with the JAX run's schemas.
 
+``pipelines/semi_supervised.py`` runs this baseline as its phase A and shares
+``build_classifier_state``, ``prepare_datasets``, ``threshold_and_eval`` and
+``write_results_csv`` with it.
+
 Not ported yet, refused with an error naming the ROADMAP entry: ``--resume``
 snapshots, the seed and cross-validation fan-outs, tensor parallelism and
 FSDP, and the MoE archs. The four training figures
@@ -21,11 +25,13 @@ import csv
 import json
 import os
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ssip_tpu_torch.data.splits import split_dict
 from ssip_tpu_torch.models.host_init import seeded_init_host
@@ -99,14 +105,78 @@ def prepare_datasets(
     return datasets, classes, splits
 
 
-def _write_results_csv(path: Path, name: str, row: Dict) -> None:
-    """``pandas.DataFrame.from_dict({name: row}, orient="index").to_csv(path)``'s
-    text for a row of floats, strings and None, without pandas."""
+def write_results_csv(path: Path, rows: Dict[str, Dict[str, Any]]) -> None:
+    """``pandas.DataFrame.from_dict(rows, orient="index").to_csv(path)``'s
+    text for rows of numbers, strings and None, without pandas: the union of
+    the rows' keys in first-seen order, an empty cell for a missing key and
+    for None."""
+    columns: List[str] = []
+    for row in rows.values():
+        columns.extend(key for key in row if key not in columns)
     path.parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w", newline="") as fh:
         writer = csv.writer(fh, lineterminator="\n")
-        writer.writerow(["", *row])
-        writer.writerow([name, *row.values()])
+        writer.writerow(["", *columns])
+        for name, row in rows.items():
+            writer.writerow([name, *(row.get(key) for key in columns)])
+
+
+@dataclass
+class EvalPair:
+    """The argmax and the thresholded test evaluation of one model."""
+
+    arg_metrics: Dict[str, Any]
+    arg_y_true: np.ndarray
+    arg_y_pred: np.ndarray
+    threshold: Optional[float]  # None without ``target_recall``
+    thr_metrics: Dict[str, Any]
+    thr_y_true: np.ndarray
+    thr_y_pred: np.ndarray
+
+
+def threshold_and_eval(
+    model: nn.Module, datasets: Dict[str, DeviceDataset], config: TrainingConfig, pos_index: int, label: str,
+    arg_extras: Optional[Dict[str, float]] = None,
+) -> EvalPair:
+    """Evaluate ``model`` on the test split by argmax and at its operating
+    threshold. With ``target_recall`` the threshold is calibrated on the
+    validation split (``select_operating_threshold``); without it the
+    thresholded metrics are the argmax ones. ``arg_extras`` joins the argmax
+    metrics before the thresholded ones derive from them."""
+    arg_metrics, arg_y_true, arg_y_pred, _ = evaluate_model(model, datasets["test"], config.batch_size)
+    arg_metrics.update(arg_extras or {})
+    if config.target_recall is not None:
+        _m, y_true_val, _p, y_prob_val = evaluate_model(
+            model, datasets["val"], config.batch_size, pos_index=pos_index
+        )
+        thr, thr_meta = select_operating_threshold(
+            (y_true_val == pos_index).astype(int),
+            y_prob_val,
+            target_recall=float(config.target_recall),
+            min_precision=config.min_precision,
+            max_fpr=config.max_fpr,
+            f_beta=config.f_beta,
+        )
+        thr_metrics, thr_y_true, thr_y_pred, _ = evaluate_model(
+            model, datasets["test"], config.batch_size, pos_index=pos_index, threshold=thr
+        )
+        thr_metrics.update(
+            threshold=float(thr),
+            target_recall=float(config.target_recall),
+            min_precision=None if config.min_precision is None else float(config.min_precision),
+            max_fpr=None if config.max_fpr is None else float(config.max_fpr),
+            threshold_policy=thr_meta.get("policy", "unknown"),
+        )
+        LOGGER.info("%s operating point: thr=%.4f policy=%s", label, thr, thr_meta.get("policy"))
+    else:
+        thr = None
+        thr_metrics = dict(arg_metrics)
+        thr_metrics.update(
+            threshold=None, target_recall=None, min_precision=None,
+            max_fpr=None, threshold_policy="disabled",
+        )
+        thr_y_true, thr_y_pred = arg_y_true, arg_y_pred
+    return EvalPair(arg_metrics, arg_y_true, arg_y_pred, thr, thr_metrics, thr_y_true, thr_y_pred)
 
 
 def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
@@ -141,42 +211,13 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_time = time.time() - t0
-    model = state.model
-
-    arg_metrics, *_ = evaluate_model(model, datasets["test"], config.batch_size)
-    arg_metrics["training_time_sec"] = train_time
-
-    if config.target_recall is not None:
-        _m, y_true_val, _p, y_prob_val = evaluate_model(
-            model, datasets["val"], config.batch_size, pos_index=pos_index
-        )
-        thr, thr_meta = select_operating_threshold(
-            (y_true_val == pos_index).astype(int),
-            y_prob_val,
-            target_recall=float(config.target_recall),
-            min_precision=config.min_precision,
-            max_fpr=config.max_fpr,
-            f_beta=config.f_beta,
-        )
-        thr_metrics, _, _, _ = evaluate_model(
-            model, datasets["test"], config.batch_size, pos_index=pos_index, threshold=thr
-        )
-        thr_metrics.update(
-            threshold=float(thr),
-            target_recall=float(config.target_recall),
-            min_precision=None if config.min_precision is None else float(config.min_precision),
-            max_fpr=None if config.max_fpr is None else float(config.max_fpr),
-            threshold_policy=thr_meta.get("policy", "unknown"),
-        )
-    else:
-        thr_metrics = dict(arg_metrics)
-        thr_metrics.update(
-            threshold=None, target_recall=None, min_precision=None,
-            max_fpr=None, threshold_policy="disabled",
-        )
+    evals = threshold_and_eval(
+        state.model, datasets, config, pos_index, "baseline", arg_extras={"training_time_sec": train_time}
+    )
+    arg_metrics, thr_metrics = evals.arg_metrics, evals.thr_metrics
     thr_metrics["training_time_sec"] = train_time
 
-    _write_results_csv(reg.results_comparison_csv, "baseline_thresholded", thr_metrics)
+    write_results_csv(reg.results_comparison_csv, {"baseline_thresholded": thr_metrics})
 
     # split indices for post-hoc tooling (the threshold sweep)
     reg.notes_dir.mkdir(parents=True, exist_ok=True)

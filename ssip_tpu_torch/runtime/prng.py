@@ -12,11 +12,14 @@ from a ``host_rng`` stream named after the same (stream, epoch, step)
 instead. The draws are made on the CPU and handed to the device, so a CPU
 run and a CUDA run of one seed see the same flips and angles; against the
 JAX package, whole runs are held to a metric envelope, not to bits.
+``fixmatch_draws`` does the same for the three views of a FixMatch step
+(``ssip_tpu/train/consistency.py:73`` splits the step's key three ways).
 """
 
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -41,9 +44,47 @@ def augment_draws(
     Bernoulli(0.5) flips and U(−d, d)·π/180 angles computed in float32, as
     ``ssip_tpu/ops/augment.py:24,374-376`` draws them.
     """
-    rng = host_rng(seed, f"{stream}/aug/{epoch}/{step}")
+    return _flips_and_angles(host_rng(seed, f"{stream}/aug/{epoch}/{step}"), batch, max_degrees)
+
+
+def _uniform(rng: np.random.Generator, n: int, lo: float, hi: float) -> np.ndarray:
+    """float32 U(lo, hi) as ``jax.random.uniform`` shapes it: the affine map
+    of a float32 U(0, 1), clamped below at ``lo``."""
+    lo, hi = np.float32(lo), np.float32(hi)
+    return np.maximum(rng.random(n, dtype=np.float32) * (hi - lo) + lo, lo)
+
+
+def _flips_and_angles(rng: np.random.Generator, batch: int, max_degrees: float):
     flip = rng.random(batch) < 0.5
-    d = np.float32(max_degrees)
-    u = rng.random(batch, dtype=np.float32)
-    degrees = np.maximum(u * (d - (-d)) + (-d), -d)  # jax.random.uniform's affine + clamp
-    return flip, (degrees * _DEG_TO_RAD).astype(np.float32)
+    return flip, (_uniform(rng, batch, -max_degrees, max_degrees) * _DEG_TO_RAD).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class FixMatchDraws:
+    """One FixMatch step's draws, all on the host."""
+
+    sup_flip: np.ndarray  # bool [B], the labeled batch's train augment
+    sup_angles: np.ndarray  # float32 [B], radians
+    weak_flip: np.ndarray  # bool [U]
+    strong_flip: np.ndarray  # bool [U]
+    strong_angles: np.ndarray  # float32 [U], radians
+    brightness: np.ndarray  # float32 [U], U(−32, 32)
+    contrast: np.ndarray  # float32 [U], U(0.7, 1.3)
+
+
+def fixmatch_draws(
+    seed: int, stream: str, epoch: int, step: int, batch: int, unlabeled_batch: int, max_degrees: float = 10.0
+) -> FixMatchDraws:
+    """The draws of ``ssip_tpu/ops/augment.py``'s ``train_augment`` (labeled
+    batch), ``weak_augment`` and ``strong_augment`` (unlabeled batch) for one
+    step, each view from its own ``host_rng`` stream named after
+    (stream, epoch, step, view)."""
+    base = f"{stream}/aug/{epoch}/{step}"
+    sup_flip, sup_angles = _flips_and_angles(host_rng(seed, f"{base}/sup"), batch, max_degrees)
+    weak_flip = host_rng(seed, f"{base}/weak").random(unlabeled_batch) < 0.5
+    rng = host_rng(seed, f"{base}/strong")
+    strong_flip, strong_angles = _flips_and_angles(rng, unlabeled_batch, max_degrees)
+    return FixMatchDraws(
+        sup_flip, sup_angles, weak_flip, strong_flip, strong_angles,
+        _uniform(rng, unlabeled_batch, -32.0, 32.0), _uniform(rng, unlabeled_batch, 0.7, 1.3),
+    )

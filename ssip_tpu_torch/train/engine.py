@@ -23,17 +23,23 @@ Counterpart of ``ssip_tpu/train/engine.py``: the train state and optimizer
   ``state_dict()`` aliases the live tensors, which is the reference bug
   ``ssip_tpu/train/engine.py:449-458`` documents.
 
-Not in this slice: ``trainable_mask`` (weak pretrain), the mesh and FSDP,
-``resume_path`` snapshots, and the fused whole-epoch program (a Python loop
-over steps takes its place).
+- ``trainable_mask`` (parameter name → bool, ``head_only_mask`` for the
+  weak pretrain) freezes by gradient, not by eval mode, as ``_step_core``
+  does: the model stays in train mode, so a frozen backbone's BatchNorm
+  running statistics still move, while a frozen parameter gets no gradient
+  and hence no AdamW update and no decoupled weight decay.
+
+Not ported: the mesh and FSDP, ``resume_path`` snapshots, and the fused
+whole-epoch program (a Python loop over steps takes its place).
 """
 
 from __future__ import annotations
 
 import copy
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,19 +110,57 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torc
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+HEAD_PREFIXES = ("fc.", "heads.head.")  # a ResNet's classifier, a ViT's
+
+
+def head_only_mask(model: nn.Module) -> Dict[str, bool]:
+    """Parameter name → trainable, true for the classifier head alone: the
+    JAX pipeline's mask "top-level key ``fc``"
+    (``ssip_tpu/pipelines/semi_supervised.py:259-262``); its ViT names the
+    head ``fc`` too, which the port carries as ``heads.head``."""
+    mask = {name: name.startswith(HEAD_PREFIXES) for name, _ in model.named_parameters()}
+    if not any(mask.values()):
+        raise ValueError("the model has no classifier head (fc or heads.head) to train")
+    return mask
+
+
+@contextmanager
+def only_trainable(model: nn.Module, trainable_mask: Optional[Dict[str, bool]]) -> Iterator[None]:
+    """Within the block the parameters whose mask entry is false record no
+    gradient (``requires_grad`` off, restored after), so the backward pass
+    skips them and AdamW, which skips a parameter without a gradient, leaves
+    them bit for bit as they were: no update, no weight decay."""
+    if trainable_mask is None:
+        yield
+        return
+    named = dict(model.named_parameters())
+    if set(named) != set(trainable_mask):
+        raise ValueError("trainable_mask must name exactly the model's parameters")
+    before = {name: p.requires_grad for name, p in named.items()}
+    try:
+        for name, p in named.items():
+            p.requires_grad_(bool(trainable_mask[name]))
+        yield
+    finally:
+        for name, p in named.items():
+            p.requires_grad_(before[name])
+
+
 def train_step(
     state: TrainState,
     images_u8: torch.Tensor,
     labels: torch.Tensor,
     valid: torch.Tensor,
     coeffs: Optional[torch.Tensor],
+    trainable_mask: Optional[Dict[str, bool]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step; returns (loss, argmax predictions), on the device.
 
     ``coeffs`` is the int32 [3, B] augmentation of ``ops/augment.py:
     augment_coeffs`` on the images' device, or None for no augmentation
     (the eval normalize). The model runs in train mode with ``mask=valid``;
-    parameter gradients are left in ``.grad`` after the step.
+    parameter gradients are left in ``.grad`` after the step (None for a
+    parameter that ``trainable_mask`` freezes).
     """
     model = state.model
     model.train()
@@ -124,10 +168,11 @@ def train_step(
         x = eval_preprocess(images_u8, model.compute_dtype)
     else:
         x = augment_images(images_u8, coeffs, model.compute_dtype)
-    logits = model(x, mask=valid)
-    loss = masked_cross_entropy(logits, labels, valid)
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with only_trainable(model, trainable_mask):
+        logits = model(x, mask=valid)
+        loss = masked_cross_entropy(logits, labels, valid)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
     state.optimizer.step()
     state.step += 1
     return loss.detach(), logits.detach().argmax(dim=1)
@@ -178,7 +223,7 @@ def epoch_plan(
 
 def run_train_epoch(
     state: TrainState, dataset: DeviceDataset, pidx: np.ndarray, valid: np.ndarray,
-    coeffs: Optional[np.ndarray],
+    coeffs: Optional[np.ndarray], trainable_mask: Optional[Dict[str, bool]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Every step of one epoch plan; (per-step losses, predictions [steps, B])."""
     dev = dataset.images_u8.device
@@ -190,7 +235,7 @@ def run_train_epoch(
         idx = pidx_dev[s]
         loss, pred = train_step(
             state, dataset.images_u8[idx], dataset.labels_dev[idx], valid_dev[s],
-            None if coeffs_dev is None else coeffs_dev[s],
+            None if coeffs_dev is None else coeffs_dev[s], trainable_mask,
         )
         losses.append(loss)
         preds.append(pred)
@@ -222,7 +267,7 @@ def run_eval_epoch(
 
 
 @dataclass
-class _Snapshot:
+class Snapshot:
     """A copy of the train state, taken at a new best validation loss."""
 
     step: int
@@ -230,7 +275,7 @@ class _Snapshot:
     optimizer: dict
 
     @classmethod
-    def take(cls, state: TrainState) -> "_Snapshot":
+    def take(cls, state: TrainState) -> "Snapshot":
         return cls(
             state.step,
             {k: v.detach().clone() for k, v in state.model.state_dict().items()},
@@ -258,6 +303,7 @@ def train_model(
     plateau_patience: int = 2,
     plateau_factor: float = 0.5,
     checkpoint_fn: Optional[Callable[[TrainState], None]] = None,
+    trainable_mask: Optional[Dict[str, bool]] = None,
 ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """Epoch driver with reference-parity control flow (common.py:345-432).
 
@@ -265,12 +311,13 @@ def train_model(
     validation loss (parameters, BN statistics where the model has them, optimizer moments and
     learning rate, step count), with the per-epoch history.
     ``checkpoint_fn(state)`` runs at each new best, as in the JAX package.
+    ``trainable_mask`` freezes the parameters it marks false (``only_trainable``).
     """
     history: Dict[str, List[float]] = {
         "train_loss": [], "val_loss": [], "train_acc": [],
         "val_acc": [], "train_f1": [], "val_f1": [],
     }
-    best = _Snapshot.take(state)
+    best = Snapshot.take(state)
     best_val_loss = math.inf
     early_patience = 0
     plateau_best = math.inf
@@ -281,7 +328,9 @@ def train_model(
             train_dataset, seed=seed, epoch=epoch, stream_name=stream_name,
             balanced=balanced, batch_size=batch_size,
         )
-        losses, preds = run_train_epoch(state, train_dataset, pidx, valid, coeffs if augment else None)
+        losses, preds = run_train_epoch(
+            state, train_dataset, pidx, valid, coeffs if augment else None, trainable_mask
+        )
         train_loss = float(np.mean(losses))
         valid_flat = valid.reshape(-1)
         train_acc, train_f1 = accuracy_f1(
@@ -319,7 +368,7 @@ def train_model(
 
         if val_loss < best_val_loss:
             best_val_loss = val_loss
-            best = _Snapshot.take(state)
+            best = Snapshot.take(state)
             early_patience = 0
             if checkpoint_fn is not None:
                 checkpoint_fn(state)

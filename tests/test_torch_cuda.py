@@ -1,4 +1,4 @@
-"""Tests of the port that need an NVIDIA GPU: the ten CUDA kernels and the
+"""Tests of the port that need an NVIDIA GPU: the eleven CUDA kernels and the
 pinned device feed against their plain versions, on the card.
 
 They are marked ``cuda`` and skip without a card. This file imports no jax,
@@ -19,13 +19,13 @@ from ssip_tpu_torch.ops.attention import (
     MAX_KERNEL_SEQ, attention_bwd, attention_bwd_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
     attention_qkv_plain, attention_unrounded_plain, fused_attention, fused_attention_qkv,
 )
-from ssip_tpu_torch.ops.augment import augment_coeffs, train_augment
+from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest, strong_augment, train_augment
 from ssip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain
 from ssip_tpu_torch.ops.preproc import preprocess_images, preprocess_quantize_images
 from ssip_tpu_torch.ops.qmlp import quantized_mlp, quantized_mlp_plain
 from ssip_tpu_torch.ops.quant import QuantSite, quantize
 from ssip_tpu_torch.ops.resize import IMAGENET_STD, extraction_preprocess
-from ssip_tpu_torch.ops.rotate import augment_images
+from ssip_tpu_torch.ops.rotate import augment_images, rotate_images
 from ssip_tpu_torch.runtime.device import configure_precision
 from ssip_tpu_torch.runtime.prng import augment_draws
 
@@ -109,6 +109,75 @@ def test_augment_kernel_rejects_non_contiguous(cuda):
     coeffs = torch.from_numpy(augment_coeffs(np.zeros(2, bool), np.zeros(2, np.float32))).to(cuda)
     with pytest.raises(ValueError, match="contiguous"):
         augment_images(x[:, ::2], coeffs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,max_degrees",
+    [((8, 224, 224, 3), 10.0), ((4, 224, 160, 3), 25.0), ((3, 64, 96, 3), 10.0), ((4, 64, 36, 3), 25.0),
+     ((2, 37, 129, 3), 45.0), ((2, 16, 64, 3), 180.0), ((3, 5, 3, 3), 10.0)],
+)
+def test_rotate_kernel_matches_plain_on_cuda(cuda, shape, max_degrees):
+    """flip → rotate, uint8 in and out: bitwise equal to ``rotate_nearest``
+    at drawn angles with the first two pinned at ±``max_degrees`` (up to a
+    half turn: the shared window holds any angle's sources), ragged edge
+    tiles and a width the TPU geometry has no block for (64 × 36) included."""
+    b = shape[0]
+    flip, angles = augment_draws(0, "test", 0, 1, b, max_degrees)
+    angles[:2] = np.float32([max_degrees, -max_degrees]) * np.float32(np.pi / 180.0)
+    coeffs = torch.from_numpy(augment_coeffs(flip, angles)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(6).integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    before = rotate_images.launches
+    got = rotate_images(x, coeffs)
+    torch.cuda.synchronize()
+    assert rotate_images.launches == before + 1
+    assert got.dtype == torch.uint8 and torch.equal(got, rotate_nearest(x, coeffs))
+    bare = coeffs.clone()
+    bare[2] = 0  # no flip: the bare rotation of the TPU kernel
+    assert torch.equal(rotate_images(x, bare), rotate_nearest(x, bare))
+
+
+@pytest.mark.cuda
+def test_rotate_kernel_gathers_from_global_memory_when_the_window_is_too_large(cuda):
+    """Coefficients that are no rotation (the map zooms out by 3) ask for a
+    source window beyond the shared one: those tiles gather from global
+    memory, and still equal the plain version bit for bit."""
+    x = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (3, 64, 160, 3), dtype=np.uint8)).to(cuda)
+    coeffs = torch.tensor([[3 << 16, 2 << 16, 1 << 16], [1 << 16, -(1 << 15), 0], [1, 0, 1]], dtype=torch.int32).to(cuda)
+    assert torch.equal(rotate_images(x, coeffs), rotate_nearest(x, coeffs))
+
+
+@pytest.mark.cuda
+def test_rotate_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
+    angles = np.float32([12.0, 0.0]) * np.float32(np.pi / 180.0)
+    coeffs = torch.from_numpy(augment_coeffs(np.zeros(2, bool), angles)).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rotate_images(x[:, ::2], coeffs)
+    with pytest.raises(ValueError, match="coeffs"):
+        rotate_images(x, coeffs.cpu())
+    assert rotate_images(x[:0], coeffs[:, :0]).shape == (0, 16, 16, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strong_augment_on_cuda_matches_cpu(cuda, dtype):
+    """The strong view on the card (rotation kernel, then the jitter in
+    plain PyTorch) against the same view on the CPU: the mean sums in
+    another order, so float32 within 1e-4 and bfloat16 within one step."""
+    b = 4
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(0, 256, (b, 96, 80, 3), dtype=np.uint8))
+    flip, angles = augment_draws(0, "test", 0, 2, b, 10.0)
+    coeffs = torch.from_numpy(augment_coeffs(flip, angles))
+    bright = torch.from_numpy(rng.uniform(-32, 32, b).astype(np.float32))
+    contrast = torch.from_numpy(rng.uniform(0.7, 1.3, b).astype(np.float32))
+    before = rotate_images.launches
+    got = strong_augment(x.to(cuda), coeffs.to(cuda), bright.to(cuda), contrast.to(cuda), dtype)
+    assert rotate_images.launches == before + 1
+    want = strong_augment(x, coeffs, bright, contrast, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=0, atol=tol)
 
 
 # Kernel and plain version sum in another order, so they are held to:

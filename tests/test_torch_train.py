@@ -277,7 +277,7 @@ def _port_driver(monkeypatch, script, num_epochs):
     calls = iter(script)
     monkeypatch.setattr(engine, "run_eval_epoch", lambda *a, **k: (next(calls), np.zeros(2, int), np.zeros(2, int), None))
 
-    def fake_epoch(state, dataset, pidx, valid, coeffs):
+    def fake_epoch(state, dataset, pidx, valid, coeffs, trainable_mask=None):
         with torch.no_grad():
             for p in state.model.parameters():
                 p.add_(1.0)
