@@ -34,8 +34,12 @@ non-zero without printing the final line:
            [1001, 384] (a row count that is no multiple of the block);
    attn    ``fused_attention_qkv`` and ``attention_qkv_bwd`` at
            [128, 197, 2304] and at [128, 208, 2304] with ``kv_len`` 197, in
-           bfloat16 and float32, and at the 3 heads of vit_t16; pad-query
-           rows are compared too and get a non-zero dO.
+           bfloat16 (the kernels of ``csrc/attention_mma.cu``, products on
+           the tensor cores but the forward's scores) and float32 (the
+           scalar ones of ``csrc/attention.cu``), and at the 3 heads of vit_t16;
+           pad-query rows are compared too and get a non-zero dO; for the
+           bfloat16 rows also bytes/s and bound/time, and ptxas's registers,
+           shared memory and spills of the two tensor-core kernels.
    qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
            float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
            off the plain version by more than 1e-5 (absolute and relative),
@@ -133,6 +137,7 @@ optax or any module of the JAX package (``ssip_tpu``).
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -147,6 +152,11 @@ BATCH = 128
 RESIZE, CROP = 256, 224
 N_CPU_CHECK = 16
 TIMED_LAUNCHES = 20
+# what the packed pair's bf16 times below are of; float32 runs the scalar
+# kernels of csrc/attention.cu
+ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: forward float32 FMA scores in cuBLAS's order, torch-order softmax, "
+                   "P.V on mma.sync m16n8k16; backward two launches, every product on mma.sync; cp.async staging")
+ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel")
 KERNELS = {
     "preprocess_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -165,12 +175,12 @@ KERNELS = {
         "replaces": "ssip_tpu/ops/layernorm.py:65",
     },
     "attention_qkv": {
-        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
-        "replaces": "ssip_tpu/ops/attention.py:220",
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_mma.cu",
+        "replaces": "ssip_tpu/ops/attention.py:220", "design": ATTN_MMA_DESIGN,
     },
     "attention_qkv_bwd": {
-        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
-        "replaces": "ssip_tpu/ops/attention.py:256",
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_mma.cu",
+        "replaces": "ssip_tpu/ops/attention.py:256", "design": ATTN_MMA_DESIGN,
     },
     "preprocess_quantize": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -635,11 +645,23 @@ def phase_attention_kernels(torch, np) -> dict:
     bfloat16 with 12 heads."""
     import torch.nn.functional as F
 
+    from ssip_tpu_torch.kernels.build import build, kernel_resources
     from ssip_tpu_torch.ops.attention import (
         attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, fused_attention_qkv,
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
+    # what ptxas reported for the two tensor-core kernels (dynamic shared
+    # memory is set at launch: printed per shape below)
+    resources = kernel_resources(build().log)
+    for fragment in ATTN_MMA_KERNELS:
+        named = {name: r for name, r in resources.items() if fragment in name}
+        if not named:
+            raise AssertionError(f"ptxas reported nothing for {fragment}")
+        for name, r in sorted(named.items()):
+            # template arguments: the head width, and for the forward the key chunks of 32
+            args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?", name)
+            say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", **r)
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(SEED + 7)
     dh = 64
@@ -687,6 +709,15 @@ def phase_attention_kernels(torch, np) -> dict:
             fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}", bwd_ms=f"{bwd_ms:.4f}",
             bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_library_ms=f"{lib_bwd_ms:.4f}",
             bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", bound_by=fwd_bound["bound_by"])
+        if dtype_name == "bfloat16":
+            sp, kvp = -(-s // 16) * 16, -(-kv // 16) * 16
+            say("attn", design=repr(ATTN_MMA_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
+                fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}",
+                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}",
+                bwd_gbytes_per_s=f"{(2 * qkv.numel() + d_o.numel()) * item / bwd_ms / 1e6:.1f}",
+                bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}",
+                fwd_smem_bytes=4 * kvp * dh + 64 * dh + max(128 * dh, 64 * (kvp + 8)),
+                bwd_rows_smem_bytes=(128 + 2 * kvp) * dh * 2, bwd_keys_smem_bytes=(128 + 2 * sp) * dh * 2 + 12 * sp)
         if (b, s, heads, kv_len, dtype_name) == ATTN_SHAPES[0]:
             result = {
                 "attention_qkv": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms,

@@ -32,10 +32,15 @@
 //   dv = round(p)T dO and dk = round(ds)T q / sqrt(Dh). Key rows at or past
 //   kv_len get zeros. Everything lands in the packed dqkv directly.
 //
-// Products are float32 FMAs for both types (never TF32); tensor-core
-// products (wgmma) are later work. Bound: bytes by the roofline (each
-// qkv value read once), but this form is held back by shared-memory loads,
-// about one for every two FMAs.
+// In this file products are float32 FMAs (never TF32). Bound: bytes by the
+// roofline (each qkv value read once), but this form is held back by
+// shared-memory loads, about one for every two FMAs. The packed pair in
+// bfloat16 does not run these bodies: ssip_attention_qkv_fwd and _bwd hand
+// bf16 tensors to the kernels of attention_mma.cu (same rounding points;
+// the backward's products and the forward's P V on mma.sync, the forward's
+// scores float32 FMAs as here). The float32 packed pair keeps them
+// (a TF32 product cannot hold float32 parity), as does the unpacked pair in
+// both types.
 //
 // The same two bodies also serve q, k, v given apart as [B, H, S, Dh]
 // (contiguous, so a head's rows are Dh apart instead of 3D): they replace
@@ -55,6 +60,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+// The bfloat16 packed pair on the tensor cores (attention_mma.cu).
+int attention_qkv_fwd_bf16(const void* qkv, void* o, int batch, int heads,
+                           int s_len, int dh, int kv, float scale,
+                           cudaStream_t stream);
+int attention_qkv_bwd_bf16(const void* qkv, const void* d_o, void* dqkv,
+                           void* stats, int batch, int heads, int s_len,
+                           int dh, int kv, float scale, cudaStream_t stream);
 
 namespace {
 
@@ -576,7 +589,9 @@ int launch_unpacked_bwd(const void* q, const void* k, const void* v,
 // (PyTorch's current stream) on the caller's current device, do not
 // synchronise, allocate nothing, and return the first CUDA error of the
 // set-up or the launch (0 on success). `kv` is the number of real keys
-// (1 <= kv <= s_len <= 256), `dh` the head width (32 or 64).
+// (1 <= kv <= s_len <= 256), `dh` the head width (32 or 64). The bfloat16
+// backward takes `stats`, the caller's float32 scratch of
+// batch * heads * 3 * round16(s_len) values; float32 ignores it.
 
 extern "C" int ssip_attention_qkv_fwd(const void* qkv, void* o, int is_bf16,
                                       int batch, int heads, int s_len, int dh,
@@ -586,41 +601,39 @@ extern "C" int ssip_attention_qkv_fwd(const void* qkv, void* o, int is_bf16,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return attention_qkv_fwd_bf16(qkv, o, batch, heads, s_len, dh, kv, scale,
+                                  s);
+  }
   if (dh == 64) {
-    return is_bf16 ? launch_fwd<__nv_bfloat16, 64>(qkv, o, batch, heads, s_len,
-                                                   kv, scale, s)
-                   : launch_fwd<float, 64>(qkv, o, batch, heads, s_len, kv,
-                                           scale, s);
+    return launch_fwd<float, 64>(qkv, o, batch, heads, s_len, kv, scale, s);
   }
   if (dh == 32) {
-    return is_bf16 ? launch_fwd<__nv_bfloat16, 32>(qkv, o, batch, heads, s_len,
-                                                   kv, scale, s)
-                   : launch_fwd<float, 32>(qkv, o, batch, heads, s_len, kv,
-                                           scale, s);
+    return launch_fwd<float, 32>(qkv, o, batch, heads, s_len, kv, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
-                                      void* dqkv, int is_bf16, int batch,
-                                      int heads, int s_len, int dh, int kv,
-                                      float scale, void* stream) {
+                                      void* dqkv, void* stats, int is_bf16,
+                                      int batch, int heads, int s_len, int dh,
+                                      int kv, float scale, void* stream) {
   if (batch == 0 || heads == 0 || s_len == 0) return 0;
   if (s_len > 32 * kChunks || kv < 1 || kv > s_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    return attention_qkv_bwd_bf16(qkv, d_o, dqkv, stats, batch, heads, s_len,
+                                  dh, kv, scale, s);
+  }
   if (dh == 64) {
-    return is_bf16 ? launch_bwd<__nv_bfloat16, 64>(qkv, d_o, dqkv, batch,
-                                                   heads, s_len, kv, scale, s)
-                   : launch_bwd<float, 64>(qkv, d_o, dqkv, batch, heads, s_len,
-                                           kv, scale, s);
+    return launch_bwd<float, 64>(qkv, d_o, dqkv, batch, heads, s_len, kv,
+                                 scale, s);
   }
   if (dh == 32) {
-    return is_bf16 ? launch_bwd<__nv_bfloat16, 32>(qkv, d_o, dqkv, batch,
-                                                   heads, s_len, kv, scale, s)
-                   : launch_bwd<float, 32>(qkv, d_o, dqkv, batch, heads, s_len,
-                                           kv, scale, s);
+    return launch_bwd<float, 32>(qkv, d_o, dqkv, batch, heads, s_len, kv,
+                                 scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

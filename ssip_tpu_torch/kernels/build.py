@@ -9,7 +9,9 @@ which builds the JPEG decoder the same way, not its code.)
 
 The library lands in ``build/ssip_tpu_torch/`` at the repository root
 (listed in ``.gitignore``), named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the existing file.
+edited source rebuilds and an unchanged one loads the existing file. nvcc's
+report (``ptxas -v``: registers, shared memory and spills per kernel) is
+kept beside it, so a reused library still has one.
 Nothing here runs at import time: a machine without ``nvcc`` imports the
 package and uses the plain PyTorch versions for CPU tensors.
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,7 +45,7 @@ NVCC_FLAGS = (
 class BuildResult:
     path: Path
     seconds: float  # 0.0 when an existing library was reused
-    log: str  # nvcc's stdout + stderr (ptxas -v report); "" when reused
+    log: str  # nvcc's stdout + stderr (ptxas -v report), read back when reused
 
 
 def find_nvcc() -> str:
@@ -73,8 +76,9 @@ def source_hash() -> str:
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` unless the library for these sources exists."""
     target = BUILD_DIR / f"libssip_kernels_{source_hash()}.so"
+    report = target.with_suffix(".log")
     if target.is_file():
-        return BuildResult(target, 0.0, "")
+        return BuildResult(target, 0.0, report.read_text() if report.is_file() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     tag = f"{source_hash()}.{os.getpid()}"
@@ -97,6 +101,7 @@ def build() -> BuildResult:
         log += proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
+        report.write_text(log)
         os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     finally:
         for _, proc in procs:  # after a failure, stop the compiles still running
@@ -107,6 +112,31 @@ def build() -> BuildResult:
         for obj in objects:
             obj.unlink(missing_ok=True)
     return BuildResult(target, time.perf_counter() - t0, log)
+
+
+def kernel_resources(log: str) -> dict:
+    """Per kernel (mangled name) what ``ptxas -v`` reported in ``log``:
+    ``registers``, static shared memory ``smem_bytes``, ``stack_bytes``,
+    ``spill_stores`` and ``spill_loads`` (bytes)."""
+    found: dict = {}
+    name = None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+            found[name] = {"registers": 0, "smem_bytes": 0, "stack_bytes": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if frame:
+            found[name].update(stack_bytes=int(frame[1]), spill_stores=int(frame[2]), spill_loads=int(frame[3]))
+        used = re.search(r"Used (\d+) registers", line)
+        if used:
+            found[name]["registers"] = int(used[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            found[name]["smem_bytes"] = int(smem[1]) if smem else 0
+    return found
 
 
 @lru_cache(maxsize=1)

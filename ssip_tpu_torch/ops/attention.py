@@ -6,8 +6,9 @@ Counterpart of ``ssip_tpu/ops/attention.py``: ``attention_plain`` after
 ``attention_qkv_xla`` (``:393-411``), ``fused_attention_qkv`` after the
 entry of the same name (``:414-442``) with its custom VJP (``:369-390``) as
 a ``torch.autograd.Function`` whose forward and backward launch the kernels
-of ``csrc/attention.cu`` (which replace ``_attn_qkv_kernel`` and
-``_attn_qkv_bwd_kernel``).
+that replace ``_attn_qkv_kernel`` and ``_attn_qkv_bwd_kernel``: for bfloat16
+those of ``csrc/attention_mma.cu`` (``mma.sync`` on bf16 operands, staged by
+``cp.async``), for float32 the scalar ones of ``csrc/attention.cu``.
 
 ``qkv`` is [B, S, 3·D] with columns ordered [3, H, Dh] (the fused Dense of
 ``models/vit.py``); the result is [B, S, D]. Per image and head:
@@ -41,7 +42,7 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_WIDTHS = (32, 64)
-MAX_KERNEL_SEQ = 256  # 8 chunks of 32 keys or queries a lane (csrc/attention.cu)
+MAX_KERNEL_SEQ = 256  # 8 chunks of 32 keys a lane, in both csrc/attention.cu and csrc/attention_mma.cu
 _SEQ_LIMIT_ITEM = (
     "ROADMAP.md, Queue 2 #5a: sequences up to 1024 in the attention kernels, by tiling the "
     "keys in two passes"
@@ -138,7 +139,8 @@ def _kernel_entries():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ssip_attention_qkv_fwd, lib.ssip_attention_qkv_bwd
     fwd.argtypes = [p, p, i, i, i, i, i, i, f, p]  # qkv, o, is_bf16, batch, heads, s, dh, kv, scale, stream
-    bwd.argtypes = [p, p, p, i, i, i, i, i, i, f, p]  # qkv, dO, dqkv, is_bf16, batch, heads, s, dh, kv, scale, stream
+    # qkv, dO, dqkv, stats scratch (bf16 only), is_bf16, batch, heads, s, dh, kv, scale, stream
+    bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -182,9 +184,16 @@ def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int) -> None:
         raise ValueError("attention kernel needs a contiguous packed qkv")
 
 
+def _check_aligned(*operands: torch.Tensor) -> None:
+    """The bfloat16 packed kernels stage rows by 16-byte copies."""
+    if operands[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in operands):
+        raise ValueError("bfloat16 attention kernel needs qkv and dO at 16-byte aligned addresses")
+
+
 def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int) -> torch.Tensor:
     b, s, d, dh, kv = _geometry(qkv, num_heads, kv_len)
     _check_cuda_operands(qkv, s, dh)
+    _check_aligned(qkv)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     if out.numel() == 0:
         return out
@@ -202,8 +211,9 @@ def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int) -> torch.Tensor:
 def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_len: int = 0) -> torch.Tensor:
     """dqkv [B, S, 3·D] from the saved ``qkv`` and the incoming ``d_o``
     [B, S, D], for any ``d_o`` (pad-query rows included); key rows at index
-    ≥ ``kv_len`` get zeros. ``attention_qkv_bwd.launches`` counts kernel
-    launches."""
+    ≥ ``kv_len`` get zeros. ``attention_qkv_bwd.launches`` counts calls
+    that launch the backward (one a call; in bfloat16 that is two kernels,
+    dq by query rows, then dk and dv by key rows)."""
     b, s, d, dh, kv = _geometry(qkv, num_heads, kv_len)
     if tuple(d_o.shape) != (b, s, d) or d_o.dtype != qkv.dtype or d_o.device != qkv.device:
         raise ValueError(
@@ -217,12 +227,16 @@ def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_l
     _check_cuda_operands(qkv, s, dh)
     if not d_o.is_contiguous():
         raise ValueError("attention kernel needs a contiguous dO")
+    _check_aligned(qkv, d_o)
     dqkv = torch.empty_like(qkv)
     if dqkv.numel() == 0:
         return dqkv
+    bf16 = qkv.dtype == torch.bfloat16
+    # the bf16 pair's per-row max, 1/sum and delta between its two launches
+    stats = torch.empty(b * num_heads * 3 * (-(-s // 16) * 16), device=qkv.device) if bf16 else None
     with torch.cuda.device(qkv.device):
         err = _kernel_entries()[1](
-            qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), int(qkv.dtype == torch.bfloat16),
+            qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), None if stats is None else stats.data_ptr(), int(bf16),
             b, num_heads, s, dh, kv, _scale(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -18,20 +18,23 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def resolve_device(device: str = "auto") -> torch.device:
-    """``auto`` → ``cuda`` when a card is visible, else ``cpu``.
+    """``auto`` and ``cuda`` → the card; only an explicit ``cpu`` runs on
+    the CPU.
 
-    An explicit ``cuda`` with no card raises: a run that asked for the GPU
-    never carries on quietly on the CPU.
+    With no card visible, ``auto`` and ``cuda`` raise: the port's entry
+    points run on the card unless the caller asks for the CPU, and a run
+    never carries on quietly there.
     """
     name = (device or "auto").lower()
-    if name == "auto":
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
     if name == "cpu":
         return torch.device("cpu")
-    if name == "cuda" or name.startswith("cuda:"):
+    if name == "auto" or name == "cuda" or name.startswith("cuda:"):
         if not torch.cuda.is_available():
-            raise RuntimeError(f"--device {device} requested but no CUDA device is visible")
-        return torch.device(name)
+            raise RuntimeError(
+                f"--device {device or 'auto'} needs a CUDA device and none is visible; "
+                "pass --device cpu to run on the CPU"
+            )
+        return torch.device("cuda" if name == "auto" else name)
     raise ValueError(f"--device must be auto|cpu|cuda, got {device!r}")
 
 

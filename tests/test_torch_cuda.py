@@ -249,12 +249,19 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(cuda):
     [(4, 197, 12, 64, 0, torch.bfloat16), (4, 208, 12, 64, 197, torch.bfloat16),
      (2, 208, 3, 64, 197, torch.float32), (2, 197, 12, 64, 0, torch.float32),
      (3, 50, 2, 32, 37, torch.float32), (2, MAX_KERNEL_SEQ, 2, 64, 0, torch.bfloat16),
-     (2, 5, 1, 32, 3, torch.bfloat16)],
+     (2, 5, 1, 32, 3, torch.bfloat16),
+     # the bf16 kernels' edges: S off a multiple of 16 and across the 32- and
+     # 64-row tiles, ragged last key tiles, S = 256 at 1, 3, 12 heads
+     (2, 63, 2, 64, 0, torch.bfloat16), (2, 64, 2, 64, 0, torch.bfloat16), (2, 65, 2, 32, 0, torch.bfloat16),
+     (2, 129, 3, 64, 0, torch.bfloat16), (2, 197, 3, 32, 0, torch.bfloat16),
+     (2, 208, 2, 32, 197, torch.bfloat16), (3, 50, 2, 64, 37, torch.bfloat16), (2, 16, 2, 64, 1, torch.bfloat16),
+     (1, MAX_KERNEL_SEQ, 1, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 3, 64, 0, torch.bfloat16),
+     (1, MAX_KERNEL_SEQ, 12, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 12, 64, 0, torch.bfloat16)],
 )
 def test_attention_kernels_match_plain_on_cuda(cuda, b, s, heads, dh, kv_len, dtype):
     """Forward, and the backward through autograd, with and without the
     ``kv_len`` key mask; pad-query rows are compared too, and ``dO`` is
-    non-zero on them."""
+    non-zero on them. One call is one launch."""
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(b * s * heads)
     qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * heads * dh)).astype(np.float32)).to(cuda, dtype)
@@ -273,6 +280,38 @@ def test_attention_kernels_match_plain_on_cuda(cuda, b, s, heads, dh, kv_len, dt
         _assert_grad_close(dqkv[..., cols], ref[..., cols])
     if 0 < kv_len < s:  # masked keys get exactly zero gradients
         assert not dqkv[:, kv_len:, heads * dh :].any()
+
+
+@pytest.mark.cuda
+def test_attention_bf16_calls_launch_their_kernels_once(cuda):
+    """On bfloat16 a forward call runs ``attn_qkv_fwd_mma_kernel`` once on
+    the card and a backward call ``attn_qkv_bwd_rows_kernel`` and
+    ``attn_qkv_bwd_keys_kernel`` once each, and nothing else of the
+    attention kernels; each call counts one."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((2, 197, 3 * 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    d_o = torch.from_numpy(rng.standard_normal((2, 197, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = fused_attention_qkv.launches, attention_qkv_bwd.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused_attention_qkv(qkv, 2)
+        attention_qkv_bwd(qkv, d_o, 2)
+        torch.cuda.synchronize()
+    assert (fused_attention_qkv.launches, attention_qkv_bwd.launches) == (before[0] + 1, before[1] + 1)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "attn" in e.name]
+    assert sum("attn_qkv_fwd_mma_kernel" in n for n in names) == 1, names
+    assert sum("attn_qkv_bwd_rows_kernel" in n for n in names) == 1, names
+    assert sum("attn_qkv_bwd_keys_kernel" in n for n in names) == 1, names
+    assert len(names) == 3, names
+
+
+@pytest.mark.cuda
+def test_attention_bf16_kernel_refuses_misaligned_operands(cuda):
+    flat = torch.zeros(1 + 2 * 8 * 3 * 64, dtype=torch.bfloat16, device=cuda)
+    qkv = flat[1:].view(2, 8, 3 * 64)  # contiguous, 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_attention_qkv(qkv, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_qkv_bwd(qkv, torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=cuda), 1)
 
 
 @pytest.mark.cuda
