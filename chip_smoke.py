@@ -45,8 +45,15 @@ non-zero without printing the final line:
            off the plain version by more than 1e-5 (absolute and relative),
            none by more than 2·127·max(m2); the counts are printed;
    attn4   ``fused_attention`` and ``attention_bwd`` on q, k, v
-           [128, 12, 197, 64] in bfloat16 and float32, 3 heads, and
-           [8, 2, 50, 32], at attn's tolerances;
+           [128, 12, 197, 64] in bfloat16 (the kernels of
+           ``csrc/attention_unpacked_mma.cu``, every product on the tensor
+           cores, p and ds as bf16 hi/lo pairs) and float32, 3 heads,
+           [8, 2, 50, 32], and in bfloat16 past the float32 kernels' 256
+           tokens: [16, 12, 577, 64] (ViT-B/16 at 384²), [4, 12, 1024, 64]
+           and [2, 4, 1024, 32]; at attn's tolerances, and in bfloat16 each
+           element of dq, dk and dv also within the output's one step; the
+           three bf16 kernels' registers, spills, shared memory a block and
+           resident blocks an SM;
    Tolerances of ln and attn (kernel and plain version sum in another
    order): float32 outputs within 2e-5 of O(1) values, bfloat16 outputs
    within one bfloat16 step of the plain value (2e-5 where a step is
@@ -157,6 +164,12 @@ TIMED_LAUNCHES = 20
 ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: forward float32 FMA scores in cuBLAS's order, torch-order softmax, "
                    "P.V on mma.sync m16n8k16; backward two launches, every product on mma.sync; cp.async staging")
 ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel")
+# what the unpacked pair's bf16 times below are of; float32 runs the scalar
+# kernels of csrc/attention.cu
+UNPACKED_MMA_DESIGN = ("bf16, csrc/attention_unpacked_mma.cu: every product on mma.sync m16n8k16, p and ds as bf16 "
+                       "hi/lo pairs (two mma a product), keys or queries streamed in 64-row cp.async tiles, online "
+                       "softmax; backward two launches (dq by query rows, dk and dv by key rows)")
+UNPACKED_MMA_KERNELS = ("attn_unpacked_fwd_kernel", "attn_unpacked_bwd_rows_kernel", "attn_unpacked_bwd_keys_kernel")
 KERNELS = {
     "preprocess_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -191,12 +204,12 @@ KERNELS = {
         "replaces": "ssip_tpu/ops/qmlp.py:78",
     },
     "attention": {
-        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
-        "replaces": "ssip_tpu/ops/attention.py:59",
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_unpacked_mma.cu",
+        "replaces": "ssip_tpu/ops/attention.py:59", "design": UNPACKED_MMA_DESIGN,
     },
     "attention_bwd": {
-        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention.cu",
-        "replaces": "ssip_tpu/ops/attention.py:109",
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_unpacked_mma.cu",
+        "replaces": "ssip_tpu/ops/attention.py:109", "design": UNPACKED_MMA_DESIGN,
     },
     "rotate_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/rotate.cu",
@@ -223,6 +236,7 @@ QMLP_MAX_SHARE_OFF = 1e-3
 UNPACKED_ATTN_SHAPES = (
     (128, 12, 197, 64, "bfloat16"), (128, 12, 197, 64, "float32"), (128, 3, 197, 64, "bfloat16"),
     (8, 2, 50, 32, "float32"),
+    (16, 12, 577, 64, "bfloat16"), (4, 12, 1024, 64, "bfloat16"), (2, 4, 1024, 32, "bfloat16"),
 )
 VIT_N_CPU_CHECK = 8
 # (rows, width, type): 128 images of 197 tokens and of 208 (the token axis
@@ -790,10 +804,36 @@ def phase_qmlp_kernel(torch, np) -> dict:
     return result
 
 
+def _unpacked_kernel_resources() -> None:
+    """What the card makes of the unpacked pair's three bf16 kernels at both
+    head widths: registers, local bytes a thread, shared memory a block
+    (``cudaFuncGetAttributes`` and the launch's dynamic size), resident
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
+    ptxas's spill report."""
+    import ctypes
+
+    from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
+
+    info = load_library().ssip_attention_unpacked_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    resources = kernel_resources(build().log)
+    for which, fragment in enumerate(UNPACKED_MMA_KERNELS):
+        for dh in (32, 64):
+            out = (ctypes.c_int * 4)()
+            err = info(which, dh, out)
+            ptxas = [r for name, r in resources.items() if fragment in name and f"ILi{dh}E" in name]
+            if err != 0 or len(ptxas) != 1:
+                raise AssertionError(f"{fragment} at head width {dh}: cudaError {err}, ptxas reported {ptxas}")
+            say("attn4", kernel=fragment, head_width=dh, registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3], spill_stores=ptxas[0]["spill_stores"], spill_loads=ptxas[0]["spill_loads"])
+
+
 def phase_unpacked_attention_kernels(torch, np) -> dict:
     """``fused_attention`` and ``attention_bwd`` on q, k, v [B, H, S, Dh]
     against their plain versions on the card; times at [128, 12, 197, 64]
-    bfloat16."""
+    bfloat16. In bfloat16 the gradients are also held, element by element,
+    to the output's one step, which a p or ds rounded to bf16 once in the
+    kernels' products would break."""
     import torch.nn.functional as F
 
     from ssip_tpu_torch.ops.attention import (
@@ -801,6 +841,7 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
+    _unpacked_kernel_resources()
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(SEED + 9)
     result = {}
@@ -815,6 +856,9 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
         err_o = output_error(torch, out, attention_unrounded_plain(q, k, v), tag)
         ref = attention_bwd_plain(q, k, v, d_o)
         rels = [grad_error(g, r, dtype_name, f"{tag} d{part}") for g, r, part in zip(grads, ref, "qkv")]
+        if dtype_name == "bfloat16":  # p and ds kept to float32 precision: each element within a step
+            for g, r, part in zip(grads, ref, "qkv"):
+                output_error(torch, g, r, f"{tag} d{part} by element")
         err_g = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref))
         del ref
 
@@ -835,6 +879,12 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
             fwd_library_ms=f"{lib_fwd_ms:.4f}", fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}", bwd_ms=f"{bwd_ms:.4f}",
             bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_library_ms=f"{lib_bwd_ms:.4f}",
             bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", bound_by=fwd_bound["bound_by"])
+        if dtype_name == "bfloat16":
+            say("attn4", design=repr(UNPACKED_MMA_DESIGN), shape=f"{b}x{heads}x{s}x{dh}",
+                fwd_gbytes_per_s=f"{4 * q.numel() * item / fwd_ms / 1e6:.1f}",
+                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}",
+                bwd_gbytes_per_s=f"{7 * q.numel() * item / bwd_ms / 1e6:.1f}",
+                bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}")
         if (b, heads, s, dh, dtype_name) == UNPACKED_ATTN_SHAPES[0]:
             result = {
                 "attention": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound,

@@ -1,9 +1,10 @@
 // Multi-head softmax attention straight off the packed qkv tensor, forward
-// and backward, for Hopper: qkv [B, S, 3D] with columns [3, H, Dh], in
-// bfloat16 or float32. Per image and head
+// and backward, for Hopper: qkv [B, S, 3D] with columns [3, H, Dh] in
+// float32, and the C entry points of both attention pairs. Per image and head
 //   s = q kT / sqrt(Dh)   (float32 sum of products of the inputs),
 //   keys at index >= kv_len are masked out, p = softmax(s) in float32,
-//   o = round(p) v        (p rounded to the input type before the product),
+//   o = round(p) v        (p rounded to the input type before the product:
+//                          a no-op in float32),
 // written to o [B, S, D]; all S query rows are computed, pad rows included.
 //
 // Replaces ssip_tpu/ops/attention.py:_attn_qkv_kernel and
@@ -34,31 +35,30 @@
 //
 // In this file products are float32 FMAs (never TF32). Bound: bytes by the
 // roofline (each qkv value read once), but this form is held back by
-// shared-memory loads, about one for every two FMAs. The packed pair in
-// bfloat16 does not run these bodies: ssip_attention_qkv_fwd and _bwd hand
-// bf16 tensors to the kernels of attention_mma.cu (same rounding points;
-// the backward's products and the forward's P V on mma.sync, the forward's
-// scores float32 FMAs as here). The float32 packed pair keeps them
-// (a TF32 product cannot hold float32 parity), as does the unpacked pair in
-// both types.
+// shared-memory loads, about one for every two FMAs. Neither pair runs
+// these bodies in bfloat16: ssip_attention_qkv_fwd and _bwd hand bf16
+// tensors to the kernels of attention_mma.cu (same rounding points; the
+// backward's products and the forward's P V on mma.sync, the forward's
+// scores float32 FMAs as here), ssip_attention_fwd and _bwd to those of
+// attention_unpacked_mma.cu (every product on mma.sync, p and ds as bf16
+// hi/lo pairs). The float32 forms keep them (a TF32 product cannot hold
+// float32 parity).
 //
 // The same two bodies also serve q, k, v given apart as [B, H, S, Dh]
-// (contiguous, so a head's rows are Dh apart instead of 3D): they replace
-// ssip_tpu/ops/attention.py:_attn_kernel and :_attn_bwd_kernel (behind
-// fused_attention and its custom VJP). Those TPU kernels pad S to 128 lanes
-// and mask the pad keys; here S is exact and no pad exists. They also keep p
-// and ds in float32 for their products where the packed pair rounds both to
-// the input type, so the bodies take the rounding as a template flag and the
-// unpacked kernels compute what the TPU kernels compute: o = p v with
-// float32 p, dv = pT dO, dq = ds k, dk = dsT q with float32 p and ds.
+// (contiguous, so a head's rows are Dh apart instead of 3D) in float32:
+// they replace ssip_tpu/ops/attention.py:_attn_kernel and :_attn_bwd_kernel
+// (behind fused_attention and its custom VJP). Those TPU kernels pad S to
+// 128 lanes and mask the pad keys; here S is exact and no pad exists. They
+// keep p and ds in float32 for their products where the packed pair rounds
+// both to the input type, which in float32 is the same function.
 //
-// Shapes: Dh 32 or 64, S at most 256 (8 key or query chunks of 32 a lane).
-// The wrapper raises on anything else.
+// Shapes: Dh 32 or 64, S at most 256 (8 key or query chunks of 32 a lane);
+// the unpacked pair in bfloat16 takes S up to 1024. The wrapper raises on
+// anything else.
 
 #include <cstddef>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 // The bfloat16 packed pair on the tensor cores (attention_mma.cu).
@@ -68,6 +68,14 @@ int attention_qkv_fwd_bf16(const void* qkv, void* o, int batch, int heads,
 int attention_qkv_bwd_bf16(const void* qkv, const void* d_o, void* dqkv,
                            void* stats, int batch, int heads, int s_len,
                            int dh, int kv, float scale, cudaStream_t stream);
+// The bfloat16 unpacked pair on the tensor cores (attention_unpacked_mma.cu).
+int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                       int batch_heads, int s_len, int dh, float scale,
+                       cudaStream_t stream);
+int attention_bwd_bf16(const void* q, const void* k, const void* v,
+                       const void* d_o, void* dq, void* dk, void* dv,
+                       void* stats, int batch_heads, int s_len, int dh,
+                       float scale, cudaStream_t stream);
 
 namespace {
 
@@ -75,6 +83,7 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 4;    // rows a warp works on together
 constexpr int kChunks = 8;  // 32-wide chunks a lane covers: S <= 256
+constexpr int kMaxUnpackedBf16Seq = 1024;  // the JAX entry's _MAX_FUSED_SEQ
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -90,42 +99,20 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// v rounded to T, as a float; v itself where the kernel keeps float32.
-template <typename T, bool ROUND = true>
-__device__ __forceinline__ float round_to(float v) {
-  return ROUND ? to_float(from_float<T>(v)) : v;
-}
-
-// Row stride, in elements, of a staged [rows, DH] matrix: an odd number of
+// Row stride, in floats, of a staged [rows, DH] matrix: an odd number of
 // 32-bit words, so lanes reading one column of 32 rows hit 32 banks.
-template <typename T, int DH>
+template <int DH>
 struct Stride {
-  static constexpr int value = DH + (sizeof(T) == 2 ? 2 : 1);
+  static constexpr int value = DH + 1;
 };
 
 // The block copies `rows` rows of DH columns from global memory (row pitch
-// `pitch` elements) into shared memory (row stride Stride<T, DH>).
-template <typename T, int DH>
-__device__ __forceinline__ void stage(T* __restrict__ dst,
-                                      const T* __restrict__ src, int rows,
+// `pitch` elements) into shared memory (row stride Stride<DH>).
+template <int DH>
+__device__ __forceinline__ void stage(float* __restrict__ dst,
+                                      const float* __restrict__ src, int rows,
                                       int pitch) {
-  constexpr int KS = Stride<T, DH>::value;
+  constexpr int KS = Stride<DH>::value;
   for (int idx = threadIdx.x; idx < rows * DH; idx += kThreads) {
     const int r = idx / DH;
     const int c = idx - r * DH;
@@ -135,16 +122,16 @@ __device__ __forceinline__ void stage(T* __restrict__ dst,
 
 // A warp loads kRows rows (first0 .. first0+kRows-1, clamped to last) of DH
 // columns from global memory into vec [DH][kRows] as floats.
-template <typename T, int DH>
+template <int DH>
 __device__ __forceinline__ void load_rows(float* __restrict__ vec,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int first, int last, int pitch,
                                           int lane) {
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int row = min(first + r, last);
     for (int c = lane; c < DH; c += 32) {
-      vec[c * kRows + r] = to_float(src[static_cast<size_t>(row) * pitch + c]);
+      vec[c * kRows + r] = src[static_cast<size_t>(row) * pitch + c];
     }
   }
 }
@@ -152,20 +139,20 @@ __device__ __forceinline__ void load_rows(float* __restrict__ vec,
 // out[r][c] = sum_d vec[d][r] * mat[c*32 + lane][d] for the lane's rows of
 // the staged matrix `mat` [n, DH]; chunks at or past n stay 0. The sum runs
 // over d in order with one FMA a term, wherever it is called from.
-template <typename T, int DH>
-__device__ __forceinline__ void dot_rows(const T* __restrict__ mat, int n,
+template <int DH>
+__device__ __forceinline__ void dot_rows(const float* __restrict__ mat, int n,
                                          const float* __restrict__ vec,
                                          int lane,
                                          float (&out)[kRows][kChunks]) {
-  constexpr int KS = Stride<T, DH>::value;
+  constexpr int KS = Stride<DH>::value;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     float acc[kRows] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (c * 32 < n) {  // the same for the whole warp
-      const T* row = mat + min(c * 32 + lane, n - 1) * KS;
+      const float* row = mat + min(c * 32 + lane, n - 1) * KS;
 #pragma unroll 8
       for (int d = 0; d < DH; ++d) {
-        const float m = to_float(row[d]);
+        const float m = row[d];
         const float4 v = *reinterpret_cast<const float4*>(vec + d * kRows);
         acc[0] = fmaf(v.x, m, acc[0]);
         acc[1] = fmaf(v.y, m, acc[1]);
@@ -180,13 +167,13 @@ __device__ __forceinline__ void dot_rows(const T* __restrict__ mat, int n,
 
 // acc[r][t] = sum_j w[j][r] * mat[j][lane*DPL + t] over the n staged rows,
 // with lanes over the DH columns (DPL = DH / 32 columns a lane).
-template <typename T, int DH>
-__device__ __forceinline__ void weighted_rows(const T* __restrict__ mat,
+template <int DH>
+__device__ __forceinline__ void weighted_rows(const float* __restrict__ mat,
                                               int n,
                                               const float* __restrict__ w,
                                               int lane,
                                               float (&acc)[kRows][DH / 32]) {
-  constexpr int KS = Stride<T, DH>::value;
+  constexpr int KS = Stride<DH>::value;
   constexpr int DPL = DH / 32;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -198,7 +185,7 @@ __device__ __forceinline__ void weighted_rows(const T* __restrict__ mat,
     const float4 wj = *reinterpret_cast<const float4*>(w + j * kRows);
 #pragma unroll
     for (int t = 0; t < DPL; ++t) {
-      const float m = to_float(mat[j * KS + lane * DPL + t]);
+      const float m = mat[j * KS + lane * DPL + t];
       acc[0][t] = fmaf(wj.x, m, acc[0][t]);
       acc[1][t] = fmaf(wj.y, m, acc[1][t]);
       acc[2][t] = fmaf(wj.z, m, acc[2][t]);
@@ -241,13 +228,13 @@ __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) / 16 * 16;
 }
 
-template <typename T, int DH>
+template <int DH>
 struct Layout {
-  static constexpr int KS = Stride<T, DH>::value;
+  static constexpr int KS = Stride<DH>::value;
   // two staged matrices, then (backward) 3 row statistics, then per warp:
   // `vecs` [DH][kRows] float vectors and `ws` [s][kRows] float weights
   static __host__ __device__ size_t mat(int s) {
-    return align16(static_cast<size_t>(s) * KS * sizeof(T));
+    return align16(static_cast<size_t>(s) * KS * sizeof(float));
   }
   static __host__ __device__ size_t stats(int s) {
     return align16(static_cast<size_t>(s) * sizeof(float));
@@ -267,35 +254,34 @@ struct Layout {
 };
 
 // One (image, head) forward. q_g, k_g, v_g point at the head's first row,
-// rows `pitch` elements apart; o_g likewise with `o_pitch`. ROUND: p is
-// rounded to T before p v.
-template <typename T, int DH, bool ROUND>
+// rows `pitch` elements apart; o_g likewise with `o_pitch`.
+template <int DH>
 __device__ __forceinline__ void attn_fwd_body(
-    const T* __restrict__ q_g, const T* __restrict__ k_g,
-    const T* __restrict__ v_g, T* __restrict__ o_g, int pitch, int o_pitch,
+    const float* __restrict__ q_g, const float* __restrict__ k_g,
+    const float* __restrict__ v_g, float* __restrict__ o_g, int pitch, int o_pitch,
     int s_len, int kv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using L = Layout<T, DH>;
+  using L = Layout<DH>;
   constexpr int DPL = DH / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = reinterpret_cast<T*>(smem + L::mat(s_len));
+  float* k_s = reinterpret_cast<float*>(smem);
+  float* v_s = reinterpret_cast<float*>(smem + L::mat(s_len));
   unsigned char* mine =
       smem + 2 * L::mat(s_len) + warp * (L::vec() + L::weights(s_len));
   float* q_vec = reinterpret_cast<float*>(mine);
   float* p_w = reinterpret_cast<float*>(mine + L::vec());
 
-  stage<T, DH>(k_s, k_g, kv, pitch);
-  stage<T, DH>(v_s, v_g, kv, pitch);
+  stage<DH>(k_s, k_g, kv, pitch);
+  stage<DH>(v_s, v_g, kv, pitch);
   __syncthreads();
 
   for (int i0 = warp * kRows; i0 < s_len; i0 += kWarps * kRows) {
-    load_rows<T, DH>(q_vec, q_g, i0, s_len - 1, pitch, lane);
+    load_rows<DH>(q_vec, q_g, i0, s_len - 1, pitch, lane);
     __syncwarp();
     float p[kRows][kChunks];
-    dot_rows<T, DH>(k_s, kv, q_vec, lane, p);
+    dot_rows<DH>(k_s, kv, q_vec, lane, p);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       float mx, sum;
@@ -305,21 +291,19 @@ __device__ __forceinline__ void attn_fwd_body(
     for (int c = 0; c < kChunks; ++c) {
       const int j = c * 32 + lane;
       if (j < kv) {
-        *reinterpret_cast<float4*>(p_w + j * kRows) = make_float4(
-            round_to<T, ROUND>(p[0][c]), round_to<T, ROUND>(p[1][c]),
-            round_to<T, ROUND>(p[2][c]), round_to<T, ROUND>(p[3][c]));
+        *reinterpret_cast<float4*>(p_w + j * kRows) =
+            make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
       }
     }
     __syncwarp();
     float acc[kRows][DPL];
-    weighted_rows<T, DH>(v_s, kv, p_w, lane, acc);
+    weighted_rows<DH>(v_s, kv, p_w, lane, acc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (i0 + r < s_len) {
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
-          o_g[static_cast<size_t>(i0 + r) * o_pitch + lane * DPL + t] =
-              from_float<T>(acc[r][t]);
+          o_g[static_cast<size_t>(i0 + r) * o_pitch + lane * DPL + t] = acc[r][t];
         }
       }
     }
@@ -328,49 +312,49 @@ __device__ __forceinline__ void attn_fwd_body(
 }
 
 // Packed qkv [B, S, 3D] -> o [B, S, D]; block = (image, head).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    attn_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ o,
+    attn_qkv_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
                         int heads, int s_len, int kv, float scale) {
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x - b * heads;
   const int d_model = heads * DH;
   const int pitch = 3 * d_model;
-  const T* base = qkv + static_cast<size_t>(b) * s_len * pitch + h * DH;
-  attn_fwd_body<T, DH, true>(
+  const float* base = qkv + static_cast<size_t>(b) * s_len * pitch + h * DH;
+  attn_fwd_body<DH>(
       base, base + d_model, base + 2 * d_model,
       o + static_cast<size_t>(b) * s_len * d_model + h * DH, pitch, d_model,
       s_len, kv, scale);
 }
 
 // q, k, v [B*H, S, DH] -> o [B*H, S, DH]; block = (image, head); float32 p.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int s_len,
+    attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int s_len,
                     float scale) {
   const size_t at = static_cast<size_t>(blockIdx.x) * s_len * DH;
-  attn_fwd_body<T, DH, false>(q + at, k + at, v + at, o + at, DH, DH, s_len,
+  attn_fwd_body<DH>(q + at, k + at, v + at, o + at, DH, DH, s_len,
                               s_len, scale);
 }
 
 // One (image, head) backward. q_g, k_g, v_g and dq_g, dk_g, dv_g point at
 // the head's first row, rows `pitch` elements apart; do_g likewise with
-// `do_pitch`. ROUND: p and ds are rounded to T before their products.
-template <typename T, int DH, bool ROUND>
+// `do_pitch`.
+template <int DH>
 __device__ __forceinline__ void attn_bwd_body(
-    const T* __restrict__ q_g, const T* __restrict__ k_g,
-    const T* __restrict__ v_g, const T* __restrict__ do_g,
-    T* __restrict__ dq_g, T* __restrict__ dk_g, T* __restrict__ dv_g,
+    const float* __restrict__ q_g, const float* __restrict__ k_g,
+    const float* __restrict__ v_g, const float* __restrict__ do_g,
+    float* __restrict__ dq_g, float* __restrict__ dk_g, float* __restrict__ dv_g,
     int pitch, int do_pitch, int s_len, int kv, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  using L = Layout<T, DH>;
+  using L = Layout<DH>;
   constexpr int DPL = DH / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  T* mat_a = reinterpret_cast<T*>(smem);                   // K, then q
-  T* mat_b = reinterpret_cast<T*>(smem + L::mat(s_len));   // V, then dO
+  float* mat_a = reinterpret_cast<float*>(smem);                   // K, then q
+  float* mat_b = reinterpret_cast<float*>(smem + L::mat(s_len));   // V, then dO
   float* row_max = reinterpret_cast<float*>(smem + 2 * L::mat(s_len));
   float* row_sum = reinterpret_cast<float*>(smem + 2 * L::mat(s_len) +
                                             L::stats(s_len));
@@ -385,16 +369,16 @@ __device__ __forceinline__ void attn_bwd_body(
                                         L::weights(s_len));
 
   // Pass A: K and V staged, a warp per group of query rows.
-  stage<T, DH>(mat_a, k_g, kv, pitch);
-  stage<T, DH>(mat_b, v_g, kv, pitch);
+  stage<DH>(mat_a, k_g, kv, pitch);
+  stage<DH>(mat_b, v_g, kv, pitch);
   __syncthreads();
   for (int i0 = warp * kRows; i0 < s_len; i0 += kWarps * kRows) {
-    load_rows<T, DH>(vec_a, q_g, i0, s_len - 1, pitch, lane);
-    load_rows<T, DH>(vec_b, do_g, i0, s_len - 1, do_pitch, lane);
+    load_rows<DH>(vec_a, q_g, i0, s_len - 1, pitch, lane);
+    load_rows<DH>(vec_b, do_g, i0, s_len - 1, do_pitch, lane);
     __syncwarp();
     float p[kRows][kChunks], dp[kRows][kChunks];
-    dot_rows<T, DH>(mat_a, kv, vec_a, lane, p);
-    dot_rows<T, DH>(mat_b, kv, vec_b, lane, dp);
+    dot_rows<DH>(mat_a, kv, vec_a, lane, p);
+    dot_rows<DH>(mat_b, kv, vec_b, lane, dp);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       float mx, sum;
@@ -405,7 +389,7 @@ __device__ __forceinline__ void attn_bwd_body(
       delta = warp_sum(delta);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
-        dp[r][c] = round_to<T, ROUND>(p[r][c] * (dp[r][c] - delta));  // ds
+        dp[r][c] = p[r][c] * (dp[r][c] - delta);  // ds
       }
       if (lane == 0 && i0 + r < s_len) {
         row_max[i0 + r] = mx;
@@ -423,14 +407,14 @@ __device__ __forceinline__ void attn_bwd_body(
     }
     __syncwarp();
     float acc[kRows][DPL];
-    weighted_rows<T, DH>(mat_a, kv, w_a, lane, acc);
+    weighted_rows<DH>(mat_a, kv, w_a, lane, acc);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (i0 + r < s_len) {
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
           dq_g[static_cast<size_t>(i0 + r) * pitch + lane * DPL + t] =
-              from_float<T>(acc[r][t] * scale);
+              acc[r][t] * scale;
         }
       }
     }
@@ -439,18 +423,18 @@ __device__ __forceinline__ void attn_bwd_body(
   __syncthreads();
 
   // Pass B: q and dO staged, a warp per group of key rows.
-  stage<T, DH>(mat_a, q_g, s_len, pitch);
-  stage<T, DH>(mat_b, do_g, s_len, do_pitch);
+  stage<DH>(mat_a, q_g, s_len, pitch);
+  stage<DH>(mat_b, do_g, s_len, do_pitch);
   __syncthreads();
   for (int j0 = warp * kRows; j0 < s_len; j0 += kWarps * kRows) {
     float acc_v[kRows][DPL] = {}, acc_k[kRows][DPL] = {};
     if (j0 < kv) {  // the same for the whole warp
-      load_rows<T, DH>(vec_a, k_g, j0, kv - 1, pitch, lane);
-      load_rows<T, DH>(vec_b, v_g, j0, kv - 1, pitch, lane);
+      load_rows<DH>(vec_a, k_g, j0, kv - 1, pitch, lane);
+      load_rows<DH>(vec_b, v_g, j0, kv - 1, pitch, lane);
       __syncwarp();
       float p[kRows][kChunks], dp[kRows][kChunks];
-      dot_rows<T, DH>(mat_a, s_len, vec_a, lane, p);
-      dot_rows<T, DH>(mat_b, s_len, vec_b, lane, dp);
+      dot_rows<DH>(mat_a, s_len, vec_a, lane, p);
+      dot_rows<DH>(mat_b, s_len, vec_b, lane, dp);
 #pragma unroll
       for (int c = 0; c < kChunks; ++c) {
         const int i = c * 32 + lane;
@@ -461,8 +445,8 @@ __device__ __forceinline__ void attn_bwd_body(
           for (int r = 0; r < kRows; ++r) {
             const float pr = __fdiv_rn(
                 probability_numerator(__fmul_rn(p[r][c], scale), mx), sum);
-            pc[r] = round_to<T, ROUND>(pr);
-            dsc[r] = round_to<T, ROUND>(pr * (dp[r][c] - delta));
+            pc[r] = pr;
+            dsc[r] = pr * (dp[r][c] - delta);
           }
           *reinterpret_cast<float4*>(w_a + i * kRows) =
               make_float4(pc[0], pc[1], pc[2], pc[3]);
@@ -471,8 +455,8 @@ __device__ __forceinline__ void attn_bwd_body(
         }
       }
       __syncwarp();
-      weighted_rows<T, DH>(mat_b, s_len, w_a, lane, acc_v);
-      weighted_rows<T, DH>(mat_a, s_len, w_b, lane, acc_k);
+      weighted_rows<DH>(mat_b, s_len, w_a, lane, acc_v);
+      weighted_rows<DH>(mat_a, s_len, w_b, lane, acc_k);
     }
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -482,8 +466,8 @@ __device__ __forceinline__ void attn_bwd_body(
 #pragma unroll
         for (int t = 0; t < DPL; ++t) {
           const size_t at = static_cast<size_t>(j) * pitch + lane * DPL + t;
-          dv_g[at] = from_float<T>(live ? acc_v[r][t] : 0.0f);
-          dk_g[at] = from_float<T>(live ? acc_k[r][t] * scale : 0.0f);
+          dv_g[at] = live ? acc_v[r][t] : 0.0f;
+          dk_g[at] = live ? acc_k[r][t] * scale : 0.0f;
         }
       }
     }
@@ -492,93 +476,93 @@ __device__ __forceinline__ void attn_bwd_body(
 }
 
 // Packed qkv [B, S, 3D] and dO [B, S, D] -> packed dqkv; block = (image, head).
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    attn_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ d_o,
-                        T* __restrict__ dqkv, int heads, int s_len, int kv,
+    attn_qkv_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ d_o,
+                        float* __restrict__ dqkv, int heads, int s_len, int kv,
                         float scale) {
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x - b * heads;
   const int d_model = heads * DH;
   const int pitch = 3 * d_model;
   const size_t image = static_cast<size_t>(b) * s_len;
-  const T* q_g = qkv + image * pitch + h * DH;
-  T* dq_g = dqkv + image * pitch + h * DH;
-  attn_bwd_body<T, DH, true>(q_g, q_g + d_model, q_g + 2 * d_model,
+  const float* q_g = qkv + image * pitch + h * DH;
+  float* dq_g = dqkv + image * pitch + h * DH;
+  attn_bwd_body<DH>(q_g, q_g + d_model, q_g + 2 * d_model,
                              d_o + image * d_model + h * DH, dq_g,
                              dq_g + d_model, dq_g + 2 * d_model, pitch,
                              d_model, s_len, kv, scale);
 }
 
 // q, k, v, dO [B*H, S, DH] -> dq, dk, dv of the same shape; float32 p and ds.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-    attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ d_o,
-                    T* __restrict__ dq, T* __restrict__ dk,
-                    T* __restrict__ dv, int s_len, float scale) {
+    attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ d_o,
+                    float* __restrict__ dq, float* __restrict__ dk,
+                    float* __restrict__ dv, int s_len, float scale) {
   const size_t at = static_cast<size_t>(blockIdx.x) * s_len * DH;
-  attn_bwd_body<T, DH, false>(q + at, k + at, v + at, d_o + at, dq + at,
+  attn_bwd_body<DH>(q + at, k + at, v + at, d_o + at, dq + at,
                               dk + at, dv + at, DH, DH, s_len, s_len, scale);
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch_fwd(const void* qkv, void* o, int batch, int heads, int s_len,
                int kv, float scale, cudaStream_t stream) {
-  const size_t bytes = Layout<T, DH>::forward_bytes(s_len);
+  const size_t bytes = Layout<DH>::forward_bytes(s_len);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_qkv_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_qkv_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_qkv_fwd_kernel<T, DH><<<batch * heads, kThreads, bytes, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(o), heads, s_len, kv, scale);
+  attn_qkv_fwd_kernel<DH><<<batch * heads, kThreads, bytes, stream>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(o), heads, s_len, kv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch_bwd(const void* qkv, const void* d_o, void* dqkv, int batch,
                int heads, int s_len, int kv, float scale,
                cudaStream_t stream) {
-  const size_t bytes = Layout<T, DH>::backward_bytes(s_len);
+  const size_t bytes = Layout<DH>::backward_bytes(s_len);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_qkv_bwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_qkv_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_qkv_bwd_kernel<T, DH><<<batch * heads, kThreads, bytes, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(d_o),
-      static_cast<T*>(dqkv), heads, s_len, kv, scale);
+  attn_qkv_bwd_kernel<DH><<<batch * heads, kThreads, bytes, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(d_o),
+      static_cast<float*>(dqkv), heads, s_len, kv, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch_unpacked_fwd(const void* q, const void* k, const void* v, void* o,
                         int batch_heads, int s_len, float scale,
                         cudaStream_t stream) {
-  const size_t bytes = Layout<T, DH>::forward_bytes(s_len);
+  const size_t bytes = Layout<DH>::forward_bytes(s_len);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_kernel<T, DH><<<batch_heads, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), s_len, scale);
+  attn_fwd_kernel<DH><<<batch_heads, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), s_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DH>
+template <int DH>
 int launch_unpacked_bwd(const void* q, const void* k, const void* v,
                         const void* d_o, void* dq, void* dk, void* dv,
                         int batch_heads, int s_len, float scale,
                         cudaStream_t stream) {
-  const size_t bytes = Layout<T, DH>::backward_bytes(s_len);
+  const size_t bytes = Layout<DH>::backward_bytes(s_len);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_bwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attn_bwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_kernel<T, DH><<<batch_heads, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(d_o),
-      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), s_len,
+  attn_bwd_kernel<DH><<<batch_heads, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(d_o),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), s_len,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -606,10 +590,10 @@ extern "C" int ssip_attention_qkv_fwd(const void* qkv, void* o, int is_bf16,
                                   s);
   }
   if (dh == 64) {
-    return launch_fwd<float, 64>(qkv, o, batch, heads, s_len, kv, scale, s);
+    return launch_fwd<64>(qkv, o, batch, heads, s_len, kv, scale, s);
   }
   if (dh == 32) {
-    return launch_fwd<float, 32>(qkv, o, batch, heads, s_len, kv, scale, s);
+    return launch_fwd<32>(qkv, o, batch, heads, s_len, kv, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -628,62 +612,59 @@ extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
                                   dh, kv, scale, s);
   }
   if (dh == 64) {
-    return launch_bwd<float, 64>(qkv, d_o, dqkv, batch, heads, s_len, kv,
+    return launch_bwd<64>(qkv, d_o, dqkv, batch, heads, s_len, kv,
                                  scale, s);
   }
   if (dh == 32) {
-    return launch_bwd<float, 32>(qkv, d_o, dqkv, batch, heads, s_len, kv,
+    return launch_bwd<32>(qkv, d_o, dqkv, batch, heads, s_len, kv,
                                  scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The unpacked pair: q, k, v (and dO, dq, dk, dv) contiguous
-// [batch_heads, s_len, dh], 1 <= s_len <= 256, every key real.
+// [batch_heads, s_len, dh], every key real; 1 <= s_len <= 256 in float32,
+// up to 1024 in bfloat16. The bfloat16 backward takes `stats`, the caller's
+// float32 scratch of batch_heads * 3 * round16(s_len) values; float32
+// ignores it.
 
 extern "C" int ssip_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, int is_bf16, int batch_heads,
                                   int s_len, int dh, float scale,
                                   void* stream) {
   if (batch_heads == 0 || s_len == 0) return 0;
-  if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (s_len > kMaxUnpackedBf16Seq) return static_cast<int>(cudaErrorInvalidValue);
+    return attention_fwd_bf16(q, k, v, o, batch_heads, s_len, dh, scale, s);
+  }
+  if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64) {
-    return is_bf16 ? launch_unpacked_fwd<__nv_bfloat16, 64>(
-                         q, k, v, o, batch_heads, s_len, scale, s)
-                   : launch_unpacked_fwd<float, 64>(q, k, v, o, batch_heads,
-                                                    s_len, scale, s);
+    return launch_unpacked_fwd<64>(q, k, v, o, batch_heads, s_len, scale, s);
   }
   if (dh == 32) {
-    return is_bf16 ? launch_unpacked_fwd<__nv_bfloat16, 32>(
-                         q, k, v, o, batch_heads, s_len, scale, s)
-                   : launch_unpacked_fwd<float, 32>(q, k, v, o, batch_heads,
-                                                    s_len, scale, s);
+    return launch_unpacked_fwd<32>(q, k, v, o, batch_heads, s_len, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int ssip_attention_bwd(const void* q, const void* k, const void* v,
                                   const void* d_o, void* dq, void* dk,
-                                  void* dv, int is_bf16, int batch_heads,
-                                  int s_len, int dh, float scale,
-                                  void* stream) {
+                                  void* dv, void* stats, int is_bf16,
+                                  int batch_heads, int s_len, int dh,
+                                  float scale, void* stream) {
   if (batch_heads == 0 || s_len == 0) return 0;
-  if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (s_len > kMaxUnpackedBf16Seq) return static_cast<int>(cudaErrorInvalidValue);
+    return attention_bwd_bf16(q, k, v, d_o, dq, dk, dv, stats, batch_heads, s_len, dh, scale, s);
+  }
+  if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
   if (dh == 64) {
-    return is_bf16 ? launch_unpacked_bwd<__nv_bfloat16, 64>(
-                         q, k, v, d_o, dq, dk, dv, batch_heads, s_len, scale, s)
-                   : launch_unpacked_bwd<float, 64>(q, k, v, d_o, dq, dk, dv,
-                                                    batch_heads, s_len, scale,
-                                                    s);
+    return launch_unpacked_bwd<64>(q, k, v, d_o, dq, dk, dv, batch_heads, s_len, scale, s);
   }
   if (dh == 32) {
-    return is_bf16 ? launch_unpacked_bwd<__nv_bfloat16, 32>(
-                         q, k, v, d_o, dq, dk, dv, batch_heads, s_len, scale, s)
-                   : launch_unpacked_bwd<float, 32>(q, k, v, d_o, dq, dk, dv,
-                                                    batch_heads, s_len, scale,
-                                                    s);
+    return launch_unpacked_bwd<32>(q, k, v, d_o, dq, dk, dv, batch_heads, s_len, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,7 +25,13 @@ float32 for their products (``:73``, ``:135-145``) where the packed pair
 rounds both to the input type, so this entry has plain versions of its own,
 ``attention_unrounded_plain`` and ``attention_bwd_plain``; in float32 the two
 forms are the same function. No pad to 128 tokens exists here and every key
-is real.
+is real. For bfloat16 its kernels are those of
+``csrc/attention_unpacked_mma.cu``: every product on ``mma.sync``, keys (or
+queries) streamed in tiles of 64, ``p`` and ``ds`` entering their products
+as bf16 hi/lo pairs, so S goes up to 1024 as in the JAX entry
+(``_MAX_FUSED_SEQ``); the backward is two launches joined by a float32
+scratch this module allocates. For float32 they are the scalar ones of
+``csrc/attention.cu``, S up to 256.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version (autograd differentiates it); a CUDA tensor launches the
@@ -42,13 +48,18 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_WIDTHS = (32, 64)
-MAX_KERNEL_SEQ = 256  # 8 chunks of 32 keys a lane, in both csrc/attention.cu and csrc/attention_mma.cu
+MAX_KERNEL_SEQ = 256  # the packed pair: 8 chunks of 32 keys a lane, in csrc/attention.cu and csrc/attention_mma.cu
+_MAX_FUSED_SEQ = 1024  # the JAX entries' longest sequence for their kernels
+# the unpacked pair by type: bf16 streams the keys, float32 runs the packed
+# pair's scalar bodies
+MAX_UNPACKED_SEQ = {torch.bfloat16: _MAX_FUSED_SEQ, torch.float32: MAX_KERNEL_SEQ}
 _SEQ_LIMIT_ITEM = (
     "ROADMAP.md, Queue 2 #5a: sequences up to 1024 in the attention kernels, by tiling the "
     "keys in two passes"
 )
 
 
+@lru_cache(maxsize=None)
 def _scale(dh: int) -> float:
     return float(np.float32(1.0 / np.sqrt(dh)))
 
@@ -153,7 +164,8 @@ def _unpacked_kernel_entries():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ssip_attention_fwd, lib.ssip_attention_bwd
     fwd.argtypes = [p, p, p, p, i, i, i, i, f, p]  # q, k, v, o, is_bf16, batch·heads, s, dh, scale, stream
-    bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, p]  # q, k, v, dO, dq, dk, dv, is_bf16, batch·heads, s, dh, scale, stream
+    # q, k, v, dO, dq, dk, dv, stats scratch (bf16 only), is_bf16, batch·heads, s, dh, scale, stream
+    bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -169,25 +181,24 @@ def _geometry(qkv: torch.Tensor, num_heads: int, kv_len: int):
     return b, s, d, d // num_heads, (kv_len if 0 < kv_len < s else s)
 
 
-def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int) -> None:
-    """Raise on what the kernels do not take."""
+def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int, limit: int = MAX_KERNEL_SEQ) -> None:
+    """Raise on what the kernels do not take; ``limit`` is the longest sequence."""
     if qkv.dtype not in _DTYPES:
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {qkv.dtype}")
     if dh not in _HEAD_WIDTHS:
         raise ValueError(f"attention kernel takes head widths {_HEAD_WIDTHS}, got {dh}")
-    if s > MAX_KERNEL_SEQ:
-        raise ValueError(
-            f"attention kernel takes sequences up to {MAX_KERNEL_SEQ}, got {s}: longer ones "
-            f"are not ported to ssip_tpu_torch yet ({_SEQ_LIMIT_ITEM})"
-        )
+    if s > limit:
+        why = ("the JAX entry leaves its kernel there too (_MAX_FUSED_SEQ)" if limit == _MAX_FUSED_SEQ
+               else f"longer ones are not ported to ssip_tpu_torch yet ({_SEQ_LIMIT_ITEM})")
+        raise ValueError(f"attention kernel takes sequences up to {limit} in {qkv.dtype}, got {s}: {why}")
     if not qkv.is_contiguous():
         raise ValueError("attention kernel needs a contiguous packed qkv")
 
 
 def _check_aligned(*operands: torch.Tensor) -> None:
-    """The bfloat16 packed kernels stage rows by 16-byte copies."""
+    """The bfloat16 kernels stage rows by 16-byte copies."""
     if operands[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in operands):
-        raise ValueError("bfloat16 attention kernel needs qkv and dO at 16-byte aligned addresses")
+        raise ValueError("bfloat16 attention kernel needs its operands at 16-byte aligned addresses")
 
 
 def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int) -> torch.Tensor:
@@ -299,7 +310,8 @@ def _check_unpacked_cuda(*operands: torch.Tensor) -> None:
         raise ValueError(f"attention runs on cpu or cuda tensors, got {q.device}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("attention kernel needs contiguous q, k, v and dO")
-    _check_cuda_operands(q, q.shape[2], q.shape[3])
+    _check_cuda_operands(q, q.shape[2], q.shape[3], MAX_UNPACKED_SEQ.get(q.dtype, MAX_KERNEL_SEQ))
+    _check_aligned(*operands)
 
 
 def _launch_unpacked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -322,7 +334,8 @@ def _launch_unpacked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
     """(dq, dk, dv), each [B, H, S, Dh] in the inputs' type, from the saved
     q, k, v and the incoming ``d_o``. ``attention_bwd.launches`` counts
-    kernel launches."""
+    calls that launch the backward (one a call; in bfloat16 that is two
+    kernels, dq by query rows, then dk and dv by key rows)."""
     _check_unpacked(q, k, v, d_o)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, d_o)
@@ -331,10 +344,13 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     if q.numel() == 0:
         return dq, dk, dv
+    bf16 = q.dtype == torch.bfloat16
+    # the bf16 pair's per-row statistics between its two launches
+    stats = torch.empty(b * h * 3 * (-(-s // 16) * 16), device=q.device) if bf16 else None
     with torch.cuda.device(q.device):
         err = _unpacked_kernel_entries()[1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), int(q.dtype == torch.bfloat16), b * h, s, dh, _scale(dh),
+            dv.data_ptr(), None if stats is None else stats.data_ptr(), int(bf16), b * h, s, dh, _scale(dh),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -368,7 +384,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     _check_unpacked(q, k, v)
     if q.device.type == "cpu":
         return attention_unrounded_plain(q, k, v)
-    return _UnpackedAttentionKernel.apply(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _UnpackedAttentionKernel.apply(q, k, v)
+    return _launch_unpacked_fwd(q, k, v)  # nothing to differentiate: no autograd node to set up
 
 
 fused_attention.launches = 0

@@ -15,7 +15,10 @@ the input type first. In float32 that is the same function; in bfloat16 the
 port is held to the Pallas kernels (interpret mode) at the tolerances above,
 and to ``attention_xla`` within two bfloat16 steps of the value or 2⁻⁸ of the
 tensor's largest entry, whichever is larger: rounding 197 probabilities to 8
-bits moves a sum of them by up to that.
+bits moves a sum of them by up to that. One case has 577 tokens, past the
+float32 kernels' 256, which the bfloat16 kernels take. The last test
+emulates the bfloat16 kernels' arithmetic (p and ds as bf16 hi/lo pairs) and
+shows why they split p and ds.
 """
 
 import jax
@@ -150,6 +153,7 @@ def test_wrapper_raises_on_wrong_operands():
 UNPACKED_CASES = [
     (2, 3, 11, 16, "float32"), (1, 2, 50, 64, "float32"), (2, 1, 197, 32, "float32"),
     (2, 3, 11, 16, "bfloat16"), (1, 2, 50, 64, "bfloat16"), (1, 1, 197, 64, "bfloat16"),
+    (1, 2, 577, 64, "bfloat16"),  # past the float32 kernels' 256: ViT-B/16's tokens at 384²
 ]
 
 
@@ -220,3 +224,67 @@ def test_unpacked_wrapper_raises_on_wrong_operands():
     # the plain version has no sequence limit; the kernel's is checked on the card
     long = torch.zeros((1, 1, MAX_KERNEL_SEQ + 8, 8))
     assert fused_attention(long, long, long).shape == long.shape
+
+
+def _outside_one_step(got: torch.Tensor, ref: torch.Tensor) -> int:
+    """How many of ``got`` lie further than one bfloat16 step of the plain
+    value ``ref`` (2e-5 where a step is smaller): the card's element gate."""
+    err = (got.float() - ref.float()).abs()
+    step = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1e-30))) - 7)
+    return int((err > torch.maximum(step, torch.full_like(step, 2e-5))).sum())
+
+
+def _emulated_bf16_kernels(q, k, v, d_o, split: bool):
+    """(o, dq, dk, dv) as the bfloat16 kernels of
+    ``csrc/attention_unpacked_mma.cu`` compute them, in float32 on the CPU:
+    scores of the bf16 inputs summed in float32 and scaled after the sum by
+    scale·log2(e), keys in tiles of 64 with a running max and sum, o times
+    1/sum at the end; p and ds enter their products as a bf16 hi/lo pair
+    (``split``) or rounded to bf16 once (the shortcut the kernels do not
+    take), q, k, v, dO as they are."""
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def times(a, b):
+        hi = a.to(bf16).to(f32)
+        if not split:
+            return hi @ b
+        return hi @ b + (a - hi).to(bf16).to(f32) @ b
+
+    qf, kf, vf, do = (t.to(f32) for t in (q, k, v, d_o))
+    scale = float(np.float32(1.0 / np.sqrt(q.shape[-1])))
+    scale_log2 = float(np.float32(scale) * np.float32(np.log2(np.e)))
+    mx = torch.full(q.shape[:-1] + (1,), -np.inf)
+    total = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, q.shape[2], 64):
+        x = (qf @ kf[:, :, k0:k0 + 64].transpose(-1, -2)) * scale_log2
+        m_new = torch.maximum(mx, x.amax(-1, keepdim=True))
+        f = torch.exp2(mx - m_new)
+        total, acc, mx = total * f, acc * f, m_new
+        e = torch.exp2(x - mx)
+        total = total + e.sum(-1, keepdim=True)
+        acc = acc + times(e, vf[:, :, k0:k0 + 64])
+    o = acc * (1.0 / total)
+    p = torch.exp2((qf @ kf.transpose(-1, -2)) * scale_log2 - mx) * (1.0 / total)
+    dp = do @ vf.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = times(ds, kf) * scale
+    dk = times(ds.transpose(-1, -2), qf) * scale
+    dv = times(p.transpose(-1, -2), do)
+    return tuple(t.to(bf16) for t in (o, dq, dk, dv))
+
+
+def test_bf16_kernels_need_p_and_ds_split_to_hold_one_step():
+    """Why the bfloat16 kernels take p and ds as hi/lo pairs: emulated in
+    float32, the split form puts no output and no gradient further than one
+    bfloat16 step (or 2e-5) from ``attention_unrounded_plain`` and
+    ``attention_bwd_plain``, at ViT-B/16's 12 heads of 64 over 197 tokens;
+    p and ds rounded to bf16 once put some of each beyond it."""
+    rng = np.random.default_rng(7)
+    q, k, v, d_o = (torch.from_numpy(rng.standard_normal((2, 12, 197, 64)).astype(np.float32)).to(torch.bfloat16)
+                    for _ in range(4))
+    refs = (attention_unrounded_plain(q, k, v), *attention_bwd_plain(q, k, v, d_o))
+    split = [_outside_one_step(got, ref) for got, ref in zip(_emulated_bf16_kernels(q, k, v, d_o, True), refs)]
+    once = [_outside_one_step(got, ref) for got, ref in zip(_emulated_bf16_kernels(q, k, v, d_o, False), refs)]
+    assert split == [0, 0, 0, 0], split
+    assert all(n > 0 for n in once), once

@@ -16,7 +16,7 @@ import torch
 
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
 from ssip_tpu_torch.ops.attention import (
-    MAX_KERNEL_SEQ, attention_bwd, attention_bwd_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
+    MAX_KERNEL_SEQ, MAX_UNPACKED_SEQ, attention_bwd, attention_bwd_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
     attention_qkv_plain, attention_unrounded_plain, fused_attention, fused_attention_qkv,
 )
 from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest, strong_augment, train_augment
@@ -408,12 +408,21 @@ def test_quantized_mlp_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize(
     "b,heads,s,dh,dtype",
     [(4, 12, 197, 64, torch.bfloat16), (2, 12, 197, 64, torch.float32), (3, 2, 50, 32, torch.float32),
-     (2, 2, MAX_KERNEL_SEQ, 64, torch.bfloat16), (2, 1, 5, 32, torch.bfloat16), (2, 3, 208, 64, torch.bfloat16)],
+     (2, 2, MAX_KERNEL_SEQ, 64, torch.bfloat16), (2, 1, 5, 32, torch.bfloat16), (2, 3, 208, 64, torch.bfloat16),
+     (1, 2, MAX_UNPACKED_SEQ[torch.float32], 64, torch.float32),
+     # the bf16 kernels' edges: one token, S across the 64-row tiles, and
+     # past the float32 limit up to the JAX entry's 1024, at both head widths
+     *[(2, 2, s, dh, torch.bfloat16) for s in (1, 63, 64, 65, 577, MAX_UNPACKED_SEQ[torch.bfloat16])
+       for dh in (32, 64)]],
 )
 def test_unpacked_attention_kernels_match_plain_on_cuda(cuda, b, heads, s, dh, dtype):
     """``fused_attention`` on q, k, v [B, H, S, Dh], and its backward through
     autograd, against the plain versions that keep ``p`` and ``ds`` in
-    float32, at the tolerances of the packed pair."""
+    float32: the output within one step of the plain value (2e-5 in
+    float32), the gradients within 1e-2 (1e-5) of each tensor's max and, in
+    bfloat16, each element within one step too, which only a p and ds kept
+    to float32 precision in the kernels' products can hold. The backward
+    gives the same bits from run to run (no atomics)."""
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(b * s * heads)
     q, k, v, d_o = (
@@ -427,16 +436,56 @@ def test_unpacked_attention_kernels_match_plain_on_cuda(cuda, b, heads, s, dh, d
     _assert_output_close(out.detach(), attention_unrounded_plain(q, k, v))
     for got, ref in zip(grads, attention_bwd_plain(q, k, v, d_o)):
         _assert_grad_close(got, ref)
+        if dtype == torch.bfloat16:
+            _assert_output_close(got, ref)
+    again = attention_bwd(q, k, v, d_o)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))  # no atomics: run to run the same
+
+
+@pytest.mark.cuda
+def test_unpacked_attention_bf16_calls_launch_their_kernels_once(cuda):
+    """On bfloat16 a forward call runs ``attn_unpacked_fwd_kernel`` once on
+    the card and a backward call ``attn_unpacked_bwd_rows_kernel`` and
+    ``attn_unpacked_bwd_keys_kernel`` once each, and nothing else of the
+    attention kernels; each call counts one."""
+    rng = np.random.default_rng(4)
+    q, k, v, d_o = (torch.from_numpy(rng.standard_normal((2, 3, 197, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
+                    for _ in range(4))
+    before = fused_attention.launches, attention_bwd.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fused_attention(q, k, v)
+        attention_bwd(q, k, v, d_o)
+        torch.cuda.synchronize()
+    assert (fused_attention.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "attn" in e.name]
+    for kernel in ("attn_unpacked_fwd_kernel", "attn_unpacked_bwd_rows_kernel", "attn_unpacked_bwd_keys_kernel"):
+        assert sum(kernel in n for n in names) == 1, names
+    assert len(names) == 3, names
 
 
 @pytest.mark.cuda
 def test_unpacked_attention_kernel_refuses_what_it_does_not_take(cuda):
-    long = torch.zeros((1, 1, MAX_KERNEL_SEQ + 1, 64), device=cuda)
+    """Sequences past each type's limit (bfloat16 1024, the JAX entry's;
+    float32 256, with the ROADMAP item that would lift it), head widths
+    other than 32 and 64, strided and misaligned operands."""
+    for dtype, limit in MAX_UNPACKED_SEQ.items():
+        long = torch.zeros((1, 1, limit + 1, 64), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match=f"sequences up to {limit} in {dtype}"):
+            fused_attention(long, long, long)
+        with pytest.raises(ValueError, match=f"sequences up to {limit} in {dtype}"):
+            attention_bwd(long, long, long, long)
     with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 2 #5a"):
-        fused_attention(long, long, long)
+        fused_attention(*[torch.zeros((1, 1, MAX_KERNEL_SEQ + 1, 64), device=cuda)] * 3)
     narrow = torch.zeros((1, 1, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="head widths"):
         fused_attention(narrow, narrow, narrow)
     q = torch.zeros((1, 2, 8, 64), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention(q, q, q.transpose(1, 2).contiguous().transpose(1, 2))
+    flat = torch.zeros(1 + 2 * 8 * 64, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(1, 2, 8, 64)  # contiguous, 2 bytes past a 16-byte boundary
+    aligned = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_attention(aligned, shifted, aligned)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd(aligned, aligned, aligned, shifted)
