@@ -14,7 +14,8 @@ non-zero without printing the final line:
    times (CUDA events) of the kernel, the plain version and, where one
    PyTorch call computes the same function, that call, beside the bound (the
    least time the card could take: bytes over 3.35 TB/s or operations over
-   the data-sheet peak of their type, whichever is larger):
+   the data-sheet peak of their type, whichever is larger; float32
+   attention products count as three TF32 products at 495 TFLOP/s):
    kernel  ``preprocess_images``: bitwise in float32 and bfloat16 at
            [128, 512, 512, 3] → 256 → 224, one uint8 step at 384² and 320×448;
            its int8 form (``quant_inv_scale``) bitwise at the first shape and
@@ -36,10 +37,13 @@ non-zero without printing the final line:
            [128, 197, 2304] and at [128, 208, 2304] with ``kv_len`` 197, in
            bfloat16 (the kernels of ``csrc/attention_mma.cu``, products on
            the tensor cores but the forward's scores) and float32 (the
-           scalar ones of ``csrc/attention.cu``), and at the 3 heads of vit_t16;
-           pad-query rows are compared too and get a non-zero dO; for the
-           bfloat16 rows also bytes/s and bound/time, and ptxas's registers,
-           shared memory and spills of the two tensor-core kernels.
+           forward of ``csrc/attention_f32_mma.cu``, 3xTF32 products on the
+           tensor cores; the scalar backward of ``csrc/attention.cu``), at
+           the 3 heads of vit_t16, and in float32 at 256 tokens, the limit;
+           pad-query rows are compared too and get a non-zero dO; also
+           bytes/s and bound/time, and ptxas's registers, shared memory and
+           spills of the tensor-core kernels (the float32 forward's also
+           resident blocks an SM).
    qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
            float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
            off the plain version by more than 1e-5 (absolute and relative),
@@ -47,8 +51,9 @@ non-zero without printing the final line:
    attn4   ``fused_attention`` and ``attention_bwd`` on q, k, v
            [128, 12, 197, 64] in bfloat16 (the kernels of
            ``csrc/attention_unpacked_mma.cu``, every product on the tensor
-           cores, p and ds as bf16 hi/lo pairs) and float32, 3 heads,
-           [8, 2, 50, 32], and in bfloat16 past the float32 kernels' 256
+           cores, p and ds as bf16 hi/lo pairs) and float32 (the packed
+           pair's float32 kernels), 3 heads, [8, 2, 50, 32], float32 at
+           [128, 12, 256, 64], and in bfloat16 past the float32 kernels' 256
            tokens: [16, 12, 577, 64] (ViT-B/16 at 384²), [4, 12, 1024, 64]
            and [2, 4, 1024, 32]; at attn's tolerances, and in bfloat16 each
            element of dq, dk and dv also within the output's one step; the
@@ -159,17 +164,21 @@ BATCH = 128
 RESIZE, CROP = 256, 224
 N_CPU_CHECK = 16
 TIMED_LAUNCHES = 20
-# what the packed pair's bf16 times below are of; float32 runs the scalar
-# kernels of csrc/attention.cu
+# what the packed pair's bf16 times below are of
 ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: forward float32 FMA scores in cuBLAS's order, torch-order softmax, "
                    "P.V on mma.sync m16n8k16; backward two launches, every product on mma.sync; cp.async staging")
 ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel")
-# what the unpacked pair's bf16 times below are of; float32 runs the scalar
-# kernels of csrc/attention.cu
+# what the unpacked pair's bf16 times below are of
 UNPACKED_MMA_DESIGN = ("bf16, csrc/attention_unpacked_mma.cu: every product on mma.sync m16n8k16, p and ds as bf16 "
                        "hi/lo pairs (two mma a product), keys or queries streamed in 64-row cp.async tiles, online "
                        "softmax; backward two launches (dq by query rows, dk and dv by key rows)")
 UNPACKED_MMA_KERNELS = ("attn_unpacked_fwd_kernel", "attn_unpacked_bwd_rows_kernel", "attn_unpacked_bwd_keys_kernel")
+# what both pairs' float32 forward times below are of; their float32 backward
+# is the scalar kernel of csrc/attention.cu
+F32_SOURCE = "ssip_tpu_torch/csrc/attention_f32_mma.cu"
+ATTN_F32_DESIGN = ("f32 forward, csrc/attention_f32_mma.cu: 3xTF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi) on "
+                   "mma.sync m16n8k8, operands split in registers, K and V streamed in 64-key cp.async tiles, online "
+                   "softmax; backward the scalar kernel of csrc/attention.cu")
 KERNELS = {
     "preprocess_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -190,6 +199,7 @@ KERNELS = {
     "attention_qkv": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_mma.cu",
         "replaces": "ssip_tpu/ops/attention.py:220", "design": ATTN_MMA_DESIGN,
+        "float32_source": F32_SOURCE, "float32_design": ATTN_F32_DESIGN,
     },
     "attention_qkv_bwd": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_mma.cu",
@@ -206,6 +216,7 @@ KERNELS = {
     "attention": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_unpacked_mma.cu",
         "replaces": "ssip_tpu/ops/attention.py:59", "design": UNPACKED_MMA_DESIGN,
+        "float32_source": F32_SOURCE, "float32_design": ATTN_F32_DESIGN,
     },
     "attention_bwd": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_unpacked_mma.cu",
@@ -217,9 +228,12 @@ KERNELS = {
     },
 }
 # Data-sheet peaks of one H100 SXM, for the bounds: device memory rate, and
-# dense operation rates by operand type (float32 outside the tensor cores).
+# dense operation rates by operand type: "float32" outside the tensor cores
+# (elementwise work), "tf32x3" float32-accurate products on them, three TF32
+# products each (the float32 attention kernels).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32x3": 495e12 / 3}
+ATTN_OPS_TYPE = {"bfloat16": "bfloat16", "float32": "tf32x3"}  # the attention rows' products by input type
 VIT_ARCH, VIT_WIDTH, VIT_TOKENS, VIT_HEADS, VIT_MLP = "vit_b16", 768, 197, 12, 3072
 VIT_LN_PER_FORWARD, VIT_ATTN_PER_FORWARD, VIT_BLOCKS = 25, 12, 12
 INT8_COSINE_FLOOR = 0.98  # int8 vs float32 embeddings, per image (the JAX pipeline's own floor)
@@ -235,7 +249,7 @@ QMLP_MAX_SHARE_OFF = 1e-3
 # (batch, heads, tokens, head width, type)
 UNPACKED_ATTN_SHAPES = (
     (128, 12, 197, 64, "bfloat16"), (128, 12, 197, 64, "float32"), (128, 3, 197, 64, "bfloat16"),
-    (8, 2, 50, 32, "float32"),
+    (8, 2, 50, 32, "float32"), (128, 12, 256, 64, "float32"),
     (16, 12, 577, 64, "bfloat16"), (4, 12, 1024, 64, "bfloat16"), (2, 4, 1024, 32, "bfloat16"),
 )
 VIT_N_CPU_CHECK = 8
@@ -250,7 +264,7 @@ LN_SHAPES = (
 ATTN_SHAPES = (
     (128, 197, 12, 0, "bfloat16"), (128, 197, 12, 0, "float32"),
     (128, 208, 12, 197, "bfloat16"), (128, 208, 12, 197, "float32"),
-    (128, 197, 3, 0, "bfloat16"),
+    (128, 197, 3, 0, "bfloat16"), (128, 256, 12, 0, "float32"),
 )
 F32_ATOL = 2e-5
 GRAD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -659,7 +673,9 @@ def phase_attention_kernels(torch, np) -> dict:
     bfloat16 with 12 heads."""
     import torch.nn.functional as F
 
-    from ssip_tpu_torch.kernels.build import build, kernel_resources
+    import ctypes
+
+    from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
     from ssip_tpu_torch.ops.attention import (
         attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, fused_attention_qkv,
     )
@@ -676,6 +692,9 @@ def phase_attention_kernels(torch, np) -> dict:
             # template arguments: the head width, and for the forward the key chunks of 32
             args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?", name)
             say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", **r)
+    f32_info = load_library().ssip_attention_f32_info  # the float32 forward of both pairs
+    f32_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    _kernel_resources("attn", lambda which, dh, out: f32_info(dh, out), ("attn_f32_fwd_kernel",))
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(SEED + 7)
     dh = 64
@@ -715,8 +734,9 @@ def phase_attention_kernels(torch, np) -> dict:
         do_view = d_o.view(b, s, heads, dh).permute(0, 2, 1, 3)
         lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(o_lib, leaf, do_view, retain_graph=True))
         item = qkv.element_size()
-        fwd_bound = bound_ms((qkv.numel() + out.numel()) * item, 4 * b * heads * s * kv * dh, dtype_name)
-        bwd_bound = bound_ms((2 * qkv.numel() + d_o.numel()) * item, 10 * b * heads * s * kv * dh, dtype_name)
+        ops_type = ATTN_OPS_TYPE[dtype_name]
+        fwd_bound = bound_ms((qkv.numel() + out.numel()) * item, 4 * b * heads * s * kv * dh, ops_type)
+        bwd_bound = bound_ms((2 * qkv.numel() + d_o.numel()) * item, 10 * b * heads * s * kv * dh, ops_type)
         say("attn", shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len, dtype=dtype_name, max_abs_err=err_o,
             dq_rel=rels[0], dk_rel=rels[1], dv_rel=rels[2], fwd_ms=f"{fwd_ms:.4f}",
             fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_library_ms=f"{lib_fwd_ms:.4f}",
@@ -732,6 +752,11 @@ def phase_attention_kernels(torch, np) -> dict:
                 bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}",
                 fwd_smem_bytes=4 * kvp * dh + 64 * dh + max(128 * dh, 64 * (kvp + 8)),
                 bwd_rows_smem_bytes=(128 + 2 * kvp) * dh * 2, bwd_keys_smem_bytes=(128 + 2 * sp) * dh * 2 + 12 * sp)
+        else:
+            say("attn", design=repr(ATTN_F32_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
+                fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}",
+                fwd_tflops_3xtf32=f"{3 * 4 * b * heads * s * kv * dh / fwd_ms / 1e9:.1f}",
+                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}")
         if (b, s, heads, kv_len, dtype_name) == ATTN_SHAPES[0]:
             result = {
                 "attention_qkv": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
@@ -804,27 +829,27 @@ def phase_qmlp_kernel(torch, np) -> dict:
     return result
 
 
-def _unpacked_kernel_resources() -> None:
-    """What the card makes of the unpacked pair's three bf16 kernels at both
-    head widths: registers, local bytes a thread, shared memory a block
-    (``cudaFuncGetAttributes`` and the launch's dynamic size), resident
-    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
-    ptxas's spill report."""
+def _kernel_resources(phase: str, info, fragments) -> None:
+    """What the card makes of the tensor-core attention kernels named by
+    ``fragments`` at both head widths: registers, local bytes a thread,
+    shared memory a block (``cudaFuncGetAttributes`` and the launch's
+    dynamic size), resident blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and ptxas's spill
+    report. ``info(which, dh, out)`` is the C entry that fills ``out`` for
+    kernel ``which``."""
     import ctypes
 
-    from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
+    from ssip_tpu_torch.kernels.build import build, kernel_resources
 
-    info = load_library().ssip_attention_unpacked_info
-    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     resources = kernel_resources(build().log)
-    for which, fragment in enumerate(UNPACKED_MMA_KERNELS):
+    for which, fragment in enumerate(fragments):
         for dh in (32, 64):
             out = (ctypes.c_int * 4)()
             err = info(which, dh, out)
             ptxas = [r for name, r in resources.items() if fragment in name and f"ILi{dh}E" in name]
             if err != 0 or len(ptxas) != 1:
                 raise AssertionError(f"{fragment} at head width {dh}: cudaError {err}, ptxas reported {ptxas}")
-            say("attn4", kernel=fragment, head_width=dh, registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+            say(phase, kernel=fragment, head_width=dh, registers=out[0], local_bytes=out[1], smem_bytes=out[2],
                 blocks_per_sm=out[3], spill_stores=ptxas[0]["spill_stores"], spill_loads=ptxas[0]["spill_loads"])
 
 
@@ -834,14 +859,19 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
     bfloat16. In bfloat16 the gradients are also held, element by element,
     to the output's one step, which a p or ds rounded to bf16 once in the
     kernels' products would break."""
+    import ctypes
+
     import torch.nn.functional as F
 
+    from ssip_tpu_torch.kernels.build import load_library
     from ssip_tpu_torch.ops.attention import (
         attention_bwd, attention_bwd_plain, attention_unrounded_plain, fused_attention,
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
-    _unpacked_kernel_resources()
+    info = load_library().ssip_attention_unpacked_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    _kernel_resources("attn4", info, UNPACKED_MMA_KERNELS)
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(SEED + 9)
     result = {}
@@ -872,8 +902,9 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
         o_lib = F.scaled_dot_product_attention(*leaves)
         lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(o_lib, leaves, d_o, retain_graph=True))
         item = q.element_size()
-        fwd_bound = bound_ms(4 * q.numel() * item, 4 * b * heads * s * s * dh, dtype_name)
-        bwd_bound = bound_ms(7 * q.numel() * item, 10 * b * heads * s * s * dh, dtype_name)
+        ops_type = ATTN_OPS_TYPE[dtype_name]
+        fwd_bound = bound_ms(4 * q.numel() * item, 4 * b * heads * s * s * dh, ops_type)
+        bwd_bound = bound_ms(7 * q.numel() * item, 10 * b * heads * s * s * dh, ops_type)
         say("attn4", shape=f"{b}x{heads}x{s}x{dh}", dtype=dtype_name, max_abs_err=err_o, dq_rel=rels[0],
             dk_rel=rels[1], dv_rel=rels[2], fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}",
             fwd_library_ms=f"{lib_fwd_ms:.4f}", fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}", bwd_ms=f"{bwd_ms:.4f}",
@@ -885,6 +916,11 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
                 fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}",
                 bwd_gbytes_per_s=f"{7 * q.numel() * item / bwd_ms / 1e6:.1f}",
                 bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}")
+        else:
+            say("attn4", design=repr(ATTN_F32_DESIGN), shape=f"{b}x{heads}x{s}x{dh}",
+                fwd_gbytes_per_s=f"{4 * q.numel() * item / fwd_ms / 1e6:.1f}",
+                fwd_tflops_3xtf32=f"{3 * 4 * b * heads * s * s * dh / fwd_ms / 1e9:.1f}",
+                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}")
         if (b, heads, s, dh, dtype_name) == UNPACKED_ATTN_SHAPES[0]:
             result = {
                 "attention": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound,
@@ -1317,7 +1353,7 @@ _PROFILE_CLASSES = (
 # the same for the ViT paths
 _VIT_PROFILE_CLASSES = (
     ("LayerNorm kernels", ("ln_fwd_kernel", "ln_bwd_kernel")),
-    ("attention kernels", ("attn_qkv",)),
+    ("attention kernels", ("attn_qkv", "attn_f32_fwd")),
     ("augment kernel", ("train_augment_kernel",)),
     ("preprocess kernel", ("preproc_taps_kernel",)),
     ("AdamW", ("multi_tensor_apply", "adam")),

@@ -1,60 +1,50 @@
-// Multi-head softmax attention straight off the packed qkv tensor, forward
-// and backward, for Hopper: qkv [B, S, 3D] with columns [3, H, Dh] in
-// float32, and the C entry points of both attention pairs. Per image and head
+// Multi-head softmax attention for Hopper: the C entry points of both
+// attention pairs, and the float32 backward of both. The packed pair works
+// straight off qkv [B, S, 3D] with columns [3, H, Dh]; per image and head
 //   s = q kT / sqrt(Dh)   (float32 sum of products of the inputs),
 //   keys at index >= kv_len are masked out, p = softmax(s) in float32,
 //   o = round(p) v        (p rounded to the input type before the product:
 //                          a no-op in float32),
 // written to o [B, S, D]; all S query rows are computed, pad rows included.
+// The unpacked pair takes q, k, v apart as [B, H, S, Dh] (contiguous, so a
+// head's rows are Dh apart instead of 3D), every key real, and keeps p and
+// ds in float32 for their products, which in float32 is the same function.
 //
-// Replaces ssip_tpu/ops/attention.py:_attn_qkv_kernel and
-// :_attn_qkv_bwd_kernel (the Pallas kernels behind fused_attention_qkv and
-// its custom VJP). The TPU kernels take one image a grid step, keep its whole
-// [S, 3D] face and an [S, S] score matrix in VMEM and unroll the heads over
-// 64-lane slices. A Hopper block has far less fast memory and the card wants
-// a thousand blocks, so here one block serves one (image, head):
+// Where each form runs:
+// - bfloat16: ssip_attention_qkv_fwd and _bwd hand the tensors to the
+//   kernels of attention_mma.cu, ssip_attention_fwd and _bwd to those of
+//   attention_unpacked_mma.cu (tensor cores, mma.sync).
+// - float32 forward, both pairs: attention_f32_mma.cu (3xTF32 products on
+//   mma.sync, keys streamed in tiles with an online softmax).
+// - float32 backward, both pairs: attn_bwd_body below, which replaces
+//   ssip_tpu/ops/attention.py:_attn_qkv_bwd_kernel and :_attn_bwd_kernel
+//   (the Pallas VJP kernels behind fused_attention_qkv and fused_attention).
 //
-// - forward: K and V of the head (keys below kv_len) are staged once in
-//   shared memory, read straight from the packed layout (no unpacking copy,
-//   no transpose). Each warp takes 4 query rows at a time: scores with lanes
-//   over keys (K rows padded to an odd word stride, so lanes hit distinct
-//   banks), max and sum by warp shuffle, p normalized in float32 and THEN
-//   rounded to the input type, then p v with lanes over the head's columns
-//   and a float32 sum rounded once.
-// - backward: probabilities are recomputed, nothing but qkv is saved. dq is
-//   a sum over keys and dk, dv are sums over queries, so the block makes two
-//   passes and needs no atomics and no [S, Dh] float32 accumulators in
-//   shared memory. Pass A (K, V staged, a warp per 4 query rows) recomputes
-//   p, forms dp = dO vT, delta = rowsum(dp * p), ds = p * (dp - delta),
-//   writes dq = round(ds) k / sqrt(Dh) and leaves each row's max, sum and
-//   delta in shared memory. Pass B (q, dO staged, a warp per 4 key rows)
-//   recomputes the same scores (same products in the same order, so the
-//   same bits), p and ds from the saved row statistics and writes
-//   dv = round(p)T dO and dk = round(ds)T q / sqrt(Dh). Key rows at or past
-//   kv_len get zeros. Everything lands in the packed dqkv directly.
+// The backward: one block per (image, head). The TPU kernels take one image
+// a grid step and keep its whole [S, 3D] face and an [S, S] score matrix in
+// VMEM (the unpacked ones pad S to 128 lanes and mask the pad keys; here S
+// is exact). A Hopper block has far less fast memory and the card wants a
+// thousand blocks. Probabilities are recomputed, nothing but the inputs is
+// saved. dq is a sum over keys and dk, dv are sums over queries, so the block
+// makes two passes and needs no atomics and no [S, Dh] float32 accumulators
+// in shared memory. Pass A (K, V staged, a warp per 4 query rows) recomputes
+// p, forms dp = dO vT, delta = rowsum(dp * p), ds = p * (dp - delta), writes
+// dq = round(ds) k / sqrt(Dh) and leaves each row's max, sum and delta in
+// shared memory. Pass B (q, dO staged, a warp per 4 key rows) recomputes the
+// same scores (same products in the same order, so the same bits), p and ds
+// from the saved row statistics and writes dv = round(p)T dO and
+// dk = round(ds)T q / sqrt(Dh). Key rows at or past kv_len get zeros.
+// Everything lands in the packed dqkv (or dq, dk, dv) directly.
 //
-// In this file products are float32 FMAs (never TF32). Bound: bytes by the
-// roofline (each qkv value read once), but this form is held back by
-// shared-memory loads, about one for every two FMAs. Neither pair runs
-// these bodies in bfloat16: ssip_attention_qkv_fwd and _bwd hand bf16
-// tensors to the kernels of attention_mma.cu (same rounding points; the
-// backward's products and the forward's P V on mma.sync, the forward's
-// scores float32 FMAs as here), ssip_attention_fwd and _bwd to those of
-// attention_unpacked_mma.cu (every product on mma.sync, p and ds as bf16
-// hi/lo pairs). The float32 forms keep them (a TF32 product cannot hold
-// float32 parity).
+// In the backward products are float32 FMAs (lanes over keys, K and V rows
+// padded to an odd word stride, so lanes hit distinct banks). Bound: the
+// operations at the tensor cores' rate for float32-accurate products
+// (3xTF32, as the forward has them), but this form is held back by
+// shared-memory loads, about one for every two FMAs.
 //
-// The same two bodies also serve q, k, v given apart as [B, H, S, Dh]
-// (contiguous, so a head's rows are Dh apart instead of 3D) in float32:
-// they replace ssip_tpu/ops/attention.py:_attn_kernel and :_attn_bwd_kernel
-// (behind fused_attention and its custom VJP). Those TPU kernels pad S to
-// 128 lanes and mask the pad keys; here S is exact and no pad exists. They
-// keep p and ds in float32 for their products where the packed pair rounds
-// both to the input type, which in float32 is the same function.
-//
-// Shapes: Dh 32 or 64, S at most 256 (8 key or query chunks of 32 a lane);
-// the unpacked pair in bfloat16 takes S up to 1024. The wrapper raises on
-// anything else.
+// Shapes: Dh 32 or 64, S at most 256 in float32 (8 key or query chunks of
+// 32 a lane in the backward); the unpacked pair in bfloat16 takes S up to
+// 1024. The wrapper raises on anything else.
 
 #include <cstddef>
 #include <cstdint>
@@ -68,6 +58,13 @@ int attention_qkv_fwd_bf16(const void* qkv, void* o, int batch, int heads,
 int attention_qkv_bwd_bf16(const void* qkv, const void* d_o, void* dqkv,
                            void* stats, int batch, int heads, int s_len,
                            int dh, int kv, float scale, cudaStream_t stream);
+// The float32 forward of both pairs on the tensor cores (attention_f32_mma.cu).
+int attention_qkv_fwd_f32(const void* qkv, void* o, int batch, int heads,
+                          int s_len, int dh, int kv, float scale,
+                          cudaStream_t stream);
+int attention_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                      int batch_heads, int s_len, int dh, float scale,
+                      cudaStream_t stream);
 // The bfloat16 unpacked pair on the tensor cores (attention_unpacked_mma.cu).
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                        int batch_heads, int s_len, int dh, float scale,
@@ -231,7 +228,7 @@ __host__ __device__ constexpr size_t align16(size_t n) {
 template <int DH>
 struct Layout {
   static constexpr int KS = Stride<DH>::value;
-  // two staged matrices, then (backward) 3 row statistics, then per warp:
+  // two staged matrices, then 3 row statistics, then per warp two each of
   // `vecs` [DH][kRows] float vectors and `ws` [s][kRows] float weights
   static __host__ __device__ size_t mat(int s) {
     return align16(static_cast<size_t>(s) * KS * sizeof(float));
@@ -245,98 +242,10 @@ struct Layout {
   static __host__ __device__ size_t weights(int s) {
     return static_cast<size_t>(s) * kRows * sizeof(float);
   }
-  static size_t forward_bytes(int s) {
-    return 2 * mat(s) + kWarps * (vec() + weights(s));
-  }
   static size_t backward_bytes(int s) {
     return 2 * mat(s) + 3 * stats(s) + kWarps * 2 * (vec() + weights(s));
   }
 };
-
-// One (image, head) forward. q_g, k_g, v_g point at the head's first row,
-// rows `pitch` elements apart; o_g likewise with `o_pitch`.
-template <int DH>
-__device__ __forceinline__ void attn_fwd_body(
-    const float* __restrict__ q_g, const float* __restrict__ k_g,
-    const float* __restrict__ v_g, float* __restrict__ o_g, int pitch, int o_pitch,
-    int s_len, int kv, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  using L = Layout<DH>;
-  constexpr int DPL = DH / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  float* k_s = reinterpret_cast<float*>(smem);
-  float* v_s = reinterpret_cast<float*>(smem + L::mat(s_len));
-  unsigned char* mine =
-      smem + 2 * L::mat(s_len) + warp * (L::vec() + L::weights(s_len));
-  float* q_vec = reinterpret_cast<float*>(mine);
-  float* p_w = reinterpret_cast<float*>(mine + L::vec());
-
-  stage<DH>(k_s, k_g, kv, pitch);
-  stage<DH>(v_s, v_g, kv, pitch);
-  __syncthreads();
-
-  for (int i0 = warp * kRows; i0 < s_len; i0 += kWarps * kRows) {
-    load_rows<DH>(q_vec, q_g, i0, s_len - 1, pitch, lane);
-    __syncwarp();
-    float p[kRows][kChunks];
-    dot_rows<DH>(k_s, kv, q_vec, lane, p);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float mx, sum;
-      softmax_row(p[r], kv, scale, lane, mx, sum);
-    }
-#pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int j = c * 32 + lane;
-      if (j < kv) {
-        *reinterpret_cast<float4*>(p_w + j * kRows) =
-            make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
-      }
-    }
-    __syncwarp();
-    float acc[kRows][DPL];
-    weighted_rows<DH>(v_s, kv, p_w, lane, acc);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (i0 + r < s_len) {
-#pragma unroll
-        for (int t = 0; t < DPL; ++t) {
-          o_g[static_cast<size_t>(i0 + r) * o_pitch + lane * DPL + t] = acc[r][t];
-        }
-      }
-    }
-    __syncwarp();  // q_vec and p_w are rewritten by the next group
-  }
-}
-
-// Packed qkv [B, S, 3D] -> o [B, S, D]; block = (image, head).
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-    attn_qkv_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ o,
-                        int heads, int s_len, int kv, float scale) {
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x - b * heads;
-  const int d_model = heads * DH;
-  const int pitch = 3 * d_model;
-  const float* base = qkv + static_cast<size_t>(b) * s_len * pitch + h * DH;
-  attn_fwd_body<DH>(
-      base, base + d_model, base + 2 * d_model,
-      o + static_cast<size_t>(b) * s_len * d_model + h * DH, pitch, d_model,
-      s_len, kv, scale);
-}
-
-// q, k, v [B*H, S, DH] -> o [B*H, S, DH]; block = (image, head); float32 p.
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-    attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o, int s_len,
-                    float scale) {
-  const size_t at = static_cast<size_t>(blockIdx.x) * s_len * DH;
-  attn_fwd_body<DH>(q + at, k + at, v + at, o + at, DH, DH, s_len,
-                              s_len, scale);
-}
 
 // One (image, head) backward. q_g, k_g, v_g and dq_g, dk_g, dv_g point at
 // the head's first row, rows `pitch` elements apart; do_g likewise with
@@ -507,19 +416,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int DH>
-int launch_fwd(const void* qkv, void* o, int batch, int heads, int s_len,
-               int kv, float scale, cudaStream_t stream) {
-  const size_t bytes = Layout<DH>::forward_bytes(s_len);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_qkv_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_qkv_fwd_kernel<DH><<<batch * heads, kThreads, bytes, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(o), heads, s_len, kv, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int DH>
 int launch_bwd(const void* qkv, const void* d_o, void* dqkv, int batch,
                int heads, int s_len, int kv, float scale,
                cudaStream_t stream) {
@@ -531,21 +427,6 @@ int launch_bwd(const void* qkv, const void* d_o, void* dqkv, int batch,
   attn_qkv_bwd_kernel<DH><<<batch * heads, kThreads, bytes, stream>>>(
       static_cast<const float*>(qkv), static_cast<const float*>(d_o),
       static_cast<float*>(dqkv), heads, s_len, kv, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int DH>
-int launch_unpacked_fwd(const void* q, const void* k, const void* v, void* o,
-                        int batch_heads, int s_len, float scale,
-                        cudaStream_t stream) {
-  const size_t bytes = Layout<DH>::forward_bytes(s_len);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_kernel<DH><<<batch_heads, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), s_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,13 +470,7 @@ extern "C" int ssip_attention_qkv_fwd(const void* qkv, void* o, int is_bf16,
     return attention_qkv_fwd_bf16(qkv, o, batch, heads, s_len, dh, kv, scale,
                                   s);
   }
-  if (dh == 64) {
-    return launch_fwd<64>(qkv, o, batch, heads, s_len, kv, scale, s);
-  }
-  if (dh == 32) {
-    return launch_fwd<32>(qkv, o, batch, heads, s_len, kv, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return attention_qkv_fwd_f32(qkv, o, batch, heads, s_len, dh, kv, scale, s);
 }
 
 extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
@@ -639,13 +514,7 @@ extern "C" int ssip_attention_fwd(const void* q, const void* k, const void* v,
     return attention_fwd_bf16(q, k, v, o, batch_heads, s_len, dh, scale, s);
   }
   if (s_len > 32 * kChunks) return static_cast<int>(cudaErrorInvalidValue);
-  if (dh == 64) {
-    return launch_unpacked_fwd<64>(q, k, v, o, batch_heads, s_len, scale, s);
-  }
-  if (dh == 32) {
-    return launch_unpacked_fwd<32>(q, k, v, o, batch_heads, s_len, scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return attention_fwd_f32(q, k, v, o, batch_heads, s_len, dh, scale, s);
 }
 
 extern "C" int ssip_attention_bwd(const void* q, const void* k, const void* v,

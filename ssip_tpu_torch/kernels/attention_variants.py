@@ -1,22 +1,26 @@
-"""Time variants of ``csrc/attention_unpacked_mma.cu`` against each other
-on one card: what PERF.md's design notes for the unpacked bf16 attention
-pair rest on.
+"""Time variants of ``csrc/attention_unpacked_mma.cu`` (the unpacked bf16
+attention pair) or, with ``--f32``, of ``csrc/attention_f32_mma.cu`` (the
+float32 forward of both pairs) against each other on one card: what
+PERF.md's design notes for those kernels rest on.
 
 Each variant is a copy of the source with some of its lines replaced (a
-constant, or the test that sends full tiles down their branch-free path),
-built by nvcc into ``build/ssip_tpu_torch/variants/`` with a C entry of its
-own, and checked against the plain versions (one bf16 step, output and
-gradients) before it is timed. Every variant then runs at each shape in
-turns (first to last, last to first) and the smaller of its two medians of
-CUDA-event times is printed, with ``scaled_dot_product_attention``'s beside.
+constant, a helper's body, or the test that sends full tiles down their
+branch-free path), built by nvcc into ``build/ssip_tpu_torch/variants/``
+with a C entry of its own, and checked against the plain versions (bf16:
+one bf16 step, output and gradients; float32: the output within 2e-5)
+before it is timed. Every variant then runs at each shape in turns (first
+to last, last to first) and the smaller of its two medians of CUDA-event
+times is printed, with ``scaled_dot_product_attention``'s beside.
 
-    python -m ssip_tpu_torch.kernels.attention_variants   # one CUDA card
+    python -m ssip_tpu_torch.kernels.attention_variants          # one CUDA card
+    python -m ssip_tpu_torch.kernels.attention_variants --f32
 """
 
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -52,34 +56,59 @@ extern "C" int variant_bwd(const void* q, const void* k, const void* v, const vo
 SHAPES = ((128, 12, 197, 64), (16, 12, 577, 64), (4, 12, 1024, 64), (2, 4, 1024, 32))
 TIMED = 20
 
+F32_SOURCE = CSRC_DIR / "attention_f32_mma.cu"
+F32_VARIANTS = {
+    "kernel": [],
+    "cvt.rna split": [("  hi = __float_as_uint(x) & 0xffffe000u;\n  lo = __float_as_uint(x - __uint_as_float(hi));",
+                       "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(x));\n"
+                       "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo) : \"f\"(x - __uint_as_float(hi)));")],
+    "every tile guarded": [("if (valid == kTile) {", "if (false) {")],
+    "2 blocks an SM": [("constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;")],
+    "3 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
+                 ("constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;")],
+}
+F32_ENTRIES = r'''
+extern "C" int variant_fwd(const void* q, const void* k, const void* v, void* o, int bh, int s, int dh,
+                           float scale, void* stream) {
+  return attention_fwd_f32(q, k, v, o, bh, s, dh, scale, static_cast<cudaStream_t>(stream));
+}
+'''
+# (batch, heads, tokens, head width): chip_smoke.py's float32 [attn4] shapes
+F32_SHAPES = ((128, 12, 197, 64), (128, 12, 256, 64), (8, 2, 50, 32))
 
-def build_variants() -> dict:
-    """name -> (forward, backward) C entries, built in parallel."""
+
+def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES) -> dict:
+    """name -> (forward, backward or None) C entries, built in parallel."""
     out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    text = SOURCE.read_text()
+    text = source.read_text()
     procs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
+    for i, (name, subs) in enumerate(variants.items()):
         src = text
         for old, new in subs:
             if old not in src:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in {SOURCE.name}")
+                raise RuntimeError(f"variant {name!r}: {old!r} is not in {source.name}")
             src = src.replace(old, new)
-        cu = out_dir / f"variant{i}.cu"
-        cu.write_text(src + ENTRIES)
-        lib = out_dir / f"variant{i}.so"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib), str(cu)]
+        cu = out_dir / f"{source.stem}_variant{i}.cu"
+        cu.write_text(src + entries_src)
+        lib = out_dir / f"{source.stem}_variant{i}.so"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(lib), str(cu)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     entries = {}
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{log}")
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[variants] variant={name.replace(' ', '_')} ptxas: {line.strip()}")
         handle = ctypes.CDLL(str(lib))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         handle.variant_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
-        handle.variant_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
-        entries[name] = (handle.variant_fwd, handle.variant_bwd)
+        bwd = getattr(handle, "variant_bwd", None)
+        if bwd is not None:
+            bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
+        entries[name] = (handle.variant_fwd, bwd)
     return entries
 
 
@@ -122,6 +151,34 @@ def median_ms(fn) -> float:
     return sorted(times)[TIMED // 2]
 
 
+def main_f32() -> None:
+    """The float32 forward's variants: each within 2e-5 of the plain version
+    at [4, 12, 197, 64], then timed at ``F32_SHAPES`` beside SDPA."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true float32
+    entries = build_variants(F32_SOURCE, F32_VARIANTS, F32_ENTRIES)
+    rng = np.random.default_rng(0)
+    operands = [torch.from_numpy(rng.standard_normal((4, 12, 197, 64)).astype(np.float32)).cuda() for _ in range(4)]
+    ref = attention_unrounded_plain(*operands[:3])
+    for name, entry in entries.items():
+        fwd, _, outs = calls(entry, *operands)
+        fwd()
+        torch.cuda.synchronize()
+        err = (outs[0] - ref).abs().max().item()
+        print(f"[variants] variant={name.replace(' ', '_')} max_abs_err={err:.3g}")
+        if not err <= 2e-5:
+            raise AssertionError(f"variant {name!r} is {err} off the plain version, allowed 2e-5")
+    for shape in F32_SHAPES:
+        q, k, v, d_o = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda() for _ in range(4))
+        times = {name: [] for name in entries}
+        for name in [*entries, *reversed(entries)]:
+            times[name].append(median_ms(calls(entries[name], q, k, v, d_o)[0]))
+        print(f"[variants] shape={'x'.join(map(str, shape))} variant=sdpa "
+              f"fwd_ms={median_ms(lambda: F.scaled_dot_product_attention(q, k, v)):.4f}")
+        for name, f_ms in times.items():
+            print(f"[variants] shape={'x'.join(map(str, shape))} variant={name.replace(' ', '_')} "
+                  f"fwd_ms={min(f_ms):.4f}", flush=True)
+
+
 def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true float32
     entries = build_variants()
@@ -155,4 +212,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main_f32() if "--f32" in sys.argv[1:] else main()

@@ -1,16 +1,17 @@
 """Build the CUDA kernels under ``ssip_tpu_torch/csrc/`` at first use.
 
-Route: ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` — one process
-per source, all started together — and links the objects into one shared
+Route: ``nvcc`` compiles every ``csrc/*.cu`` (which may include the
+``csrc/*.cuh`` headers) for ``sm_90a`` — one process per source, all
+started together — and links the objects into one shared
 library with a plain C interface, loaded with ``ctypes``. No
 ``torch/extension.h``, so a build takes seconds rather than the minutes a
 PyTorch extension build takes. (The idea of ``ssip_tpu/native/build.py``,
 which builds the JPEG decoder the same way, not its code.)
 
 The library lands in ``build/ssip_tpu_torch/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads the existing file. nvcc's
-report (``ptxas -v``: registers, shared memory and spills per kernel) is
+(listed in ``.gitignore``), named by a hash of the sources, headers and
+flags, so an edited source or header rebuilds and an unchanged set loads
+the existing file. nvcc's report (``ptxas -v``: registers, shared memory and spills per kernel) is
 kept beside it, so a reused library still has one.
 Nothing here runs at import time: a machine without ``nvcc`` imports the
 package and uses the plain PyTorch versions for CPU tensors.
@@ -65,9 +66,15 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def source_hash() -> str:
+    """Of the flags, the sources and the headers they include: an edited
+    header rebuilds too."""
     hasher = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         hasher.update(src.name.encode())
         hasher.update(src.read_bytes())
     return hasher.hexdigest()[:16]

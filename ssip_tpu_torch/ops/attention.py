@@ -8,7 +8,9 @@ entry of the same name (``:414-442``) with its custom VJP (``:369-390``) as
 a ``torch.autograd.Function`` whose forward and backward launch the kernels
 that replace ``_attn_qkv_kernel`` and ``_attn_qkv_bwd_kernel``: for bfloat16
 those of ``csrc/attention_mma.cu`` (``mma.sync`` on bf16 operands, staged by
-``cp.async``), for float32 the scalar ones of ``csrc/attention.cu``.
+``cp.async``); for float32 the forward of ``csrc/attention_f32_mma.cu``
+(3×TF32 products on ``mma.sync``, keys streamed in tiles of 64 with an
+online softmax) and the scalar backward of ``csrc/attention.cu``.
 
 ``qkv`` is [B, S, 3·D] with columns ordered [3, H, Dh] (the fused Dense of
 ``models/vit.py``); the result is [B, S, D]. Per image and head:
@@ -30,7 +32,8 @@ is real. For bfloat16 its kernels are those of
 queries) streamed in tiles of 64, ``p`` and ``ds`` entering their products
 as bf16 hi/lo pairs, so S goes up to 1024 as in the JAX entry
 (``_MAX_FUSED_SEQ``); the backward is two launches joined by a float32
-scratch this module allocates. For float32 they are the scalar ones of
+scratch this module allocates. For float32 the forward is the packed
+pair's, ``csrc/attention_f32_mma.cu``, and the backward the scalar one of
 ``csrc/attention.cu``, S up to 256.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
@@ -48,10 +51,12 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_WIDTHS = (32, 64)
-MAX_KERNEL_SEQ = 256  # the packed pair: 8 chunks of 32 keys a lane, in csrc/attention.cu and csrc/attention_mma.cu
+# the packed pair, and float32: 8 chunks of 32 keys a lane in the bf16 forward
+# of csrc/attention_mma.cu and in the float32 backward of csrc/attention.cu
+MAX_KERNEL_SEQ = 256
 _MAX_FUSED_SEQ = 1024  # the JAX entries' longest sequence for their kernels
-# the unpacked pair by type: bf16 streams the keys, float32 runs the packed
-# pair's scalar bodies
+# the unpacked pair by type: bf16 streams the keys; float32 shares the packed
+# pair's forward and scalar backward, whose limit this is
 MAX_UNPACKED_SEQ = {torch.bfloat16: _MAX_FUSED_SEQ, torch.float32: MAX_KERNEL_SEQ}
 _SEQ_LIMIT_ITEM = (
     "ROADMAP.md, Queue 2 #5a: sequences up to 1024 in the attention kernels, by tiling the "
@@ -196,9 +201,10 @@ def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int, limit: int = MAX_KE
 
 
 def _check_aligned(*operands: torch.Tensor) -> None:
-    """The bfloat16 kernels stage rows by 16-byte copies."""
-    if operands[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in operands):
-        raise ValueError("bfloat16 attention kernel needs its operands at 16-byte aligned addresses")
+    """The tensor-core kernels (every bfloat16 one, the float32 forward) stage
+    rows by 16-byte copies."""
+    if any(t.data_ptr() % 16 for t in operands):
+        raise ValueError(f"{operands[0].dtype} attention kernel needs its operands at 16-byte aligned addresses")
 
 
 def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int) -> torch.Tensor:
@@ -286,7 +292,9 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, kv_len: int = 0) -> t
         return attention_qkv_plain(qkv, num_heads, kv_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda tensors, got {qkv.device}")
-    return _AttentionKernel.apply(qkv, num_heads, kv_len)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _AttentionKernel.apply(qkv, num_heads, kv_len)
+    return _launch_fwd(qkv, num_heads, kv_len)  # nothing to differentiate: no autograd node to set up
 
 
 fused_attention_qkv.launches = 0

@@ -288,3 +288,156 @@ def test_bf16_kernels_need_p_and_ds_split_to_hold_one_step():
     once = [_outside_one_step(got, ref) for got, ref in zip(_emulated_bf16_kernels(q, k, v, d_o, False), refs)]
     assert split == [0, 0, 0, 0], split
     assert all(n > 0 for n in once), once
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` cut to TF32 as the kernel's split cuts it and as the tensor core
+    reads a float32 operand: 10 mantissa bits, the low 13 bits cleared
+    (toward zero), kept as float32."""
+    return (x.to(torch.float32).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+# The kernel's orders inside a product (csrc/attention_f32_mma.cu): the scores
+# take d as (16kk + 4t, +1) in the first k step of a float4 and (+2, +3) in the
+# second; P·V takes an 8-key slice as k = t for key 2t, k = t + 4 for key 2t + 1.
+_D_ORDER = [16 * kk + x for kk in range(4) for x in (0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14, 3, 7, 11, 15)]
+_KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+def _emulated_f32_forward(q, k, v, kv: int, split: bool) -> torch.Tensor:
+    """o as the float32 forward of ``csrc/attention_f32_mma.cu`` computes
+    it, in float32 on the CPU: keys past ``kv`` left out, key tiles of 64
+    with a running max and sum, scores scaled by scale·log2(e) after the
+    sum, o times 1/sum at the end; every product of TF32 operands, either
+    split into hi + lo with the three terms a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+    (``split``) or as one TF32 product (the shortcut the kernel does not
+    take), in the kernel's d and key orders. hi = tf32(x), lo = x - hi, and
+    the tensor core reads tf32(lo)."""
+
+    def times(a, b):  # a @ b, k over the last axis of a
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        if not split:
+            return a_hi @ b_hi
+        return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
+
+    dh = q.shape[-1]
+    d_order = [d for d in _D_ORDER if d < dh]
+    scale = float(np.float32(1.0 / np.sqrt(dh)))
+    scale_log2 = float(np.float32(scale) * np.float32(np.log2(np.e)))
+    mx = torch.full(q.shape[:-1] + (1,), -np.inf)
+    total = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, kv, 64):
+        k1 = min(k0 + 64, kv)
+        s = times(q[..., d_order], k[:, :, k0:k1][..., d_order].transpose(-1, -2))
+        m_new = torch.maximum(mx, s.amax(-1, keepdim=True))
+        f = torch.exp2((mx - m_new) * scale_log2)
+        total, acc, mx = total * f, acc * f, m_new
+        e = torch.exp2(s * scale_log2 - mx * scale_log2)
+        total = total + e.sum(-1, keepdim=True)
+        keys = [k0 + 8 * j + i for j in range(-(-(k1 - k0) // 8)) for i in _KEY_ORDER if k0 + 8 * j + i < k1]
+        acc = acc + times(e[..., [key - k0 for key in keys]], v[:, :, keys])
+    return acc * (1.0 / total)
+
+
+@pytest.mark.parametrize("b,heads,s,kv", [(2, 12, 197, 197), (2, 3, 208, 197), (1, 2, 130, 65)],
+                         ids=["vit_b16-heads", "packed-kv_len", "ragged-tiles"])
+def test_f32_kernel_needs_3xtf32_to_hold_2e_5(b, heads, s, kv):
+    """Why the float32 forward splits every operand into TF32 hi + lo:
+    emulated in float32, the three-term product puts no output further than
+    2e-5 (the card's float32 gate) from ``attention_unrounded_plain``, at
+    ViT-B/16's 12 heads of 64 over 197 tokens and at a packed ``kv_len``
+    below S; one TF32 product puts some outputs beyond it."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, heads, s, 64)).astype(np.float32)) for _ in range(3))
+    ref = attention_unrounded_plain(q, k[:, :, :kv], v[:, :, :kv])
+    outside = {}
+    for split in (True, False):
+        err = (_emulated_f32_forward(q, k, v, kv, split) - ref).abs()
+        outside[split] = int((err > 2e-5).sum())
+        print(f"{'3xTF32' if split else '1xTF32'}: {outside[split]} of {err.numel()} outputs beyond 2e-5, "
+              f"max |d| {err.max().item():.3g}")
+    assert outside[True] == 0, outside
+    assert outside[False] > 0, outside
+
+
+def _swz32(row, chunk, dh: int):
+    """``swz32<DH>`` of ``csrc/attention_f32_mma.cu``: the float offset of a
+    16-byte chunk in a staged [rows, DH] float32 matrix."""
+    f = (((row >> 1) & 3) << 1) ^ ((row & 1) << 2)
+    return row * dh + ((chunk ^ f) << 2)
+
+
+def _mma_m16n8k8(a, b, c):
+    """``mma.sync.aligned.m16n8k8.row.col`` (in float64) from its PTX fragment
+    layouts: lane (g, t) = (lane >> 2, lane & 3) holds A[g][t], A[g+8][t],
+    A[g][t+4], A[g+8][t+4]; B[t][g], B[t+4][g]; D[g][2t], D[g][2t+1],
+    D[g+8][2t], D[g+8][2t+1]. a [32, 4], b [32, 2], c [32, 4] → d [32, 4]."""
+    g, t = np.arange(32) >> 2, np.arange(32) & 3
+    big_a, big_b = np.zeros((16, 8)), np.zeros((8, 8))
+    big_a[g, t], big_a[g + 8, t], big_a[g, t + 4], big_a[g + 8, t + 4] = a.T
+    big_b[t, g], big_b[t + 4, g] = b.T
+    big_d = big_a @ big_b
+    return c + np.stack([big_d[g, 2 * t], big_d[g, 2 * t + 1], big_d[g + 8, 2 * t], big_d[g + 8, 2 * t + 1]], 1)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_f32_kernel_fragment_maps_and_swizzle(dh):
+    """The float32 forward's index design, lane by lane for one warp and one
+    key tile, in the kernel's own formulas: Q and K fragments as float4
+    loads in the permuted d order give q·kᵀ; the scores' accumulator
+    registers taken as P·V's A fragment (keys relabelled 2t, 2t+1) with V's
+    B fragment from rows 2t, 2t+1 and float4 columns 4g .. 4g+3 give p·v,
+    stored as columns 8t .. 8t+7; and with ``swz32`` the 8 lanes of every
+    16-byte load phase (K, V) and store phase (cp.async) fall on 8 distinct
+    bank groups."""
+    rng = np.random.default_rng(dh)
+    q, k, v, p = rng.standard_normal((16, dh)), rng.standard_normal((64, dh)), rng.standard_normal((64, dh)), \
+        rng.standard_normal((16, 64))
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    k_s, v_s = np.zeros(64 * dh), np.zeros(64 * dh)
+    rows, chunks = np.divmod(np.arange(64 * dh // 4), dh // 4)  # staging: idx -> (row, chunk)
+    for idx0 in range(0, rows.size, 8):  # each phase of 8 cp.async writes hits 8 bank groups
+        assert len({(_swz32(r, c, dh) // 4) % 8 for r, c in zip(rows[idx0:idx0 + 8], chunks[idx0:idx0 + 8])}) == 8
+    for r, c in zip(rows, chunks):
+        k_s[_swz32(r, c, dh):_swz32(r, c, dh) + 4] = k[r, 4 * c:4 * c + 4]
+        v_s[_swz32(r, c, dh):_swz32(r, c, dh) + 4] = v[r, 4 * c:4 * c + 4]
+
+    def load4(smem, row, chunk):  # one 16-byte load a lane; quarter warps on distinct bank groups
+        offs = _swz32(row, chunk, dh)
+        for quarter in range(4):
+            assert len(set((offs[8 * quarter:8 * quarter + 8] // 4) % 8)) == 8
+        return np.stack([smem[offs + j] for j in range(4)], 1)  # [32 lanes, 4]
+
+    scores = np.zeros((8, 32, 4))
+    for n in range(8):
+        for kk in range(dh // 16):
+            qg, qg8 = q[g][:, 16 * kk:16 * kk + 16], q[g + 8][:, 16 * kk:16 * kk + 16]
+            x = np.stack([qg[lanes, 4 * t + j] for j in range(4)], 1)
+            y = np.stack([qg8[lanes, 4 * t + j] for j in range(4)], 1)
+            kf = load4(k_s, 8 * n + g, 4 * kk + t)
+            scores[n] = _mma_m16n8k8(np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1), kf[:, :2], scores[n])
+            scores[n] = _mma_m16n8k8(np.stack([x[:, 2], y[:, 2], x[:, 3], y[:, 3]], 1), kf[:, 2:], scores[n])
+    want = q @ k.T
+    for n in range(8):
+        for e in range(4):
+            np.testing.assert_allclose(scores[n][:, e], want[g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1)], atol=1e-12)
+
+    # p in the accumulator layout, then o += p V as the kernel does it
+    acc_p = np.stack([np.stack([p[g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1)] for e in range(4)], 1)
+                      for n in range(8)])
+    out = np.zeros((dh // 8, 32, 4))
+    for n in range(8):
+        a = acc_p[n][:, [0, 2, 1, 3]]
+        for c in range(dh // 32):
+            x0, x1 = load4(v_s, 8 * n + 2 * t, 8 * c + g), load4(v_s, 8 * n + 2 * t + 1, 8 * c + g)
+            for i in range(4):
+                out[4 * c + i] = _mma_m16n8k8(a, np.stack([x0[:, i], x1[:, i]], 1), out[4 * c + i])
+    got = np.zeros((16, dh))
+    for r in range(2):
+        for c in range(dh // 32):
+            for e in range(2):
+                for i in range(4):
+                    got[g + 8 * r, 32 * c + 8 * t + 4 * e + i] = out[4 * c + i][:, 2 * r + e]
+    np.testing.assert_allclose(got, p @ v, atol=1e-12)

@@ -256,7 +256,12 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(cuda):
      (2, 129, 3, 64, 0, torch.bfloat16), (2, 197, 3, 32, 0, torch.bfloat16),
      (2, 208, 2, 32, 197, torch.bfloat16), (3, 50, 2, 64, 37, torch.bfloat16), (2, 16, 2, 64, 1, torch.bfloat16),
      (1, MAX_KERNEL_SEQ, 1, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 3, 64, 0, torch.bfloat16),
-     (1, MAX_KERNEL_SEQ, 12, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 12, 64, 0, torch.bfloat16)],
+     (1, MAX_KERNEL_SEQ, 12, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 12, 64, 0, torch.bfloat16),
+     # the float32 forward's edges: S = 256, one real key, one key past a
+     # full 64-key tile, head width 32, S across the 64-row query blocks
+     (2, MAX_KERNEL_SEQ, 12, 64, 0, torch.float32), (1, MAX_KERNEL_SEQ, 3, 32, 0, torch.float32),
+     (2, 16, 2, 64, 1, torch.float32), (2, 130, 2, 64, 65, torch.float32), (2, 197, 3, 32, 0, torch.float32),
+     (2, 65, 2, 32, 1, torch.float32), (2, 5, 1, 64, 0, torch.float32)],
 )
 def test_attention_kernels_match_plain_on_cuda(cuda, b, s, heads, dh, kv_len, dtype):
     """Forward, and the backward through autograd, with and without the
@@ -312,6 +317,44 @@ def test_attention_bf16_kernel_refuses_misaligned_operands(cuda):
         fused_attention_qkv(qkv, 1)
     with pytest.raises(ValueError, match="16-byte"):
         attention_qkv_bwd(qkv, torch.zeros((2, 8, 64), dtype=torch.bfloat16, device=cuda), 1)
+
+
+@pytest.mark.cuda
+def test_attention_f32_kernel_refuses_misaligned_operands(cuda):
+    """The float32 forward stages rows by 16-byte cp.async too: both
+    entries, forward and backward, raise on an operand 4 bytes past a
+    16-byte boundary."""
+    flat = torch.zeros(1 + 2 * 8 * 3 * 64, device=cuda)
+    qkv = flat[1:].view(2, 8, 3 * 64)  # contiguous, 4 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_attention_qkv(qkv, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_qkv_bwd(qkv, torch.zeros((2, 8, 64), device=cuda), 1)
+    shifted = flat[1:1 + 2 * 8 * 64].view(1, 2, 8, 64)
+    aligned = torch.zeros((1, 2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_attention(aligned, aligned, shifted)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_bwd(shifted, aligned, aligned, aligned)
+
+
+@pytest.mark.cuda
+def test_attention_f32_forward_launches_its_kernel_once(cuda):
+    """On float32 a forward call of either entry runs ``attn_f32_fwd_kernel``
+    once on the card and nothing else of the attention kernels, counts one,
+    and sets up no autograd node when nothing needs a gradient."""
+    rng = np.random.default_rng(5)
+    qkv = torch.from_numpy(rng.standard_normal((2, 197, 3 * 128)).astype(np.float32)).to(cuda)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, 197, 64)).astype(np.float32)).to(cuda) for _ in range(3))
+    before = fused_attention_qkv.launches, fused_attention.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out_packed = fused_attention_qkv(qkv, 2)
+        out = fused_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert (fused_attention_qkv.launches, fused_attention.launches) == (before[0] + 1, before[1] + 1)
+    assert out_packed.grad_fn is None and out.grad_fn is None
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "attn" in e.name]
+    assert sum("attn_f32_fwd_kernel" in n for n in names) == 2 and len(names) == 2, names
 
 
 @pytest.mark.cuda
@@ -410,6 +453,9 @@ def test_quantized_mlp_kernel_rejects_what_it_does_not_take(cuda):
     [(4, 12, 197, 64, torch.bfloat16), (2, 12, 197, 64, torch.float32), (3, 2, 50, 32, torch.float32),
      (2, 2, MAX_KERNEL_SEQ, 64, torch.bfloat16), (2, 1, 5, 32, torch.bfloat16), (2, 3, 208, 64, torch.bfloat16),
      (1, 2, MAX_UNPACKED_SEQ[torch.float32], 64, torch.float32),
+     # the float32 forward's edges: one token, S across the 64-key tiles, Dh 32 at the limit
+     *[(2, 2, s, 64, torch.float32) for s in (1, 63, 64, 65)],
+     (1, 3, MAX_UNPACKED_SEQ[torch.float32], 32, torch.float32),
      # the bf16 kernels' edges: one token, S across the 64-row tiles, and
      # past the float32 limit up to the JAX entry's 1024, at both head widths
      *[(2, 2, s, dh, torch.bfloat16) for s in (1, 63, 64, 65, 577, MAX_UNPACKED_SEQ[torch.bfloat16])
