@@ -15,7 +15,9 @@ non-zero without printing the final line:
    PyTorch call computes the same function, that call, beside the bound (the
    least time the card could take: bytes over 3.35 TB/s or operations over
    the data-sheet peak of their type, whichever is larger; float32
-   attention products count as three TF32 products at 495 TFLOP/s):
+   attention products count as three TF32 products at 495 TFLOP/s;
+   the float32 attention backward is timed from its forward's residuals,
+   the output and row statistics autograd keeps):
    kernel  ``preprocess_images``: bitwise in float32 and bfloat16 at
            [128, 512, 512, 3] → 256 → 224, one uint8 step at 384² and 320×448;
            its int8 form (``quant_inv_scale``) bitwise at the first shape and
@@ -37,13 +39,14 @@ non-zero without printing the final line:
            [128, 197, 2304] and at [128, 208, 2304] with ``kv_len`` 197, in
            bfloat16 (the kernels of ``csrc/attention_mma.cu``, products on
            the tensor cores but the forward's scores) and float32 (the
-           forward of ``csrc/attention_f32_mma.cu``, 3xTF32 products on the
-           tensor cores; the scalar backward of ``csrc/attention.cu``), at
-           the 3 heads of vit_t16, and in float32 at 256 tokens, the limit;
-           pad-query rows are compared too and get a non-zero dO; also
-           bytes/s and bound/time, and ptxas's registers, shared memory and
-           spills of the tensor-core kernels (the float32 forward's also
-           resident blocks an SM).
+           kernels of ``csrc/attention_f32_mma.cu``, 3xTF32 products on the
+           tensor cores, forward and two-launch backward), at the 3 heads
+           of vit_t16, and in float32 at 256 and 577 tokens (bf16's limit
+           is 256); pad-query rows are compared too and get a non-zero dO;
+           also bytes/s and bound/time, and ptxas's registers, shared
+           memory and spills of the tensor-core kernels (the float32
+           kernels' also resident blocks an SM), the float32 TF32 rates
+           and times over the library's.
    qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
            float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
            off the plain version by more than 1e-5 (absolute and relative),
@@ -53,9 +56,9 @@ non-zero without printing the final line:
            ``csrc/attention_unpacked_mma.cu``, every product on the tensor
            cores, p and ds as bf16 hi/lo pairs) and float32 (the packed
            pair's float32 kernels), 3 heads, [8, 2, 50, 32], float32 at
-           [128, 12, 256, 64], and in bfloat16 past the float32 kernels' 256
-           tokens: [16, 12, 577, 64] (ViT-B/16 at 384²), [4, 12, 1024, 64]
-           and [2, 4, 1024, 32]; at attn's tolerances, and in bfloat16 each
+           [128, 12, 256, 64], and in both types past 256 tokens:
+           [16, 12, 577, 64] (ViT-B/16 at 384²), [4, 12, 1024, 64], and in
+           bfloat16 [2, 4, 1024, 32]; at attn's tolerances, and in bfloat16 each
            element of dq, dk and dv also within the output's one step; the
            three bf16 kernels' registers, spills, shared memory a block and
            resident blocks an SM;
@@ -173,12 +176,14 @@ UNPACKED_MMA_DESIGN = ("bf16, csrc/attention_unpacked_mma.cu: every product on m
                        "hi/lo pairs (two mma a product), keys or queries streamed in 64-row cp.async tiles, online "
                        "softmax; backward two launches (dq by query rows, dk and dv by key rows)")
 UNPACKED_MMA_KERNELS = ("attn_unpacked_fwd_kernel", "attn_unpacked_bwd_rows_kernel", "attn_unpacked_bwd_keys_kernel")
-# what both pairs' float32 forward times below are of; their float32 backward
-# is the scalar kernel of csrc/attention.cu
+# what both pairs' float32 times below are of
 F32_SOURCE = "ssip_tpu_torch/csrc/attention_f32_mma.cu"
-ATTN_F32_DESIGN = ("f32 forward, csrc/attention_f32_mma.cu: 3xTF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi) on "
-                   "mma.sync m16n8k8, operands split in registers, K and V streamed in 64-key cp.async tiles, online "
-                   "softmax; backward the scalar kernel of csrc/attention.cu")
+ATTN_F32_DESIGN = ("f32, csrc/attention_f32_mma.cu: 3xTF32 products (a_lo b_hi + a_hi b_lo + a_hi b_hi) on mma.sync "
+                   "m16n8k8, operands, p and ds split in registers; forward K and V streamed in 64-key cp.async "
+                   "tiles, online softmax, row max and 1/sum saved for autograd; backward two launches, no atomics: "
+                   "dq by 32 query rows (K, V streamed in 32-key tiles, delta = dO.o), dk and dv by 32 key rows "
+                   "(q, dO and row statistics streamed), p from the saved statistics, 7 products")
+ATTN_F32_KERNELS = ("attn_f32_fwd_kernel", "attn_f32_bwd_rows_kernel", "attn_f32_bwd_keys_kernel")
 KERNELS = {
     "preprocess_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -204,6 +209,7 @@ KERNELS = {
     "attention_qkv_bwd": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_mma.cu",
         "replaces": "ssip_tpu/ops/attention.py:256", "design": ATTN_MMA_DESIGN,
+        "float32_source": F32_SOURCE, "float32_design": ATTN_F32_DESIGN,
     },
     "preprocess_quantize": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -221,6 +227,7 @@ KERNELS = {
     "attention_bwd": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_unpacked_mma.cu",
         "replaces": "ssip_tpu/ops/attention.py:109", "design": UNPACKED_MMA_DESIGN,
+        "float32_source": F32_SOURCE, "float32_design": ATTN_F32_DESIGN,
     },
     "rotate_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/rotate.cu",
@@ -251,6 +258,7 @@ UNPACKED_ATTN_SHAPES = (
     (128, 12, 197, 64, "bfloat16"), (128, 12, 197, 64, "float32"), (128, 3, 197, 64, "bfloat16"),
     (8, 2, 50, 32, "float32"), (128, 12, 256, 64, "float32"),
     (16, 12, 577, 64, "bfloat16"), (4, 12, 1024, 64, "bfloat16"), (2, 4, 1024, 32, "bfloat16"),
+    (16, 12, 577, 64, "float32"), (4, 12, 1024, 64, "float32"),
 )
 VIT_N_CPU_CHECK = 8
 # (rows, width, type): 128 images of 197 tokens and of 208 (the token axis
@@ -264,7 +272,7 @@ LN_SHAPES = (
 ATTN_SHAPES = (
     (128, 197, 12, 0, "bfloat16"), (128, 197, 12, 0, "float32"),
     (128, 208, 12, 197, "bfloat16"), (128, 208, 12, 197, "float32"),
-    (128, 197, 3, 0, "bfloat16"), (128, 256, 12, 0, "float32"),
+    (128, 197, 3, 0, "bfloat16"), (128, 256, 12, 0, "float32"), (16, 577, 12, 0, "float32"),
 )
 F32_ATOL = 2e-5
 GRAD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -677,7 +685,7 @@ def phase_attention_kernels(torch, np) -> dict:
 
     from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
     from ssip_tpu_torch.ops.attention import (
-        attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, fused_attention_qkv,
+        attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, attention_qkv_residuals, fused_attention_qkv,
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
@@ -692,9 +700,9 @@ def phase_attention_kernels(torch, np) -> dict:
             # template arguments: the head width, and for the forward the key chunks of 32
             args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?", name)
             say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", **r)
-    f32_info = load_library().ssip_attention_f32_info  # the float32 forward of both pairs
-    f32_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    _kernel_resources("attn", lambda which, dh, out: f32_info(dh, out), ("attn_f32_fwd_kernel",))
+    f32_info = load_library().ssip_attention_f32_info  # the float32 kernels of both pairs
+    f32_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    _kernel_resources("attn", f32_info, ATTN_F32_KERNELS)
     configure_precision("float32")  # the plain version's matmuls in true f32
     rng = np.random.default_rng(SEED + 7)
     dh = 64
@@ -705,9 +713,12 @@ def phase_attention_kernels(torch, np) -> dict:
         qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * d)).astype(np.float32)).cuda().to(dtype)
         d_o = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).cuda().to(dtype)
         out = fused_attention_qkv(qkv, heads, kv_len)
-        dqkv = attention_qkv_bwd(qkv, d_o, heads, kv_len)
+        residuals = attention_qkv_residuals(qkv, heads, kv_len)  # what autograd keeps of the forward
+        dqkv = attention_qkv_bwd(qkv, d_o, heads, kv_len, residuals)
         torch.cuda.synchronize()
         tag = f"attention {b}x{s}x{3 * d} heads {heads} kv_len {kv_len} {dtype_name}"
+        if not torch.equal(residuals[0], out):
+            raise AssertionError(f"{tag}: the forward that saves row statistics gave another output")
         err_o = output_error(torch, out, attention_qkv_plain(qkv, heads, kv_len), tag)
         ref = attention_qkv_bwd_plain(qkv, d_o, heads, kv_len)
         rels = [grad_error(dqkv[..., i * d:(i + 1) * d], ref[..., i * d:(i + 1) * d], dtype_name, f"{tag} d{part}")
@@ -720,7 +731,7 @@ def phase_attention_kernels(torch, np) -> dict:
         fwd_ms, fwd_plain_ms = timed_pair(
             torch, lambda: fused_attention_qkv(qkv, heads, kv_len), lambda: attention_qkv_plain(qkv, heads, kv_len))
         bwd_ms, bwd_plain_ms = timed_pair(
-            torch, lambda: attention_qkv_bwd(qkv, d_o, heads, kv_len),
+            torch, lambda: attention_qkv_bwd(qkv, d_o, heads, kv_len, residuals),
             lambda: attention_qkv_bwd_plain(qkv, d_o, heads, kv_len))
         # the library's yardstick on unpacked views, timed here and called
         # nowhere in the port
@@ -753,10 +764,11 @@ def phase_attention_kernels(torch, np) -> dict:
                 fwd_smem_bytes=4 * kvp * dh + 64 * dh + max(128 * dh, 64 * (kvp + 8)),
                 bwd_rows_smem_bytes=(128 + 2 * kvp) * dh * 2, bwd_keys_smem_bytes=(128 + 2 * sp) * dh * 2 + 12 * sp)
         else:
+            fwd_stats_ms = median_ms(torch, lambda: attention_qkv_residuals(qkv, heads, kv_len))
             say("attn", design=repr(ATTN_F32_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
                 fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}",
-                fwd_tflops_3xtf32=f"{3 * 4 * b * heads * s * kv * dh / fwd_ms / 1e9:.1f}",
-                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}")
+                **_f32_rates(fwd_ms, fwd_stats_ms, lib_fwd_ms, fwd_bound, bwd_ms, lib_bwd_ms, bwd_bound,
+                             b * heads * s * kv * dh))
         if (b, s, heads, kv_len, dtype_name) == ATTN_SHAPES[0]:
             result = {
                 "attention_qkv": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
@@ -764,9 +776,21 @@ def phase_attention_kernels(torch, np) -> dict:
                 "attention_qkv_bwd": {"max_abs_err": err_dqkv, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
                                       **bwd_bound, "library_ms": lib_bwd_ms},
             }
-        del qkv, d_o, out, dqkv, leaf, o_lib
+        del qkv, d_o, out, dqkv, leaf, o_lib, residuals
         torch.cuda.empty_cache()
     return result
+
+
+def _f32_rates(fwd_ms, fwd_stats_ms, lib_fwd_ms, fwd_bound, bwd_ms, lib_bwd_ms, bwd_bound, work) -> dict:
+    """The float32 kernels' TF32 rates, bound shares and times over the
+    library's. ``work`` is B·H·S·kv·Dh: the forward does 2 products of
+    2·work, the backward 7 (dq's kernel 3, dk and dv's 4), each as three
+    TF32 products; ``fwd_stats_ms`` is the forward that also saves the row
+    statistics (autograd's)."""
+    return {"fwd_tflops_3xtf32": f"{3 * 4 * work / fwd_ms / 1e9:.1f}",
+            "fwd_bound_share": f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", "fwd_vs_library": f"{fwd_ms / lib_fwd_ms:.4f}",
+            "fwd_with_stats_ms": f"{fwd_stats_ms:.4f}", "bwd_tflops_3xtf32": f"{3 * 14 * work / bwd_ms / 1e9:.1f}",
+            "bwd_bound_share": f"{bwd_bound['bound_ms'] / bwd_ms:.4f}", "bwd_vs_library": f"{bwd_ms / lib_bwd_ms:.4f}"}
 
 
 def _qmlp_block(torch, np, rng, d: int, hidden: int):
@@ -865,7 +889,7 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
 
     from ssip_tpu_torch.kernels.build import load_library
     from ssip_tpu_torch.ops.attention import (
-        attention_bwd, attention_bwd_plain, attention_unrounded_plain, fused_attention,
+        attention_bwd, attention_bwd_plain, attention_residuals, attention_unrounded_plain, fused_attention,
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
@@ -880,9 +904,12 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
         q, k, v, d_o = (torch.from_numpy(rng.standard_normal((b, heads, s, dh)).astype(np.float32)).cuda().to(dtype)
                         for _ in range(4))
         out = fused_attention(q, k, v)
-        grads = attention_bwd(q, k, v, d_o)
+        residuals = attention_residuals(q, k, v)  # what autograd keeps of the forward
+        grads = attention_bwd(q, k, v, d_o, residuals)
         torch.cuda.synchronize()
         tag = f"fused_attention {b}x{heads}x{s}x{dh} {dtype_name}"
+        if not torch.equal(residuals[0], out):
+            raise AssertionError(f"{tag}: the forward that saves row statistics gave another output")
         err_o = output_error(torch, out, attention_unrounded_plain(q, k, v), tag)
         ref = attention_bwd_plain(q, k, v, d_o)
         rels = [grad_error(g, r, dtype_name, f"{tag} d{part}") for g, r, part in zip(grads, ref, "qkv")]
@@ -894,7 +921,7 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
 
         fwd_ms, fwd_plain_ms = timed_pair(torch, lambda: fused_attention(q, k, v),
                                           lambda: attention_unrounded_plain(q, k, v))
-        bwd_ms, bwd_plain_ms = timed_pair(torch, lambda: attention_bwd(q, k, v, d_o),
+        bwd_ms, bwd_plain_ms = timed_pair(torch, lambda: attention_bwd(q, k, v, d_o, residuals),
                                           lambda: attention_bwd_plain(q, k, v, d_o))
         # the library's yardstick, timed here and called nowhere in the port
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -917,10 +944,11 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
                 bwd_gbytes_per_s=f"{7 * q.numel() * item / bwd_ms / 1e6:.1f}",
                 bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}")
         else:
+            fwd_stats_ms = median_ms(torch, lambda: attention_residuals(q, k, v))
             say("attn4", design=repr(ATTN_F32_DESIGN), shape=f"{b}x{heads}x{s}x{dh}",
                 fwd_gbytes_per_s=f"{4 * q.numel() * item / fwd_ms / 1e6:.1f}",
-                fwd_tflops_3xtf32=f"{3 * 4 * b * heads * s * s * dh / fwd_ms / 1e9:.1f}",
-                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}")
+                **_f32_rates(fwd_ms, fwd_stats_ms, lib_fwd_ms, fwd_bound, bwd_ms, lib_bwd_ms, bwd_bound,
+                             b * heads * s * s * dh))
         if (b, heads, s, dh, dtype_name) == UNPACKED_ATTN_SHAPES[0]:
             result = {
                 "attention": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound,
@@ -928,7 +956,7 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
                 "attention_bwd": {"max_abs_err": err_g, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_bound,
                                   "library_ms": lib_bwd_ms},
             }
-        del q, k, v, d_o, out, grads, leaves, o_lib
+        del q, k, v, d_o, out, grads, leaves, o_lib, residuals
         torch.cuda.empty_cache()
     return result
 
@@ -1353,7 +1381,7 @@ _PROFILE_CLASSES = (
 # the same for the ViT paths
 _VIT_PROFILE_CLASSES = (
     ("LayerNorm kernels", ("ln_fwd_kernel", "ln_bwd_kernel")),
-    ("attention kernels", ("attn_qkv", "attn_f32_fwd")),
+    ("attention kernels", ("attn_qkv", "attn_f32_fwd", "attn_f32_bwd")),
     ("augment kernel", ("train_augment_kernel",)),
     ("preprocess kernel", ("preproc_taps_kernel",)),
     ("AdamW", ("multi_tensor_apply", "adam")),

@@ -1,7 +1,7 @@
 // Multi-head softmax attention on q, k, v given apart, [B·H, S, Dh] in
 // bfloat16, with every product on Hopper's tensor cores: the bf16 forms
 // behind ssip_attention_fwd and ssip_attention_bwd (attention.cu keeps the
-// C entry points and the float32 forms).
+// C entry points; the float32 forms are in attention_f32_mma.cu).
 //
 //   attn_unpacked_fwd_kernel              replaces ssip_tpu/ops/attention.py:_attn_kernel
 //   attn_unpacked_bwd_rows_kernel (dq) and

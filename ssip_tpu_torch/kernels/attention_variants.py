@@ -1,16 +1,18 @@
 """Time variants of ``csrc/attention_unpacked_mma.cu`` (the unpacked bf16
 attention pair) or, with ``--f32``, of ``csrc/attention_f32_mma.cu`` (the
-float32 forward of both pairs) against each other on one card: what
-PERF.md's design notes for those kernels rest on.
+float32 forward and backward of both pairs) against each other on one card:
+what PERF.md's design notes for those kernels rest on.
 
 Each variant is a copy of the source with some of its lines replaced (a
 constant, a helper's body, or the test that sends full tiles down their
 branch-free path), built by nvcc into ``build/ssip_tpu_torch/variants/``
 with a C entry of its own, and checked against the plain versions (bf16:
-one bf16 step, output and gradients; float32: the output within 2e-5)
-before it is timed. Every variant then runs at each shape in turns (first
-to last, last to first) and the smaller of its two medians of CUDA-event
-times is printed, with ``scaled_dot_product_attention``'s beside.
+one bf16 step, output and gradients; float32: the output within 2e-5, the
+gradients within 1e-5 of each tensor's largest entry) before it is timed.
+Every variant then runs at each shape in turns (first to last, last to
+first) and the smaller of its two medians of CUDA-event times is printed,
+with ``scaled_dot_product_attention``'s beside (the float32 backward is
+timed from the forward's output and row statistics, as autograd runs it).
 
     python -m ssip_tpu_torch.kernels.attention_variants          # one CUDA card
     python -m ssip_tpu_torch.kernels.attention_variants --f32
@@ -19,6 +21,7 @@ times is printed, with ``scaled_dot_product_attention``'s beside.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 
@@ -62,23 +65,38 @@ F32_VARIANTS = {
     "cvt.rna split": [("  hi = __float_as_uint(x) & 0xffffe000u;\n  lo = __float_as_uint(x - __uint_as_float(hi));",
                        "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(hi) : \"f\"(x));\n"
                        "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(lo) : \"f\"(x - __uint_as_float(hi)));")],
-    "every tile guarded": [("if (valid == kTile) {", "if (false) {")],
+    "every tile guarded": [("if (valid == kTile) {", "if (false) {"), ("if (valid == kBwdTile) {", "if (false) {")],
     "2 blocks an SM": [("constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;")],
     "3 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
                  ("constexpr int kBlocksPerSm = 3;", "constexpr int kBlocksPerSm = 2;")],
+    "bwd 64-row blocks and tiles": [("constexpr int kBwdWarps = 2;", "constexpr int kBwdWarps = 4;"),
+                                    ("constexpr int kBwdTile = 32;", "constexpr int kBwdTile = 64;"),
+                                    ("constexpr int kRowsBlocksPerSm = 4;", "constexpr int kRowsBlocksPerSm = 2;"),
+                                    ("constexpr int kKeysBlocksPerSm = 4;", "constexpr int kKeysBlocksPerSm = 2;")],
+    "bwd ragged 32-column steps": [("constexpr int kRaggedStep = 16;", "constexpr int kRaggedStep = 32;")],
+    "bwd one accumulator": [("  float part[DH / 8][4];\n  zero(part);\n  weighted<DH, NT>(part,",
+                             "  weighted<DH, NT>(acc, p, b_s, row0, lim, g, t);\n  return;\n"
+                             "  float part[DH / 8][4];\n  zero(part);\n  weighted<DH, NT>(part,")],
 }
 F32_ENTRIES = r'''
-extern "C" int variant_fwd(const void* q, const void* k, const void* v, void* o, int bh, int s, int dh,
+extern "C" int variant_fwd(const void* q, const void* k, const void* v, void* o, void* stats, int bh, int s,
+                           int dh, float scale, void* stream) {
+  return attention_fwd_f32(q, k, v, o, stats, bh, s, dh, scale, static_cast<cudaStream_t>(stream));
+}
+extern "C" int variant_bwd(const void* q, const void* k, const void* v, const void* d_o, void* dq, void* dk,
+                           void* dv, const void* o, const void* stats, void* delta, int bh, int s, int dh,
                            float scale, void* stream) {
-  return attention_fwd_f32(q, k, v, o, bh, s, dh, scale, static_cast<cudaStream_t>(stream));
+  return attention_bwd_f32(q, k, v, d_o, dq, dk, dv, o, stats, delta, bh, s, dh, scale,
+                           static_cast<cudaStream_t>(stream));
 }
 '''
-# (batch, heads, tokens, head width): chip_smoke.py's float32 [attn4] shapes
-F32_SHAPES = ((128, 12, 197, 64), (128, 12, 256, 64), (8, 2, 50, 32))
+# (batch, heads, tokens, head width): chip_smoke.py's float32 [attn4] shapes,
+# and 192 tokens (197 without the ragged fourth 64-row block)
+F32_SHAPES = ((128, 12, 197, 64), (128, 12, 192, 64), (128, 12, 256, 64), (16, 12, 577, 64), (8, 2, 50, 32))
 
 
-def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES) -> dict:
-    """name -> (forward, backward or None) C entries, built in parallel."""
+def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES, f32: bool = False) -> dict:
+    """name -> (forward, backward) C entries, built in parallel."""
     out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     text = source.read_text()
@@ -104,28 +122,36 @@ def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES) -> dic
                 print(f"[variants] variant={name.replace(' ', '_')} ptxas: {line.strip()}")
         handle = ctypes.CDLL(str(lib))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.variant_fwd.argtypes = [p, p, p, p, i, i, i, f, p]
-        bwd = getattr(handle, "variant_bwd", None)
-        if bwd is not None:
-            bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, p]
-        entries[name] = (handle.variant_fwd, bwd)
+        # the float32 entries take the row statistics (forward), o, the
+        # statistics and the delta scratch (backward); bf16 one scratch
+        handle.variant_fwd.argtypes = [p] * (5 if f32 else 4) + [i, i, i, f, p]
+        handle.variant_bwd.argtypes = [p] * (10 if f32 else 8) + [i, i, i, f, p]
+        entries[name] = (handle.variant_fwd, handle.variant_bwd)
     return entries
 
 
 def calls(entry, q, k, v, d_o):
-    """The variant's forward and backward on these operands, as closures."""
+    """The variant's forward and backward on these operands, as closures;
+    in float32 a third, the forward that writes the row statistics the
+    backward reads (call it before the backward)."""
     b, h, s, dh = q.shape
+    f32 = q.dtype == torch.float32
     o, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
-    stats = torch.empty(b * h * 3 * (-(-s // 16) * 16), device=q.device)
+    sp = -(-s // 16) * 16
+    stats = torch.empty(b * h * 2 * sp, device=q.device)
+    scratch = torch.empty(b * h * (1 if f32 else 3) * sp, device=q.device)
     stream = torch.cuda.current_stream().cuda_stream
+    args = (b * h, s, dh, _scale(dh), stream)
 
-    def fwd():
-        if entry[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, dh, _scale(dh), stream):
+    def fwd(with_stats: bool = False):
+        extra = (stats.data_ptr() if with_stats else None,) if f32 else ()
+        if entry[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *extra, *args):
             raise RuntimeError("variant forward launch failed")
 
     def bwd():
+        extra = (o.data_ptr(), stats.data_ptr()) if f32 else ()
         if entry[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                    dv.data_ptr(), stats.data_ptr(), b * h, s, dh, _scale(dh), stream):
+                    dv.data_ptr(), *extra, scratch.data_ptr(), *args):
             raise RuntimeError("variant backward launch failed")
 
     return fwd, bwd, (o, dq, dk, dv)
@@ -151,32 +177,69 @@ def median_ms(fn) -> float:
     return sorted(times)[TIMED // 2]
 
 
+def device_ms(fn, reps: int = 5) -> dict:
+    """Device time a call of ``fn`` by kernel (``torch.profiler``), for the
+    kernels named attn_*_kernel."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.events():
+        name = re.search(r"attn_\w+?_kernel", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and name:
+            out[name[0]] = out.get(name[0], 0.0) + (e.time_range.end - e.time_range.start) / 1000.0 / reps
+    return out
+
+
 def main_f32() -> None:
-    """The float32 forward's variants: each within 2e-5 of the plain version
-    at [4, 12, 197, 64], then timed at ``F32_SHAPES`` beside SDPA."""
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true float32
-    entries = build_variants(F32_SOURCE, F32_VARIANTS, F32_ENTRIES)
+    """The float32 kernels' variants: each checked against the plain
+    versions at [4, 12, 197, 64] (output within 2e-5, gradients within 1e-5
+    of each one's largest entry; a variant outside is printed and not
+    timed), then timed at ``F32_SHAPES`` beside SDPA (forward without
+    statistics, backward from the forward's output and statistics)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true float32
+    entries = build_variants(F32_SOURCE, F32_VARIANTS, F32_ENTRIES, f32=True)
     rng = np.random.default_rng(0)
     operands = [torch.from_numpy(rng.standard_normal((4, 12, 197, 64)).astype(np.float32)).cuda() for _ in range(4)]
-    ref = attention_unrounded_plain(*operands[:3])
-    for name, entry in entries.items():
-        fwd, _, outs = calls(entry, *operands)
-        fwd()
+    refs = (attention_unrounded_plain(*operands[:3]), *attention_bwd_plain(*operands))
+    for name, entry in list(entries.items()):
+        fwd, bwd, outs = calls(entry, *operands)
+        fwd(with_stats=True)
+        bwd()
         torch.cuda.synchronize()
-        err = (outs[0] - ref).abs().max().item()
-        print(f"[variants] variant={name.replace(' ', '_')} max_abs_err={err:.3g}")
-        if not err <= 2e-5:
-            raise AssertionError(f"variant {name!r} is {err} off the plain version, allowed 2e-5")
+        err = (outs[0] - refs[0]).abs().max().item()
+        rels = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(outs[1:], refs[1:])]
+        held = err <= 2e-5 and max(rels) <= 1e-5
+        print(f"[variants] variant={name.replace(' ', '_')} max_abs_err={err:.3g} "
+              f"grad_rel={'/'.join(f'{r:.3g}' for r in rels)} within_gates={held}")
+        if not held:  # not timed
+            if name == "kernel":
+                raise AssertionError(f"the kernel is {err} and {rels} off the plain versions, allowed 2e-5, 1e-5")
+            del entries[name]
     for shape in F32_SHAPES:
         q, k, v, d_o = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda() for _ in range(4))
-        times = {name: [] for name in entries}
+        times = {name: ([], []) for name in entries}
         for name in [*entries, *reversed(entries)]:
-            times[name].append(median_ms(calls(entries[name], q, k, v, d_o)[0]))
+            fwd, bwd, _ = calls(entries[name], q, k, v, d_o)
+            times[name][0].append(median_ms(fwd))
+            fwd(with_stats=True)
+            times[name][1].append(median_ms(bwd))
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves)
         print(f"[variants] shape={'x'.join(map(str, shape))} variant=sdpa "
-              f"fwd_ms={median_ms(lambda: F.scaled_dot_product_attention(q, k, v)):.4f}")
-        for name, f_ms in times.items():
+              f"fwd_ms={median_ms(lambda: F.scaled_dot_product_attention(q, k, v)):.4f} "
+              f"bwd_ms={median_ms(lambda: torch.autograd.grad(o_lib, leaves, d_o, retain_graph=True)):.4f}")
+        for name, (f_ms, b_ms) in times.items():
             print(f"[variants] shape={'x'.join(map(str, shape))} variant={name.replace(' ', '_')} "
-                  f"fwd_ms={min(f_ms):.4f}", flush=True)
+                  f"fwd_ms={min(f_ms):.4f} bwd_ms={min(b_ms):.4f}", flush=True)
+        fwd, bwd, _ = calls(entries["kernel"], q, k, v, d_o)
+        fwd(with_stats=True)
+        split = {**device_ms(lambda: fwd(with_stats=True)), **device_ms(bwd)}
+        print(f"[variants] shape={'x'.join(map(str, shape))} variant=kernel device_ms "
+              + " ".join(f"{n}={ms:.4f}" for n, ms in split.items()), flush=True)
+        del q, k, v, d_o, leaves, o_lib
+        torch.cuda.empty_cache()
 
 
 def main() -> None:

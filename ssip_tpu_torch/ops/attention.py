@@ -8,16 +8,20 @@ entry of the same name (``:414-442``) with its custom VJP (``:369-390``) as
 a ``torch.autograd.Function`` whose forward and backward launch the kernels
 that replace ``_attn_qkv_kernel`` and ``_attn_qkv_bwd_kernel``: for bfloat16
 those of ``csrc/attention_mma.cu`` (``mma.sync`` on bf16 operands, staged by
-``cp.async``); for float32 the forward of ``csrc/attention_f32_mma.cu``
-(3×TF32 products on ``mma.sync``, keys streamed in tiles of 64 with an
-online softmax) and the scalar backward of ``csrc/attention.cu``.
+``cp.async``); for float32 those of ``csrc/attention_f32_mma.cu`` (3×TF32
+products on ``mma.sync``, keys or queries streamed in tiles of 64, an online
+softmax in the forward; the backward two launches).
 
 ``qkv`` is [B, S, 3·D] with columns ordered [3, H, Dh] (the fused Dense of
 ``models/vit.py``); the result is [B, S, D]. Per image and head:
 ``s = q·kᵀ/√Dh`` as a float32 sum of products of the inputs, keys at index
 ≥ ``kv_len`` left out, float32 softmax, ``p`` rounded to the input type,
-``o = p·v`` summed in float32 and rounded once. Saved for backward: ``qkv``
-only; the backward recomputes the probabilities.
+``o = p·v`` summed in float32 and rounded once. Saved for backward: in
+bfloat16 ``qkv`` only (the backward recomputes the probabilities); in
+float32 also the output and each query row's softmax statistics, which the
+forward kernel writes beside it (``attention_qkv_residuals``): the float32
+backward takes ``p`` from them and ``Σ_j dp·p`` as ``dO·o``, which holds
+because a float32 ``o`` is never rounded.
 
 ``fused_attention(q, k, v)`` on [B, H, S, Dh] is the counterpart of the
 entry of the same name (``:445-467``) with its custom VJP (``:187-205``):
@@ -30,11 +34,13 @@ forms are the same function. No pad to 128 tokens exists here and every key
 is real. For bfloat16 its kernels are those of
 ``csrc/attention_unpacked_mma.cu``: every product on ``mma.sync``, keys (or
 queries) streamed in tiles of 64, ``p`` and ``ds`` entering their products
-as bf16 hi/lo pairs, so S goes up to 1024 as in the JAX entry
-(``_MAX_FUSED_SEQ``); the backward is two launches joined by a float32
-scratch this module allocates. For float32 the forward is the packed
-pair's, ``csrc/attention_f32_mma.cu``, and the backward the scalar one of
-``csrc/attention.cu``, S up to 256.
+as bf16 hi/lo pairs; the backward is two launches joined by a float32
+scratch this module allocates. For float32 its kernels are the packed
+pair's, ``csrc/attention_f32_mma.cu``.
+
+Sequences: up to 1024 tokens, the JAX entries' ``_MAX_FUSED_SEQ``, except
+the packed pair in bfloat16, whose forward holds a row's scores in
+registers: 256 (``MAX_PACKED_SEQ``, ``MAX_UNPACKED_SEQ``).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version (autograd differentiates it); a CUDA tensor launches the
@@ -51,13 +57,12 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_WIDTHS = (32, 64)
-# the packed pair, and float32: 8 chunks of 32 keys a lane in the bf16 forward
-# of csrc/attention_mma.cu and in the float32 backward of csrc/attention.cu
-MAX_KERNEL_SEQ = 256
 _MAX_FUSED_SEQ = 1024  # the JAX entries' longest sequence for their kernels
-# the unpacked pair by type: bf16 streams the keys; float32 shares the packed
-# pair's forward and scalar backward, whose limit this is
-MAX_UNPACKED_SEQ = {torch.bfloat16: _MAX_FUSED_SEQ, torch.float32: MAX_KERNEL_SEQ}
+# the longest sequence of each pair's kernels by type: every kernel streams
+# its keys but the packed bf16 forward (csrc/attention_mma.cu), which holds 8
+# chunks of 32 keys a lane
+MAX_PACKED_SEQ = {torch.bfloat16: 256, torch.float32: _MAX_FUSED_SEQ}
+MAX_UNPACKED_SEQ = {torch.bfloat16: _MAX_FUSED_SEQ, torch.float32: _MAX_FUSED_SEQ}
 _SEQ_LIMIT_ITEM = (
     "ROADMAP.md, Queue 2 #5a: sequences up to 1024 in the attention kernels, by tiling the "
     "keys in two passes"
@@ -147,6 +152,10 @@ def attention_qkv_bwd_plain(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int
     return out.view(b, s, three_d)
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
 @lru_cache(maxsize=1)
 def _kernel_entries():
     from ssip_tpu_torch.kernels.build import load_library
@@ -154,9 +163,10 @@ def _kernel_entries():
     lib = load_library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ssip_attention_qkv_fwd, lib.ssip_attention_qkv_bwd
-    fwd.argtypes = [p, p, i, i, i, i, i, i, f, p]  # qkv, o, is_bf16, batch, heads, s, dh, kv, scale, stream
-    # qkv, dO, dqkv, stats scratch (bf16 only), is_bf16, batch, heads, s, dh, kv, scale, stream
-    bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, f, p]
+    # qkv, o, row statistics (float32, or None), is_bf16, batch, heads, s, dh, kv, scale, stream
+    fwd.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
+    # qkv, dO, dqkv, o and row statistics (float32), scratch, is_bf16, batch, heads, s, dh, kv, scale, stream
+    bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -168,9 +178,10 @@ def _unpacked_kernel_entries():
     lib = load_library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ssip_attention_fwd, lib.ssip_attention_bwd
-    fwd.argtypes = [p, p, p, p, i, i, i, i, f, p]  # q, k, v, o, is_bf16, batch·heads, s, dh, scale, stream
-    # q, k, v, dO, dq, dk, dv, stats scratch (bf16 only), is_bf16, batch·heads, s, dh, scale, stream
-    bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, f, p]
+    # q, k, v, o, row statistics (float32, or None), is_bf16, batch·heads, s, dh, scale, stream
+    fwd.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
+    # q, k, v, dO, dq, dk, dv, o and row statistics (float32), scratch, is_bf16, batch·heads, s, dh, scale, stream
+    bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, f, p]
     fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -186,12 +197,14 @@ def _geometry(qkv: torch.Tensor, num_heads: int, kv_len: int):
     return b, s, d, d // num_heads, (kv_len if 0 < kv_len < s else s)
 
 
-def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int, limit: int = MAX_KERNEL_SEQ) -> None:
-    """Raise on what the kernels do not take; ``limit`` is the longest sequence."""
+def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int, limits: dict) -> None:
+    """Raise on what the kernels do not take; ``limits`` is the longest
+    sequence by type."""
     if qkv.dtype not in _DTYPES:
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {qkv.dtype}")
     if dh not in _HEAD_WIDTHS:
         raise ValueError(f"attention kernel takes head widths {_HEAD_WIDTHS}, got {dh}")
+    limit = limits[qkv.dtype]
     if s > limit:
         why = ("the JAX entry leaves its kernel there too (_MAX_FUSED_SEQ)" if limit == _MAX_FUSED_SEQ
                else f"longer ones are not ported to ssip_tpu_torch yet ({_SEQ_LIMIT_ITEM})")
@@ -201,36 +214,72 @@ def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int, limit: int = MAX_KE
 
 
 def _check_aligned(*operands: torch.Tensor) -> None:
-    """The tensor-core kernels (every bfloat16 one, the float32 forward) stage
-    rows by 16-byte copies."""
+    """The kernels stage rows by 16-byte copies."""
     if any(t.data_ptr() % 16 for t in operands):
         raise ValueError(f"{operands[0].dtype} attention kernel needs its operands at 16-byte aligned addresses")
 
 
-def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int) -> torch.Tensor:
+def _check_residuals(residuals, out_shape, stats_rows: int, like: torch.Tensor):
+    """The float32 backward's (o, stats) as ``*_residuals`` made them, or raise."""
+    o, stats = residuals
+    if (tuple(o.shape) != tuple(out_shape) or o.dtype != like.dtype or o.device != like.device
+            or not o.is_contiguous() or stats is None or stats.dtype != torch.float32
+            or stats.numel() != 2 * stats_rows or stats.device != like.device):
+        raise ValueError("attention backward expects the (o, stats) its forward's residuals function returns")
+    _check_aligned(o, stats)
+    return o, stats
+
+
+def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int, with_stats: bool = False):
+    """(o, stats): the forward kernel's output and, for float32 when
+    ``with_stats``, each query row's softmax statistics, else None."""
     b, s, d, dh, kv = _geometry(qkv, num_heads, kv_len)
-    _check_cuda_operands(qkv, s, dh)
+    _check_cuda_operands(qkv, s, dh, MAX_PACKED_SEQ)
     _check_aligned(qkv)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
+    want = with_stats and qkv.dtype == torch.float32
+    stats = torch.empty(b * num_heads * 2 * _round16(s), device=qkv.device) if want else None
     if out.numel() == 0:
-        return out
+        return out, stats
     with torch.cuda.device(qkv.device):  # the launch's device; restored after
         err = _kernel_entries()[0](
-            qkv.data_ptr(), out.data_ptr(), int(qkv.dtype == torch.bfloat16),
-            b, num_heads, s, dh, kv, _scale(dh), torch.cuda.current_stream().cuda_stream,
+            qkv.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
+            int(qkv.dtype == torch.bfloat16), b, num_heads, s, dh, kv, _scale(dh),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     fused_attention_qkv.launches += 1
-    return out
+    return out, stats
 
 
-def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_len: int = 0) -> torch.Tensor:
+def attention_qkv_residuals(qkv: torch.Tensor, num_heads: int, kv_len: int = 0):
+    """(o, stats): what autograd keeps of the forward for
+    ``attention_qkv_bwd``. ``o`` is the output; ``stats`` is, for float32 on
+    the card, each query row's softmax statistics (float32
+    [B·H, 2, round16(S)]: −max·scale·log2 e and 1/sum, written by the
+    forward kernel in the same launch), else None (the bfloat16 kernels and
+    the plain version recompute the probabilities). On the card it counts
+    one forward launch."""
+    _geometry(qkv, num_heads, kv_len)
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, kv_len), None
+    if qkv.device.type != "cuda":
+        raise ValueError(f"attention runs on cpu or cuda tensors, got {qkv.device}")
+    return _launch_fwd(qkv, num_heads, kv_len, with_stats=True)
+
+
+def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_len: int = 0,
+                      residuals=None) -> torch.Tensor:
     """dqkv [B, S, 3·D] from the saved ``qkv`` and the incoming ``d_o``
     [B, S, D], for any ``d_o`` (pad-query rows included); key rows at index
-    ≥ ``kv_len`` get zeros. ``attention_qkv_bwd.launches`` counts calls
-    that launch the backward (one a call; in bfloat16 that is two kernels,
-    dq by query rows, then dk and dv by key rows)."""
+    ≥ ``kv_len`` get zeros. The float32 kernels read the forward's output
+    and row statistics, ``residuals`` as ``attention_qkv_residuals`` returns
+    them; without them a float32 call on the card runs that forward first
+    (one more forward launch). bfloat16 and the CPU ignore ``residuals``.
+    ``attention_qkv_bwd.launches`` counts calls that launch the backward
+    (one a call: two kernels, dq by query rows, then dk and dv by key
+    rows)."""
     b, s, d, dh, kv = _geometry(qkv, num_heads, kv_len)
     if tuple(d_o.shape) != (b, s, d) or d_o.dtype != qkv.dtype or d_o.device != qkv.device:
         raise ValueError(
@@ -241,7 +290,7 @@ def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_l
         return attention_qkv_bwd_plain(qkv, d_o, num_heads, kv_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda tensors, got {qkv.device}")
-    _check_cuda_operands(qkv, s, dh)
+    _check_cuda_operands(qkv, s, dh, MAX_PACKED_SEQ)
     if not d_o.is_contiguous():
         raise ValueError("attention kernel needs a contiguous dO")
     _check_aligned(qkv, d_o)
@@ -249,11 +298,17 @@ def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_l
     if dqkv.numel() == 0:
         return dqkv
     bf16 = qkv.dtype == torch.bfloat16
-    # the bf16 pair's per-row max, 1/sum and delta between its two launches
-    stats = torch.empty(b * num_heads * 3 * (-(-s // 16) * 16), device=qkv.device) if bf16 else None
+    o = stats = None
+    if not bf16:
+        if residuals is None:
+            residuals = _launch_fwd(qkv, num_heads, kv_len, with_stats=True)
+        o, stats = _check_residuals(residuals, (b, s, d), b * num_heads * _round16(s), qkv)
+    # between the two launches: bf16 each row's max, 1/sum and delta; float32 delta
+    scratch = torch.empty(b * num_heads * (3 if bf16 else 1) * _round16(s), device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _kernel_entries()[1](
-            qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), None if stats is None else stats.data_ptr(), int(bf16),
+            qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), None if o is None else o.data_ptr(),
+            None if stats is None else stats.data_ptr(), scratch.data_ptr(), int(bf16),
             b, num_heads, s, dh, kv, _scale(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -266,18 +321,21 @@ attention_qkv_bwd.launches = 0
 
 
 class _AttentionKernel(torch.autograd.Function):
-    """The two kernels as one differentiable function of the packed qkv."""
+    """The kernels as one differentiable function of the packed qkv; in
+    float32 the forward's output and row statistics are saved too."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, kv_len):
-        ctx.save_for_backward(qkv)
+        out, stats = _launch_fwd(qkv, num_heads, kv_len, with_stats=True)
+        ctx.save_for_backward(qkv, *(() if stats is None else (out, stats)))
         ctx.num_heads, ctx.kv_len = num_heads, kv_len
-        return _launch_fwd(qkv, num_heads, kv_len)
+        return out
 
     @staticmethod
     def backward(ctx, d_o):
-        (qkv,) = ctx.saved_tensors
-        return attention_qkv_bwd(qkv, d_o.contiguous(), ctx.num_heads, ctx.kv_len), None, None
+        qkv, *residuals = ctx.saved_tensors
+        dqkv = attention_qkv_bwd(qkv, d_o.contiguous(), ctx.num_heads, ctx.kv_len, residuals or None)
+        return dqkv, None, None
 
 
 def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, kv_len: int = 0) -> torch.Tensor:
@@ -294,7 +352,7 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, kv_len: int = 0) -> t
         raise ValueError(f"attention runs on cpu or cuda tensors, got {qkv.device}")
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _AttentionKernel.apply(qkv, num_heads, kv_len)
-    return _launch_fwd(qkv, num_heads, kv_len)  # nothing to differentiate: no autograd node to set up
+    return _launch_fwd(qkv, num_heads, kv_len)[0]  # nothing to differentiate: no autograd node to set up
 
 
 fused_attention_qkv.launches = 0
@@ -318,32 +376,46 @@ def _check_unpacked_cuda(*operands: torch.Tensor) -> None:
         raise ValueError(f"attention runs on cpu or cuda tensors, got {q.device}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("attention kernel needs contiguous q, k, v and dO")
-    _check_cuda_operands(q, q.shape[2], q.shape[3], MAX_UNPACKED_SEQ.get(q.dtype, MAX_KERNEL_SEQ))
+    _check_cuda_operands(q, q.shape[2], q.shape[3], MAX_UNPACKED_SEQ)
     _check_aligned(*operands)
 
 
-def _launch_unpacked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _launch_unpacked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_stats: bool = False):
+    """(o, stats), as ``_launch_fwd``."""
     _check_unpacked_cuda(q, k, v)
     b, h, s, dh = q.shape
     out = torch.empty_like(q)
+    want = with_stats and q.dtype == torch.float32
+    stats = torch.empty(b * h * 2 * _round16(s), device=q.device) if want else None
     if out.numel() == 0:
-        return out
+        return out, stats
     with torch.cuda.device(q.device):  # the launch's device; restored after
         err = _unpacked_kernel_entries()[0](
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-            b * h, s, dh, _scale(dh), torch.cuda.current_stream().cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
+            int(q.dtype == torch.bfloat16), b * h, s, dh, _scale(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
     fused_attention.launches += 1
-    return out
+    return out, stats
 
 
-def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
+def attention_residuals(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(o, stats) of q, k, v [B, H, S, Dh] for ``attention_bwd``, as
+    ``attention_qkv_residuals`` gives them for the packed pair."""
+    _check_unpacked(q, k, v)
+    if q.device.type == "cpu":
+        return attention_unrounded_plain(q, k, v), None
+    return _launch_unpacked_fwd(q, k, v, with_stats=True)
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor, residuals=None):
     """(dq, dk, dv), each [B, H, S, Dh] in the inputs' type, from the saved
-    q, k, v and the incoming ``d_o``. ``attention_bwd.launches`` counts
-    calls that launch the backward (one a call; in bfloat16 that is two
-    kernels, dq by query rows, then dk and dv by key rows)."""
+    q, k, v and the incoming ``d_o``. ``residuals`` as for
+    ``attention_qkv_bwd`` (``attention_residuals`` makes them; without them
+    a float32 call on the card runs the forward first).
+    ``attention_bwd.launches`` counts calls that launch the backward (one a
+    call: two kernels, dq by query rows, then dk and dv by key rows)."""
     _check_unpacked(q, k, v, d_o)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, d_o)
@@ -353,13 +425,18 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.
     if q.numel() == 0:
         return dq, dk, dv
     bf16 = q.dtype == torch.bfloat16
-    # the bf16 pair's per-row statistics between its two launches
-    stats = torch.empty(b * h * 3 * (-(-s // 16) * 16), device=q.device) if bf16 else None
+    o = stats = None
+    if not bf16:
+        if residuals is None:
+            residuals = _launch_unpacked_fwd(q, k, v, with_stats=True)
+        o, stats = _check_residuals(residuals, q.shape, b * h * _round16(s), q)
+    # between the two launches: bf16 each row's max, 1/sum and delta; float32 delta
+    scratch = torch.empty(b * h * (3 if bf16 else 1) * _round16(s), device=q.device)
     with torch.cuda.device(q.device):
         err = _unpacked_kernel_entries()[1](
             q.data_ptr(), k.data_ptr(), v.data_ptr(), d_o.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if stats is None else stats.data_ptr(), int(bf16), b * h, s, dh, _scale(dh),
-            torch.cuda.current_stream().cuda_stream,
+            dv.data_ptr(), None if o is None else o.data_ptr(), None if stats is None else stats.data_ptr(),
+            scratch.data_ptr(), int(bf16), b * h, s, dh, _scale(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"attention backward kernel launch failed: cudaError {err}")
@@ -371,16 +448,19 @@ attention_bwd.launches = 0
 
 
 class _UnpackedAttentionKernel(torch.autograd.Function):
-    """The two kernels as one differentiable function of q, k, v."""
+    """The kernels as one differentiable function of q, k, v; in float32 the
+    forward's output and row statistics are saved too."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _launch_unpacked_fwd(q, k, v)
+        out, stats = _launch_unpacked_fwd(q, k, v, with_stats=True)
+        ctx.save_for_backward(q, k, v, *(() if stats is None else (out, stats)))
+        return out
 
     @staticmethod
     def backward(ctx, d_o):
-        return attention_bwd(*ctx.saved_tensors, d_o.contiguous())
+        q, k, v, *residuals = ctx.saved_tensors
+        return attention_bwd(q, k, v, d_o.contiguous(), residuals or None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -394,7 +474,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         return attention_unrounded_plain(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _UnpackedAttentionKernel.apply(q, k, v)
-    return _launch_unpacked_fwd(q, k, v)  # nothing to differentiate: no autograd node to set up
+    return _launch_unpacked_fwd(q, k, v)[0]  # nothing to differentiate: no autograd node to set up
 
 
 fused_attention.launches = 0

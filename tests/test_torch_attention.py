@@ -16,9 +16,11 @@ port is held to the Pallas kernels (interpret mode) at the tolerances above,
 and to ``attention_xla`` within two bfloat16 steps of the value or 2⁻⁸ of the
 tensor's largest entry, whichever is larger: rounding 197 probabilities to 8
 bits moves a sum of them by up to that. One case has 577 tokens, past the
-float32 kernels' 256, which the bfloat16 kernels take. The last test
-emulates the bfloat16 kernels' arithmetic (p and ds as bf16 hi/lo pairs) and
-shows why they split p and ds.
+packed bfloat16 kernels' 256. The last tests emulate the kernels'
+arithmetic on the CPU: the bfloat16 kernels' (p and ds as bf16 hi/lo pairs)
+and the float32 kernels' (3×TF32 products, forward and backward), showing
+why each splits what it splits, and check the float32 kernels' fragment
+maps lane by lane.
 """
 
 import jax
@@ -31,8 +33,9 @@ from ssip_tpu.ops.attention import attention_qkv_xla, attention_xla
 from ssip_tpu.ops.attention import fused_attention as jax_fused_attention
 from ssip_tpu.ops.attention import fused_attention_qkv as jax_fused_attention_qkv
 from ssip_tpu_torch.ops.attention import (
-    MAX_KERNEL_SEQ, attention_bwd, attention_bwd_plain, attention_plain, attention_qkv_bwd, attention_qkv_plain,
-    attention_unrounded_plain, fused_attention, fused_attention_qkv,
+    MAX_PACKED_SEQ, MAX_UNPACKED_SEQ, attention_bwd, attention_bwd_plain, attention_plain, attention_qkv_bwd,
+    attention_qkv_bwd_plain, attention_qkv_plain, attention_residuals, attention_unrounded_plain, fused_attention,
+    fused_attention_qkv,
 )
 
 torch.set_num_threads(2)
@@ -144,16 +147,16 @@ def test_wrapper_raises_on_wrong_operands():
         fused_attention_qkv(torch.zeros((2, 4, 24)), 2, -1)
     with pytest.raises(ValueError, match="expects dO"):
         attention_qkv_bwd(torch.zeros((2, 4, 24)), torch.zeros((2, 4, 24)), 2)
-    # the plain version has no sequence limit; the kernel's is checked on the card
-    long = torch.zeros((1, MAX_KERNEL_SEQ + 8, 3 * 8))
-    assert fused_attention_qkv(long, 1).shape == (1, MAX_KERNEL_SEQ + 8, 8)
+    # the plain version has no sequence limit; the kernels' are checked on the card
+    long = torch.zeros((1, MAX_PACKED_SEQ[torch.float32] + 8, 3 * 8))
+    assert fused_attention_qkv(long, 1).shape == (1, MAX_PACKED_SEQ[torch.float32] + 8, 8)
 
 
 # (batch, heads, tokens, head width, type)
 UNPACKED_CASES = [
     (2, 3, 11, 16, "float32"), (1, 2, 50, 64, "float32"), (2, 1, 197, 32, "float32"),
     (2, 3, 11, 16, "bfloat16"), (1, 2, 50, 64, "bfloat16"), (1, 1, 197, 64, "bfloat16"),
-    (1, 2, 577, 64, "bfloat16"),  # past the float32 kernels' 256: ViT-B/16's tokens at 384²
+    (1, 2, 577, 64, "bfloat16"),  # past the packed bf16 kernels' 256: ViT-B/16's tokens at 384²
 ]
 
 
@@ -221,8 +224,8 @@ def test_unpacked_wrapper_raises_on_wrong_operands():
         fused_attention(q, q, q.to(torch.bfloat16))
     with pytest.raises(ValueError, match="one shape, type and device"):
         attention_bwd(q, q, q, q[..., :4])
-    # the plain version has no sequence limit; the kernel's is checked on the card
-    long = torch.zeros((1, 1, MAX_KERNEL_SEQ + 8, 8))
+    # the plain version has no sequence limit; the kernels' are checked on the card
+    long = torch.zeros((1, 1, MAX_UNPACKED_SEQ[torch.float32] + 8, 8))
     assert fused_attention(long, long, long).shape == long.shape
 
 
@@ -297,33 +300,50 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return (x.to(torch.float32).contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
-# The kernel's orders inside a product (csrc/attention_f32_mma.cu): the scores
+# The kernels' orders inside a product (csrc/attention_f32_mma.cu): the scores
 # take d as (16kk + 4t, +1) in the first k step of a float4 and (+2, +3) in the
-# second; P·V takes an 8-key slice as k = t for key 2t, k = t + 4 for key 2t + 1.
+# second; the next product takes an 8-column slice as k = t for column 2t,
+# k = t + 4 for column 2t + 1.
 _D_ORDER = [16 * kk + x for kk in range(4) for x in (0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14, 3, 7, 11, 15)]
 _KEY_ORDER = [0, 2, 4, 6, 1, 3, 5, 7]
 
 
-def _emulated_f32_forward(q, k, v, kv: int, split: bool) -> torch.Tensor:
-    """o as the float32 forward of ``csrc/attention_f32_mma.cu`` computes
-    it, in float32 on the CPU: keys past ``kv`` left out, key tiles of 64
-    with a running max and sum, scores scaled by scale·log2(e) after the
-    sum, o times 1/sum at the end; every product of TF32 operands, either
-    split into hi + lo with the three terms a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
-    (``split``) or as one TF32 product (the shortcut the kernel does not
-    take), in the kernel's d and key orders. hi = tf32(x), lo = x - hi, and
-    the tensor core reads tf32(lo)."""
+def _tf32_times(split: bool):
+    """a @ b (k over the last axis of a) of TF32 operands: split into
+    hi + lo with the three terms a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+    (``split``), or one TF32 product (the shortcut the kernels do not take).
+    hi = tf32(x), lo = x - hi, and the tensor core reads tf32(lo)."""
 
-    def times(a, b):  # a @ b, k over the last axis of a
+    def times(a, b):
         a_hi, b_hi = _tf32(a), _tf32(b)
         if not split:
             return a_hi @ b_hi
         return (_tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi)) + a_hi @ b_hi
 
-    dh = q.shape[-1]
-    d_order = [d for d in _D_ORDER if d < dh]
+    return times
+
+
+def _relabelled(start: int, stop: int) -> list:
+    """Rows start .. stop-1 of a 64-row tile in the order the second product
+    of the kernels takes them (k = t is row 2t of each 8-row slice)."""
+    return [start + 8 * j + i for j in range(-(-(stop - start) // 8)) for i in _KEY_ORDER if start + 8 * j + i < stop]
+
+
+def _f32_constants(dh: int):
     scale = float(np.float32(1.0 / np.sqrt(dh)))
-    scale_log2 = float(np.float32(scale) * np.float32(np.log2(np.e)))
+    return [d for d in _D_ORDER if d < dh], scale, float(np.float32(scale) * np.float32(np.log2(np.e)))
+
+
+def _emulated_f32_forward(q, k, v, kv: int, split: bool, with_stats: bool = False):
+    """o as the float32 forward of ``csrc/attention_f32_mma.cu`` computes
+    it, in float32 on the CPU: keys past ``kv`` left out, key tiles of 64
+    with a running max and sum, scores scaled by scale·log2(e) after the
+    sum, o times 1/sum at the end; every product of TF32 operands
+    (``_tf32_times``), in the kernel's d and key orders. ``with_stats``:
+    (o, shift, inv), the row statistics the kernel writes for the backward
+    (−max·scale·log2 e and 1/sum), each [..., S, 1]."""
+    times = _tf32_times(split)
+    d_order, _, scale_log2 = _f32_constants(q.shape[-1])
     mx = torch.full(q.shape[:-1] + (1,), -np.inf)
     total = torch.zeros(q.shape[:-1] + (1,))
     acc = torch.zeros(q.shape)
@@ -335,9 +355,45 @@ def _emulated_f32_forward(q, k, v, kv: int, split: bool) -> torch.Tensor:
         total, acc, mx = total * f, acc * f, m_new
         e = torch.exp2(s * scale_log2 - mx * scale_log2)
         total = total + e.sum(-1, keepdim=True)
-        keys = [k0 + 8 * j + i for j in range(-(-(k1 - k0) // 8)) for i in _KEY_ORDER if k0 + 8 * j + i < k1]
+        keys = _relabelled(k0, k1)
         acc = acc + times(e[..., [key - k0 for key in keys]], v[:, :, keys])
-    return acc * (1.0 / total)
+    o = acc * (1.0 / total)
+    return (o, -mx * scale_log2, 1.0 / total) if with_stats else o
+
+
+def _emulated_f32_backward(q, k, v, d_o, kv: int, split: bool):
+    """(dq, dk, dv) as the float32 backward kernels of
+    ``csrc/attention_f32_mma.cu`` compute them, in float32 on the CPU, from
+    the emulated forward's o and row statistics: delta = rowsum(dO ∘ o);
+    the rows kernel over key tiles of 64 (s = q·kᵀ and dp = dO·vᵀ, p from
+    the statistics, ds = p·(dp − delta), dq += ds·k), the keys kernel over
+    query tiles of 64 (sᵀ = k·qᵀ and dpᵀ = v·dOᵀ, dv += pᵀ·dO, dk += dsᵀ·q),
+    every product ``_tf32_times`` in the kernels' d and row orders. dk and
+    dv are [..., kv, Dh]: the kernel writes zeros past kv."""
+    times = _tf32_times(split)
+    d_order, scale, scale_log2 = _f32_constants(q.shape[-1])
+    o, shift, inv = _emulated_f32_forward(q, k, v, kv, split, with_stats=True)
+    delta = (d_o * o).sum(-1, keepdim=True)
+
+    def probs(scores, shift, inv):  # 2^(s·scale·log2 e + shift) by one fma, times 1/sum
+        return torch.exp2((scores.double() * scale_log2 + shift.double()).float()) * inv
+
+    k, v = k[:, :, :kv], v[:, :, :kv]
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, kv, 64):
+        keys = _relabelled(k0, min(k0 + 64, kv))
+        s = times(q[..., d_order], k[:, :, keys][..., d_order].transpose(-1, -2))
+        dp = times(d_o[..., d_order], v[:, :, keys][..., d_order].transpose(-1, -2))
+        dq = dq + times(probs(s, shift, inv) * (dp - delta), k[:, :, keys])
+    dk, dv = torch.zeros(k.shape), torch.zeros(k.shape)
+    for i0 in range(0, q.shape[2], 64):
+        rows = _relabelled(i0, min(i0 + 64, q.shape[2]))
+        s_t = times(k[..., d_order], q[:, :, rows][..., d_order].transpose(-1, -2))
+        dp_t = times(v[..., d_order], d_o[:, :, rows][..., d_order].transpose(-1, -2))
+        p_t = probs(s_t, shift[:, :, rows].transpose(-1, -2), inv[:, :, rows].transpose(-1, -2))
+        dv = dv + times(p_t, d_o[:, :, rows])
+        dk = dk + times(p_t * (dp_t - delta[:, :, rows].transpose(-1, -2)), q[:, :, rows])
+    return dq * scale, dk * scale, dv
 
 
 @pytest.mark.parametrize("b,heads,s,kv", [(2, 12, 197, 197), (2, 3, 208, 197), (1, 2, 130, 65)],
@@ -361,11 +417,65 @@ def test_f32_kernel_needs_3xtf32_to_hold_2e_5(b, heads, s, kv):
     assert outside[False] > 0, outside
 
 
+@pytest.mark.parametrize("packed", [False, True], ids=["vit_b16-heads", "packed-kv_len"])
+def test_f32_backward_needs_3xtf32_to_hold_1e_5_of_max(packed):
+    """Why the float32 backward splits every operand, p and ds into TF32
+    hi + lo: emulated in float32, with delta from the emulated forward's o
+    and p from its max and sum, the three-term products put every element of
+    dq, dk and dv within 1e-5 of each tensor's largest entry (the card's
+    float32 gradient gate) of ``attention_bwd_plain`` at [2, 12, 197, 64],
+    and of ``attention_qkv_bwd_plain`` on a packed [2, 208, 3·3·64] with
+    ``kv_len`` 197; one TF32 product puts some beyond it."""
+    rng = np.random.default_rng(13)
+    if packed:
+        b, s, heads, dh, kv = 2, 208, 3, 64, 197
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * heads * dh)).astype(np.float32))
+        d_o = torch.from_numpy(rng.standard_normal((b, s, heads * dh)).astype(np.float32))
+        q, k, v = qkv.view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        d_o = d_o.view(b, s, heads, dh).permute(0, 2, 1, 3)
+        ref = attention_qkv_bwd_plain(qkv, d_o.permute(0, 2, 1, 3).reshape(b, s, -1), heads, kv)
+        refs = ref.view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4)
+        assert not refs[1:, :, :, kv:].any()  # the kernel writes zeros past kv
+        refs = (refs[0], refs[1][:, :, :kv], refs[2][:, :, :kv])
+    else:
+        q, k, v, d_o = (torch.from_numpy(rng.standard_normal((2, 12, 197, 64)).astype(np.float32)) for _ in range(4))
+        kv, refs = 197, attention_bwd_plain(q, k, v, d_o)
+    rels = {}
+    for split in (True, False):
+        got = _emulated_f32_backward(q, k, v, d_o, kv, split)
+        rels[split] = [((g - r).abs().max() / r.abs().max()).item() for g, r in zip(got, refs)]
+        print(f"{'3xTF32' if split else '1xTF32'}: dq, dk, dv off by {rels[split]} of their max")
+    assert max(rels[True]) <= 1e-5, rels
+    assert max(rels[False]) > 1e-5, rels
+
+
 def _swz32(row, chunk, dh: int):
     """``swz32<DH>`` of ``csrc/attention_f32_mma.cu``: the float offset of a
     16-byte chunk in a staged [rows, DH] float32 matrix."""
     f = (((row >> 1) & 3) << 1) ^ ((row & 1) << 2)
     return row * dh + ((chunk ^ f) << 2)
+
+
+def _staged(x: np.ndarray) -> np.ndarray:
+    """x [64, DH] as ``stage_rows`` leaves it in shared memory; each phase of
+    8 cp.async writes falls on 8 distinct bank groups."""
+    dh = x.shape[1]
+    smem = np.zeros(x.size)
+    rows, chunks = np.divmod(np.arange(x.size // 4), dh // 4)  # staging: idx -> (row, chunk)
+    for idx0 in range(0, rows.size, 8):
+        assert len({(_swz32(r, c, dh) // 4) % 8 for r, c in zip(rows[idx0:idx0 + 8], chunks[idx0:idx0 + 8])}) == 8
+    for r, c in zip(rows, chunks):
+        smem[_swz32(r, c, dh):_swz32(r, c, dh) + 4] = x[r, 4 * c:4 * c + 4]
+    return smem
+
+
+def _load4(smem: np.ndarray, row, chunk, dh: int) -> np.ndarray:
+    """One 16-byte shared load a lane → [32 lanes, 4]; the lanes of each
+    quarter warp fall on distinct bank groups."""
+    offs = _swz32(row, chunk, dh)
+    for quarter in range(4):
+        assert len(set((offs[8 * quarter:8 * quarter + 8] // 4) % 8)) == 8
+    return np.stack([smem[offs + j] for j in range(4)], 1)
 
 
 def _mma_m16n8k8(a, b, c):
@@ -381,6 +491,56 @@ def _mma_m16n8k8(a, b, c):
     return c + np.stack([big_d[g, 2 * t], big_d[g, 2 * t + 1], big_d[g + 8, 2 * t], big_d[g + 8, 2 * t + 1]], 1)
 
 
+_LANES = np.arange(32)
+_G, _T = _LANES >> 2, _LANES & 3
+
+
+def _kernel_scores(kept: np.ndarray, b_s: np.ndarray, row0: int, nt: int) -> np.ndarray:
+    """``scores<DH, nt>``: the 16 kept rows as float4 A fragments in the
+    permuted d order times rows row0 + 8n + g of the staged b → [nt, 32, 4]."""
+    dh = kept.shape[1]
+    g, t = _G, _T
+    acc = np.zeros((nt, 32, 4))
+    for n in range(nt):
+        for kk in range(dh // 16):
+            x = np.stack([kept[g, 16 * kk + 4 * t + j] for j in range(4)], 1)      # row g
+            y = np.stack([kept[g + 8, 16 * kk + 4 * t + j] for j in range(4)], 1)  # row g + 8
+            bf = _load4(b_s, row0 + 8 * n + g, 4 * kk + t, dh)
+            acc[n] = _mma_m16n8k8(np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1), bf[:, :2], acc[n])
+            acc[n] = _mma_m16n8k8(np.stack([x[:, 2], y[:, 2], x[:, 3], y[:, 3]], 1), bf[:, 2:], acc[n])
+    return acc
+
+
+def _kernel_weighted(acc_p: np.ndarray, b_s: np.ndarray, row0: int, dh: int) -> np.ndarray:
+    """``weighted`` then ``store_rows``: the accumulator-layout p [nt, 32, 4]
+    as A fragments (k = t is column 2t) times the staged b's rows
+    row0 + 8n + 2t, +1 (float4 columns 4g .. 4g+3 for 4 n tiles) → the
+    [16, DH] result as the lanes store it."""
+    g, t = _G, _T
+    out = np.zeros((dh // 8, 32, 4))
+    for n in range(acc_p.shape[0]):
+        a = acc_p[n][:, [0, 2, 1, 3]]
+        for c in range(dh // 32):
+            x0, x1 = _load4(b_s, row0 + 8 * n + 2 * t, 8 * c + g, dh), _load4(b_s, row0 + 8 * n + 2 * t + 1, 8 * c + g, dh)
+            for i in range(4):
+                out[4 * c + i] = _mma_m16n8k8(a, np.stack([x0[:, i], x1[:, i]], 1), out[4 * c + i])
+    got = np.zeros((16, dh))
+    for r in range(2):
+        for c in range(dh // 32):
+            for e in range(2):
+                for i in range(4):
+                    got[g + 8 * r, 32 * c + 8 * t + 4 * e + i] = out[4 * c + i][:, 2 * r + e]
+    return got
+
+
+def _accumulator_layout(x: np.ndarray, row0: int) -> np.ndarray:
+    """x [16, ≥ row0 + 8·nt] as an m16n8 accumulator over columns row0 .. →
+    [nt, 32, 4]: lane (g, t) element e is x[g + 8(e >> 1), row0 + 8n + 2t + (e & 1)]."""
+    nt = (x.shape[1] - row0) // 8
+    return np.stack([np.stack([x[_G + 8 * (e >> 1), row0 + 8 * n + 2 * _T + (e & 1)] for e in range(4)], 1)
+                     for n in range(nt)])
+
+
 @pytest.mark.parametrize("dh", [32, 64])
 def test_f32_kernel_fragment_maps_and_swizzle(dh):
     """The float32 forward's index design, lane by lane for one warp and one
@@ -394,50 +554,49 @@ def test_f32_kernel_fragment_maps_and_swizzle(dh):
     rng = np.random.default_rng(dh)
     q, k, v, p = rng.standard_normal((16, dh)), rng.standard_normal((64, dh)), rng.standard_normal((64, dh)), \
         rng.standard_normal((16, 64))
-    lanes = np.arange(32)
-    g, t = lanes >> 2, lanes & 3
-    k_s, v_s = np.zeros(64 * dh), np.zeros(64 * dh)
-    rows, chunks = np.divmod(np.arange(64 * dh // 4), dh // 4)  # staging: idx -> (row, chunk)
-    for idx0 in range(0, rows.size, 8):  # each phase of 8 cp.async writes hits 8 bank groups
-        assert len({(_swz32(r, c, dh) // 4) % 8 for r, c in zip(rows[idx0:idx0 + 8], chunks[idx0:idx0 + 8])}) == 8
-    for r, c in zip(rows, chunks):
-        k_s[_swz32(r, c, dh):_swz32(r, c, dh) + 4] = k[r, 4 * c:4 * c + 4]
-        v_s[_swz32(r, c, dh):_swz32(r, c, dh) + 4] = v[r, 4 * c:4 * c + 4]
-
-    def load4(smem, row, chunk):  # one 16-byte load a lane; quarter warps on distinct bank groups
-        offs = _swz32(row, chunk, dh)
-        for quarter in range(4):
-            assert len(set((offs[8 * quarter:8 * quarter + 8] // 4) % 8)) == 8
-        return np.stack([smem[offs + j] for j in range(4)], 1)  # [32 lanes, 4]
-
-    scores = np.zeros((8, 32, 4))
-    for n in range(8):
-        for kk in range(dh // 16):
-            qg, qg8 = q[g][:, 16 * kk:16 * kk + 16], q[g + 8][:, 16 * kk:16 * kk + 16]
-            x = np.stack([qg[lanes, 4 * t + j] for j in range(4)], 1)
-            y = np.stack([qg8[lanes, 4 * t + j] for j in range(4)], 1)
-            kf = load4(k_s, 8 * n + g, 4 * kk + t)
-            scores[n] = _mma_m16n8k8(np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1), kf[:, :2], scores[n])
-            scores[n] = _mma_m16n8k8(np.stack([x[:, 2], y[:, 2], x[:, 3], y[:, 3]], 1), kf[:, 2:], scores[n])
-    want = q @ k.T
-    for n in range(8):
-        for e in range(4):
-            np.testing.assert_allclose(scores[n][:, e], want[g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1)], atol=1e-12)
-
+    k_s, v_s = _staged(k), _staged(v)
+    scores = _kernel_scores(q, k_s, 0, 8)
+    np.testing.assert_allclose(scores, _accumulator_layout(q @ k.T, 0), atol=1e-12)
     # p in the accumulator layout, then o += p V as the kernel does it
-    acc_p = np.stack([np.stack([p[g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1)] for e in range(4)], 1)
-                      for n in range(8)])
-    out = np.zeros((dh // 8, 32, 4))
-    for n in range(8):
-        a = acc_p[n][:, [0, 2, 1, 3]]
-        for c in range(dh // 32):
-            x0, x1 = load4(v_s, 8 * n + 2 * t, 8 * c + g), load4(v_s, 8 * n + 2 * t + 1, 8 * c + g)
-            for i in range(4):
-                out[4 * c + i] = _mma_m16n8k8(a, np.stack([x0[:, i], x1[:, i]], 1), out[4 * c + i])
-    got = np.zeros((16, dh))
-    for r in range(2):
-        for c in range(dh // 32):
-            for e in range(2):
-                for i in range(4):
-                    got[g + 8 * r, 32 * c + 8 * t + 4 * e + i] = out[4 * c + i][:, 2 * r + e]
-    np.testing.assert_allclose(got, p @ v, atol=1e-12)
+    np.testing.assert_allclose(_kernel_weighted(_accumulator_layout(p, 0), v_s, 0, dh), p @ v, atol=1e-12)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+def test_f32_backward_keys_kernel_transposed_fragment_maps(dh):
+    """The float32 keys kernel's transposed maps, lane by lane for one warp
+    and the second 32-query step of a tile, in its own formulas: the warp's
+    16 key rows kept as float4 A fragments and the staged q tile's B
+    fragments give sᵀ = k·qᵀ; the query statistics read as float2 at
+    columns c + 8n + 2t give pᵀ in the accumulator layout; and that
+    accumulator taken as the A fragment (queries relabelled 2t, 2t+1) with
+    dO's and q's B fragments from rows 2t, 2t+1 gives pᵀ·dO and sᵀ·q, the
+    products dv and dk are summed from."""
+    rng = np.random.default_rng(100 + dh)
+    k, q, d_o = rng.standard_normal((16, dh)), rng.standard_normal((64, dh)), rng.standard_normal((64, dh))
+    shift, inv = rng.normal(-2.0, 0.5, 64), rng.uniform(0.01, 0.1, 64)
+    q_s, do_s = _staged(q), _staged(d_o)
+    c, scale_log2 = 32, 0.18
+    s_t = _kernel_scores(k, q_s, c, 4)
+    dense = k @ q.T
+    np.testing.assert_allclose(s_t, _accumulator_layout(dense, c), atol=1e-12)
+    p_t = np.zeros_like(s_t)
+    for n in range(4):
+        i = c + 8 * n + 2 * _T  # the float2 of each statistic a lane reads: queries i, i + 1
+        for e in range(4):
+            col1 = e & 1
+            p_t[n][:, e] = np.exp2(s_t[n][:, e] * scale_log2 + shift[i + col1]) * inv[i + col1]
+    p_dense = np.exp2(dense * scale_log2 + shift) * inv
+    np.testing.assert_allclose(p_t, _accumulator_layout(p_dense, c), rtol=1e-12)
+    np.testing.assert_allclose(_kernel_weighted(p_t, do_s, c, dh), p_dense[:, c:] @ d_o[c:], atol=1e-10)
+    np.testing.assert_allclose(_kernel_weighted(s_t, q_s, c, dh), dense[:, c:] @ q[c:], atol=1e-10)
+
+
+def test_residuals_on_the_cpu_are_the_plain_output():
+    """``attention_residuals`` on a CPU tensor is the plain forward and no
+    statistics, and ``attention_bwd`` there ignores residuals."""
+    rng = np.random.default_rng(3)
+    q, k, v, d_o = (torch.from_numpy(rng.standard_normal((1, 2, 9, 8)).astype(np.float32)) for _ in range(4))
+    out, stats = attention_residuals(q, k, v)
+    assert stats is None and torch.equal(out, attention_unrounded_plain(q, k, v))
+    with_res, without = attention_bwd(q, k, v, d_o, (out, stats)), attention_bwd(q, k, v, d_o)
+    assert all(torch.equal(a, b) for a, b in zip(with_res, without))

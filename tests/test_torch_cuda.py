@@ -16,8 +16,9 @@ import torch
 
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
 from ssip_tpu_torch.ops.attention import (
-    MAX_KERNEL_SEQ, MAX_UNPACKED_SEQ, attention_bwd, attention_bwd_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
-    attention_qkv_plain, attention_unrounded_plain, fused_attention, fused_attention_qkv,
+    MAX_PACKED_SEQ, MAX_UNPACKED_SEQ, attention_bwd, attention_bwd_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
+    attention_qkv_plain, attention_qkv_residuals, attention_residuals, attention_unrounded_plain, fused_attention,
+    fused_attention_qkv,
 )
 from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest, strong_augment, train_augment
 from ssip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain
@@ -185,6 +186,7 @@ def test_strong_augment_on_cuda_matches_cpu(cuda, dtype):
 # bfloat16 step of the plain value (2e-5 where a step is smaller), gradients
 # within 1e-5 (float32) or 1e-2 (bfloat16) of each tensor's largest entry.
 F32_ATOL = 2e-5
+BF16_PACKED_SEQ = MAX_PACKED_SEQ[torch.bfloat16]  # 256: the packed bf16 forward's limit
 GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -248,20 +250,27 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(cuda):
     "b,s,heads,dh,kv_len,dtype",
     [(4, 197, 12, 64, 0, torch.bfloat16), (4, 208, 12, 64, 197, torch.bfloat16),
      (2, 208, 3, 64, 197, torch.float32), (2, 197, 12, 64, 0, torch.float32),
-     (3, 50, 2, 32, 37, torch.float32), (2, MAX_KERNEL_SEQ, 2, 64, 0, torch.bfloat16),
+     (3, 50, 2, 32, 37, torch.float32), (2, BF16_PACKED_SEQ, 2, 64, 0, torch.bfloat16),
      (2, 5, 1, 32, 3, torch.bfloat16),
      # the bf16 kernels' edges: S off a multiple of 16 and across the 32- and
      # 64-row tiles, ragged last key tiles, S = 256 at 1, 3, 12 heads
      (2, 63, 2, 64, 0, torch.bfloat16), (2, 64, 2, 64, 0, torch.bfloat16), (2, 65, 2, 32, 0, torch.bfloat16),
      (2, 129, 3, 64, 0, torch.bfloat16), (2, 197, 3, 32, 0, torch.bfloat16),
      (2, 208, 2, 32, 197, torch.bfloat16), (3, 50, 2, 64, 37, torch.bfloat16), (2, 16, 2, 64, 1, torch.bfloat16),
-     (1, MAX_KERNEL_SEQ, 1, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 3, 64, 0, torch.bfloat16),
-     (1, MAX_KERNEL_SEQ, 12, 32, 0, torch.bfloat16), (1, MAX_KERNEL_SEQ, 12, 64, 0, torch.bfloat16),
-     # the float32 forward's edges: S = 256, one real key, one key past a
-     # full 64-key tile, head width 32, S across the 64-row query blocks
-     (2, MAX_KERNEL_SEQ, 12, 64, 0, torch.float32), (1, MAX_KERNEL_SEQ, 3, 32, 0, torch.float32),
+     (1, BF16_PACKED_SEQ, 1, 32, 0, torch.bfloat16), (1, BF16_PACKED_SEQ, 3, 64, 0, torch.bfloat16),
+     (1, BF16_PACKED_SEQ, 12, 32, 0, torch.bfloat16), (1, BF16_PACKED_SEQ, 12, 64, 0, torch.bfloat16),
+     # the float32 kernels' edges: S = 256, one real key, one key past a
+     # full 64-key tile, head width 32, S across the 64-row query and key blocks
+     (2, 256, 12, 64, 0, torch.float32), (1, 256, 3, 32, 0, torch.float32),
      (2, 16, 2, 64, 1, torch.float32), (2, 130, 2, 64, 65, torch.float32), (2, 197, 3, 32, 0, torch.float32),
-     (2, 65, 2, 32, 1, torch.float32), (2, 5, 1, 64, 0, torch.float32)],
+     (2, 65, 2, 32, 1, torch.float32), (2, 5, 1, 64, 0, torch.float32),
+     (2, 1, 2, 64, 0, torch.float32), (2, 65, 2, 64, 65, torch.float32), (2, 129, 2, 32, 0, torch.float32),
+     (2, 129, 3, 64, 65, torch.float32), (2, 40, 2, 64, 0, torch.float32), (1, 90, 2, 32, 70, torch.float32),
+     (2, 33, 2, 64, 0, torch.float32), (2, 64, 2, 32, 33, torch.float32),
+     # float32 past 256 up to the JAX entries' 1024
+     (1, 257, 3, 64, 0, torch.float32), (2, 577, 2, 64, 0, torch.float32), (1, 577, 2, 32, 513, torch.float32),
+     (1, MAX_PACKED_SEQ[torch.float32], 2, 64, 0, torch.float32),
+     (1, MAX_PACKED_SEQ[torch.float32], 2, 32, 1000, torch.float32)],
 )
 def test_attention_kernels_match_plain_on_cuda(cuda, b, s, heads, dh, kv_len, dtype):
     """Forward, and the backward through autograd, with and without the
@@ -359,9 +368,20 @@ def test_attention_f32_forward_launches_its_kernel_once(cuda):
 
 @pytest.mark.cuda
 def test_attention_kernel_refuses_long_sequences_with_roadmap_pointer(cuda):
-    qkv = torch.zeros((1, MAX_KERNEL_SEQ + 1, 3 * 64), device=cuda)
+    """bfloat16 past 256 tokens names the ROADMAP item that would lift it;
+    float32 takes up to 1024, the JAX entry's limit, and is refused past it."""
+    qkv = torch.zeros((1, BF16_PACKED_SEQ + 1, 3 * 64), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 2 #5a"):
         fused_attention_qkv(qkv, 1)
+    with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 2 #5a"):
+        attention_qkv_bwd(qkv, torch.zeros((1, BF16_PACKED_SEQ + 1, 64), device=cuda, dtype=torch.bfloat16), 1)
+    limit = MAX_PACKED_SEQ[torch.float32]
+    assert limit == 1024
+    long = torch.zeros((1, limit + 1, 3 * 64), device=cuda)
+    with pytest.raises(ValueError, match=f"sequences up to {limit} in torch.float32.*_MAX_FUSED_SEQ"):
+        fused_attention_qkv(long, 1)
+    with pytest.raises(ValueError, match=f"sequences up to {limit} in torch.float32"):
+        attention_qkv_bwd(long, torch.zeros((1, limit + 1, 64), device=cuda), 1)
     with pytest.raises(ValueError, match="head widths"):
         fused_attention_qkv(torch.zeros((1, 8, 3 * 16), device=cuda), 1)
 
@@ -451,15 +471,17 @@ def test_quantized_mlp_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize(
     "b,heads,s,dh,dtype",
     [(4, 12, 197, 64, torch.bfloat16), (2, 12, 197, 64, torch.float32), (3, 2, 50, 32, torch.float32),
-     (2, 2, MAX_KERNEL_SEQ, 64, torch.bfloat16), (2, 1, 5, 32, torch.bfloat16), (2, 3, 208, 64, torch.bfloat16),
-     (1, 2, MAX_UNPACKED_SEQ[torch.float32], 64, torch.float32),
-     # the float32 forward's edges: one token, S across the 64-key tiles, Dh 32 at the limit
+     (2, 2, BF16_PACKED_SEQ, 64, torch.bfloat16), (2, 1, 5, 32, torch.bfloat16), (2, 3, 208, 64, torch.bfloat16),
+     (1, 2, 256, 64, torch.float32),
+     # the float32 kernels' edges: one token, S across the 64-row tiles, Dh 32
      *[(2, 2, s, 64, torch.float32) for s in (1, 63, 64, 65)],
-     (1, 3, MAX_UNPACKED_SEQ[torch.float32], 32, torch.float32),
+     (1, 3, 256, 32, torch.float32),
      # the bf16 kernels' edges: one token, S across the 64-row tiles, and
-     # past the float32 limit up to the JAX entry's 1024, at both head widths
+     # past the packed pair's 256 up to the JAX entry's 1024, at both head widths
      *[(2, 2, s, dh, torch.bfloat16) for s in (1, 63, 64, 65, 577, MAX_UNPACKED_SEQ[torch.bfloat16])
-       for dh in (32, 64)]],
+       for dh in (32, 64)],
+     # the float32 kernels past 256 up to 1024, ragged edges at Dh 32
+     *[(2, 2, s, dh, torch.float32) for s in (129, 257, 577, MAX_UNPACKED_SEQ[torch.float32]) for dh in (32, 64)]],
 )
 def test_unpacked_attention_kernels_match_plain_on_cuda(cuda, b, heads, s, dh, dtype):
     """``fused_attention`` on q, k, v [B, H, S, Dh], and its backward through
@@ -510,18 +532,49 @@ def test_unpacked_attention_bf16_calls_launch_their_kernels_once(cuda):
 
 
 @pytest.mark.cuda
+def test_attention_f32_backward_launches_its_two_kernels_once(cuda):
+    """On float32 a backward call of either entry, given the forward's
+    residuals, runs ``attn_f32_bwd_rows_kernel`` and
+    ``attn_f32_bwd_keys_kernel`` once each and nothing else of the attention
+    kernels, and counts one; the residuals' forward counts one forward
+    launch. The same call without residuals runs the forward first and gives
+    the same bits."""
+    rng = np.random.default_rng(6)
+    qkv = torch.from_numpy(rng.standard_normal((2, 197, 3 * 128)).astype(np.float32)).to(cuda)
+    d_o_packed = torch.from_numpy(rng.standard_normal((2, 197, 128)).astype(np.float32)).to(cuda)
+    q, k, v, d_o = (torch.from_numpy(rng.standard_normal((2, 3, 197, 64)).astype(np.float32)).to(cuda)
+                    for _ in range(4))
+    before = fused_attention_qkv.launches, fused_attention.launches
+    packed_res, res = attention_qkv_residuals(qkv, 2), attention_residuals(q, k, v)
+    assert (fused_attention_qkv.launches, fused_attention.launches) == (before[0] + 1, before[1] + 1)
+    assert packed_res[1].shape == (2 * 2 * 2 * 208,) and res[1].shape == (2 * 3 * 2 * 208,)
+    torch.cuda.synchronize()
+    before = attention_qkv_bwd.launches, attention_bwd.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dqkv = attention_qkv_bwd(qkv, d_o_packed, 2, residuals=packed_res)
+        grads = attention_bwd(q, k, v, d_o, residuals=res)
+        torch.cuda.synchronize()
+    assert (attention_qkv_bwd.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "attn" in e.name]
+    assert sum("attn_f32_bwd_rows_kernel" in n for n in names) == 2, names
+    assert sum("attn_f32_bwd_keys_kernel" in n for n in names) == 2, names
+    assert len(names) == 4, names
+    assert torch.equal(attention_qkv_bwd(qkv, d_o_packed, 2), dqkv)
+    assert all(torch.equal(a, b) for a, b in zip(attention_bwd(q, k, v, d_o), grads))
+
+
+@pytest.mark.cuda
 def test_unpacked_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """Sequences past each type's limit (bfloat16 1024, the JAX entry's;
-    float32 256, with the ROADMAP item that would lift it), head widths
-    other than 32 and 64, strided and misaligned operands."""
+    """Sequences past 1024 in either type (the JAX entry's limit, which the
+    message names), head widths other than 32 and 64, strided and
+    misaligned operands."""
     for dtype, limit in MAX_UNPACKED_SEQ.items():
+        assert limit == 1024
         long = torch.zeros((1, 1, limit + 1, 64), device=cuda, dtype=dtype)
-        with pytest.raises(ValueError, match=f"sequences up to {limit} in {dtype}"):
+        with pytest.raises(ValueError, match=f"sequences up to {limit} in {dtype}.*_MAX_FUSED_SEQ"):
             fused_attention(long, long, long)
         with pytest.raises(ValueError, match=f"sequences up to {limit} in {dtype}"):
             attention_bwd(long, long, long, long)
-    with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 2 #5a"):
-        fused_attention(*[torch.zeros((1, 1, MAX_KERNEL_SEQ + 1, 64), device=cuda)] * 3)
     narrow = torch.zeros((1, 1, 8, 16), device=cuda)
     with pytest.raises(ValueError, match="head widths"):
         fused_attention(narrow, narrow, narrow)
