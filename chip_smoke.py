@@ -34,7 +34,13 @@ non-zero without printing the final line:
    ln      ``layer_norm`` and ``layer_norm_bwd`` at [25216, 768] and
            [26624, 768] (128 images of 197 and of 208 tokens) in bfloat16 and
            float32, [128, 768] float32 (the final LayerNorm) and
-           [1001, 384] (a row count that is no multiple of the block);
+           [1001, 384] (a row count that is no multiple of the block); a
+           call's time, the kernels' own device time (``torch.profiler``,
+           the backward's column sum apart; fails unless it sees one
+           forward kernel a forward call and two kernels a backward call),
+           the wrapper's host time, the same three of ``F.layer_norm`` and
+           its autograd backward, and GB/s; the kernels' registers, spills,
+           shared memory and resident blocks an SM at width 768;
    attn    ``fused_attention_qkv`` and ``attention_qkv_bwd`` at
            [128, 197, 2304] and at [128, 208, 2304] with ``kv_len`` 197, in
            bfloat16 (the kernels of ``csrc/attention_mma.cu``, products on
@@ -134,7 +140,11 @@ non-zero without printing the final line:
            draws, EMA teacher): loss ≤ 1e-5 relative, gradients ≤ 1e-2 of
            each tensor's max and ≤ 1e-4 in L2 over all tensors (see
            ``FIXMATCH_GRAD_RTOL``; resnet18 at the kink-free weights, its
-           stem ≤ 1e-2 in L2; vit_b16 at the seeded ones). Then the steady-state step at
+           stem ≤ 1e-2 in L2; vit_b16 at the seeded ones, where the final
+           LayerNorm's backward kernel on each view's card ``x`` and ``dy``
+           is also held to 1e-5 of max of float64, its and the plain float32
+           version's errors printed beside how far the card's ``dy`` stands
+           from the CPU's). Then the steady-state step at
            128 + 128 in bfloat16 and float32 (3 warm-ups, 10 timed): imgs/s
            (labeled + unlabeled), ms a step, peak memory, launches a step
            (vit_b16: 3 × 25 and 3 × 12 forward, 2 × 25 and 2 × 12 backward),
@@ -184,6 +194,11 @@ ATTN_F32_DESIGN = ("f32, csrc/attention_f32_mma.cu: 3xTF32 products (a_lo b_hi +
                    "dq by 32 query rows (K, V streamed in 32-key tiles, delta = dO.o), dk and dv by 32 key rows "
                    "(q, dO and row statistics streamed), p from the saved statistics, 7 products")
 ATTN_F32_KERNELS = ("attn_f32_fwd_kernel", "attn_f32_bwd_rows_kernel", "attn_f32_bwd_keys_kernel")
+# what the LayerNorm pair's times below are of
+LN_DESIGN = ("csrc/layernorm.cu: persistent, one wave of 4-warp blocks, each warp streaming a contiguous range of "
+             "rows through a cp.async ring in shared memory (2 slots forward, 4 backward: x and dy together), scale "
+             "and bias in registers once a warp, exact-width templates at 192, 384, 768 and 1024; backward sums "
+             "in registers, warps added in order, a column-sum launch in block order, no atomics")
 KERNELS = {
     "preprocess_images": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/preproc.cu",
@@ -195,11 +210,11 @@ KERNELS = {
     },
     "layer_norm": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/layernorm.cu",
-        "replaces": "ssip_tpu/ops/layernorm.py:55",
+        "replaces": "ssip_tpu/ops/layernorm.py:55", "design": LN_DESIGN,
     },
     "layer_norm_bwd": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/layernorm.cu",
-        "replaces": "ssip_tpu/ops/layernorm.py:65",
+        "replaces": "ssip_tpu/ops/layernorm.py:65", "design": LN_DESIGN,
     },
     "attention_qkv": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_mma.cu",
@@ -274,6 +289,8 @@ ATTN_SHAPES = (
     (128, 208, 12, 197, "bfloat16"), (128, 208, 12, 197, "float32"),
     (128, 197, 3, 0, "bfloat16"), (128, 256, 12, 0, "float32"), (16, 577, 12, 0, "float32"),
 )
+# the LayerNorm kernels of csrc/layernorm.cu, in the order of ``ssip_layer_norm_info``
+LN_KERNELS = ("ln_fwd_kernel", "ln_bwd_kernel", "ln_colsum_kernel")
 F32_ATOL = 2e-5
 GRAD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 AUG_SHAPES = ((128, 224, 224, 3), (16, 224, 160, 3), (8, 64, 96, 3))
@@ -562,8 +579,6 @@ def phase_rotate_kernel(torch, np) -> dict:
 def phase_rotate_u8_kernel(torch, np) -> dict:
     """``rotate_images`` against the plain ``rotate_nearest`` on the card,
     bitwise; times at [128, 224, 224, 3] within ±10°."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest
     from ssip_tpu_torch.ops.rotate import rotate_images
     from ssip_tpu_torch.runtime.prng import augment_draws
@@ -595,15 +610,14 @@ def phase_rotate_u8_kernel(torch, np) -> dict:
             coeffs = torch.from_numpy(augment_coeffs(flip, angles)).cuda()
             k_ms, p_ms = timed_pair(torch, lambda: rotate_images(x, coeffs), lambda: rotate_nearest(x, coeffs))
             # the kernel's own device time, without the wrapper's host work
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(TIMED_LAUNCHES):
-                    rotate_images(x, coeffs)
-                torch.cuda.synchronize()
-            device_us = sorted(e.time_range.end - e.time_range.start for e in prof.events()
-                               if e.device_type == torch.autograd.DeviceType.CUDA and "rotate_u8_kernel" in e.name)
-            if len(device_us) != TIMED_LAUNCHES:
-                raise AssertionError(f"torch.profiler saw {len(device_us)} rotate kernels of {TIMED_LAUNCHES}")
-            device_ms = device_us[len(device_us) // 2] / 1000.0
+            def rotate_kernels(windows):
+                return [t for name, ts in windows[0].items() if "rotate_u8_kernel" in name for t in ts]
+
+            windows = checked_device_windows(
+                torch, [lambda: rotate_images(x, coeffs)],
+                lambda w: None if len(rotate_kernels(w)) == TIMED_LAUNCHES else f"{len(rotate_kernels(w))} rotate kernels",
+                "rotate_u8")
+            device_ms = _median(rotate_kernels(windows))
             # about 25 integer operations a pixel for the index map, counted
             # at the float32 rate: far below the bytes
             bound = bound_ms(2 * x.numel() + coeffs.numel() * 4, 25 * x.numel() // 3, "float32")
@@ -616,17 +630,134 @@ def phase_rotate_u8_kernel(torch, np) -> dict:
     return result
 
 
+def device_windows(torch, fns, iters: int = TIMED_LAUNCHES, gap_s: float = 0.05) -> list:
+    """For each function of ``fns``: kernel name → the device time (ms) of
+    each of its launches in ``iters`` calls, all under one ``torch.profiler``
+    session (after one warm-up call each), told apart by an idle gap of
+    ``gap_s`` between one function's calls and the next's: what the card
+    spent, without the host's work around the launches. The session opens
+    with a lead-in window of calls that is not read: on an H100 a session
+    that was not the process's first has seen 0, 17 and 18 of 20 launches,
+    losses taken to sit at its start. A list shorter than ``fns`` means the
+    profiler lost a window's records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in [fns[0]] + list(fns):  # the lead-in, then one window each
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(gap_s)
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    windows: list = []
+    last_end = None
+    for start, end, name in kernels:  # microseconds; a new window after half the gap idle
+        if last_end is None or start - last_end > gap_s / 2 * 1e6:
+            windows.append({})
+        windows[-1].setdefault(name, []).append((end - start) / 1000.0)
+        last_end = end
+    return windows[-len(fns):]
+
+
+def checked_device_windows(torch, fns, check, what: str) -> list:
+    """``device_windows`` of ``fns``, measured again once if ``check`` (of
+    the windows) names launches that the profiler did not see as timed.
+    Raises if the second session misses them too."""
+    for session in (1, 2):
+        windows = device_windows(torch, fns)
+        missing = check(windows) if len(windows) == len(fns) else f"{len(windows)} windows of {len(fns)}"
+        if not missing:
+            return windows
+        say("profiler", what=repr(what), session=session, missing=missing)
+    raise AssertionError(f"{what}: torch.profiler twice saw other launches than were timed: {missing}")
+
+
+def host_ms(torch, fn, iters: int = 100) -> float:
+    """Host time a call of ``fn`` takes to return (its launches enqueued),
+    the mean of ``iters`` calls after one warm-up; the card is drained
+    before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e3
+
+
+def _median(values) -> float:
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def _kernel_device_ms(times: dict, fragment: str, others: int, iters: int = TIMED_LAUNCHES) -> tuple:
+    """(median device ms of the kernels named by ``fragment``, median of
+    the other kernels of the window or None), or None unless the profiler
+    saw one ``fragment`` kernel a call and ``others`` other kernels a call."""
+    own = [t for name, ts in times.items() if fragment in name for t in ts]
+    rest = [t for name, ts in times.items() if fragment not in name for t in ts]
+    if len(own) != iters or len(rest) != others * iters:
+        return None
+    return _median(own), (_median(rest) if rest else None)
+
+
+def _library_device_ms(times: dict, iters: int = TIMED_LAUNCHES) -> tuple:
+    """(device ms a call, kernels a call) of a library call: every kernel
+    of the window, summed, over the calls."""
+    return sum(sum(ts) for ts in times.values()) / iters, sum(map(len, times.values())) / iters
+
+
+def _layer_norm_resources() -> None:
+    """What the card makes of the LayerNorm kernels at width 768 in both
+    types (``ssip_layer_norm_info``: registers, local bytes a thread, shared
+    memory a block, resident blocks an SM) beside ptxas's spill report, and
+    the column-sum kernel of the backward."""
+    import ctypes
+
+    from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
+
+    info = load_library().ssip_layer_norm_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    resources = kernel_resources(build().log)
+    for which, kernel in enumerate(LN_KERNELS):
+        for dtype_name, mangled in (("bfloat16", "13__nv_bfloat16"), ("float32", "f")):
+            d = VIT_WIDTH
+            out = (ctypes.c_int * 4)()
+            err = info(which, int(dtype_name == "bfloat16"), d, out)
+            fragment = kernel if which == 2 else f"{kernel}I{mangled}Li{d}E"
+            ptxas = [r for name, r in resources.items() if fragment in name]
+            if err != 0 or len(ptxas) != 1:
+                raise AssertionError(f"{kernel} {dtype_name} at width {d}: cudaError {err}, ptxas reported {ptxas}")
+            say("ln", kernel=kernel, dtype=dtype_name if which < 2 else "float32", width=d if which < 2 else "any",
+                registers=out[0], local_bytes=out[1], smem_bytes=out[2], blocks_per_sm=out[3],
+                spill_stores=ptxas[0]["spill_stores"], spill_loads=ptxas[0]["spill_loads"])
+            if which == 2:
+                break
+
+
 def phase_layer_norm_kernels(torch, np) -> dict:
     """``layer_norm`` and ``layer_norm_bwd`` against their plain versions
-    on the card; times at the main path's shape, [25216, 768] bfloat16."""
+    on the card; times at the main path's shape, [25216, 768] bfloat16: a
+    call's time (CUDA events around the wrapper), the kernels' own device
+    time (``torch.profiler``; the backward's column sum apart), the wrapper's
+    host time, and the same three of the library. The device times of all
+    shapes come from one profiler session, which must see one forward
+    kernel a forward call and a backward kernel and a column sum a backward
+    call (``checked_device_windows``)."""
     import torch.nn.functional as F
 
     from ssip_tpu_torch.ops.layernorm import (
         LN_EPS, layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain,
     )
 
+    _layer_norm_resources()
     rng = np.random.default_rng(SEED + 6)
-    result = {}
+    runs = []
     for n, d, dtype_name in LN_SHAPES:
         dtype = getattr(torch, dtype_name)
         x = torch.from_numpy(rng.normal(0.3, 1.5, (n, d)).astype(np.float32)).cuda().to(dtype)
@@ -645,32 +776,84 @@ def phase_layer_norm_kernels(torch, np) -> dict:
         again = layer_norm_bwd(x, scale, dy, LN_EPS)
         if not all(torch.equal(a, b) for a, b in zip(again, (dx, dscale, dbias))):
             raise AssertionError(f"{tag}: the backward kernel's result changed from run to run")
+        err_dx = (dx.float() - ref_dx.float()).abs().max().item()
+        del y, dx, ref_dx, again
 
-        fwd_ms, fwd_plain_ms = timed_pair(
-            torch, lambda: layer_norm(x, scale, bias, LN_EPS), lambda: layer_norm_plain(x, scale, bias, LN_EPS))
-        bwd_ms, bwd_plain_ms = timed_pair(
-            torch, lambda: layer_norm_bwd(x, scale, dy, LN_EPS), lambda: layer_norm_bwd_plain(x, scale, dy, LN_EPS))
+        def fwd(x=x, scale=scale, bias=bias):
+            return layer_norm(x, scale, bias, LN_EPS)
+
+        def bwd(x=x, scale=scale, dy=dy):
+            return layer_norm_bwd(x, scale, dy, LN_EPS)
+
         # the library's yardstick, timed here and called nowhere in the port
         xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, scale.to(dtype), bias.to(dtype)))
-        lib_fwd_ms = median_ms(torch, lambda: F.layer_norm(xr.detach(), (d,), wr.detach(), br.detach(), LN_EPS))
         y_lib = F.layer_norm(xr, (d,), wr, br, LN_EPS)
-        lib_bwd_ms = median_ms(torch, lambda: torch.autograd.grad(y_lib, (xr, wr, br), dy, retain_graph=True))
+
+        def lib_fwd(xr=xr, wr=wr, br=br, d=d):
+            return F.layer_norm(xr.detach(), (d,), wr.detach(), br.detach(), LN_EPS)
+
+        def lib_bwd(y_lib=y_lib, xr=xr, wr=wr, br=br, dy=dy):
+            return torch.autograd.grad(y_lib, (xr, wr, br), dy, retain_graph=True)
+
+        fwd_ms, fwd_plain_ms = timed_pair(torch, fwd, lambda: layer_norm_plain(x, scale, bias, LN_EPS))
+        bwd_ms, bwd_plain_ms = timed_pair(torch, bwd, lambda: layer_norm_bwd_plain(x, scale, dy, LN_EPS))
         item = x.element_size()
-        fwd_bound = bound_ms(2 * n * d * item + 2 * d * 4, 8 * n * d, "float32")
-        bwd_bound = bound_ms(3 * n * d * item + 3 * d * 4, 20 * n * d, "float32")
-        say("ln", shape=f"{n}x{d}", dtype=dtype_name, max_abs_err=err_y, dx_rel=rel_dx, dscale_rel=rel_ds,
-            dbias_rel=rel_db, fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}",
-            fwd_library_ms=f"{lib_fwd_ms:.4f}", fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}",
-            bwd_ms=f"{bwd_ms:.4f}", bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_library_ms=f"{lib_bwd_ms:.4f}",
-            bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", bound_by=fwd_bound["bound_by"])
-        if (n, d, dtype_name) == LN_SHAPES[0]:
+        runs.append({
+            "n": n, "d": d, "dtype": dtype_name, "calls": (fwd, bwd, lib_fwd, lib_bwd),
+            "fwd_bytes": 2 * n * d * item + 2 * d * 4, "bwd_bytes": 3 * n * d * item + 3 * d * 4,
+            "checks": {"max_abs_err": err_y, "dx_rel": rel_dx, "dscale_rel": rel_ds, "dbias_rel": rel_db},
+            "err_dx": err_dx, "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "bwd_ms": bwd_ms,
+            "bwd_plain_ms": bwd_plain_ms, "lib_fwd_ms": median_ms(torch, lib_fwd), "lib_bwd_ms": median_ms(torch, lib_bwd),
+            "host": [host_ms(torch, fn) for fn in (fwd, bwd, lib_fwd, lib_bwd)],
+        })
+
+    def kernels_of(windows):
+        return [(_kernel_device_ms(windows[4 * i], "ln_fwd_kernel", 0),
+                 _kernel_device_ms(windows[4 * i + 1], "ln_bwd_kernel", 1)) for i in range(len(runs))]
+
+    windows = checked_device_windows(
+        torch, [fn for run in runs for fn in run["calls"]],
+        lambda w: [f"{r['dtype']} {r['n']}x{r['d']}" for r, k in zip(runs, kernels_of(w)) if None in k], "ln")
+    kernels = kernels_of(windows)
+    result = {}
+    for i, run in enumerate(runs):
+        (fwd_dev_ms, _), (bwd_dev_ms, sum_dev_ms) = kernels[i]
+        lib_fwd_dev_ms, lib_fwd_kernels = _library_device_ms(windows[4 * i + 2])
+        lib_bwd_dev_ms, lib_bwd_kernels = _library_device_ms(windows[4 * i + 3])
+        n, d, fwd_bytes, bwd_bytes = run["n"], run["d"], run["fwd_bytes"], run["bwd_bytes"]
+        fwd_bound = bound_ms(fwd_bytes, 8 * n * d, "float32")
+        bwd_bound = bound_ms(bwd_bytes, 20 * n * d, "float32")
+        bwd_total_dev_ms = bwd_dev_ms + sum_dev_ms
+        fwd_host, bwd_host, lib_fwd_host, lib_bwd_host = run["host"]
+
+        def gbs(nbytes, ms):
+            return f"{nbytes / ms / 1e6:.1f}"
+
+        say("ln", shape=f"{n}x{d}", dtype=run["dtype"], **run["checks"], fwd_ms=f"{run['fwd_ms']:.4f}",
+            fwd_device_ms=f"{fwd_dev_ms:.4f}", fwd_host_ms=f"{fwd_host:.4f}", fwd_plain_ms=f"{run['fwd_plain_ms']:.4f}",
+            fwd_library_ms=f"{run['lib_fwd_ms']:.4f}", fwd_library_device_ms=f"{lib_fwd_dev_ms:.4f}",
+            fwd_library_host_ms=f"{lib_fwd_host:.4f}", fwd_library_kernels=lib_fwd_kernels,
+            fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}", fwd_gb_per_s_device=gbs(fwd_bytes, fwd_dev_ms),
+            fwd_gb_per_s_call=gbs(fwd_bytes, run["fwd_ms"]),
+            fwd_library_gb_per_s_device=gbs(fwd_bytes, lib_fwd_dev_ms), bound_by=fwd_bound["bound_by"])
+        say("ln", shape=f"{n}x{d}", dtype=run["dtype"], bwd_ms=f"{run['bwd_ms']:.4f}",
+            bwd_device_ms=f"{bwd_dev_ms:.4f}", bwd_sum_device_ms=f"{sum_dev_ms:.4f}",
+            bwd_total_device_ms=f"{bwd_total_dev_ms:.4f}", bwd_host_ms=f"{bwd_host:.4f}",
+            bwd_plain_ms=f"{run['bwd_plain_ms']:.4f}", bwd_library_ms=f"{run['lib_bwd_ms']:.4f}",
+            bwd_library_device_ms=f"{lib_bwd_dev_ms:.4f}", bwd_library_host_ms=f"{lib_bwd_host:.4f}",
+            bwd_library_kernels=lib_bwd_kernels, bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}",
+            bwd_gb_per_s_device=gbs(bwd_bytes, bwd_total_dev_ms), bwd_gb_per_s_call=gbs(bwd_bytes, run["bwd_ms"]),
+            bwd_library_gb_per_s_device=gbs(bwd_bytes, lib_bwd_dev_ms), bound_by=bwd_bound["bound_by"])
+        if i == 0:
             result = {
-                "layer_norm": {"max_abs_err": err_y, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-                               **fwd_bound, "library_ms": lib_fwd_ms},
-                "layer_norm_bwd": {"max_abs_err": (dx.float() - ref_dx.float()).abs().max().item(), "ms": bwd_ms,
-                                   "plain_ms": bwd_plain_ms, **bwd_bound, "library_ms": lib_bwd_ms},
+                "layer_norm": {"max_abs_err": run["checks"]["max_abs_err"], "ms": run["fwd_ms"],
+                               "device_ms": fwd_dev_ms, "plain_ms": run["fwd_plain_ms"], **fwd_bound,
+                               "library_ms": run["lib_fwd_ms"], "library_device_ms": lib_fwd_dev_ms},
+                "layer_norm_bwd": {"max_abs_err": run["err_dx"], "ms": run["bwd_ms"], "device_ms": bwd_total_dev_ms,
+                                   "plain_ms": run["bwd_plain_ms"], **bwd_bound, "library_ms": run["lib_bwd_ms"],
+                                   "library_device_ms": lib_bwd_dev_ms},
             }
-        del x, dy, y, dx, ref_dx, xr, y_lib
+    del runs
     torch.cuda.empty_cache()
     return result
 
@@ -1380,7 +1563,7 @@ _PROFILE_CLASSES = (
 
 # the same for the ViT paths
 _VIT_PROFILE_CLASSES = (
-    ("LayerNorm kernels", ("ln_fwd_kernel", "ln_bwd_kernel")),
+    ("LayerNorm kernels", LN_KERNELS),
     ("attention kernels", ("attn_qkv", "attn_f32_fwd", "attn_f32_bwd")),
     ("augment kernel", ("train_augment_kernel",)),
     ("preprocess kernel", ("preproc_taps_kernel",)),
@@ -1739,19 +1922,70 @@ def _fixmatch_inputs(torch, np, b: int, padded_rows: int = 0):
     return _step_inputs(torch, np, b, padded_rows), unlabeled
 
 
-def _one_fixmatch_step(torch, arch: str, dev, batch, unlabeled, draws, kink_free: bool = False):
+def _one_fixmatch_step(torch, arch: str, dev, batch, unlabeled, draws, kink_free: bool = False, ln_views=None):
     """One float32 FixMatch step with an EMA teacher at the seeded weights on
     ``dev``: (losses and keep rate, gradients, BN running statistics), on
-    the CPU."""
+    the CPU. Given a list ``ln_views``, a ViT's final LayerNorm appends to
+    it, for each view that is differentiated, its input ``x``, its ``scale``
+    and the gradient ``dy`` that reaches its output."""
     from ssip_tpu_torch.train.consistency import fixmatch_step, init_ema
 
     state = _seeded_state(torch, dev, torch.float32, arch, kink_free)
-    out = fixmatch_step(
-        state, init_ema(state.model), *(t.to(dev) for t in batch), unlabeled.to(dev), draws.to(dev),
-        consistency_weight=1.0, confidence_threshold=SEMI_THRESHOLD, ema_decay=SEMI_EMA_DECAY,
-    )
+    handle = None
+    if ln_views is not None:
+        def capture(module, inputs, output):
+            if output.requires_grad:  # the labeled and the strong view; the teacher's runs without grad
+                view = {"x": inputs[0].detach().clone(), "scale": module.weight.detach().clone()}
+                output.register_hook(lambda g: view.__setitem__("dy", g.detach().clone()))
+                ln_views.append(view)
+
+        handle = state.model.encoder.ln.register_forward_hook(capture)
+    try:
+        out = fixmatch_step(
+            state, init_ema(state.model), *(t.to(dev) for t in batch), unlabeled.to(dev), draws.to(dev),
+            consistency_weight=1.0, confidence_threshold=SEMI_THRESHOLD, ema_decay=SEMI_EMA_DECAY,
+        )
+    finally:
+        if handle is not None:
+            handle.remove()
     return ([t.cpu() for t in out[:4]], {k: p.grad.cpu() for k, p in state.model.named_parameters()},
             {k: v.cpu() for k, v in state.model.state_dict().items() if "running" in k})
+
+
+def _final_layer_norm_views(torch, card_views, cpu_views) -> None:
+    """Where ``encoder.ln.bias`` parts between the card's and the CPU's
+    FixMatch step: for each differentiated view, the LayerNorm backward
+    kernel and its plain float32 version on the card's own ``x`` and ``dy``,
+    each against the plain version in float64 on the same tensors, and how
+    far the card's ``x`` and ``dy`` already stand from the CPU's. Raises if
+    the kernel's dscale or dbias leaves 1e-5 of max of the float64 value."""
+    from ssip_tpu_torch.ops.layernorm import LN_EPS, layer_norm_bwd, layer_norm_bwd_plain
+
+    if len(card_views) != 2 or len(cpu_views) != 2:
+        raise AssertionError(f"final LayerNorm captured {len(card_views)} card and {len(cpu_views)} CPU views, not 2")
+    card_sum, cpu_sum = 0.0, 0.0
+    for name, card, cpu in zip(("labeled", "strong"), card_views, cpu_views):
+        x, scale, dy = card["x"], card["scale"], card["dy"]
+        _, k_ds, k_db = layer_norm_bwd(x, scale, dy, LN_EPS)
+        _, p_ds, p_db = layer_norm_bwd_plain(x, scale, dy, LN_EPS)
+        # the plain version computes in float32 whatever it is given: float64 written out here
+        x64, dy64 = x.double(), dy.double()
+        xc = x64 - x64.mean(dim=-1, keepdim=True)
+        ref_ds = (dy64 * xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + LN_EPS)).sum(dim=0)
+        ref_db = dy64.sum(dim=0)
+        _, c_ds, c_db = layer_norm_bwd_plain(cpu["x"], cpu["scale"], cpu["dy"], LN_EPS)
+        say("fixmatch_step", arch=VIT_ARCH, check="final_layer_norm", view=name, rows=tuple(x.shape),
+            kernel_dbias_vs_f64=_rel(k_db.double(), ref_db), plain_f32_dbias_vs_f64=_rel(p_db.double(), ref_db),
+            kernel_dscale_vs_f64=_rel(k_ds.double(), ref_ds), plain_f32_dscale_vs_f64=_rel(p_ds.double(), ref_ds),
+            card_dy_vs_cpu=_rel(dy.cpu(), cpu["dy"]), card_x_vs_cpu=_rel(x.cpu(), cpu["x"]),
+            card_dbias_vs_cpu=_rel(k_db.cpu(), c_db), card_dscale_vs_cpu=_rel(k_ds.cpu(), c_ds),
+            dbias_max=c_db.abs().max().item())
+        card_sum, cpu_sum = card_sum + k_db.cpu(), cpu_sum + c_db
+        grad_error(k_db, ref_db.float(), "float32", f"final LayerNorm {name} view dbias against float64")
+        grad_error(k_ds, ref_ds.float(), "float32", f"final LayerNorm {name} view dscale against float64")
+    # the step's encoder.ln.bias gradient is the two views' sum
+    say("fixmatch_step", arch=VIT_ARCH, check="final_layer_norm", view="both", dbias_max=cpu_sum.abs().max().item(),
+        card_dbias_vs_cpu=_rel(card_sum, cpu_sum))
 
 
 def _fixmatch_cuda_vs_cpu(torch, np, arch: str, kink_free: bool) -> dict:
@@ -1760,9 +1994,13 @@ def _fixmatch_cuda_vs_cpu(torch, np, arch: str, kink_free: bool) -> dict:
     b = STEP_CHECK_BATCH
     batch, unlabeled = _fixmatch_inputs(torch, np, b, padded_rows=1)
     draws = epoch_view_draws(SEED, "smoke_fixmatch", 0, 1, b, b, torch.device("cpu"))[0]
+    views = {"cpu": [], "cuda": []} if arch == VIT_ARCH else {"cpu": None, "cuda": None}
     (m_cpu, g_cpu, s_cpu), (m_gpu, g_gpu, s_gpu) = (
-        _one_fixmatch_step(torch, arch, torch.device(dev), batch, unlabeled, draws, kink_free) for dev in ("cpu", "cuda")
+        _one_fixmatch_step(torch, arch, torch.device(dev), batch, unlabeled, draws, kink_free, views[dev])
+        for dev in ("cpu", "cuda")
     )
+    if arch == VIT_ARCH:
+        _final_layer_norm_views(torch, views["cuda"], views["cpu"])
     stem = STEM_GRAD if arch == "resnet18" else None
     r = {
         "loss": m_cpu[0].item(), "cons_loss": m_cpu[2].item(), "keep_rate": m_cpu[3].item(),

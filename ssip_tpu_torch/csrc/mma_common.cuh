@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels on Hopper's tensor cores
-// (attention_mma.cu, attention_unpacked_mma.cu, attention_f32_mma.cu):
+// (attention_mma.cu, attention_unpacked_mma.cu, attention_f32_mma.cu) and,
+// for cp.async and the host's helpers, the LayerNorm kernels (layernorm.cu):
 // cp.async staging, ldmatrix, mma.sync on bf16, the bf16 row swizzle, quad
 // reductions over an mma accumulator's row, the exponential, and the host's
 // shared-memory opt-in and resource query.

@@ -20,6 +20,7 @@ kernels or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from functools import lru_cache
 from typing import Tuple
@@ -29,8 +30,8 @@ import torch
 LN_EPS = 1e-6  # torchvision ViT's norm_layer eps, the models' default
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_WIDTH = 1024  # 32 values a lane (csrc/layernorm.cu)
-_BWD_WARPS = 4  # rows a backward block works on together (kWarps there)
-_BWD_BLOCKS_PER_SM = 4
+_WARPS = 4  # a block's warps (kWarps in csrc/layernorm.cu), each one row or more at a time
+_FWD, _BWD = 0, 1  # ssip_layer_norm_info's kernel numbers
 
 
 def layer_norm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
@@ -63,11 +64,42 @@ def _kernel_entries():
 
     lib = load_library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fwd, bwd = lib.ssip_layer_norm_fwd, lib.ssip_layer_norm_bwd
-    fwd.argtypes = [p, p, p, p, i, i, i, f, p]  # x, scale, bias, y, is_bf16, n, d, eps, stream
-    bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]  # x, scale, dy, dx, ds, db, is_bf16, n, d, blocks, eps, stream
-    fwd.restype = bwd.restype = ctypes.c_int
-    return fwd, bwd
+    fwd, bwd, info = lib.ssip_layer_norm_fwd, lib.ssip_layer_norm_bwd, lib.ssip_layer_norm_info
+    fwd.argtypes = [p, p, p, p, i, i, i, i, f, p]  # x, scale, bias, y, is_bf16, n, d, blocks, eps, stream
+    bwd.argtypes = [p, p, p, p, p, p, i, i, i, i, f, p]  # x, scale, dy, dx, partials, sums, is_bf16, n, d, blocks, eps, stream
+    info.argtypes = [i, i, i, p]  # kernel, is_bf16, d, out[4]
+    fwd.restype = bwd.restype = info.restype = ctypes.c_int
+    return fwd, bwd, info
+
+
+def launch_grid(n: int, sms: int, blocks_per_sm: int) -> int:
+    """Blocks of a persistent launch over ``n`` rows: one wave, as many
+    blocks as fit on every SM, and no more than give each warp a row."""
+    return max(1, min(sms * blocks_per_sm, -(-n // _WARPS)))
+
+
+@lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@lru_cache(maxsize=None)
+def _blocks_per_sm(kernel: int, bf16: bool, d: int, index: int) -> int:
+    """Resident blocks an SM of one kernel at width ``d`` on card ``index``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); called with that
+    card current."""
+    out = (ctypes.c_int * 4)()
+    err = _kernel_entries()[2](kernel, int(bf16), d, out)
+    if err != 0 or out[3] < 1:
+        raise RuntimeError(f"layer_norm kernel {kernel} at width {d}: cudaError {err}, {out[3]} blocks an SM")
+    return out[3]
+
+
+def _on_device(device: torch.device):
+    """The launch's device made current, unless it is already."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _check_cuda_operands(x2d: torch.Tensor, *params: torch.Tensor) -> None:
@@ -95,13 +127,15 @@ def _launch_fwd(x2d: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps:
     _check_cuda_operands(x2d, scale, bias)
     n, d = x2d.shape
     y = torch.empty_like(x2d)
-    if n == 0:
+    if y.numel() == 0:
         return y
-    with torch.cuda.device(x2d.device):  # the launch's device; restored after
+    bf16 = x2d.dtype == torch.bfloat16
+    index = x2d.device.index
+    with _on_device(x2d.device):
+        blocks = launch_grid(n, _sm_count(index), _blocks_per_sm(_FWD, bf16, d, index))
         err = _kernel_entries()[0](
-            x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            int(x2d.dtype == torch.bfloat16), n, d, float(eps),
-            torch.cuda.current_stream().cuda_stream,
+            x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), int(bf16), n, d, blocks, float(eps),
+            torch.cuda.current_stream(index).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"layer_norm kernel launch failed: cudaError {err}")
@@ -115,10 +149,11 @@ def layer_norm_bwd(
     """(dx [N, D] in ``x2d``'s type, dscale [D], dbias [D] float32) from the
     saved ``x2d`` and ``scale`` and the incoming ``dy``.
 
-    On the card each block writes its own row of a ``[blocks, D]`` float32
-    scratch and the sums over axis 0 are taken here, as the JAX package sums
-    its partials outside the kernel. ``layer_norm_bwd.launches`` counts
-    kernel launches.
+    On the card a call is two launches: the backward kernel, in which each
+    block writes its sums to its row of a ``[2, blocks, D]`` float32 scratch,
+    then a column sum over the blocks, in block order (the JAX package too
+    sums its partials outside its kernel). ``layer_norm_bwd.launches``
+    counts calls that launched.
     """
     if x2d.dim() != 2 or dy.shape != x2d.shape or dy.dtype != x2d.dtype or dy.device != x2d.device:
         raise ValueError(
@@ -134,23 +169,22 @@ def layer_norm_bwd(
         raise ValueError("layer_norm kernel needs contiguous, 16-byte aligned rows")
     n, d = x2d.shape
     dx = torch.empty_like(x2d)
-    if n == 0:
-        zeros = torch.zeros(d, dtype=torch.float32, device=x2d.device)
-        return dx, zeros, zeros.clone()
-    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    blocks = min(-(-n // _BWD_WARPS), sms * _BWD_BLOCKS_PER_SM)
-    partials = torch.empty((2, blocks, d), dtype=torch.float32, device=x2d.device)
-    with torch.cuda.device(x2d.device):
+    if dx.numel() == 0:
+        zeros = torch.zeros((2, d), dtype=torch.float32, device=x2d.device)
+        return dx, zeros[0], zeros[1]
+    bf16 = x2d.dtype == torch.bfloat16
+    index = x2d.device.index
+    with _on_device(x2d.device):
+        blocks = launch_grid(n, _sm_count(index), _blocks_per_sm(_BWD, bf16, d, index))
+        partials = torch.empty((2, blocks, d), dtype=torch.float32, device=x2d.device)
+        sums = torch.empty((2, d), dtype=torch.float32, device=x2d.device)
         err = _kernel_entries()[1](
-            x2d.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            partials[0].data_ptr(), partials[1].data_ptr(),
-            int(x2d.dtype == torch.bfloat16), n, d, blocks, float(eps),
-            torch.cuda.current_stream().cuda_stream,
+            x2d.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partials.data_ptr(), sums.data_ptr(),
+            int(bf16), n, d, blocks, float(eps), torch.cuda.current_stream(index).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"layer_norm backward kernel launch failed: cudaError {err}")
     layer_norm_bwd.launches += 1
-    sums = partials.sum(dim=1)
     return dx, sums[0], sums[1]
 
 
@@ -189,7 +223,9 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
         raise ValueError(f"layer_norm runs on cpu or cuda tensors, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("layer_norm kernel needs a contiguous input")
-    return _LayerNormKernel.apply(x.view(-1, d), scale, bias, float(eps)).view(x.shape)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+        return _LayerNormKernel.apply(x.view(-1, d), scale, bias, float(eps)).view(x.shape)
+    return _launch_fwd(x.view(-1, d), scale, bias, float(eps)).view(x.shape)  # nothing to differentiate
 
 
 layer_norm.launches = 0

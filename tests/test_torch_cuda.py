@@ -210,11 +210,25 @@ def _assert_grad_close(got: torch.Tensor, ref: torch.Tensor) -> None:
 @pytest.mark.parametrize(
     "n,d,dtype",
     [(4 * 197, 768, torch.bfloat16), (4 * 197, 768, torch.float32), (128, 768, torch.float32),
-     (130, 192, torch.bfloat16), (7, 384, torch.float32), (3, 1024, torch.bfloat16), (5, 8, torch.float32)],
+     (130, 192, torch.bfloat16), (7, 384, torch.float32), (3, 1024, torch.bfloat16), (5, 8, torch.float32),
+     # every exact-width template in both types, at row counts below the
+     # grid, below a block's warps and no multiple of the ring's depth or of
+     # a warp's rows a step (4 at 192 in bf16, 2 at 192 in f32 and 384 in bf16)
+     (1, 192, torch.bfloat16), (3, 192, torch.float32), (1001, 192, torch.bfloat16), (515, 192, torch.float32),
+     (1, 384, torch.bfloat16), (1001, 384, torch.bfloat16), (3, 768, torch.float32), (1, 768, torch.bfloat16),
+     (1, 1024, torch.float32), (515, 1024, torch.float32), (2 * 197 + 1, 1024, torch.bfloat16),
+     # the main path's rows: 128 images of 197 tokens and of 208
+     (128 * 197, 768, torch.bfloat16), (128 * 197, 768, torch.float32), (128 * 208, 768, torch.bfloat16),
+     (128 * 208, 768, torch.float32),
+     # the generic template
+     (3, 8, torch.bfloat16), (1, 8, torch.float32), (257, 200, torch.bfloat16), (33, 200, torch.float32),
+     (2, 1000, torch.bfloat16), (129, 1000, torch.float32), (4100, 1016, torch.bfloat16)],
 )
 def test_layer_norm_kernels_match_plain_on_cuda(cuda, n, d, dtype):
-    """Forward, and the backward through autograd, at the ViT widths, a row
-    count that is no multiple of the block and the narrowest width."""
+    """Forward, and the backward through autograd, at the ViT widths (each
+    an exact-width template of the kernels), row counts that are no multiple
+    of a block, a step or the ring, the main path's rows, and widths that
+    take the generic template, the narrowest among them."""
     rng = np.random.default_rng(n * d)
     x = torch.from_numpy(rng.normal(0.3, 1.5, (n, d)).astype(np.float32)).to(cuda, dtype).requires_grad_()
     scale = torch.from_numpy(rng.normal(1.0, 0.2, d).astype(np.float32)).to(cuda).requires_grad_()
@@ -232,6 +246,31 @@ def test_layer_norm_kernels_match_plain_on_cuda(cuda, n, d, dtype):
     _assert_grad_close(dbias, ref_dbias)
     again = layer_norm_bwd(x.detach(), scale.detach(), dy, 1e-6)
     assert all(torch.equal(a, b) for a, b in zip(again, (dx, dscale, dbias)))  # no atomics: run to run the same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(768, torch.bfloat16), (768, torch.float32), (200, torch.bfloat16)])
+def test_layer_norm_calls_launch_their_kernels_once(cuda, d, dtype):
+    """torch.profiler sees one forward kernel a forward call, and one
+    backward kernel and one column sum (the blocks' partial sums added in
+    block order, its own launch) a backward call, and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((1000, d)).astype(np.float32)).to(cuda, dtype)
+    scale, bias = (torch.from_numpy(rng.standard_normal(d).astype(np.float32)).to(cuda) for _ in range(2))
+    layer_norm(x, scale, bias)
+    layer_norm_bwd(x, scale, x)
+    torch.cuda.synchronize()
+    for call, want in ((lambda: layer_norm(x, scale, bias), {"ln_fwd_kernel": 3}),
+                       (lambda: layer_norm_bwd(x, scale, x), {"ln_bwd_kernel": 3, "ln_colsum_kernel": 3})):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        got = {frag: sum(frag in name for name in names) for frag in want}
+        assert got == want and len(names) == sum(want.values()), names
 
 
 @pytest.mark.cuda

@@ -14,7 +14,9 @@ import torch
 
 from ssip_tpu.ops.layernorm import layer_norm as jax_layer_norm
 from ssip_tpu.ops.layernorm import layer_norm_xla
-from ssip_tpu_torch.ops.layernorm import LN_EPS, layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain
+from ssip_tpu_torch.ops.layernorm import (
+    LN_EPS, launch_grid, layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -122,3 +124,22 @@ def test_wrapper_raises_on_wrong_operands():
         layer_norm_bwd(x, torch.ones(8), torch.zeros((2, 8)))
     empty = layer_norm_bwd_plain(torch.zeros((0, 8)), torch.ones(8), torch.zeros((0, 8)))
     assert empty[0].shape == (0, 8) and not empty[1].any() and not empty[2].any()
+
+
+@pytest.mark.parametrize(
+    "n,sms,blocks_per_sm,want",
+    [
+        (128 * 197, 132, 3, 396),  # the main path's stream: one wave, every SM full
+        (128 * 208, 132, 1, 132),
+        (128, 132, 3, 32),  # the final LayerNorm: a warp a row, no idle blocks
+        (1001, 132, 4, 251),
+        (5, 132, 4, 2),
+        (1, 132, 4, 1),
+        (0, 132, 4, 1),
+    ],
+)
+def test_launch_grid_is_one_wave_and_no_more_than_a_row_a_warp(n, sms, blocks_per_sm, want):
+    """The kernels' grid (and the backward's [2, grid, D] scratch): at most
+    what every SM holds at once, at most a row for each of a block's 4
+    warps, at least one block."""
+    assert launch_grid(n, sms, blocks_per_sm) == want
