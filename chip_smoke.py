@@ -47,16 +47,21 @@ non-zero without printing the final line:
            the tensor cores but the forward's scores) and float32 (the
            kernels of ``csrc/attention_f32_mma.cu``, 3xTF32 products on the
            tensor cores, forward and two-launch backward), at the 3 heads
-           of vit_t16, and in float32 at 256 and 577 tokens (bf16's limit
-           is 256); pad-query rows are compared too and get a non-zero dO;
-           also bytes/s and bound/time, and ptxas's registers, shared
-           memory and spills of the tensor-core kernels (the float32
-           kernels' also resident blocks an SM), the float32 TF32 rates
-           and times over the library's.
+           of vit_t16, and in both types at 257, 577, 1024, 1025 and 1297
+           tokens (vit_b16 at 256², 384², 512², 576²), some with pad keys;
+           pad-query rows are compared too and get a non-zero dO; also
+           bytes/s and bound/time, ptxas's registers, shared memory and
+           spills of the tensor-core kernels, which bf16 forward runs at
+           each shape and its resources, the float32 TF32 rates and times
+           over the library's.
    qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
            float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
            off the plain version by more than 1e-5 (absolute and relative),
-           none by more than 2·127·max(m2); the counts are printed;
+           none by more than 2·127·max(m2); the counts are printed; beside
+           the call's time the two kernels' device times (``torch.profiler``)
+           and the two ``torch._int_mm`` products of the same GEMMs alone
+           (``int_mm_ms``), and the kernels' registers, spills, shared memory
+           and resident blocks an SM;
    attn4   ``fused_attention`` and ``attention_bwd`` on q, k, v
            [128, 12, 197, 64] in bfloat16 (the kernels of
            ``csrc/attention_unpacked_mma.cu``, every product on the tensor
@@ -65,9 +70,11 @@ non-zero without printing the final line:
            [128, 12, 256, 64], and in both types past 256 tokens:
            [16, 12, 577, 64] (ViT-B/16 at 384²), [4, 12, 1024, 64], and in
            bfloat16 [2, 4, 1024, 32]; at attn's tolerances, and in bfloat16 each
-           element of dq, dk and dv also within the output's one step; the
-           three bf16 kernels' registers, spills, shared memory a block and
-           resident blocks an SM;
+           element of dq, dk and dv also within the output's one step; past
+           1024 tokens (1025, 1297), where the JAX entry rounds p, held to
+           ``attention_plain`` and ``attention_rounded_bwd_plain`` (the bf16
+           calls run the packed pair's kernels); the three bf16 kernels'
+           registers, spills, shared memory a block and resident blocks an SM;
    Tolerances of ln and attn (kernel and plain version sum in another
    order): float32 outputs within 2e-5 of O(1) values, bfloat16 outputs
    within one bfloat16 step of the plain value (2e-5 where a step is
@@ -105,7 +112,9 @@ non-zero without printing the final line:
            are those of the CPU split, and the kernels launched (for vit_b16
            25 + 25 LayerNorm and 12 + 12 attention launches per train step);
            then the training CLI for 1 epoch as a subprocess (resnet18,
-           vit_t16);
+           vit_t16); and vit_b16 past 224² (``vit_long``): 1 epoch at 256²
+           (257 tokens) and 512² (1,025) in bfloat16 and at 512² in float32,
+           then the CLI at 256², with the same checks;
 7. step    one train step on cuda against the same step on the CPU
            (float32, TF32 off, batch 8 with one padded row, 224², same
            weights, batch and draws). resnet18: loss ≤ 1e-5 relative and BN
@@ -178,9 +187,14 @@ RESIZE, CROP = 256, 224
 N_CPU_CHECK = 16
 TIMED_LAUNCHES = 20
 # what the packed pair's bf16 times below are of
-ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: forward float32 FMA scores in cuBLAS's order, torch-order softmax, "
-                   "P.V on mma.sync m16n8k16; backward two launches, every product on mma.sync; cp.async staging")
-ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel")
+ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: any length; forward float32 FMA scores in cuBLAS's order, "
+                   "torch-order softmax, bf16 p, P.V on mma.sync m16n8k16: up to 256 tokens a block per head with "
+                   "K and V staged whole and a row's scores in registers, past 256 a block per 32 query rows with "
+                   "K and V streamed in 64-key cp.async tiles (scores cached in shared memory while they fit, else "
+                   "three sweeps over K); backward two launches (dq by 64 query rows, dk and dv by 64 key rows, "
+                   "the other operand streamed), every product on mma.sync with p and ds rounded to bf16")
+ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel",
+                    "attn_qkv_fwd_stream_kernel")
 # what the unpacked pair's bf16 times below are of
 UNPACKED_MMA_DESIGN = ("bf16, csrc/attention_unpacked_mma.cu: every product on mma.sync m16n8k16, p and ds as bf16 "
                        "hi/lo pairs (two mma a product), keys or queries streamed in 64-row cp.async tiles, online "
@@ -194,6 +208,13 @@ ATTN_F32_DESIGN = ("f32, csrc/attention_f32_mma.cu: 3xTF32 products (a_lo b_hi +
                    "dq by 32 query rows (K, V streamed in 32-key tiles, delta = dO.o), dk and dv by 32 key rows "
                    "(q, dO and row statistics streamed), p from the saved statistics, 7 products")
 ATTN_F32_KERNELS = ("attn_f32_fwd_kernel", "attn_f32_bwd_rows_kernel", "attn_f32_bwd_keys_kernel")
+# what the int8 MLP's times below are of
+QMLP_DESIGN = ("csrc/qmlp.cu: two launches joined by the int8 hidden [M, hidden]: qmlp_hidden_kernel (64 stream rows "
+               "a block quantized once into shared memory, W1 in 256x64 tiles through a 3-stage cp.async ring, "
+               "mma.sync m16n8k32 s8, affine + A&S GELU + requantize in the epilogue, the hidden width split for "
+               "full waves), qmlp_output_kernel (128 x 128 output tiles, gq and W2 in 128-byte steps through a "
+               "3-stage cp.async ring, the output affine in the epilogue)")
+QMLP_KERNELS = ("qmlp_hidden_kernel", "qmlp_output_kernel")
 # what the LayerNorm pair's times below are of
 LN_DESIGN = ("csrc/layernorm.cu: persistent, one wave of 4-warp blocks, each warp streaming a contiguous range of "
              "rows through a cp.async ring in shared memory (2 slots forward, 4 backward: x and dy together), scale "
@@ -232,7 +253,7 @@ KERNELS = {
     },
     "quantized_mlp": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/qmlp.cu",
-        "replaces": "ssip_tpu/ops/qmlp.py:78",
+        "replaces": "ssip_tpu/ops/qmlp.py:78", "design": QMLP_DESIGN,
     },
     "attention": {
         "route": "cuda", "source": "ssip_tpu_torch/csrc/attention_unpacked_mma.cu",
@@ -274,6 +295,8 @@ UNPACKED_ATTN_SHAPES = (
     (8, 2, 50, 32, "float32"), (128, 12, 256, 64, "float32"),
     (16, 12, 577, 64, "bfloat16"), (4, 12, 1024, 64, "bfloat16"), (2, 4, 1024, 32, "bfloat16"),
     (16, 12, 577, 64, "float32"), (4, 12, 1024, 64, "float32"),
+    # past the JAX entry's 1024, where it rounds p: in bf16 the packed pair's kernels on q, k, v
+    (4, 12, 1025, 64, "bfloat16"), (2, 12, 1297, 64, "bfloat16"), (4, 12, 1025, 64, "float32"),
 )
 VIT_N_CPU_CHECK = 8
 # (rows, width, type): 128 images of 197 tokens and of 208 (the token axis
@@ -283,11 +306,16 @@ LN_SHAPES = (
     (128 * 208, 768, "bfloat16"), (128 * 208, 768, "float32"),
     (128, 768, "float32"), (1001, 384, "bfloat16"),
 )
-# (batch, tokens, heads, kv_len, type), heads of 64
+# (batch, tokens, heads, kv_len, type), heads of 64: vit_b16 at 224² (and
+# its token axis padded to 16), then at 256², 384², 512² and 576² (257, 577,
+# 1025, 1297 tokens) and 1024 tokens, some with pad keys
 ATTN_SHAPES = (
     (128, 197, 12, 0, "bfloat16"), (128, 197, 12, 0, "float32"),
     (128, 208, 12, 197, "bfloat16"), (128, 208, 12, 197, "float32"),
     (128, 197, 3, 0, "bfloat16"), (128, 256, 12, 0, "float32"), (16, 577, 12, 0, "float32"),
+    (64, 257, 12, 0, "bfloat16"), (16, 257, 12, 250, "float32"), (16, 577, 12, 0, "bfloat16"),
+    (4, 1024, 12, 0, "bfloat16"), (4, 1024, 12, 1000, "float32"), (4, 1025, 12, 1001, "bfloat16"),
+    (4, 1025, 12, 0, "float32"), (2, 1297, 12, 0, "bfloat16"), (2, 1297, 12, 1200, "float32"),
 )
 # the LayerNorm kernels of csrc/layernorm.cu, in the order of ``ssip_layer_norm_info``
 LN_KERNELS = ("ln_fwd_kernel", "ln_bwd_kernel", "ln_colsum_kernel")
@@ -302,6 +330,7 @@ SEMI_THRESHOLD = 0.5  # pseudo-label and consistency thresholds: the seeded init
 SEMI_EMA_DECAY = 0.99
 TRAIN_PER_CLASS = 50  # the real labeled layout: avec_labels/{cancer,normal}, 50 + 50
 TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SIZE = 16, 2, 224
+VIT_LONG_RUNS = (("bfloat16", 1, 256), ("bfloat16", 1, 512), ("float32", 1, 512))  # (type, epochs, image size)
 STEP_CHECK_BATCH, STEP_TIMED_BATCH, STEP_WARMUP, STEP_TIMED = 8, 128, 3, 10
 # The cuda-vs-CPU gradient check runs at kink-free weights: the seeded ones
 # with every conv filter re-centred to zero mean and every BN bias raised by
@@ -872,17 +901,28 @@ def phase_attention_kernels(torch, np) -> dict:
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
-    # what ptxas reported for the two tensor-core kernels (dynamic shared
-    # memory is set at launch: printed per shape below)
+    # what ptxas reported for the three bf16 kernels (dynamic shared memory
+    # is set at launch: printed per shape below)
     resources = kernel_resources(build().log)
     for fragment in ATTN_MMA_KERNELS:
         named = {name: r for name, r in resources.items() if fragment in name}
         if not named:
             raise AssertionError(f"ptxas reported nothing for {fragment}")
         for name, r in sorted(named.items()):
-            # template arguments: the head width, and for the forward the key chunks of 32
-            args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?", name)
-            say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", **r)
+            # template arguments: the head width, and for the forwards the key chunks of 32 (whole
+            # head) or whether the scores are cached (streamed)
+            args = re.search(r"ILi(\d+)E(?:Li(\d+)E|Lb(\d)E)?", name)
+            say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", score_cache=args[3] or "-",
+                **r)
+    rounded_info = load_library().ssip_attention_rounded_info  # the bf16 kernels at a sequence and key count
+    rounded_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    for which, kernel in ((1, ATTN_MMA_KERNELS[1]), (2, ATTN_MMA_KERNELS[2])):
+        for dh in (32, 64):
+            res = (ctypes.c_int * 5)()
+            if rounded_info(which, dh, 1, 1, res) != 0:
+                raise AssertionError(f"{kernel} at head width {dh}: ssip_attention_rounded_info failed")
+            say("attn", kernel=kernel, head_width=dh, registers=res[0], local_bytes=res[1], smem_bytes=res[2],
+                blocks_per_sm=res[3])
     f32_info = load_library().ssip_attention_f32_info  # the float32 kernels of both pairs
     f32_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     _kernel_resources("attn", f32_info, ATTN_F32_KERNELS)
@@ -938,14 +978,17 @@ def phase_attention_kernels(torch, np) -> dict:
             bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_library_ms=f"{lib_bwd_ms:.4f}",
             bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", bound_by=fwd_bound["bound_by"])
         if dtype_name == "bfloat16":
-            sp, kvp = -(-s // 16) * 16, -(-kv // 16) * 16
+            fwd_res = (ctypes.c_int * 5)()
+            if rounded_info(0, dh, s, kv, fwd_res) != 0:
+                raise AssertionError(f"{tag}: ssip_attention_rounded_info failed")
             say("attn", design=repr(ATTN_MMA_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
                 fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}",
-                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}",
+                fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}",
                 bwd_gbytes_per_s=f"{(2 * qkv.numel() + d_o.numel()) * item / bwd_ms / 1e6:.1f}",
-                bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}",
-                fwd_smem_bytes=4 * kvp * dh + 64 * dh + max(128 * dh, 64 * (kvp + 8)),
-                bwd_rows_smem_bytes=(128 + 2 * kvp) * dh * 2, bwd_keys_smem_bytes=(128 + 2 * sp) * dh * 2 + 12 * sp)
+                bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}", bwd_vs_library=f"{bwd_ms / lib_bwd_ms:.4f}",
+                fwd_kernel=("three_sweeps", "stream_cached", "whole_head")[fwd_res[4]], fwd_registers=fwd_res[0],
+                fwd_smem_bytes=fwd_res[2],
+                fwd_blocks_per_sm=fwd_res[3])
         else:
             fwd_stats_ms = median_ms(torch, lambda: attention_qkv_residuals(qkv, heads, kv_len))
             say("attn", design=repr(ATTN_F32_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
@@ -998,9 +1041,28 @@ def phase_qmlp_kernel(torch, np) -> dict:
     """``quantized_mlp`` against its plain version on the card; times at the
     main path's shape, [25216, 768] bfloat16 with hidden 3072. The library
     column is the plain composition itself (two ``torch._int_mm`` and the
-    elementwise passes between), timed once more on its own."""
-    from ssip_tpu_torch.ops.qmlp import quantized_mlp, quantized_mlp_plain
+    elementwise passes between), timed once more on its own; ``int_mm_ms``
+    is the two ``torch._int_mm`` products alone, the library's time for the
+    GEMM work. Device times (the two kernels, the two products) by
+    ``torch.profiler``."""
+    import ctypes
 
+    from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
+    from ssip_tpu_torch.ops.qmlp import qmlp_hidden_plain, quantized_mlp, quantized_mlp_plain
+    from ssip_tpu_torch.ops.quant import quantize
+
+    info = load_library().ssip_qmlp_info
+    info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    resources = kernel_resources(build().log)
+    for which, kernel in enumerate(QMLP_KERNELS):
+        for d in (192, 384, 768):
+            out = (ctypes.c_int * 4)()
+            mangled = f"I13__nv_bfloat16Li{d}E" if which == 0 else f"ILi{d}E"
+            ptxas = [r for name, r in resources.items() if f"{kernel}{mangled}" in name]
+            if info(which, d, out) != 0 or len(ptxas) != 1:
+                raise AssertionError(f"{kernel} at width {d}: ptxas reported {ptxas}")
+            say("qmlp", kernel=kernel, width=d, registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3], spill_stores=ptxas[0]["spill_stores"], spill_loads=ptxas[0]["spill_loads"])
     rng = np.random.default_rng(SEED + 8)
     result = {}
     for rows, d, hidden, dtype_name in QMLP_SHAPES:
@@ -1022,16 +1084,40 @@ def phase_qmlp_kernel(torch, np) -> dict:
                                  f"(allowed {QMLP_MAX_SHARE_OFF:g} of them and {allowed})")
         k_ms, p_ms = timed_pair(torch, lambda: quantized_mlp(y, blk), lambda: quantized_mlp_plain(y, blk))
         lib_ms = median_ms(torch, lambda: quantized_mlp_plain(y, blk))
+        xq, gq = quantize(y, blk.mlp_1.inv_scale), qmlp_hidden_plain(y, blk)
+
+        def int_mm(xq=xq, gq=gq, blk=blk):
+            return torch._int_mm(xq, blk.mlp_1.kernel), torch._int_mm(gq, blk.mlp_2.kernel)
+
+        int_mm_ms = median_ms(torch, int_mm)
+
+        def device(windows):
+            kernel = [_kernel_device_ms(windows[0], name, 1) for name in QMLP_KERNELS]
+            return None if None in kernel else kernel
+
+        windows = checked_device_windows(
+            torch, [lambda: quantized_mlp(y, blk), int_mm], lambda w: None if device(w) else "the two kernels",
+            f"qmlp {rows}x{d}")
+        (hid_dev_ms, _), (out_dev_ms, _) = device(windows)
+        int_mm_dev_ms, int_mm_kernels = _library_device_ms(windows[1])
+        ops = 4 * rows * d * hidden
         nbytes = rows * d * (y.element_size() + 4) + 2 * d * hidden + 2 * (d + hidden) * 4
-        bound = bound_ms(nbytes, 4 * rows * d * hidden, "int8")
+        bound = bound_ms(nbytes, ops, "int8")
         say("qmlp", shape=f"{rows}x{d}", hidden=hidden, dtype=dtype_name, elements=got.numel(), off_by_1e_5=off,
             not_bit_equal=unequal, max_abs_err=worst, allowed_max=f"{allowed:.4g}", ms=f"{k_ms:.4f}",
-            plain_ms=f"{p_ms:.4f}", library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
-            bound_by=bound["bound_by"], tops=f"{4 * rows * d * hidden / k_ms / 1e9:.1f}")
+            plain_ms=f"{p_ms:.4f}", library_ms=f"{lib_ms:.4f}", int_mm_ms=f"{int_mm_ms:.4f}",
+            bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"], tops=f"{ops / k_ms / 1e9:.1f}",
+            int_mm_tops=f"{ops / int_mm_ms / 1e9:.1f}")
+        say("qmlp", design=repr(QMLP_DESIGN), shape=f"{rows}x{d}", hidden=hidden, dtype=dtype_name,
+            device_ms=f"{hid_dev_ms + out_dev_ms:.4f}", hidden_device_ms=f"{hid_dev_ms:.4f}",
+            output_device_ms=f"{out_dev_ms:.4f}", device_tops=f"{ops / (hid_dev_ms + out_dev_ms) / 1e9:.1f}",
+            int_mm_device_ms=f"{int_mm_dev_ms:.4f}", int_mm_kernels=int_mm_kernels,
+            int_mm_device_tops=f"{ops / int_mm_dev_ms / 1e9:.1f}")
         if (rows, d, hidden, dtype_name) == QMLP_SHAPES[0]:
-            result = {"quantized_mlp": {"max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms, **bound,
-                                        "library_ms": lib_ms}}
-        del y, got, ref, err, blk
+            result = {"quantized_mlp": {"max_abs_err": worst, "ms": k_ms, "device_ms": hid_dev_ms + out_dev_ms,
+                                        "plain_ms": p_ms, **bound, "library_ms": lib_ms, "int_mm_ms": int_mm_ms,
+                                        "int_mm_device_ms": int_mm_dev_ms}}
+        del y, got, ref, err, blk, xq, gq
         torch.cuda.empty_cache()
     return result
 
@@ -1072,7 +1158,8 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
 
     from ssip_tpu_torch.kernels.build import load_library
     from ssip_tpu_torch.ops.attention import (
-        attention_bwd, attention_bwd_plain, attention_residuals, attention_unrounded_plain, fused_attention,
+        attention_bwd, attention_bwd_plain, attention_plain, attention_residuals, attention_rounded_bwd_plain,
+        attention_unrounded_plain, fused_attention,
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
@@ -1093,19 +1180,22 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
         tag = f"fused_attention {b}x{heads}x{s}x{dh} {dtype_name}"
         if not torch.equal(residuals[0], out):
             raise AssertionError(f"{tag}: the forward that saves row statistics gave another output")
-        err_o = output_error(torch, out, attention_unrounded_plain(q, k, v), tag)
-        ref = attention_bwd_plain(q, k, v, d_o)
+        # past 1024 tokens the function rounds p, as the JAX entry's attention_xla does there
+        rounded = s > 1024
+        plain, plain_bwd = ((attention_plain, attention_rounded_bwd_plain) if rounded
+                            else (attention_unrounded_plain, attention_bwd_plain))
+        err_o = output_error(torch, out, plain(q, k, v), tag)
+        ref = plain_bwd(q, k, v, d_o)
         rels = [grad_error(g, r, dtype_name, f"{tag} d{part}") for g, r, part in zip(grads, ref, "qkv")]
-        if dtype_name == "bfloat16":  # p and ds kept to float32 precision: each element within a step
+        if dtype_name == "bfloat16" and not rounded:  # p and ds kept to float32 precision: each element within a step
             for g, r, part in zip(grads, ref, "qkv"):
                 output_error(torch, g, r, f"{tag} d{part} by element")
         err_g = max((g.float() - r.float()).abs().max().item() for g, r in zip(grads, ref))
         del ref
 
-        fwd_ms, fwd_plain_ms = timed_pair(torch, lambda: fused_attention(q, k, v),
-                                          lambda: attention_unrounded_plain(q, k, v))
+        fwd_ms, fwd_plain_ms = timed_pair(torch, lambda: fused_attention(q, k, v), lambda: plain(q, k, v))
         bwd_ms, bwd_plain_ms = timed_pair(torch, lambda: attention_bwd(q, k, v, d_o, residuals),
-                                          lambda: attention_bwd_plain(q, k, v, d_o))
+                                          lambda: plain_bwd(q, k, v, d_o))
         # the library's yardstick, timed here and called nowhere in the port
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         lib_fwd_ms = median_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
@@ -1121,7 +1211,7 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
             bwd_plain_ms=f"{bwd_plain_ms:.4f}", bwd_library_ms=f"{lib_bwd_ms:.4f}",
             bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", bound_by=fwd_bound["bound_by"])
         if dtype_name == "bfloat16":
-            say("attn4", design=repr(UNPACKED_MMA_DESIGN), shape=f"{b}x{heads}x{s}x{dh}",
+            say("attn4", design=repr(ATTN_MMA_DESIGN if rounded else UNPACKED_MMA_DESIGN), shape=f"{b}x{heads}x{s}x{dh}",
                 fwd_gbytes_per_s=f"{4 * q.numel() * item / fwd_ms / 1e6:.1f}",
                 fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}",
                 bwd_gbytes_per_s=f"{7 * q.numel() * item / bwd_ms / 1e6:.1f}",
@@ -1449,10 +1539,12 @@ def make_train_tree(np, tmp: Path) -> Path:
     return data
 
 
-def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: str, runs, cli_arch: str) -> None:
+def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: str, runs, cli_arch: str,
+                cli_size: int = 0, tag: str = "train") -> None:
     """``run_supervised`` of ``arch`` on the JPEG tree, once per
-    (compute type, epochs) of ``runs``, then the training CLI with
-    ``cli_arch`` for one epoch."""
+    (compute type, epochs[, image size]) of ``runs`` (224² unless given),
+    then the training CLI with ``cli_arch`` for one epoch (at ``cli_size``
+    when given)."""
     from ssip_tpu_torch.data.discovery import labeled_folder
     from ssip_tpu_torch.data.splits import split_dict
     from ssip_tpu_torch.models.registry import build_model
@@ -1465,11 +1557,12 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
     want_splits = {k: v.tolist() for k, v in splits.items()}
     steps_per_epoch = -(-len(splits["train"]) // TRAIN_BATCH)
 
-    for dtype, epochs in runs:
-        out = tmp / f"train_out_{arch}_{dtype}"
+    for dtype, epochs, *size in runs:
+        size = size[0] if size else TRAIN_SIZE
+        out = tmp / f"train_out_{arch}_{dtype}_{size}"
         cfg = TrainingConfig(
             strong_data_dir=data, output_dir=out, device="cuda", batch_size=TRAIN_BATCH, arch=arch,
-            image_size=TRAIN_SIZE, baseline_epochs=epochs, target_recall=0.9, compute_dtype=dtype,
+            image_size=size, baseline_epochs=epochs, target_recall=0.9, compute_dtype=dtype,
         )
         counts.reset()  # count only the main path's launches
         t0 = time.perf_counter()
@@ -1485,9 +1578,9 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
         losses = hist["train_loss"] + hist["val_loss"]
         if len(hist["train_loss"]) != epochs or not np.isfinite(losses).all():
             raise AssertionError(f"train {arch} {dtype}: history {hist}")
-        if payload["splits"] != want_splits or payload["arch"] != arch or payload["image_size"] != TRAIN_SIZE:
+        if payload["splits"] != want_splits or payload["arch"] != arch or payload["image_size"] != size:
             raise AssertionError(f"train {arch} {dtype}: splits or arch differ from the CPU split: {payload['splits']}")
-        model = build_model(arch, num_classes=2)
+        model = build_model(arch, num_classes=2, image_size=size)
         load_checkpoint(reg.baseline_checkpoint, model)
         steps = epochs * steps_per_epoch
         want = {"augment_images": steps}
@@ -1502,25 +1595,26 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
             raise AssertionError(f"train {arch} {dtype}: the training path launched {got}, expected {want}")
         header = reg.results_comparison_csv.read_text().splitlines()[0]
         thr = results["baseline_thresholded"]
-        say("train", arch=arch, dtype=dtype, images=2 * TRAIN_PER_CLASS, batch=TRAIN_BATCH, epochs=epochs,
+        say(tag, arch=arch, dtype=dtype, image_size=size, images=2 * TRAIN_PER_CLASS, batch=TRAIN_BATCH, epochs=epochs,
             seconds=f"{seconds:.2f}", train_loss=f"{hist['train_loss'][-1]:.4f}",
             val_loss=f"{hist['val_loss'][-1]:.4f}", test_f1=f"{thr['f1']:.4f}",
             threshold=f"{thr['threshold']:.4f}", csv_columns=len(header.split(",")) - 1,
             launches={k: v for k, v in launches.items() if v})
 
-    out = tmp / f"train_cli_out_{cli_arch}"
+    out = tmp / f"train_cli_out_{cli_arch}_{cli_size}"
     subprocess.run(
         [sys.executable, "-m", "ssip_tpu_torch.cli.supervised_training", "--strong-data-dir", str(data),
          "--device", "cuda", "--baseline-epochs", "1", "--target-recall", "0.9", "--arch", cli_arch,
-         "--output-dir", str(out)],
+         "--output-dir", str(out), *(["--image-size", str(cli_size)] if cli_size else [])],
         cwd=Path(__file__).resolve().parent, check=True, timeout=600,
     )
     payload = json.loads((out / "notes" / "training_history.json").read_text())
     hist = payload["baseline"]
-    if (len(hist["val_loss"]) != 1 or payload["arch"] != cli_arch
-            or not (out / "models" / "baseline_resnet18.pt").is_file()):
+    if (len(hist["val_loss"]) != 1 or payload["arch"] != cli_arch or payload["image_size"] != (cli_size or TRAIN_SIZE)
+            or not np.isfinite(hist["val_loss"]).all() or not (out / "models" / "baseline_resnet18.pt").is_file()):
         raise AssertionError(f"train cli {cli_arch}: history {hist}")
-    say("train", cli="supervised_training", arch=cli_arch, epochs=1, val_loss=f"{hist['val_loss'][0]:.4f}")
+    say(tag, cli="supervised_training", arch=cli_arch, image_size=payload["image_size"], epochs=1,
+        val_loss=f"{hist['val_loss'][0]:.4f}")
 
 
 def _seeded_state(torch, device, dtype, arch: str = "resnet18", kink_free: bool = False, remat: bool = False):
@@ -1578,7 +1672,7 @@ _VIT_PROFILE_CLASSES = (
 
 # the same for the int8 embed loop: every GEMM in it is a ``torch._int_mm``
 _INT8_PROFILE_CLASSES = (
-    ("int8 MLP kernel", ("qmlp_kernel",)),
+    ("int8 MLP kernels", QMLP_KERNELS),
     ("LayerNorm kernels", ("ln_fwd_kernel",)),
     ("attention kernels", ("attn_qkv",)),
     ("preprocess kernel (int8 form)", ("preproc_taps_kernel",)),
@@ -2152,6 +2246,10 @@ def main() -> int:
                     (("float32", TRAIN_EPOCHS), ("bfloat16", TRAIN_EPOCHS)), "resnet18")
         phase_train(torch, np, tmp, train_tree, counts, VIT_ARCH,
                     (("bfloat16", TRAIN_EPOCHS), ("float32", 1)), "vit_t16")
+        # vit_b16 past 224²: 257 and 1,025 tokens, where the attention kernels
+        # once refused sequences the reference trains
+        phase_train(torch, np, tmp, train_tree, counts, VIT_ARCH, VIT_LONG_RUNS, VIT_ARCH, cli_size=256,
+                    tag="vit_long")
         pool = make_unlabeled_pool(np, train_tree)
         phase_semi(torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"), "resnet18")
         phase_semi(torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")

@@ -11,17 +11,22 @@
 // head's rows are Dh apart instead of 3D), every key real, and keeps p and
 // ds in float32 for their products, which in float32 is the same function.
 //
-// Where each form runs (all on the tensor cores, mma.sync):
+// Where each form runs (all on the tensor cores, mma.sync), at any S:
 // - bfloat16, packed: attention_mma.cu (attn_qkv_fwd_mma_kernel;
-//   attn_qkv_bwd_rows_kernel + attn_qkv_bwd_keys_kernel), S <= 256: its
-//   forward holds a row's scores in registers.
-// - bfloat16, unpacked: attention_unpacked_mma.cu (attn_unpacked_fwd_kernel;
-//   attn_unpacked_bwd_rows_kernel + attn_unpacked_bwd_keys_kernel), S <= 1024.
+//   attn_qkv_bwd_rows_kernel + attn_qkv_bwd_keys_kernel), p and ds rounded
+//   to bf16 before their products.
+// - bfloat16, unpacked: up to 1024 tokens attention_unpacked_mma.cu
+//   (attn_unpacked_fwd_kernel; attn_unpacked_bwd_rows_kernel +
+//   attn_unpacked_bwd_keys_kernel), p and ds kept to float32 precision, as
+//   the JAX entry's kernels keep them; past 1024 the JAX entry computes
+//   attention_xla, which rounds p to the input type, so there the packed
+//   pair's kernels of attention_mma.cu run on q, k, v. 1024 is the JAX
+//   entries' _MAX_FUSED_SEQ (ssip_tpu/ops/attention.py:39).
 // - float32, both pairs: attention_f32_mma.cu (attn_f32_fwd_kernel;
-//   attn_f32_bwd_rows_kernel + attn_f32_bwd_keys_kernel, 3xTF32 products),
-//   S <= 1024. The backward reads the forward's output o and its per-row
-//   statistics, which the forward writes when given `stats`.
-// 1024 is the JAX entries' _MAX_FUSED_SEQ (ssip_tpu/ops/attention.py:39).
+//   attn_f32_bwd_rows_kernel + attn_f32_bwd_keys_kernel, 3xTF32 products).
+//   The backward reads the forward's output o and its per-row statistics,
+//   which the forward writes when given `stats`. Rounding p is a no-op in
+//   float32, so one form serves every S.
 
 #include <cstddef>
 #include <cstdint>
@@ -35,7 +40,8 @@ int attention_qkv_fwd_bf16(const void* qkv, void* o, int batch, int heads,
 int attention_qkv_bwd_bf16(const void* qkv, const void* d_o, void* dqkv,
                            void* stats, int batch, int heads, int s_len,
                            int dh, int kv, float scale, cudaStream_t stream);
-// The bfloat16 unpacked pair (attention_unpacked_mma.cu).
+// The bfloat16 unpacked pair up to 1024 tokens (attention_unpacked_mma.cu),
+// and past it (attention_mma.cu).
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                        int batch_heads, int s_len, int dh, float scale,
                        cudaStream_t stream);
@@ -43,6 +49,12 @@ int attention_bwd_bf16(const void* q, const void* k, const void* v,
                        const void* d_o, void* dq, void* dk, void* dv,
                        void* stats, int batch_heads, int s_len, int dh,
                        float scale, cudaStream_t stream);
+int attention_rounded_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                               int batch_heads, int s_len, int dh, float scale,
+                               cudaStream_t stream);
+int attention_rounded_bwd_bf16(const void* q, const void* k, const void* v, const void* d_o,
+                               void* dq, void* dk, void* dv, void* stats, int batch_heads,
+                               int s_len, int dh, float scale, cudaStream_t stream);
 // Both pairs in float32 (attention_f32_mma.cu).
 int attention_qkv_fwd_f32(const void* qkv, void* o, void* stats, int batch,
                           int heads, int s_len, int dh, int kv, float scale,
@@ -62,8 +74,9 @@ int attention_bwd_f32(const void* q, const void* k, const void* v,
 
 namespace {
 
-constexpr int kMaxSeq = 1024;           // the JAX entries' _MAX_FUSED_SEQ
-constexpr int kMaxPackedBf16Seq = 256;  // attention_mma.cu's forward: 8 chunks of 32 keys
+// the JAX entries' _MAX_FUSED_SEQ: the unpacked bf16 pair keeps p in
+// float32 up to it and rounds it past it
+constexpr int kMaxFusedSeq = 1024;
 
 }  // namespace
 
@@ -71,8 +84,7 @@ constexpr int kMaxPackedBf16Seq = 256;  // attention_mma.cu's forward: 8 chunks 
 // (PyTorch's current stream) on the caller's current device, do not
 // synchronise, allocate nothing, and return the first CUDA error of the
 // set-up or the launch (0 on success). `kv` is the number of real keys
-// (1 <= kv <= s_len), `dh` the head width (32 or 64); s_len is at most 1024,
-// 256 for the packed pair in bfloat16.
+// (1 <= kv <= s_len), `dh` the head width (32 or 64); any s_len.
 //
 // Float32: the forward writes, when `stats` is not null, each query row's
 // softmax statistics to the caller's float32 [B·H][2][round16(s_len)]; the
@@ -86,9 +98,7 @@ extern "C" int ssip_attention_qkv_fwd(const void* qkv, void* o, void* stats,
                                       int s_len, int dh, int kv, float scale,
                                       void* stream) {
   if (batch == 0 || heads == 0 || s_len == 0) return 0;
-  if (s_len > (is_bf16 ? kMaxPackedBf16Seq : kMaxSeq) || kv < 1 || kv > s_len) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (kv < 1 || kv > s_len) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (stats != nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -106,10 +116,7 @@ extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
                                       int s_len, int dh, int kv, float scale,
                                       void* stream) {
   if (batch == 0 || heads == 0 || s_len == 0) return 0;
-  if (s_len > (is_bf16 ? kMaxPackedBf16Seq : kMaxSeq) || kv < 1 || kv > s_len ||
-      scratch == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (kv < 1 || kv > s_len || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return attention_qkv_bwd_bf16(qkv, d_o, dqkv, scratch, batch, heads, s_len,
@@ -121,17 +128,18 @@ extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
 }
 
 // The unpacked pair: q, k, v (and dO, dq, dk, dv, o) contiguous
-// [batch_heads, s_len, dh], every key real.
+// [batch_heads, s_len, dh], every key real. In bfloat16 past kMaxFusedSeq
+// the rounded kernels run.
 
 extern "C" int ssip_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* stats, int is_bf16,
                                   int batch_heads, int s_len, int dh,
                                   float scale, void* stream) {
   if (batch_heads == 0 || s_len == 0) return 0;
-  if (s_len > kMaxSeq) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     if (stats != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (s_len > kMaxFusedSeq) return attention_rounded_fwd_bf16(q, k, v, o, batch_heads, s_len, dh, scale, s);
     return attention_fwd_bf16(q, k, v, o, batch_heads, s_len, dh, scale, s);
   }
   return attention_fwd_f32(q, k, v, o, stats, batch_heads, s_len, dh, scale, s);
@@ -144,9 +152,12 @@ extern "C" int ssip_attention_bwd(const void* q, const void* k, const void* v,
                                   int s_len, int dh, float scale,
                                   void* stream) {
   if (batch_heads == 0 || s_len == 0) return 0;
-  if (s_len > kMaxSeq || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
+    if (s_len > kMaxFusedSeq) {
+      return attention_rounded_bwd_bf16(q, k, v, d_o, dq, dk, dv, scratch, batch_heads, s_len, dh, scale, s);
+    }
     return attention_bwd_bf16(q, k, v, d_o, dq, dk, dv, scratch, batch_heads, s_len, dh, scale, s);
   }
   if (o == nullptr || stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);

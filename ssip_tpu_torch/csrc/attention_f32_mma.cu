@@ -120,9 +120,11 @@
 // GFLOP, three TF32 products each, 0.0925 ms at 495 TFLOP/s. Backward: 10
 // B·H·S²·Dh = 38.15 GFLOP, 0.2312 ms as 3xTF32 (its bytes 0.162 ms).
 //
-// Shapes: Dh 32 or 64, 1 <= kv <= S <= 1024 (the JAX entries'
-// _MAX_FUSED_SEQ; attention.cu checks). Every pointer 16-byte aligned (the
-// wrapper checks) and every row pitch a multiple of 4 floats.
+// Shapes: Dh 32 or 64, 1 <= kv <= S, any S: every array in shared memory
+// is a fixed tile, each row offset is formed in size_t, the statistics and
+// delta are [B·H][S16] per part and the grid is checked against INT_MAX
+// (blocks_for). Every pointer 16-byte aligned (the wrapper checks) and every
+// row pitch a multiple of 4 floats.
 
 #include <climits>
 #include <cmath>
@@ -825,7 +827,7 @@ int info(int which, int* out) {
 }  // namespace
 
 // Called by the C entries of attention.cu for float32 tensors, which have
-// checked 1 <= kv <= s_len <= 1024. `stats` is [B·H][2][round16(s_len)]
+// checked 1 <= kv <= s_len. `stats` is [B·H][2][round16(s_len)]
 // float32: written by the forward when not null, read by the backward;
 // `delta` is the backward's scratch of B·H·round16(s_len) floats.
 

@@ -67,8 +67,9 @@
 // 3 %, and 32- or 128-row tiles were slower at 197 tokens (python -m
 // ssip_tpu_torch.kernels.attention_variants; PERF.md).
 //
-// Shapes: Dh 32 or 64, 1 <= S <= 1024 (the JAX entry's _MAX_FUSED_SEQ),
-// every pointer 16-byte aligned (the wrapper checks).
+// Shapes: Dh 32 or 64, 1 <= S <= 1024 (the JAX entry's _MAX_FUSED_SEQ:
+// past it the JAX entry rounds p, and attention.cu runs attention_mma.cu's
+// kernels instead), every pointer 16-byte aligned (the wrapper checks).
 
 #include <climits>
 #include <cmath>
@@ -118,37 +119,6 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
     const bool live = r < valid;
     const bf16* g = live ? src + static_cast<size_t>(r) * DH + c * 8 : src;
     cp_async16(dst + swz<DH>(r, c), g, live);
-  }
-}
-
-// A warp's 16 rows of a staged [rows, DH] matrix as A fragments.
-template <int DH>
-__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4],
-                                       const bf16* base, int row0, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) ldsm_x4(a[ks], addr_a<DH>(base, row0, ks, lane));
-}
-
-// acc[n] = the warp's 16 rows (A fragments `a`) times rows b_row0 + 8n ..
-// of the staged `b` transposed: a 16 x 8·NT tile of dot products over DH.
-// Pairs of n tiles at or past `b_limit` are skipped and stay 0.
-template <int DH, int NT>
-__device__ __forceinline__ void frag_dot(float (&acc)[NT][4],
-                                         const uint32_t (&a)[DH / 16][4],
-                                         const bf16* b, int b_row0,
-                                         int b_limit, int lane) {
-  zero(acc);
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      if (b_row0 + 16 * p < b_limit) {  // the same for the whole warp
-        uint32_t bf[4];
-        ldsm_x4(bf, addr_b<DH>(b, b_row0 + 16 * p, ks, lane));
-        mma_bf16(acc[2 * p], a[ks], bf[0], bf[1]);
-        mma_bf16(acc[2 * p + 1], a[ks], bf[2], bf[3]);
-      }
-    }
   }
 }
 

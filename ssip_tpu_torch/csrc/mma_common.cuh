@@ -132,6 +132,37 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
   for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 }
 
+// A warp's 16 rows of a staged [rows, DH] matrix as A fragments.
+template <int DH>
+__device__ __forceinline__ void load_a(uint32_t (&a)[DH / 16][4],
+                                       const bf16* base, int row0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) ldsm_x4(a[ks], addr_a<DH>(base, row0, ks, lane));
+}
+
+// acc[n] = the warp's 16 rows (A fragments `a`) times rows b_row0 + 8n ..
+// of the staged `b` transposed: a 16 x 8·NT tile of dot products over DH.
+// Pairs of n tiles at or past `b_limit` are skipped and stay 0.
+template <int DH, int NT>
+__device__ __forceinline__ void frag_dot(float (&acc)[NT][4],
+                                         const uint32_t (&a)[DH / 16][4],
+                                         const bf16* b, int b_row0,
+                                         int b_limit, int lane) {
+  zero(acc);
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      if (b_row0 + 16 * p < b_limit) {  // the same for the whole warp
+        uint32_t bf[4];
+        ldsm_x4(bf, addr_b<DH>(b, b_row0 + 16 * p, ks, lane));
+        mma_bf16(acc[2 * p], a[ks], bf[0], bf[1]);
+        mma_bf16(acc[2 * p + 1], a[ks], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
 // Row maxima and row sums of this thread's part of a 16 x 8·NT accumulator
 // tile (row g: elements 0 and 1 of each n tile; row g+8: 2 and 3), by
 // pairwise trees rather than one chain. NT is a power of two.

@@ -1,6 +1,8 @@
 """Time variants of ``csrc/attention_unpacked_mma.cu`` (the unpacked bf16
-attention pair) or, with ``--f32``, of ``csrc/attention_f32_mma.cu`` (the
-float32 forward and backward of both pairs) against each other on one card:
+attention pair), with ``--f32`` of ``csrc/attention_f32_mma.cu`` (the
+float32 forward and backward of both pairs) or, with ``--rounded``, of
+``csrc/attention_mma.cu`` (the bf16 pair that rounds p, run on q, k, v as the
+unpacked entry runs it past 1024 tokens) against each other on one card:
 what PERF.md's design notes for those kernels rest on.
 
 Each variant is a copy of the source with some of its lines replaced (a
@@ -16,6 +18,7 @@ timed from the forward's output and row statistics, as autograd runs it).
 
     python -m ssip_tpu_torch.kernels.attention_variants          # one CUDA card
     python -m ssip_tpu_torch.kernels.attention_variants --f32
+    python -m ssip_tpu_torch.kernels.attention_variants --rounded
 """
 
 from __future__ import annotations
@@ -30,7 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from ssip_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc
-from ssip_tpu_torch.ops.attention import _scale, attention_bwd_plain, attention_unrounded_plain
+from ssip_tpu_torch.ops.attention import (
+    _scale, attention_bwd_plain, attention_plain, attention_qkv_plain, attention_rounded_bwd_plain,
+    attention_unrounded_plain,
+)
 
 SOURCE = CSRC_DIR / "attention_unpacked_mma.cu"
 VARIANTS = {
@@ -58,6 +64,29 @@ extern "C" int variant_bwd(const void* q, const void* k, const void* v, const vo
 # (batch, heads, tokens, head width): chip_smoke.py's bf16 [attn4] shapes
 SHAPES = ((128, 12, 197, 64), (16, 12, 577, 64), (4, 12, 1024, 64), (2, 4, 1024, 32))
 TIMED = 20
+
+ROUNDED_SOURCE = CSRC_DIR / "attention_mma.cu"
+# the streamed forward's designs: scores cached in shared memory while they
+# fit (the kernel), or always three sweeps over K; its tiles; and the packed
+# entry streamed at 197 tokens too, where it runs the whole-head kernel
+ROUNDED_VARIANTS = {
+    "kernel": [],
+    "streamed at any length": [("constexpr int kWholeMaxSeq = 256;", "constexpr int kWholeMaxSeq = 0;")],
+    "three sweeps": [("constexpr int kCacheMaxKeys = 1 << 20;", "constexpr int kCacheMaxKeys = 0;")],
+    "128-key tiles": [("constexpr int kKeyTile = 64;", "constexpr int kKeyTile = 128;")],
+    "128-key tiles, 3 blocks an SM": [("constexpr int kKeyTile = 64;", "constexpr int kKeyTile = 128;"),
+                                      ("constexpr int kFwdBlocksPerSm = 4;", "constexpr int kFwdBlocksPerSm = 3;")],
+}
+ROUNDED_ENTRIES = ENTRIES.replace("attention_fwd_bf16", "attention_rounded_fwd_bf16").replace(
+    "attention_bwd_bf16", "attention_rounded_bwd_bf16") + r'''
+extern "C" int variant_qkv_fwd(const void* qkv, void* o, int batch, int heads, int s, int dh, int kv,
+                               float scale, void* stream) {
+  return attention_qkv_fwd_bf16(qkv, o, batch, heads, s, dh, kv, scale, static_cast<cudaStream_t>(stream));
+}
+'''
+PACKED_SHAPE = (128, 197, 12, 64)  # the packed entry's main path: batch, tokens, heads, head width
+# vit_b16's heads at 224², 384², 512² and 576², and 1024 tokens
+ROUNDED_SHAPES = ((128, 12, 197, 64), (16, 12, 577, 64), (4, 12, 1024, 64), (4, 12, 1025, 64), (2, 12, 1297, 64))
 
 F32_SOURCE = CSRC_DIR / "attention_f32_mma.cu"
 F32_VARIANTS = {
@@ -127,6 +156,9 @@ def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES, f32: b
         handle.variant_fwd.argtypes = [p] * (5 if f32 else 4) + [i, i, i, f, p]
         handle.variant_bwd.argtypes = [p] * (10 if f32 else 8) + [i, i, i, f, p]
         entries[name] = (handle.variant_fwd, handle.variant_bwd)
+        if "variant_qkv_fwd" in entries_src:
+            handle.variant_qkv_fwd.argtypes = [p, p, i, i, i, i, i, f, p]
+            entries[name] += (handle.variant_qkv_fwd,)
     return entries
 
 
@@ -242,21 +274,55 @@ def main_f32() -> None:
         torch.cuda.empty_cache()
 
 
-def main() -> None:
+def main(rounded: bool = False) -> None:
+    """The bf16 kernels' variants, checked at [4, 12, 197, 64] and then
+    timed at each shape beside SDPA. The unpacked pair's are held to one bf16
+    step (output and gradients, element by element); the rounded pair's to
+    one step of ``attention_plain`` and its gradients to 1e-2 of each one's
+    largest entry, the packed pair's gates."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true float32
-    entries = build_variants()
+    entries = (build_variants(ROUNDED_SOURCE, ROUNDED_VARIANTS, ROUNDED_ENTRIES) if rounded
+               else build_variants())
     rng = np.random.default_rng(0)
     operands = [torch.from_numpy(rng.standard_normal((4, 12, 197, 64)).astype(np.float32)).cuda().bfloat16()
                 for _ in range(4)]
-    refs = (attention_unrounded_plain(*operands[:3]), *attention_bwd_plain(*operands))
+    if rounded:
+        refs = (attention_plain(*operands[:3]), *attention_rounded_bwd_plain(*operands))
+    else:
+        refs = (attention_unrounded_plain(*operands[:3]), *attention_bwd_plain(*operands))
     for name, entry in entries.items():
         fwd, bwd, outs = calls(entry, *operands)
         fwd()
         bwd()
         torch.cuda.synchronize()
-        if not all(within_one_step(got, ref) for got, ref in zip(outs, refs)):
-            raise AssertionError(f"variant {name!r} is not within one bf16 step of the plain versions")
-    for shape in SHAPES:
+        held = (within_one_step(outs[0], refs[0]) and all(
+            ((g.float() - r.float()).abs().max() <= 1e-2 * r.float().abs().max()).item()
+            for g, r in zip(outs[1:], refs[1:]))) if rounded else all(
+            within_one_step(got, ref) for got, ref in zip(outs, refs))
+        if not held:
+            raise AssertionError(f"variant {name!r} is not within the bf16 gates of the plain versions")
+    if rounded:  # the packed entry at its main path's shape
+        b, s, heads, dh = PACKED_SHAPE
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * heads * dh)).astype(np.float32)).cuda().bfloat16()
+        o = torch.empty((b, s, heads * dh), dtype=torch.bfloat16, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def packed(entry):
+            if entry[2](qkv.data_ptr(), o.data_ptr(), b, heads, s, dh, s, _scale(dh), stream):
+                raise RuntimeError("variant packed forward launch failed")
+
+        ref = attention_qkv_plain(qkv, heads)
+        for name, entry in entries.items():
+            packed(entry)
+            if not within_one_step(o, ref):
+                raise AssertionError(f"variant {name!r}: the packed forward is not within one bf16 step")
+        packed_ms = {name: [] for name in entries}
+        for name in [*entries, *reversed(entries)]:
+            packed_ms[name].append(median_ms(lambda: packed(entries[name])))
+        for name, ms in packed_ms.items():
+            print(f"[variants] packed_shape={b}x{s}x{3 * heads * dh} variant={name.replace(' ', '_')} "
+                  f"fwd_ms={min(ms):.4f}", flush=True)
+    for shape in ROUNDED_SHAPES if rounded else SHAPES:
         q, k, v, d_o = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().bfloat16()
                         for _ in range(4))
         times = {name: ([], []) for name in entries}
@@ -275,4 +341,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main_f32() if "--f32" in sys.argv[1:] else main()
+    main_f32() if "--f32" in sys.argv[1:] else main(rounded="--rounded" in sys.argv[1:])

@@ -7,10 +7,11 @@ Counterpart of ``ssip_tpu/ops/attention.py``: ``attention_plain`` after
 entry of the same name (``:414-442``) with its custom VJP (``:369-390``) as
 a ``torch.autograd.Function`` whose forward and backward launch the kernels
 that replace ``_attn_qkv_kernel`` and ``_attn_qkv_bwd_kernel``: for bfloat16
-those of ``csrc/attention_mma.cu`` (``mma.sync`` on bf16 operands, staged by
-``cp.async``); for float32 those of ``csrc/attention_f32_mma.cu`` (3×TF32
-products on ``mma.sync``, keys or queries streamed in tiles of 64, an online
-softmax in the forward; the backward two launches).
+those of ``csrc/attention_mma.cu`` (float32 FMA scores and ``mma.sync`` on
+bf16 operands, keys or queries streamed in tiles of 64 by ``cp.async``); for
+float32 those of ``csrc/attention_f32_mma.cu`` (3×TF32 products on
+``mma.sync``, keys or queries streamed in tiles of 64, an online softmax in
+the forward; the backward two launches).
 
 ``qkv`` is [B, S, 3·D] with columns ordered [3, H, Dh] (the fused Dense of
 ``models/vit.py``); the result is [B, S, D]. Per image and head:
@@ -38,9 +39,14 @@ as bf16 hi/lo pairs; the backward is two launches joined by a float32
 scratch this module allocates. For float32 its kernels are the packed
 pair's, ``csrc/attention_f32_mma.cu``.
 
-Sequences: up to 1024 tokens, the JAX entries' ``_MAX_FUSED_SEQ``, except
-the packed pair in bfloat16, whose forward holds a row's scores in
-registers: 256 (``MAX_PACKED_SEQ``, ``MAX_UNPACKED_SEQ``).
+Sequences: any length in both types. Past 1024 tokens (``_MAX_FUSED_SEQ``,
+the JAX entries' VMEM limit for their kernels) the JAX entry of
+``fused_attention`` computes ``attention_xla``, which rounds ``p`` to the
+input type: there this entry's plain versions are ``attention_plain`` and
+``attention_rounded_bwd_plain``, and in bfloat16 its kernels are the packed
+pair's, run on q, k, v (``csrc/attention_mma.cu``). The JAX packed entry
+computes one function at every length (its kernel or ``attention_qkv_xla``),
+and so does the port's.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version (autograd differentiates it); a CUDA tensor launches the
@@ -57,16 +63,9 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_WIDTHS = (32, 64)
-_MAX_FUSED_SEQ = 1024  # the JAX entries' longest sequence for their kernels
-# the longest sequence of each pair's kernels by type: every kernel streams
-# its keys but the packed bf16 forward (csrc/attention_mma.cu), which holds 8
-# chunks of 32 keys a lane
-MAX_PACKED_SEQ = {torch.bfloat16: 256, torch.float32: _MAX_FUSED_SEQ}
-MAX_UNPACKED_SEQ = {torch.bfloat16: _MAX_FUSED_SEQ, torch.float32: _MAX_FUSED_SEQ}
-_SEQ_LIMIT_ITEM = (
-    "ROADMAP.md, Queue 2 #5a: sequences up to 1024 in the attention kernels, by tiling the "
-    "keys in two passes"
-)
+# the JAX entries' longest sequence for their kernels: past it the JAX
+# ``fused_attention`` computes ``attention_xla``, which rounds p (csrc/attention.cu's kMaxFusedSeq)
+_MAX_FUSED_SEQ = 1024
 
 
 @lru_cache(maxsize=None)
@@ -91,20 +90,35 @@ def attention_unrounded_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
     return torch.matmul(torch.softmax(s, dim=-1), v.to(f32)).to(q.dtype)
 
 
-def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
-    """(dq, dk, dv) as ``_attn_bwd_kernel`` computes them, written out
-    (``ssip_tpu/ops/attention.py:122-148``): ``p`` recomputed, every product
-    in float32, one rounding to the input type at the end."""
+def _bwd_written_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor, rounded: bool):
     f32 = torch.float32
     qf, kf, vf, do = (t.to(f32) for t in (q, k, v, d_o))
     scale = _scale(q.shape[-1])
     p = torch.softmax(torch.matmul(qf, kf.transpose(-1, -2)) * scale, dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), do)
+    pc = p.to(q.dtype).to(f32) if rounded else p
+    dv = torch.matmul(pc.transpose(-1, -2), do)
     dp = torch.matmul(do, vf.transpose(-1, -2))
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dsc = ds.to(q.dtype).to(f32) if rounded else ds
+    dq = torch.matmul(dsc, kf) * scale
+    dk = torch.matmul(dsc.transpose(-1, -2), qf) * scale
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
+    """(dq, dk, dv) as ``_attn_bwd_kernel`` computes them, written out
+    (``ssip_tpu/ops/attention.py:122-148``): ``p`` recomputed, every product
+    in float32, one rounding to the input type at the end."""
+    return _bwd_written_out(q, k, v, d_o, rounded=False)
+
+
+def attention_rounded_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.Tensor):
+    """(dq, dk, dv) as ``_attn_qkv_bwd_kernel`` computes them
+    (``ssip_tpu/ops/attention.py:256-299``), on q, k, v [B, H, S, Dh] given
+    apart: ``attention_bwd_plain`` with ``p`` and ``ds`` rounded to the
+    input type before their products (``pc``, ``dsc``). The gradient of
+    ``attention_plain``; what the card's rounded kernels are compared with."""
+    return _bwd_written_out(q, k, v, d_o, rounded=True)
 
 
 def _unpack(qkv: torch.Tensor, num_heads: int):
@@ -132,23 +146,13 @@ def attention_qkv_bwd_plain(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int
     b, s, three_d = qkv.shape
     d = three_d // 3
     kv = kv_len if kv_len and kv_len < s else s
-    f32 = torch.float32
-    q, k, v = (t.to(f32) for t in _unpack(qkv, num_heads))
-    k, v = k[:, :, :kv], v[:, :, :kv]
-    do = d_o.reshape(b, s, num_heads, d // num_heads).permute(0, 2, 1, 3).to(f32)
-    scale = _scale(d // num_heads)
-    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
-    pc = p.to(qkv.dtype).to(f32)
-    dv = torch.matmul(pc.transpose(-1, -2), do)
-    dp = torch.matmul(do, v.transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dsc = ds.to(qkv.dtype).to(f32)
-    dq = torch.matmul(dsc, k) * scale
-    dk = torch.matmul(dsc.transpose(-1, -2), q) * scale
+    q, k, v = _unpack(qkv, num_heads)
+    do = d_o.reshape(b, s, num_heads, d // num_heads).permute(0, 2, 1, 3)
+    dq, dk, dv = _bwd_written_out(q, k[:, :, :kv], v[:, :, :kv], do, rounded=True)
     out = torch.zeros((b, s, 3, num_heads, d // num_heads), dtype=qkv.dtype, device=qkv.device)
-    out[:, :, 0] = dq.permute(0, 2, 1, 3).to(qkv.dtype)
-    out[:, :kv, 1] = dk.permute(0, 2, 1, 3).to(qkv.dtype)
-    out[:, :kv, 2] = dv.permute(0, 2, 1, 3).to(qkv.dtype)
+    out[:, :, 0] = dq.permute(0, 2, 1, 3)
+    out[:, :kv, 1] = dk.permute(0, 2, 1, 3)
+    out[:, :kv, 2] = dv.permute(0, 2, 1, 3)
     return out.view(b, s, three_d)
 
 
@@ -197,18 +201,12 @@ def _geometry(qkv: torch.Tensor, num_heads: int, kv_len: int):
     return b, s, d, d // num_heads, (kv_len if 0 < kv_len < s else s)
 
 
-def _check_cuda_operands(qkv: torch.Tensor, s: int, dh: int, limits: dict) -> None:
-    """Raise on what the kernels do not take; ``limits`` is the longest
-    sequence by type."""
+def _check_cuda_operands(qkv: torch.Tensor, dh: int) -> None:
+    """Raise on what the kernels do not take (any sequence length is taken)."""
     if qkv.dtype not in _DTYPES:
         raise ValueError(f"attention kernel takes float32 or bfloat16, got {qkv.dtype}")
     if dh not in _HEAD_WIDTHS:
         raise ValueError(f"attention kernel takes head widths {_HEAD_WIDTHS}, got {dh}")
-    limit = limits[qkv.dtype]
-    if s > limit:
-        why = ("the JAX entry leaves its kernel there too (_MAX_FUSED_SEQ)" if limit == _MAX_FUSED_SEQ
-               else f"longer ones are not ported to ssip_tpu_torch yet ({_SEQ_LIMIT_ITEM})")
-        raise ValueError(f"attention kernel takes sequences up to {limit} in {qkv.dtype}, got {s}: {why}")
     if not qkv.is_contiguous():
         raise ValueError("attention kernel needs a contiguous packed qkv")
 
@@ -234,7 +232,7 @@ def _launch_fwd(qkv: torch.Tensor, num_heads: int, kv_len: int, with_stats: bool
     """(o, stats): the forward kernel's output and, for float32 when
     ``with_stats``, each query row's softmax statistics, else None."""
     b, s, d, dh, kv = _geometry(qkv, num_heads, kv_len)
-    _check_cuda_operands(qkv, s, dh, MAX_PACKED_SEQ)
+    _check_cuda_operands(qkv, dh)
     _check_aligned(qkv)
     out = torch.empty((b, s, d), dtype=qkv.dtype, device=qkv.device)
     want = with_stats and qkv.dtype == torch.float32
@@ -290,7 +288,7 @@ def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_l
         return attention_qkv_bwd_plain(qkv, d_o, num_heads, kv_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda tensors, got {qkv.device}")
-    _check_cuda_operands(qkv, s, dh, MAX_PACKED_SEQ)
+    _check_cuda_operands(qkv, dh)
     if not d_o.is_contiguous():
         raise ValueError("attention kernel needs a contiguous dO")
     _check_aligned(qkv, d_o)
@@ -376,8 +374,19 @@ def _check_unpacked_cuda(*operands: torch.Tensor) -> None:
         raise ValueError(f"attention runs on cpu or cuda tensors, got {q.device}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError("attention kernel needs contiguous q, k, v and dO")
-    _check_cuda_operands(q, q.shape[2], q.shape[3], MAX_UNPACKED_SEQ)
+    _check_cuda_operands(q, q.shape[3])
     _check_aligned(*operands)
+
+
+def _rounds_p(q: torch.Tensor) -> bool:
+    """Whether ``fused_attention``'s function at q's length rounds ``p``
+    (the JAX entry's ``attention_xla`` past ``_MAX_FUSED_SEQ``)."""
+    return q.shape[2] > _MAX_FUSED_SEQ
+
+
+def _unpacked_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fused_attention``'s plain version at q's length."""
+    return (attention_plain if _rounds_p(q) else attention_unrounded_plain)(q, k, v)
 
 
 def _launch_unpacked_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, with_stats: bool = False):
@@ -405,7 +414,7 @@ def attention_residuals(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     ``attention_qkv_residuals`` gives them for the packed pair."""
     _check_unpacked(q, k, v)
     if q.device.type == "cpu":
-        return attention_unrounded_plain(q, k, v), None
+        return _unpacked_plain(q, k, v), None
     return _launch_unpacked_fwd(q, k, v, with_stats=True)
 
 
@@ -418,7 +427,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d_o: torch.
     call: two kernels, dq by query rows, then dk and dv by key rows)."""
     _check_unpacked(q, k, v, d_o)
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, d_o)
+        return (attention_rounded_bwd_plain if _rounds_p(q) else attention_bwd_plain)(q, k, v, d_o)
     _check_unpacked_cuda(q, k, v, d_o)
     b, h, s, dh = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
@@ -465,13 +474,14 @@ class _UnpackedAttentionKernel(torch.autograd.Function):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Multi-head attention on q, k, v [B, H, S, Dh] → [B, H, S, Dh]:
-    float32 scores and softmax, float32 probabilities times ``v``, one
-    rounding to the input type. ``fused_attention.launches`` counts
+    float32 scores and softmax, float32 probabilities times ``v`` (past
+    1024 tokens rounded to the input type first, as the JAX entry computes
+    there), one rounding to the input type. ``fused_attention.launches`` counts
     forward-kernel launches (CPU calls and empty inputs launch nothing and
     count nothing)."""
     _check_unpacked(q, k, v)
     if q.device.type == "cpu":
-        return attention_unrounded_plain(q, k, v)
+        return _unpacked_plain(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _UnpackedAttentionKernel.apply(q, k, v)
     return _launch_unpacked_fwd(q, k, v)[0]  # nothing to differentiate: no autograd node to set up

@@ -15,8 +15,11 @@ the input type first. In float32 that is the same function; in bfloat16 the
 port is held to the Pallas kernels (interpret mode) at the tolerances above,
 and to ``attention_xla`` within two bfloat16 steps of the value or 2⁻⁸ of the
 tensor's largest entry, whichever is larger: rounding 197 probabilities to 8
-bits moves a sum of them by up to that. One case has 577 tokens, past the
-packed bfloat16 kernels' 256. The last tests emulate the kernels'
+bits moves a sum of them by up to that. Cases run past 256 tokens (257, 577)
+and past the JAX entries' 1024 (1025), where the JAX packed entry computes
+``attention_qkv_xla`` and its ``fused_attention`` computes ``attention_xla``,
+which rounds ``p``: the port's ``fused_attention`` computes that function
+there too. The last tests emulate the kernels'
 arithmetic on the CPU: the bfloat16 kernels' (p and ds as bf16 hi/lo pairs)
 and the float32 kernels' (3×TF32 products, forward and backward), showing
 why each splits what it splits, and check the float32 kernels' fragment
@@ -33,9 +36,9 @@ from ssip_tpu.ops.attention import attention_qkv_xla, attention_xla
 from ssip_tpu.ops.attention import fused_attention as jax_fused_attention
 from ssip_tpu.ops.attention import fused_attention_qkv as jax_fused_attention_qkv
 from ssip_tpu_torch.ops.attention import (
-    MAX_PACKED_SEQ, MAX_UNPACKED_SEQ, attention_bwd, attention_bwd_plain, attention_plain, attention_qkv_bwd,
-    attention_qkv_bwd_plain, attention_qkv_plain, attention_residuals, attention_unrounded_plain, fused_attention,
-    fused_attention_qkv,
+    attention_bwd, attention_bwd_plain, attention_plain, attention_qkv_bwd, attention_qkv_bwd_plain,
+    attention_qkv_plain, attention_residuals, attention_rounded_bwd_plain, attention_unrounded_plain,
+    fused_attention, fused_attention_qkv,
 )
 
 torch.set_num_threads(2)
@@ -45,6 +48,10 @@ CASES = [
     (2, 10, 2, 8, 0, "float32"), (2, 17, 3, 16, 13, "float32"), (1, 50, 2, 64, 37, "float32"),
     (2, 208, 1, 32, 197, "float32"), (3, 16, 4, 8, 16, "float32"),
     (2, 17, 3, 16, 0, "bfloat16"), (2, 48, 2, 64, 41, "bfloat16"),
+    # past the packed bf16 kernels' former 256 (interpret mode), and past the
+    # JAX entry's 1024, where it computes attention_qkv_xla
+    (1, 257, 2, 32, 250, "float32"), (2, 257, 2, 32, 197, "bfloat16"),
+    (1, 1025, 2, 32, 1000, "float32"), (1, 1025, 2, 32, 1001, "bfloat16"),
 ]
 
 
@@ -87,8 +94,14 @@ def test_forward_matches_pallas_interpret_and_xla(case):
     (jqkv, _), (tqkv, _) = _inputs(case)
     got = fused_attention_qkv(tqkv, heads, kv_len)
     assert got.dtype == tqkv.dtype and got.shape == (*tqkv.shape[:2], tqkv.shape[2] // 3)
-    _assert_close(got, jax_fused_attention_qkv(jqkv, heads, kv_len=kv_len, interpret=True), dtype, "interpret")
-    _assert_close(got, attention_qkv_xla(jqkv, heads, kv_len=kv_len), dtype, "xla")
+    # Past 1024 tokens the JAX entry is attention_qkv_xla itself. Over a
+    # thousand keys each output is a sum of a thousand bf16(p) products, and
+    # the p that XLA's exp and torch's round apart move it by one step of the
+    # larger value (7 of 65,600 outputs at 1025 tokens lie a step of the
+    # smaller past it): held as the file holds the port to attention_xla.
+    close = _assert_close_to_rounded_p if s > 1024 else _assert_close
+    close(got, jax_fused_attention_qkv(jqkv, heads, kv_len=kv_len, interpret=True), dtype, "interpret")
+    close(got, attention_qkv_xla(jqkv, heads, kv_len=kv_len), dtype, "xla")
     assert torch.equal(got, attention_qkv_plain(tqkv, heads, kv_len))  # a CPU tensor takes the plain version
 
 
@@ -147,9 +160,9 @@ def test_wrapper_raises_on_wrong_operands():
         fused_attention_qkv(torch.zeros((2, 4, 24)), 2, -1)
     with pytest.raises(ValueError, match="expects dO"):
         attention_qkv_bwd(torch.zeros((2, 4, 24)), torch.zeros((2, 4, 24)), 2)
-    # the plain version has no sequence limit; the kernels' are checked on the card
-    long = torch.zeros((1, MAX_PACKED_SEQ[torch.float32] + 8, 3 * 8))
-    assert fused_attention_qkv(long, 1).shape == (1, MAX_PACKED_SEQ[torch.float32] + 8, 8)
+    # no sequence limit, past the JAX entry's 1024 too
+    long = torch.zeros((1, 1032, 3 * 8))
+    assert fused_attention_qkv(long, 1).shape == (1, 1032, 8)
 
 
 # (batch, heads, tokens, head width, type)
@@ -224,9 +237,31 @@ def test_unpacked_wrapper_raises_on_wrong_operands():
         fused_attention(q, q, q.to(torch.bfloat16))
     with pytest.raises(ValueError, match="one shape, type and device"):
         attention_bwd(q, q, q, q[..., :4])
-    # the plain version has no sequence limit; the kernels' are checked on the card
-    long = torch.zeros((1, 1, MAX_UNPACKED_SEQ[torch.float32] + 8, 8))
+    # no sequence limit, past the JAX entry's 1024 too
+    long = torch.zeros((1, 1, 1032, 8))
     assert fused_attention(long, long, long).shape == long.shape
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unpacked_past_1024_matches_attention_xla(dtype):
+    """Past 1024 tokens the JAX ``fused_attention`` computes ``attention_xla``
+    (``p`` rounded to the input type) even when asked for its kernel, and so
+    does the port's: forward within one step of it, gradients (autograd and
+    written out) within 1e-2 of each tensor's max of ``jax.vjp``'s."""
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _unpacked_inputs((1, 2, 1025, 32, dtype), seed=3)
+    want = jax_fused_attention(jq, jk, jv, interpret=True)
+    got = fused_attention(tq, tk, tv)
+    _assert_close_to_rounded_p(got, want, dtype, "forward")  # as the packed entry past 1024
+    assert torch.equal(got, attention_plain(tq, tk, tv))  # the rounded form: a CPU tensor takes its plain version
+    assert torch.equal(attention_residuals(tq, tk, tv)[0], got)
+    _, vjp = jax.vjp(lambda *a: jax_fused_attention(*a, interpret=True), jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    autograd = torch.autograd.grad(fused_attention(*leaves), leaves, tdo)
+    written_out = attention_bwd(tq, tk, tv, tdo)
+    assert all(torch.equal(a, b) for a, b in zip(written_out, attention_rounded_bwd_plain(tq, tk, tv, tdo)))
+    for name, g, w_out, w in zip("qkv", autograd, written_out, vjp(jdo)):
+        _assert_grad_close(g, w, dtype, f"autograd d{name}")
+        _assert_grad_close(w_out, w, dtype, f"written out d{name}")
 
 
 def _outside_one_step(got: torch.Tensor, ref: torch.Tensor) -> int:

@@ -5,7 +5,11 @@ package's ``quantize_vit_extractor`` on the seeded ``vit_t16`` and carried
 into the port) go through ``ssip_tpu.ops.qmlp``'s ``quantized_mlp_xla`` and
 ``quantized_mlp(interpret=True)`` (the Pallas kernel ``_qmlp_kernel`` in
 interpret mode) and through the port's ``quantized_mlp_plain``, which is what
-the port's ``quantized_mlp`` runs for a CPU tensor.
+the port's ``quantized_mlp`` runs for a CPU tensor. On the card the MLP is
+two launches joined by the int8 hidden; the first half's plain version
+(``qmlp_hidden_plain``) is held bitwise to the JAX package's ``_quant``,
+``_qdense`` and ``_gelu_erf`` composition, and ``quantized_mlp_plain`` is the
+composition of both halves.
 
 Tolerances. The polynomial GELU is held to 1e-6 (the two packages' ``exp``
 differ by an ulp). In the MLP the integer sums are exact, so the outputs
@@ -23,11 +27,14 @@ import torch
 
 from ssip_tpu.models import MODEL_FACTORIES
 from ssip_tpu.models.host_init import seeded_init_host as jax_seeded_init_host
+from ssip_tpu.models.quantized_vit import _qdense as jax_qdense
+from ssip_tpu.models.quantized_vit import _quant as jax_quant
 from ssip_tpu.models.quantized_vit import quantize_vit_extractor as jax_quantize_vit_extractor
 from ssip_tpu.ops import qmlp as jax_qmlp
 from ssip_tpu_torch.models.port import quantized_vit_from_tree
 from ssip_tpu_torch.ops.qmlp import (
-    KERNEL_HIDDEN_MULTIPLE, KERNEL_WIDTHS, _erf_poly, _gelu_erf, quantized_mlp, quantized_mlp_plain,
+    KERNEL_HIDDEN_MULTIPLE, KERNEL_WIDTHS, _erf_poly, _gelu_erf, qmlp_hidden_plain, qmlp_output_plain, quantized_mlp,
+    quantized_mlp_plain,
 )
 
 torch.set_num_threads(2)
@@ -86,6 +93,27 @@ def test_quantized_mlp_plain_matches_xla_and_pallas_interpret(blocks, layer, dty
     _assert_mlp_close(got, np.asarray(jax_qmlp.quantized_mlp_xla(jy, jblk)), m2, "xla")
     _assert_mlp_close(got, np.asarray(jax_qmlp.quantized_mlp(jy, jblk, interpret=True)), m2, "pallas interpret")
     assert np.abs(got).mean() > 1e-3  # not a comparison of zeros
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layer", [0, 7])
+def test_hidden_half_is_bitwise_the_jax_composition(blocks, layer, dtype):
+    """The int8 hidden the first kernel writes, as its plain version makes
+    it: bitwise the JAX package's quantize → int8 product → dequantize → GELU
+    → requantize; and both halves composed are ``quantized_mlp_plain``."""
+    qtree, module = blocks
+    jblk, blk = qtree["blocks"][layer], module.blocks[layer]
+    d = blk.mlp_1.kernel.shape[0]
+    y = np.random.default_rng(41 + layer).normal(size=(ROWS, d)).astype(np.float32)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+    jy, ty = jnp.asarray(y).astype(jdt), torch.from_numpy(y).to(tdt)
+    gq = qmlp_hidden_plain(ty, blk)
+    want = jax_quant(jax_qmlp._gelu_erf(jax_qdense(jax_quant(jy, jblk["mlp_1"]["inv_in_scale"]), jblk["mlp_1"])),
+                     jblk["mlp_2"]["inv_in_scale"])
+    assert gq.dtype == torch.int8 and gq.shape == (ROWS, blk.mlp_1.kernel.shape[1])
+    np.testing.assert_array_equal(gq.numpy(), np.asarray(want))
+    assert len(np.unique(gq.numpy())) > 100  # the scales spread the hidden over the int8 range
+    assert torch.equal(qmlp_output_plain(gq, blk), quantized_mlp_plain(ty, blk))
 
 
 def test_wrapper_on_the_cpu_runs_the_plain_version(blocks):

@@ -52,11 +52,11 @@ def _rel(a, b) -> float:
     return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def _small_tree(num_classes, seed: int = 0):
+def _small_tree(num_classes, seed: int = 0, size: int = SIZE):
     """The narrow ViT's Flax tree: the JAX package's seeded init, with the
     leaves it leaves at zero or one (biases, class token, LayerNorm) drawn
     from numpy so that every parameter matters."""
-    tree = jax_seeded_init_host(JaxViT(num_classes=num_classes, **SMALL), seed, (1, SIZE, SIZE, 3))
+    tree = jax_seeded_init_host(JaxViT(num_classes=num_classes, **SMALL), seed, (1, size, size, 3))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -71,14 +71,14 @@ def _small_tree(num_classes, seed: int = 0):
     return jax.tree_util.tree_map_with_path(fill, tree)
 
 
-def _small_port(tree, num_classes, dtype=torch.float32, remat: bool = False) -> VisionTransformer:
-    model = VisionTransformer(num_classes=num_classes, compute_dtype=dtype, remat=remat, image_size=SIZE, **SMALL)
+def _small_port(tree, num_classes, dtype=torch.float32, remat: bool = False, size: int = SIZE) -> VisionTransformer:
+    model = VisionTransformer(num_classes=num_classes, compute_dtype=dtype, remat=remat, image_size=size, **SMALL)
     load_flax_variables(model, tree)
     return model
 
 
-def _images(n: int, seed: int = 0) -> np.ndarray:
-    return np.random.default_rng(seed).standard_normal((n, SIZE, SIZE, 3)).astype(np.float32)
+def _images(n: int, seed: int = 0, size: int = SIZE) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((n, size, size, 3)).astype(np.float32)
 
 
 def test_configs_and_registry_match_the_jax_package():
@@ -109,6 +109,20 @@ def test_forward_matches_flax_with_carried_weights(num_classes):
         with torch.inference_mode():
             assert torch.equal(model(torch.from_numpy(x)), got[0])  # logits alone by default
             assert torch.equal(model(torch.from_numpy(x), mask=torch.zeros(5, dtype=torch.bool)), got[0])  # mask ignored
+
+
+def test_forward_past_256_tokens_matches_flax():
+    """At image size 256 (257 tokens: past the 256 the packed bf16 kernels
+    once stopped at; the JAX model pads them to 272 and masks the pad keys)
+    the features are within 1e-4 of ``ssip_tpu.models.vit``."""
+    tree = _small_tree(None, seed=4, size=256)
+    x = _images(2, seed=4, size=256)
+    want = JaxViT(num_classes=None, **SMALL).apply(tree, jnp.asarray(x), train=False, return_features=True)
+    model = _small_port(tree, None, size=256).eval()
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x), return_features=True)
+    assert got.shape == (2, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-4)
 
 
 def test_bfloat16_forward_tracks_flax_bfloat16():
