@@ -21,7 +21,9 @@ non-zero without printing the final line:
    kernel  ``preprocess_images``: bitwise in float32 and bfloat16 at
            [128, 512, 512, 3] → 256 → 224, one uint8 step at 384² and 320×448;
            its int8 form (``quant_inv_scale``) bitwise at the first shape and
-           within that step times the scale elsewhere;
+           within that step times the scale elsewhere; its bound counts the
+           source pixels the crop's taps reach (rows read × columns read × 3
+           a batch) and the output;
    rotate  ``augment_images`` (flip → rotate → normalize): bitwise in
            float32 and bfloat16 at [128, 224, 224, 3], [16, 224, 160, 3] and
            [8, 64, 96, 3], drawn angles in ±10° and pinned ±10°, ±25°;
@@ -29,8 +31,10 @@ non-zero without printing the final line:
            against ``rotate_nearest`` at [128, 224, 224, 3], [16, 224, 160, 3],
            [8, 64, 96, 3] and [4, 64, 36, 3], with drawn angles in ±10° (two
            pinned at ±10°) and in ±25° (four pinned at ±10° and ±25°), flip
-           flags mixed and all off; its time is the wrapper's call, the
-           kernel's own device time is printed beside it (``torch.profiler``);
+           flags mixed and all off;
+   the three print, per output type, the call's time (CUDA events around
+           the wrapper), the kernel's own device time (``torch.profiler``,
+           ``*_device_ms``) and the wrapper's host time (``*_host_ms``);
    ln      ``layer_norm`` and ``layer_norm_bwd`` at [25216, 768] and
            [26624, 768] (128 images of 197 and of 208 tokens) in bfloat16 and
            float32, [128, 768] float32 (the final LayerNorm) and
@@ -226,7 +230,7 @@ KERNELS = {
         "replaces": "ssip_tpu/ops/pallas_preproc.py:41",
     },
     "augment_images": {
-        "route": "cuda", "source": "ssip_tpu_torch/csrc/augment.cu",
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/rotation.cu",
         "replaces": "ssip_tpu/ops/augment.py:303",
     },
     "layer_norm": {
@@ -266,7 +270,7 @@ KERNELS = {
         "float32_source": F32_SOURCE, "float32_design": ATTN_F32_DESIGN,
     },
     "rotate_images": {
-        "route": "cuda", "source": "ssip_tpu_torch/csrc/rotate.cu",
+        "route": "cuda", "source": "ssip_tpu_torch/csrc/rotation.cu",
         "replaces": "ssip_tpu/ops/augment.py:205",
     },
 }
@@ -317,6 +321,9 @@ ATTN_SHAPES = (
     (4, 1024, 12, 0, "bfloat16"), (4, 1024, 12, 1000, "float32"), (4, 1025, 12, 1001, "bfloat16"),
     (4, 1025, 12, 0, "float32"), (2, 1297, 12, 0, "bfloat16"), (2, 1297, 12, 1200, "float32"),
 )
+# the rotation body's two epilogues as torch.profiler names them (csrc/rotation.cu)
+AUGMENT_KERNELS = ("rotate_kernel<float>", "rotate_kernel<__nv_bfloat16>")
+ROTATE_U8_KERNELS = ("rotate_kernel<unsigned char>",)
 # the LayerNorm kernels of csrc/layernorm.cu, in the order of ``ssip_layer_norm_info``
 LN_KERNELS = ("ln_fwd_kernel", "ln_bwd_kernel", "ln_colsum_kernel")
 F32_ATOL = 2e-5
@@ -521,35 +528,50 @@ def phase_kernel(torch, np) -> dict:
         def plain(dtype):
             return lambda: extraction_preprocess(x, RESIZE, CROP, dtype)
 
+        def quant():
+            return preprocess_images(x, RESIZE, CROP, quant_inv_scale=QUANT_INV_SCALE)
+
         k_ms, p_ms = timed_pair(torch, kernel(torch.bfloat16), plain(torch.bfloat16))
         k32_ms = median_ms(torch, kernel(torch.float32))
         p32_ms = median_ms(torch, plain(torch.float32))
+        q_ms, pq_ms = timed_pair(
+            torch, quant, lambda: quantize(extraction_preprocess(x, RESIZE, CROP, torch.float32), QUANT_INV_SCALE))
+        # the kernel's own device time (torch.profiler) and the wrapper's host time
+        (d16, name), (d32, _), (dq, _) = one_kernel_device_ms(
+            torch, [kernel(torch.bfloat16), kernel(torch.float32), quant], "kernel")
+        h16, hq = host_ms(torch, kernel(torch.bfloat16)), host_ms(torch, quant)
         # the separable resample needs 2 operations a tap and channel: the
         # horizontal taps on every source row the crop reads, then the
-        # vertical taps on every output pixel
-        (v_start, v_count, _), (_, h_count, _) = (tap_table(w) for w in crop_weights(shape[1], shape[2], RESIZE, CROP))
+        # vertical taps on every output pixel; the bytes are the source
+        # pixels the crop's taps reach (rows read x columns read x 3), read
+        # once, and the output
+        (v_start, v_count, _), (h_start, h_count, _) = (
+            tap_table(w) for w in crop_weights(shape[1], shape[2], RESIZE, CROP))
         rows_read = len(set().union(*(range(a, a + n) for a, n in zip(v_start, v_count))))
+        cols_read = len(set().union(*(range(a, a + n) for a, n in zip(h_start, h_count))))
+        src_bytes = shape[0] * rows_read * cols_read * 3
         ops = 2 * 3 * shape[0] * (rows_read * int(h_count.sum()) + CROP * int(v_count.sum()))
-        bound = bound_ms(x.numel() + k16.numel() * 2, ops, "float32")
-        tol = "bitwise" if exact else f"<= {one_step:.6g}"
-        say("kernel", shape="x".join(map(str, shape)), tol=tol, max_abs_err_f32=err32,
-            max_abs_err_bf16=err16, bf16_ms=f"{k_ms:.4f}", plain_bf16_ms=f"{p_ms:.4f}",
-            f32_ms=f"{k32_ms:.4f}", plain_f32_ms=f"{p32_ms:.4f}", bound_bf16_ms=f"{bound['bound_ms']:.4f}",
-            bound_by=bound["bound_by"], library="none")
-        q_ms, pq_ms = timed_pair(
-            torch, lambda: preprocess_images(x, RESIZE, CROP, quant_inv_scale=QUANT_INV_SCALE),
-            lambda: quantize(extraction_preprocess(x, RESIZE, CROP, torch.float32), QUANT_INV_SCALE))
+        bound = bound_ms(src_bytes + k16.numel() * 2, ops, "float32")
+        bound32 = bound_ms(src_bytes + k32.numel() * 4, ops, "float32")
         # one more multiplication per output value than the float forms
-        qbound = bound_ms(x.numel() + kq.numel(), ops + kq.numel(), "float32")
+        qbound = bound_ms(src_bytes + kq.numel(), ops + kq.numel(), "float32")
+        tol = "bitwise" if exact else f"<= {one_step:.6g}"
+        say("kernel", shape="x".join(map(str, shape)), tol=tol, kernel=repr(name[:60]), max_abs_err_f32=err32,
+            max_abs_err_bf16=err16, bf16_ms=f"{k_ms:.4f}", bf16_device_ms=f"{d16:.4f}", bf16_host_ms=f"{h16:.4f}",
+            plain_bf16_ms=f"{p_ms:.4f}", f32_ms=f"{k32_ms:.4f}", f32_device_ms=f"{d32:.4f}",
+            plain_f32_ms=f"{p32_ms:.4f}", rows_read=rows_read, cols_read=cols_read,
+            bound_bf16_ms=f"{bound['bound_ms']:.4f}", bound_f32_ms=f"{bound32['bound_ms']:.4f}",
+            bound_by=bound["bound_by"], library="none")
         say("kernel", form="int8", shape="x".join(map(str, shape)), tol="bitwise" if exact else f"<= {steps} steps",
-            max_abs_err_int8=errq, int8_ms=f"{q_ms:.4f}", plain_int8_ms=f"{pq_ms:.4f}",
-            bound_int8_ms=f"{qbound['bound_ms']:.4f}", bound_by=qbound["bound_by"], library="none")
+            max_abs_err_int8=errq, int8_ms=f"{q_ms:.4f}", int8_device_ms=f"{dq:.4f}", int8_host_ms=f"{hq:.4f}",
+            plain_int8_ms=f"{pq_ms:.4f}", bound_int8_ms=f"{qbound['bound_ms']:.4f}", bound_by=qbound["bound_by"],
+            library="none")
         if exact:
             result = {
-                "preprocess_images": {"max_abs_err": max(err32, err16), "ms": k_ms, "plain_ms": p_ms, **bound,
-                                      "library_ms": None},
-                "preprocess_quantize": {"max_abs_err": float(errq), "ms": q_ms, "plain_ms": pq_ms, **qbound,
-                                        "library_ms": None},
+                "preprocess_images": {"max_abs_err": max(err32, err16), "ms": k_ms, "device_ms": d16,
+                                      "host_ms": h16, "plain_ms": p_ms, **bound, "library_ms": None},
+                "preprocess_quantize": {"max_abs_err": float(errq), "ms": q_ms, "device_ms": dq, "host_ms": hq,
+                                        "plain_ms": pq_ms, **qbound, "library_ms": None},
             }
         del x, k32, k16, p32, kq, pq
     torch.cuda.empty_cache()
@@ -591,15 +613,21 @@ def phase_rotate_kernel(torch, np) -> dict:
         k_ms, p_ms = timed_pair(torch, kernel(torch.bfloat16), plain(torch.bfloat16))
         k32_ms = median_ms(torch, kernel(torch.float32))
         p32_ms = median_ms(torch, plain(torch.float32))
+        (d16, name), (d32, _) = one_kernel_device_ms(torch, [kernel(torch.bfloat16), kernel(torch.float32)],
+                                                     "rotate")
+        h16 = host_ms(torch, kernel(torch.bfloat16))
         # per output value: one subtraction and one multiplication (the
         # index map is integer work)
         bound = bound_ms(x.numel() + coeffs.numel() * 4 + k16.numel() * 2, 2 * k16.numel(), "float32")
-        say("rotate", shape="x".join(map(str, shape)), tol="bitwise", flips=int(flip.sum()),
-            max_abs_err_f32=err32, max_abs_err_bf16=err16, bf16_ms=f"{k_ms:.4f}",
-            plain_bf16_ms=f"{p_ms:.4f}", f32_ms=f"{k32_ms:.4f}", plain_f32_ms=f"{p32_ms:.4f}",
-            bound_bf16_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"], library="none")
+        bound32 = bound_ms(x.numel() + coeffs.numel() * 4 + k32.numel() * 4, 2 * k32.numel(), "float32")
+        say("rotate", shape="x".join(map(str, shape)), tol="bitwise", flips=int(flip.sum()), kernel=repr(name[:60]),
+            max_abs_err_f32=err32, max_abs_err_bf16=err16, bf16_ms=f"{k_ms:.4f}", bf16_device_ms=f"{d16:.4f}",
+            bf16_host_ms=f"{h16:.4f}", plain_bf16_ms=f"{p_ms:.4f}", f32_ms=f"{k32_ms:.4f}",
+            f32_device_ms=f"{d32:.4f}", plain_f32_ms=f"{p32_ms:.4f}", bound_bf16_ms=f"{bound['bound_ms']:.4f}",
+            bound_f32_ms=f"{bound32['bound_ms']:.4f}", bound_by=bound["bound_by"], library="none")
         if shape == AUG_SHAPES[0]:
-            result = {"max_abs_err": max(err32, err16), "ms": k_ms, "plain_ms": p_ms, **bound, "library_ms": None}
+            result = {"max_abs_err": max(err32, err16), "ms": k_ms, "device_ms": d16, "host_ms": h16,
+                      "plain_ms": p_ms, **bound, "library_ms": None}
         del x, k32, k16, p32
     torch.cuda.empty_cache()
     return result
@@ -639,21 +667,17 @@ def phase_rotate_u8_kernel(torch, np) -> dict:
             coeffs = torch.from_numpy(augment_coeffs(flip, angles)).cuda()
             k_ms, p_ms = timed_pair(torch, lambda: rotate_images(x, coeffs), lambda: rotate_nearest(x, coeffs))
             # the kernel's own device time, without the wrapper's host work
-            def rotate_kernels(windows):
-                return [t for name, ts in windows[0].items() if "rotate_u8_kernel" in name for t in ts]
-
-            windows = checked_device_windows(
-                torch, [lambda: rotate_images(x, coeffs)],
-                lambda w: None if len(rotate_kernels(w)) == TIMED_LAUNCHES else f"{len(rotate_kernels(w))} rotate kernels",
-                "rotate_u8")
-            device_ms = _median(rotate_kernels(windows))
+            [(device_ms, name)] = one_kernel_device_ms(torch, [lambda: rotate_images(x, coeffs)], "rotate_u8")
+            call_host_ms = host_ms(torch, lambda: rotate_images(x, coeffs))
             # about 25 integer operations a pixel for the index map, counted
             # at the float32 rate: far below the bytes
             bound = bound_ms(2 * x.numel() + coeffs.numel() * 4, 25 * x.numel() // 3, "float32")
-            say("rotate_u8", shape="x".join(map(str, shape)), ms=f"{k_ms:.4f}", kernel_device_ms=f"{device_ms:.4f}",
-                plain_ms=f"{p_ms:.4f}", bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
+            say("rotate_u8", shape="x".join(map(str, shape)), kernel=repr(name[:60]), ms=f"{k_ms:.4f}",
+                kernel_device_ms=f"{device_ms:.4f}", host_ms=f"{call_host_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+                bound_ms=f"{bound['bound_ms']:.4f}", bound_by=bound["bound_by"],
                 gb_per_s=f"{2 * x.numel() / device_ms / 1e6:.1f}", library="none")
-            result = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms, **bound, "library_ms": None}
+            result = {"max_abs_err": 0.0, "ms": k_ms, "device_ms": device_ms, "host_ms": call_host_ms,
+                      "plain_ms": p_ms, **bound, "library_ms": None}
         del x
     torch.cuda.empty_cache()
     return result
@@ -703,6 +727,18 @@ def checked_device_windows(torch, fns, check, what: str) -> list:
             return windows
         say("profiler", what=repr(what), session=session, missing=missing)
     raise AssertionError(f"{what}: torch.profiler twice saw other launches than were timed: {missing}")
+
+
+def one_kernel_device_ms(torch, fns, what: str) -> list:
+    """For each function of ``fns``, a call of which launches one kernel:
+    (the median device ms of its launches, the kernel's name), all from one
+    ``torch.profiler`` session (``checked_device_windows``)."""
+    def wrong(windows):
+        counts = [(len(w), sum(map(len, w.values()))) for w in windows]
+        return None if all(c == (1, TIMED_LAUNCHES) for c in counts) else f"(names, launches) {counts}"
+
+    windows = checked_device_windows(torch, fns, wrong, what)
+    return [(_median(next(iter(w.values()))), next(iter(w))) for w in windows]
 
 
 def host_ms(torch, fn, iters: int = 100) -> float:
@@ -1495,7 +1531,7 @@ def phase_slice_int8(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense: 
         summary = extract_embeddings(records, cfg, store=store)
     counts.read()
     _profile_breakdown(torch, prof, summary.embed_seconds * 1e3, f"{arch}_embed_int8", _INT8_PROFILE_CLASSES,
-                       start_at="preproc_taps_kernel")
+                       start_at="preproc_")
 
 
 def phase_cli(np, tmp: Path) -> None:
@@ -1645,7 +1681,7 @@ def _rel(a, b) -> float:
 
 # kernel-name fragments → the layer a profile line is charged to, first match wins
 _PROFILE_CLASSES = (
-    ("augment kernel", ("train_augment_kernel",)),
+    ("augment kernel", AUGMENT_KERNELS),
     ("AdamW", ("multi_tensor_apply", "adam")),
     ("convolutions (cuDNN fwd + bwd)", ("conv", "cudnn", "xmma", "implicit", "gemm", "wgrad", "dgrad",
                                         "winograd", "fft", "cutlass", "sm80_", "sm90_", "nhwc", "nchw")),
@@ -1659,8 +1695,8 @@ _PROFILE_CLASSES = (
 _VIT_PROFILE_CLASSES = (
     ("LayerNorm kernels", LN_KERNELS),
     ("attention kernels", ("attn_qkv", "attn_f32_fwd", "attn_f32_bwd")),
-    ("augment kernel", ("train_augment_kernel",)),
-    ("preprocess kernel", ("preproc_taps_kernel",)),
+    ("augment kernel", AUGMENT_KERNELS),
+    ("preprocess kernel", ("preproc_",)),
     ("AdamW", ("multi_tensor_apply", "adam")),
     ("Dense GEMMs and patch conv (cuBLAS, cuDNN)", ("nvjet", "gemm", "cutlass", "cublas", "xmma", "sm90_", "sm80_",
                                                    "gemv", "splitk", "conv", "cudnn", "implicit", "wgrad", "dgrad")),
@@ -1675,7 +1711,7 @@ _INT8_PROFILE_CLASSES = (
     ("int8 MLP kernels", QMLP_KERNELS),
     ("LayerNorm kernels", ("ln_fwd_kernel",)),
     ("attention kernels", ("attn_qkv",)),
-    ("preprocess kernel (int8 form)", ("preproc_taps_kernel",)),
+    ("preprocess kernel (int8 form)", ("preproc_",)),
     ("int8 GEMMs: stem, qkv, out (torch._int_mm, cuBLASLt)", _VIT_PROFILE_CLASSES[5][1] + ("imma", "igemm", "i8")),
     ("quantize, dequantize, casts and adds (elementwise)", _VIT_PROFILE_CLASSES[6][1]),
 )
@@ -2195,7 +2231,7 @@ def phase_fixmatch_step(torch, np, counts: LaunchCounts) -> None:
             or shifted["loss_rel"] > 1e-5 or shifted["grad_rel"] > FIXMATCH_GRAD_RTOL
             or shifted["grad_l2_all"] > FIXMATCH_GRAD_L2_ALL or shifted["stem_l2"] > 1e-2):
         raise AssertionError(f"FixMatch step cuda vs cpu out of bounds: seeded {seeded}, kink-free {shifted}")
-    _timed_fixmatch_steps(torch, np, "resnet18", counts, (("rotate kernel", ("rotate_u8_kernel",)),) + _PROFILE_CLASSES)
+    _timed_fixmatch_steps(torch, np, "resnet18", counts, (("rotate kernel", ROTATE_U8_KERNELS),) + _PROFILE_CLASSES)
 
     r = _fixmatch_cuda_vs_cpu(torch, np, VIT_ARCH, False)
     say("fixmatch_step", arch=VIT_ARCH, check="cuda_vs_cpu_f32_seeded", labeled=STEP_CHECK_BATCH,
@@ -2203,7 +2239,7 @@ def phase_fixmatch_step(torch, np, counts: LaunchCounts) -> None:
     if (r["loss_rel"] > 1e-5 or r["grad_rel"] > FIXMATCH_GRAD_RTOL or r["grad_l2_all"] > FIXMATCH_GRAD_L2_ALL
             or not r["keep_equal"]):
         raise AssertionError(f"{VIT_ARCH} FixMatch step cuda vs cpu out of bounds: {r}")
-    _timed_fixmatch_steps(torch, np, VIT_ARCH, counts, (("rotate kernel", ("rotate_u8_kernel",)),) + _VIT_PROFILE_CLASSES)
+    _timed_fixmatch_steps(torch, np, VIT_ARCH, counts, (("rotate kernel", ROTATE_U8_KERNELS),) + _VIT_PROFILE_CLASSES)
 
 
 def phase_imports() -> None:

@@ -12,7 +12,7 @@ slices today, for the ResNet family and the dense ViT family:
   ``python -m ssip_tpu_torch.cli.feature_extraction``);
 - supervised training: device-resident resized images → fused flip/rotate/
   normalize (a hand-written CUDA kernel, ``ops/rotate.py`` +
-  ``csrc/augment.cu``) → train-mode forward (a ResNet with masked
+  ``csrc/rotation.cu``) → train-mode forward (a ResNet with masked
   BatchNorm, or a ViT) → masked cross-entropy → AdamW, under the
   reference's epoch loop (``train/engine.py``, ``pipelines/supervised.py``,
   CLI ``python -m ssip_tpu_torch.cli.supervised_training``).

@@ -1,9 +1,11 @@
 // Helpers shared by the attention kernels on Hopper's tensor cores
 // (attention_mma.cu, attention_unpacked_mma.cu, attention_f32_mma.cu) and,
-// for cp.async and the host's helpers, the LayerNorm kernels (layernorm.cu):
-// cp.async staging, ldmatrix, mma.sync on bf16, the bf16 row swizzle, quad
-// reductions over an mma accumulator's row, the exponential, and the host's
-// shared-memory opt-in and resource query.
+// for cp.async, the 48-byte run stores and the host's helpers, the
+// LayerNorm, rotation and preprocess kernels (layernorm.cu, rotation.cu,
+// preproc.cu): cp.async staging, ldmatrix, mma.sync on bf16, the bf16 row
+// swizzle, quad reductions over an mma accumulator's row, the exponential,
+// a thread's run of 48 output bytes, and the host's shared-memory opt-in and
+// resource query.
 //
 // Everything here is in namespace ssip_mma, device code __forceinline__; a
 // source takes it into its own anonymous namespace with `using namespace
@@ -192,6 +194,47 @@ struct MaxOp {
 struct AddOp {
   __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
 };
+
+// A thread's run of 48 output bytes (16 uint8 or int8, 8 bf16 or 4 float32
+// pixels of 3 channels) in 12 words, element e of the run in its bytes of
+// word e·sizeof(T)/4, written at `dst`: three 16-byte stores when the run is
+// whole (`elems` = 48 / sizeof(T)) and `dst` is 16-byte aligned, else one
+// store of sizeof(T) bytes for each of its first `elems` elements (a row
+// pitch that is no multiple of 16 bytes, a ragged edge).
+template <typename T>
+__device__ __forceinline__ void store_run(T* dst, const uint32_t (&words)[12],
+                                          int elems) {
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  constexpr int kElems = 48 / kSize;
+  if (elems == kElems && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(words[0], words[1], words[2], words[3]);
+    d[1] = make_uint4(words[4], words[5], words[6], words[7]);
+    d[2] = make_uint4(words[8], words[9], words[10], words[11]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) {
+    if (e < elems) {
+      const uint32_t v = words[e * kSize / 4] >> (8 * ((e * kSize) & 3));
+      if (kSize == 1) {
+        reinterpret_cast<uint8_t*>(dst)[e] = static_cast<uint8_t>(v);
+      } else if (kSize == 2) {
+        reinterpret_cast<uint16_t*>(dst)[e] = static_cast<uint16_t>(v);
+      } else {
+        reinterpret_cast<uint32_t*>(dst)[e] = v;
+      }
+    }
+  }
+}
+
+// Element e of a run (a uint8 or int8 byte, the bits of a bf16 or of a
+// float32) into its place in the run's words, which start at 0.
+template <typename T>
+__device__ __forceinline__ void put_elem(uint32_t (&words)[12], int e, uint32_t bits) {
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  words[e * kSize / 4] |= bits << (8 * ((e * kSize) & 3));
+}
 
 // Lets `kernel` launch with `bytes` of dynamic shared memory (past 48 KB).
 template <typename Kernel>

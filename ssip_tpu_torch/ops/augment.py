@@ -9,8 +9,8 @@ strong view (``runtime/prng.py`` makes them), so each op is held to the JAX
 package given the same draws: bit for bit, except the strong view's jitter,
 whose per-image mean sums in another order. ``ops/rotate.py`` runs
 ``train_augment`` (``augment_images``) and ``rotate_nearest``
-(``rotate_images``) as one CUDA kernel each on the card and calls this module
-for a tensor on the CPU.
+(``rotate_images``) on the card as one CUDA kernel body with two epilogues
+(``csrc/rotation.cu``) and calls this module for a tensor on the CPU.
 
 The rotation index map is the JAX package's fixed-point one: ``cos`` and
 ``sin`` quantized once per image to 2⁻¹⁶ (``augment_coeffs``), then int32

@@ -1,14 +1,20 @@
-"""The rotation kernels' wrappers.
+"""The rotation kernels' wrappers, one CUDA body (``csrc/rotation.cu``)
+with two epilogues.
 
 ``augment_images`` replaces ``ssip_tpu/ops/augment.py:_rotate_mxu`` (the
 Pallas kernel behind ``random_rotate_nearest``) and fuses the flip before it
 and the normalize after it, i.e. the whole of ``train_augment``: uint8 NHWC
-in, float32 or bfloat16 NHWC out, any H×W (``csrc/augment.cu``).
+in, float32 or bfloat16 NHWC out, any H×W.
 
 ``rotate_images`` replaces ``ssip_tpu/ops/augment.py:_rotate_mxu_blocked``
 (the 2-D-banded Pallas kernel): flip and rotation alone, uint8 NHWC in and
-out, any H×W (``csrc/rotate.cu``). The FixMatch strong view needs it: the
-jitter reads the rotated pixels' mean before the normalize.
+out, any H×W. The FixMatch strong view needs it: the jitter reads the
+rotated pixels' mean before the normalize.
+
+A block of the kernel owns an output tile and stages the tile's source
+window, found from the index map at the tile's four corners, in a static
+shared buffer; ``ROTATE_TILES``, ``tile_window`` and
+``largest_window_bytes`` restate that geometry for the CPU tests.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain PyTorch version (``ops/augment.py:train_augment``, ``rotate_nearest``);
@@ -20,12 +26,56 @@ from __future__ import annotations
 import ctypes
 from functools import lru_cache
 
+import numpy as np
 import torch
 
-from ssip_tpu_torch.ops.augment import index_bound, rotate_nearest, train_augment
+from ssip_tpu_torch.ops.augment import Q, index_bound, rotate_nearest, train_augment
 from ssip_tpu_torch.ops.resize import normalize_constants
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+# A block's output tile (rows, pixels) by output type, and its static source
+# window in bytes: RotTile<T> of csrc/rotation.cu. A thread's run is 48
+# bytes of output (16, 8 or 4 pixels), and 256 threads hold a tile's runs.
+ROTATE_TILES = {torch.uint8: (32, 112, 34272), torch.bfloat16: (16, 128, 34272), torch.float32: (16, 64, 11328)}
+
+
+def window_slot_bytes(cols: int) -> int:
+    """Shared bytes of a window row of ``cols`` pixels: up to 15 bytes of
+    alignment before its first byte, rounded up to 16."""
+    return (15 + 3 * cols + 15) // 16 * 16
+
+
+def tile_window(icos: int, isin: int, h: int, w: int, y0: int, x0: int, tile_h: int, tile_w: int):
+    """(iy_lo, iy_hi, ix_lo, ix_hi): the source window of the output tile at
+    (y0, x0), from the int32 index map at its four corners (clipped to the
+    image), as the kernel finds it; an arithmetic shift by 17 is the floor
+    division by 2·2¹⁶."""
+    y1, x1 = min(y0 + tile_h, h) - 1, min(x0 + tile_w, w) - 1
+    ys = np.asarray([2 * y0 - (h - 1), 2 * y1 - (h - 1)], np.int32)[:, None]
+    xs = np.asarray([2 * x0 - (w - 1), 2 * x1 - (w - 1)], np.int32)[None, :]
+    c, s = np.int32(icos), np.int32(isin)
+    iy = (c * ys + s * xs + np.int32(h * Q)) >> 17
+    ix = (-s * ys + c * xs + np.int32(w * Q)) >> 17
+    return int(iy.min()), int(iy.max()), int(ix.min()), int(ix.max())
+
+
+def largest_window_bytes(tile_h: int, tile_w: int) -> int:
+    """The most shared memory any rotation's window can take for a tile of
+    ``tile_h`` × ``tile_w``: rows ≤ ⌊((h−1)|icos| + (w−1)|isin|)/2¹⁶⌋ + 2
+    and columns likewise with the roles swapped, each row in a slot, over
+    the coefficients of every angle (a sweep of [0°, 90°] by 2·10⁻⁶ rad,
+    icos and isin each ±1 about their rounded values: the sweep's steps and
+    rounding move neither by more)."""
+    theta = np.arange(0.0, np.pi / 2 + 1e-3, 2e-6)
+    c0, s0 = np.rint(np.cos(theta) * Q).astype(np.int64), np.rint(np.sin(theta) * Q).astype(np.int64)
+    best = 0
+    for dc in (-1, 0, 1):
+        for ds in (-1, 0, 1):
+            c, s = np.abs(c0 + dc), np.abs(s0 + ds)
+            rows = (c * (tile_h - 1) + s * (tile_w - 1)) // Q + 2
+            cols = (s * (tile_h - 1) + c * (tile_w - 1)) // Q + 2
+            best = max(best, int((rows * window_slot_bytes(cols)).max()))
+    return best
 
 
 def _check_images_and_coeffs(images_u8: torch.Tensor, coeffs: torch.Tensor, what: str) -> None:

@@ -7,6 +7,7 @@ so it also runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import ctypes
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -22,13 +23,15 @@ from ssip_tpu_torch.ops.attention import (
 )
 from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest, strong_augment, train_augment
 from ssip_tpu_torch.ops.layernorm import layer_norm, layer_norm_bwd, layer_norm_bwd_plain, layer_norm_plain
-from ssip_tpu_torch.ops.preproc import preprocess_images, preprocess_quantize_images
+from ssip_tpu_torch.ops.preproc import (
+    PLAN_WORDS, _device_tables, _kernel_entries, preprocess_images, preprocess_quantize_images,
+)
 from ssip_tpu_torch.ops.qmlp import (
     _check_cuda_operands, _launch_hidden, _launch_output, qmlp_hidden_plain, qmlp_output_plain, quantized_mlp,
     quantized_mlp_plain,
 )
 from ssip_tpu_torch.ops.quant import QuantSite, quantize
-from ssip_tpu_torch.ops.resize import IMAGENET_STD, extraction_preprocess
+from ssip_tpu_torch.ops.resize import IMAGENET_STD, extraction_preprocess, normalize_constants
 from ssip_tpu_torch.ops.rotate import augment_images, rotate_images
 from ssip_tpu_torch.runtime.device import configure_precision
 from ssip_tpu_torch.runtime.prng import augment_draws
@@ -64,6 +67,50 @@ def test_kernel_matches_plain_on_cuda(cuda, shape, exact):
         torch.testing.assert_close(got_bf16, ref.to(torch.bfloat16), rtol=0, atol=0)
     else:
         assert (got - ref).abs().max().item() <= ONE_STEP
+
+
+def _pixel_kernel(x: torch.Tensor, resize: int, crop: int, out_kind: int, inv_s: float = 1.0) -> torch.Tensor:
+    """The preprocess through csrc/preproc.cu's one-thread-a-pixel kernel
+    (the plan of no band): the first form's schedule, for holding the band
+    kernel to it bit for bit."""
+    b, h, w, _ = x.shape
+    out = torch.empty((b, crop, crop, 3), dtype=(torch.float32, torch.bfloat16, torch.int8)[out_kind], device=x.device)
+    tables = _device_tables(h, w, resize, crop, x.device)
+    off, sc = normalize_constants()
+    shared = (*(t.data_ptr() for t in tables[:3]), tables[2].shape[1], *(t.data_ptr() for t in tables[3:6]),
+              tables[5].shape[1], *(float(v) for v in off), *(float(v) for v in sc))
+    plain, quant = _kernel_entries()
+    no_band, stream = (ctypes.c_int * PLAN_WORDS)(), torch.cuda.current_stream().cuda_stream
+    if out_kind == 2:
+        err = quant(x.data_ptr(), out.data_ptr(), b, h, w, crop, *shared, inv_s, no_band, tables[6].data_ptr(), stream)
+    else:
+        err = plain(x.data_ptr(), out.data_ptr(), out_kind, b, h, w, crop, *shared, no_band, tables[6].data_ptr(),
+                    stream)
+    assert err == 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,dyadic", [(1024, 1024, True), (4096, 4096, True), (300, 2048, False)])
+def test_kernel_narrow_and_counted_plans_on_cuda(cuda, h, w, dyadic):
+    """Sources whose band plans take counted tap loops (8 and 32 taps) and
+    narrow tiles (4096²), or a long side the crop cuts (300 × 2048), at
+    batch 1: bit for bit the one-thread-a-pixel schedule in all three
+    outputs, and the plain version bit for bit where the taps are dyadic
+    (one uint8 step elsewhere)."""
+    configure_precision("float32")
+    inv = float(np.float32(127.0 / 2.64))
+    x = torch.from_numpy(np.random.default_rng(12).integers(0, 256, (1, h, w, 3), dtype=np.uint8)).to(cuda)
+    got = [preprocess_images(x, 256, 224, torch.float32), preprocess_images(x, 256, 224, torch.bfloat16),
+           preprocess_images(x, 256, 224, quant_inv_scale=inv)]
+    for kind, g in enumerate(got):
+        assert torch.equal(g, _pixel_kernel(x, 256, 224, kind, inv))
+    ref = extraction_preprocess(x, 256, 224, torch.float32)
+    if dyadic:
+        assert torch.equal(got[0], ref) and torch.equal(got[1], ref.to(torch.bfloat16))
+        assert torch.equal(got[2], quantize(ref, inv))
+    else:
+        assert (got[0] - ref).abs().max().item() <= ONE_STEP
 
 
 @pytest.mark.cuda
@@ -108,6 +155,33 @@ def test_augment_kernel_matches_plain_on_cuda(cuda, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,degrees", [((3, 5, 3, 3), 10.0), ((2, 37, 129, 3), 45.0), ((4, 64, 36, 3), 25.0)])
+def test_augment_kernel_small_odd_and_unaligned_sizes_on_cuda(cuda, shape, degrees):
+    """5 × 3; 37 × 129 at ±45° (ragged tiles, wide windows); W = 36, whose
+    row pitch (432 bytes of float32, 216 of bfloat16) is no multiple of 16
+    bytes in bfloat16: bitwise equal to ``train_augment``."""
+    b = shape[0]
+    flip, angles = augment_draws(0, "test", 0, 3, b, degrees)
+    angles[:2] = np.float32([degrees, -degrees]) * np.float32(np.pi / 180.0)
+    coeffs = torch.from_numpy(augment_coeffs(flip, angles)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(13).integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    ref = train_augment(x, coeffs, torch.float32)
+    assert torch.equal(augment_images(x, coeffs, torch.float32), ref)
+    assert torch.equal(augment_images(x, coeffs, torch.bfloat16), ref.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_augment_kernel_gathers_from_global_memory_when_the_window_is_too_large(cuda):
+    """The zoom-out coefficients of the uint8 form's test, through the float
+    epilogues: the global-memory path, bitwise equal to ``train_augment``."""
+    x = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (3, 64, 160, 3), dtype=np.uint8)).to(cuda)
+    coeffs = torch.tensor([[3 << 16, 2 << 16, 1 << 16], [1 << 16, -(1 << 15), 0], [1, 0, 1]], dtype=torch.int32).to(cuda)
+    ref = train_augment(x, coeffs, torch.float32)
+    assert torch.equal(augment_images(x, coeffs, torch.float32), ref)
+    assert torch.equal(augment_images(x, coeffs, torch.bfloat16), ref.to(torch.bfloat16))
+
+
+@pytest.mark.cuda
 def test_augment_kernel_rejects_non_contiguous(cuda):
     x = torch.zeros((2, 16, 16, 3), dtype=torch.uint8, device=cuda)
     coeffs = torch.from_numpy(augment_coeffs(np.zeros(2, bool), np.zeros(2, np.float32))).to(cuda)
@@ -139,6 +213,19 @@ def test_rotate_kernel_matches_plain_on_cuda(cuda, shape, max_degrees):
     bare = coeffs.clone()
     bare[2] = 0  # no flip: the bare rotation of the TPU kernel
     assert torch.equal(rotate_images(x, bare), rotate_nearest(x, bare))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 36, 36, 3), (2, 200, 36, 3)])
+def test_rotate_kernel_row_pitch_no_multiple_of_16_on_cuda(cuda, shape):
+    """W = 36: a uint8 row is 108 bytes, so most runs start off a 16-byte
+    boundary and are written byte by byte; bitwise equal to
+    ``rotate_nearest``."""
+    b = shape[0]
+    flip, angles = augment_draws(0, "test", 0, 4, b, 25.0)
+    coeffs = torch.from_numpy(augment_coeffs(flip, angles)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(14).integers(0, 256, shape, dtype=np.uint8)).to(cuda)
+    assert torch.equal(rotate_images(x, coeffs), rotate_nearest(x, coeffs))
 
 
 @pytest.mark.cuda

@@ -4,11 +4,17 @@
 The same numpy-seeded images and ``jax.random`` angles go through
 ``ssip_tpu.ops.augment._rotate_gather`` and through the 2-D-banded Pallas
 kernel ``_rotate_mxu_blocked`` in interpret mode (the TPU kernel that
-``csrc/rotate.cu`` replaces), at the shapes and angle cases of
+``csrc/rotation.cu`` replaces), at the shapes and angle cases of
 ``tests/test_rotate_mxu.py``. On the CPU ``rotate_images`` runs
 ``rotate_nearest``; the kernel itself is held to it on the card
-(``tests/test_torch_cuda.py``).
+(``tests/test_torch_cuda.py``). The kernel's geometry is held here: its
+shift-and-step index map against ``_rotation_index_map``, and the source
+window it finds from a tile's corners against every pixel of the tile and
+its static shared buffer.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -18,8 +24,10 @@ import torch
 
 from ssip_tpu.ops.augment import _mxu_geometry_blocked, _rotate_gather, _rotate_mxu_blocked, _rotation_index_map
 from ssip_tpu.ops.augment import random_flip as jax_random_flip
-from ssip_tpu_torch.ops.augment import augment_coeffs, rotate_nearest
-from ssip_tpu_torch.ops.rotate import rotate_images
+from ssip_tpu_torch.ops.augment import Q, augment_coeffs, rotate_nearest, rotation_index_map
+from ssip_tpu_torch.ops.rotate import (
+    ROTATE_TILES, largest_window_bytes, rotate_images, tile_window, window_slot_bytes,
+)
 
 torch.set_num_threads(2)
 
@@ -124,3 +132,90 @@ def test_wrapper_refusals():
         rotate_images(x.to("meta"), coeffs.to("meta"))
     assert rotate_images(x[:0], coeffs[:, :0]).shape == (0, 16, 16, 3)
     assert rotate_images.launches == launches  # CPU calls launch nothing
+
+
+# The kernel's geometry. Angles of (c): the pinned ones of the issue's
+# cases, in float32 radians as the draws give them.
+_MAP_DEGREES = np.float32([10.0, -10.0, 45.0, -45.0, 90.0, 180.0])
+_MAP_SHAPES = [(224, 224), (224, 160), (64, 36), (5, 3)]
+# coefficients that are no rotation: the map zooms out by 3 (the card test's)
+_ZOOM_OUT = np.asarray([[3 << 16, 2 << 16, 1 << 16], [1 << 16, -(1 << 15), 0]], np.int32)
+
+
+def _shift_and_step_map(icos, isin, h: int, w: int, run: int):
+    """(iy, ix) [B, H, W] as ``csrc/rotation.cu`` computes them: per run of
+    ``run`` pixels of a row the int32 map at its first pixel, then steps of
+    2·isin and 2·icos (wrapping, as the kernel's unsigned adds) and an
+    arithmetic shift by 17, past the image's edge included and then cut."""
+    icos = np.asarray(icos, np.int32)[:, None, None]
+    isin = np.asarray(isin, np.int32)[:, None, None]
+    xs0 = np.arange(0, w, run, dtype=np.int32)
+    yy2 = (2 * np.arange(h, dtype=np.int32) - (h - 1))[None, :, None]
+    xx2 = (2 * xs0 - (w - 1))[None, None, :]
+    ay = (icos * yy2 + isin * xx2 + np.int32(h * Q)).astype(np.uint32)
+    ax = (-isin * yy2 + icos * xx2 + np.int32(w * Q)).astype(np.uint32)
+    steps = np.arange(run, dtype=np.uint32)
+    ay = ay[..., None] + (2 * isin.astype(np.uint32))[..., None] * steps  # [B, H, runs, run], wraps
+    ax = ax[..., None] + (2 * icos.astype(np.uint32))[..., None] * steps
+    iy = (ay.astype(np.int32) >> 17).reshape(icos.shape[0], h, -1)[:, :, :w]
+    ix = (ax.astype(np.int32) >> 17).reshape(icos.shape[0], h, -1)[:, :, :w]
+    return iy, ix
+
+
+@pytest.mark.parametrize("run", [16, 8, 4])
+@pytest.mark.parametrize("h,w", _MAP_SHAPES)
+def test_shift_and_step_index_map_is_jax_bit_for_bit(h, w, run):
+    """The kernel's map (one multiply a run, then a step a pixel, a shift in
+    place of the floor division) is ``_rotation_index_map`` bit for bit at
+    ±10°, ±45°, 90° and 180°, for each output type's run length."""
+    angles = _MAP_DEGREES * np.float32(np.pi / 180.0)
+    coeffs = augment_coeffs(np.zeros(len(angles), bool), angles)
+    iy, ix = _shift_and_step_map(coeffs[0], coeffs[1], h, w, run)
+    jy, jx, _ = _rotation_index_map(jnp.asarray(angles), h, w)
+    np.testing.assert_array_equal(iy, np.asarray(jy))
+    np.testing.assert_array_equal(ix, np.asarray(jx))
+
+
+@pytest.mark.parametrize("h,w", _MAP_SHAPES)
+def test_shift_and_step_index_map_on_the_zoom_out_map(h, w):
+    """Coefficients that are no rotation: the same map as the plain
+    version's floor division."""
+    want_y, want_x, _ = rotation_index_map(torch.from_numpy(_ZOOM_OUT[0]), torch.from_numpy(_ZOOM_OUT[1]), h, w)
+    for run in (16, 8, 4):
+        iy, ix = _shift_and_step_map(_ZOOM_OUT[0], _ZOOM_OUT[1], h, w, run)
+        np.testing.assert_array_equal(iy, want_y.numpy())
+        np.testing.assert_array_equal(ix, want_x.numpy())
+
+
+def _kernel_tiles() -> dict:
+    """RotTile<T>'s (rows, pixels, window bytes) as csrc/rotation.cu states them."""
+    text = (Path(__file__).resolve().parents[1] / "ssip_tpu_torch" / "csrc" / "rotation.cu").read_text()
+    found = re.findall(
+        r"struct RotTile<(\w+)> \{\s*static constexpr int kH = (\d+), kW = (\d+), kWindowBytes = (\d+);", text)
+    names = {"uint8_t": torch.uint8, "__nv_bfloat16": torch.bfloat16, "float": torch.float32}
+    return {names[t]: tuple(map(int, v)) for t, *v in found}
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16, torch.float32])
+def test_tile_window_holds_every_source_and_fits_the_static_window(dtype):
+    """For the chosen tile of each output type: the kernel's static window
+    is the largest any angle asks for (34,272, 34,272 and 11,328 bytes for
+    32 × 112, 16 × 128 and 16 × 64), and at every whole degree of a turn (and
+    the issue's pinned angles) the window from each tile's corners is the
+    exact smallest and largest source row and column of the tile's pixels
+    and fits it, over ragged tiles and 5 × 3 included."""
+    tile_h, tile_w, window = ROTATE_TILES[dtype]
+    assert _kernel_tiles()[dtype] == (tile_h, tile_w, window)
+    assert largest_window_bytes(tile_h, tile_w) == window
+    degrees = np.concatenate([np.arange(-180.0, 180.0, 1.0), [44.75, -44.75, 10.0, -10.0]]).astype(np.float32)
+    coeffs = augment_coeffs(np.zeros(len(degrees), bool), degrees * np.float32(np.pi / 180.0))
+    for h, w in ((224, 224), (224, 160), (64, 36), (37, 129), (5, 3)):
+        iy, ix, _ = rotation_index_map(torch.from_numpy(coeffs[0]), torch.from_numpy(coeffs[1]), h, w)
+        iy, ix = iy.numpy(), ix.numpy()
+        for k, (icos, isin) in enumerate(zip(coeffs[0], coeffs[1])):
+            for y0 in range(0, h, tile_h):
+                for x0 in range(0, w, tile_w):
+                    ty, tx = iy[k, y0 : y0 + tile_h, x0 : x0 + tile_w], ix[k, y0 : y0 + tile_h, x0 : x0 + tile_w]
+                    lo_y, hi_y, lo_x, hi_x = tile_window(int(icos), int(isin), h, w, y0, x0, tile_h, tile_w)
+                    assert (lo_y, hi_y, lo_x, hi_x) == (ty.min(), ty.max(), tx.min(), tx.max())
+                    assert (hi_y - lo_y + 1) * window_slot_bytes(hi_x - lo_x + 1) <= window
