@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's extraction, training and semi-supervised slices once on
-one NVIDIA GPU, for the ResNet family and the ViT family, int8 ViT extraction included.
+"""Drive the PyTorch port's extraction, training and semi-supervised slices, the
+threshold sweep, the analysis stack and the whole workflow once on one NVIDIA GPU,
+for the ResNet family and the ViT family, int8 ViT extraction included.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -163,13 +164,57 @@ non-zero without printing the final line:
            (vit_b16: 3 × 25 and 3 × 12 forward, 2 × 25 and 2 × 12 backward),
            the strong view's time alone and its share of the step, and a
            ``torch.profiler`` split with the idle share;
-10. imports no jax module and no module of the JAX package;
-11. the kernels JSON line (all eleven kernels), then ``{"ok": true, "device": {...}}`` last.
+10. sweep  ``run_sweep`` on the baseline ``.pt`` of the resnet18 and vit_b16
+           bfloat16 runs of ``train`` (float32 eval, TF32 off; for vit_b16 25
+           LayerNorm and 12 attention launches per forward) on cuda and on the
+           CPU: the same CSV rows, thresholds within 1e-4, equal confusion
+           counts but where two thresholds lie within twice that, the same
+           JSON line;
+11. analysis  the analysis stack at the reference corpus's size, 1,506
+           seeded 512-D embedding-like rows (100 labeled; 20 exact
+           duplicates), each function on cuda and on the CPU on the same
+           inputs, with its seconds on both: the scaler (1e-5), PCA (each
+           of the first 50 axes within 1e-3, axes whose variances lie within
+           1 % compared as the subspace they span, the variance ratios
+           within 1e-4 of the largest), t-SNE at perplexity 10,
+           30, 50 (KL within 10 % and neighbour preservation within 0.05:
+           a 1000-step optimization is chaotic), UMAP at 15/30/50 neighbours
+           × min-dist 0/0.1 (neighbour preservation within 0.05), k-means
+           for k = 2-10 with 10 restarts (ARI ≥ 0.999, inertia within 1e-4),
+           silhouette (1e-4), ARI and NMI, auto-eps (1e-5) and the 27-fit
+           DBSCAN grid on the unlabeled scope (labels equal, or ARI ≥ 0.99
+           where a pair's distance lies within 1e-4 of eps; that count
+           printed); no hand kernel runs here;
+12. analysis_scale  above ``DENSE_LIMIT``: 50,000 × 512 through the
+           blocked k-distance, DBSCAN (eps the 25th-percentile 4th-neighbour
+           distance, which keeps neighbourhoods small) and silhouette paths and k-means (k 8, 3 restarts), t-SNE and
+           UMAP at their 20,000-point cap, each with its seconds and peak
+           device memory; the blocked paths held to the dense ones on 4,096
+           rows;
+13. workflow  ``scripts/run_full_workflow.sh`` on the port's CLIs, in its
+           order and with its flags, on a seeded 512² JPEG tree at the
+           reference's layout and counts (50 + 50 labeled, 1,406 unlabeled,
+           four image families): audit, extraction, standardize, clustering
+           (``--dbscan-auto --dbscan-scope unlabeled``), the DBSCAN cohort,
+           supervised, semi-supervised on the cohort, both sweeps; 2 + 1 + 2
+           epochs and a pseudo-label threshold of 0.5; every artifact
+           present and well formed, each stage's seconds, peak memory and
+           launches. A stage that needs a host package this machine lacks
+           (the audit and the figures need matplotlib) is named on its own
+           line and not started: clustering then runs as
+           ``cli.clustering.run_analysis``, everything but its figures;
+14. imports no jax module and no module of the JAX package;
+15. the kernels JSON line (all eleven kernels), then ``{"ok": true, "device": {...}}`` last.
+
+The ``host`` line, printed first after ``env``, says whether pandas and
+matplotlib are installed.
 
 Needs no network and no data: everything is made from seeds. It builds the
-kernels from the checkout, so a fresh clone is enough. It imports only
-``ssip_tpu_torch``, torch and numpy, and fails if the run loaded jax, flax,
-optax or any module of the JAX package (``ssip_tpu``).
+kernels from the checkout, so a fresh clone is enough. It imports
+``ssip_tpu_torch``, torch, numpy, Pillow and scipy (UMAP's curve fit), and
+pandas and matplotlib only where both are installed (the audit, the figures),
+and fails if the run loaded jax, flax, optax or any module of the JAX package
+(``ssip_tpu``).
 """
 
 from __future__ import annotations
@@ -365,6 +410,23 @@ KINK_FREE_BN_BIAS = 4.0
 FIXMATCH_GRAD_RTOL = 1e-2
 FIXMATCH_GRAD_L2_ALL = 1e-4
 STEM_GRAD = "conv1.weight"
+
+# the analysis stage at the reference corpus's size (100 labeled + 1,406 unlabeled, SURVEY.md §1)
+ANALYSIS_LABELED, ANALYSIS_UNLABELED, ANALYSIS_DIM, ANALYSIS_TSNE_DIM = 100, 1406, 512, 50
+ANALYSIS_CLUSTERS = 8  # the seeded features' groups
+TSNE_PERPLEXITIES = (10.0, 30.0, 50.0)  # src/clustering.py's grid
+UMAP_GRID = tuple((k, d) for k in (15, 30, 50) for d in (0.0, 0.1))
+KMEANS_KS, DBSCAN_MIN_SAMPLES = range(2, 11), (5, 10, 15)
+EMBED_KL_RTOL = 0.10  # t-SNE KL, card vs CPU: one ulp of the input moves it by percents (tests/test_torch_analysis.py)
+NEIGHBOUR_ATOL = 0.05  # neighbour preservation of the 2-D maps, card vs CPU
+SWEEP_PROB_TOL = 1e-4  # a sweep's thresholds (probabilities), card vs CPU
+# above DENSE_LIMIT (tests/test_corpus_scale.py's 50,000 rows, at the real width), the 2-D maps at their cap
+SCALE_N, SCALE_SLICE, EMBED_CAP = 50_000, 4096, 20_000
+SCALE_EPS_QUANTILE = 0.25  # of the k-distance curve: DBSCAN's eps at scale
+SCALE_KMEANS_K, SCALE_KMEANS_INIT = 8, 3  # few restarts: the host's k-means++ seeding dominates at 50,000 × 512
+WORKFLOW_FAMILIES = 4
+WORKFLOW_EPOCHS = (2, 1, 2)  # baseline, weak pretrain, fine-tune (run_full_workflow.sh leaves 10, 5, 8)
+
 
 
 def say(phase: str, **fields) -> None:
@@ -2242,6 +2304,476 @@ def phase_fixmatch_step(torch, np, counts: LaunchCounts) -> None:
     _timed_fixmatch_steps(torch, np, VIT_ARCH, counts, (("rotate kernel", ROTATE_U8_KERNELS),) + _VIT_PROFILE_CLASSES)
 
 
+def phase_host_packages() -> dict:
+    """Which of the host packages the audit and the figures need are here:
+    pandas (the audit's tables) and matplotlib (every figure). A stage that
+    needs a missing one is not started on the card, and is named."""
+    import importlib.util
+
+    found = {name: importlib.util.find_spec(name) is not None for name in ("pandas", "matplotlib")}
+    missing = [name for name, ok in found.items() if not ok]
+    say("host", **{name: "installed" if ok else "missing" for name, ok in found.items()},
+        not_run_on_this_card=("the audit, the clustering figures, scripts/generate_*" if missing else "none"))
+    return found
+
+
+def _csv_rows(path: Path) -> list:
+    import csv
+
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+SWEEP_COUNTS = ("TP", "FP", "TN", "FN")
+
+
+def _sweeps_agree(np, card_rows: list, cpu_rows: list, card: dict, cpu: dict, what: str) -> tuple:
+    """The card's sweep against the CPU's on the same ``.pt``: the same rows,
+    thresholds within ``SWEEP_PROB_TOL``, and equal confusion counts on every
+    row whose threshold lies further than twice that from its neighbours
+    (closer ones may swap order); (max threshold error, rows so excused)."""
+    if len(card_rows) != len(cpu_rows) or list(card_rows[0]) != list(cpu_rows[0]):
+        raise AssertionError(f"{what}: {len(card_rows)} rows vs {len(cpu_rows)} on the CPU")
+    thr_card = np.array([float(r["threshold"]) for r in card_rows])
+    thr_cpu = np.array([float(r["threshold"]) for r in cpu_rows])
+    err = float(np.abs(thr_card - thr_cpu).max())
+    gaps = np.abs(np.diff(thr_cpu))
+    close = np.zeros(len(thr_cpu), bool)
+    close[:-1] |= gaps < 2 * SWEEP_PROB_TOL
+    close[1:] |= gaps < 2 * SWEEP_PROB_TOL
+    bad = [i for i, (a, b) in enumerate(zip(card_rows, cpu_rows))
+           if not close[i] and any(float(a[c]) != float(b[c]) for c in SWEEP_COUNTS)]
+    if err > SWEEP_PROB_TOL or bad:
+        raise AssertionError(f"{what}: threshold error {err}, rows with other counts {bad}")
+    if sorted(card) != sorted(cpu) or (
+        "best_threshold" in cpu and (abs(card["best_threshold"] - cpu["best_threshold"]) > SWEEP_PROB_TOL or (
+            not close.any() and any(card[c] != cpu[c] for c in SWEEP_COUNTS)))):
+        raise AssertionError(f"{what}: JSON line {card} vs {cpu} on the CPU")
+    return err, int(close.sum())
+
+
+def phase_sweep(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
+    """``run_sweep`` on the baseline ``.pt`` that ``phase_train`` wrote for
+    resnet18 and vit_b16 (bfloat16 runs, 224²), on the card (float32, TF32
+    off: for vit_b16 the float32 LayerNorm and packed-attention kernels), and
+    the same sweep on the CPU; the CSV rows and the JSON line agree."""
+    from ssip_tpu_torch.pipelines.sweep import SweepConfig, run_sweep
+
+    for arch in ("resnet18", VIT_ARCH):
+        trained = tmp / f"train_out_{arch}_bfloat16_{TRAIN_SIZE}"
+        results, rows, seconds = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            out = tmp / f"sweep_{arch}_{dev}"
+            shutil.copytree(trained, out)
+            counts.reset()
+            t0 = time.perf_counter()
+            results[dev] = run_sweep(SweepConfig(strong_data_dir=data, output_dir=out, model="baseline", device=dev))
+            seconds[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launches = counts.read()
+            rows[dev] = _csv_rows(out / "tables" / "threshold_sweep_baseline.csv")
+        test_size = len(json.loads((trained / "notes" / "training_history.json").read_text())["splits"]["test"])
+        forwards = -(-test_size // 16)
+        want = ({"layer_norm": forwards * VIT_LN_PER_FORWARD, "attention_qkv": forwards * VIT_ATTN_PER_FORWARD}
+                if arch == VIT_ARCH else {})
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"sweep {arch}: launches {launches}, expected {want}")
+        if any(sum(float(r[c]) for c in SWEEP_COUNTS) != test_size for r in rows["cuda"]):
+            raise AssertionError(f"sweep {arch}: a row's counts do not sum to the {test_size} test images")
+        err, excused = _sweeps_agree(np, rows["cuda"], rows["cpu"], results["cuda"], results["cpu"], f"sweep {arch}")
+        say("sweep", arch=arch, model="baseline", test_images=test_size, rows=len(rows["cuda"]),
+            threshold_max_err=f"{err:.2e}", rows_within_tol_of_a_neighbour=excused,
+            best_threshold=results["cuda"].get("best_threshold"), seconds=f"{seconds['cuda']:.2f}",
+            cpu_seconds=f"{seconds['cpu']:.2f}", launches={k: v for k, v in launches.items() if v})
+
+
+def _seeded_features(np, n: int, d: int, seed: int, clusters: int = 8, duplicates: int = 0):
+    """Embedding-like float32 features: ``clusters`` groups of unequal size
+    and spread on a decaying spectrum (a few directions carry most of the
+    variance, as a backbone's embeddings do), with ``duplicates`` rows
+    repeated exactly, as duplicate images embed."""
+    rng = np.random.default_rng(seed)
+    spectrum = (np.arange(d) + 1.0) ** -0.6
+    centers = rng.normal(0.0, 2.5, (clusters, d))
+    sizes = rng.dirichlet(np.full(clusters, 2.0))
+    y = rng.choice(clusters, n, p=sizes)
+    spread = rng.uniform(0.6, 1.4, clusters)[y][:, None]
+    basis = np.linalg.qr(rng.normal(size=(d, d)))[0]
+    x = ((centers[y] + spread * rng.normal(size=(n, d))) * spectrum) @ basis
+    if duplicates:
+        x[n - duplicates:] = x[rng.choice(n - duplicates, duplicates, replace=False)]
+    return x.astype(np.float32)
+
+
+def _neighbour_preservation(torch, x, y, k: int = 10, queries=None) -> float:
+    """Mean share of each query point's k nearest input neighbours that are
+    also among its k nearest in the embedding (float64 distances on the card)."""
+    dev = torch.device("cuda")
+    xs, ys = (torch.as_tensor(a, device=dev, dtype=torch.float64) for a in (x, y))
+    q = torch.arange(len(xs), device=dev) if queries is None else torch.as_tensor(queries, device=dev)
+    sets = []
+    for a in (xs, ys):
+        d = torch.cdist(a[q], a)
+        d[torch.arange(len(q), device=dev), q] = float("inf")
+        sets.append(d.topk(k, dim=1, largest=False).indices)
+    shared = (sets[0][:, :, None] == sets[1][:, None, :]).any(dim=2).sum()
+    return float(shared) / (len(q) * k)
+
+
+def _timed(torch, fn):
+    """(result, seconds, peak GiB) of ``fn()`` on the card."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _pca_deviation(np, card, cpu, n: int) -> tuple:
+    """(max |Δ| over the first n principal axes taken one by one, max 1 −
+    smallest principal-angle cosine over the groups of axes whose variances
+    lie within 1 % of each other, where an axis is not defined alone)."""
+    ev = cpu.explained_variance[:n]
+    cuts = [0] + [i + 1 for i in range(n - 1) if ev[i] > ev[i + 1] * 1.01] + [n]
+    axis_err, group_err = 0.0, 0.0
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        if hi - lo == 1:
+            axis_err = max(axis_err, float(np.abs(card.components[lo] - cpu.components[lo]).max()))
+        else:
+            cos = np.linalg.svd(card.components[lo:hi].astype(np.float64) @ cpu.components[lo:hi].T, compute_uv=False)
+            group_err = max(group_err, 1.0 - float(cos.min()))
+    return axis_err, group_err
+
+
+def _near_radius_pairs(torch, x, eps: float) -> int:
+    """Pairs whose float64 distance lies within 1e-4 of eps (relative): where
+    float32 sums in another order may put a pair on the other side."""
+    xs = torch.as_tensor(x, device=torch.device("cuda"), dtype=torch.float64)
+    return int(((torch.cdist(xs, xs) - eps).abs() <= 1e-4 * eps).sum()) // 2
+
+
+def phase_analysis(torch, np, counts: LaunchCounts) -> None:
+    """The analysis stack at the reference corpus's size (100 labeled + 1,406
+    unlabeled, 512-D), each function on the card and on the CPU on the same
+    inputs: standardize, PCA, t-SNE, UMAP, k-means, auto-eps and the DBSCAN
+    grid, silhouette, ARI and NMI; each function's seconds on both."""
+    from ssip_tpu_torch.analysis import cluster_metrics, dbscan, kmeans, pca, standardize, tsne, umap
+    from ssip_tpu_torch.analysis.pca import components_for_variance
+
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    n = ANALYSIS_LABELED + ANALYSIS_UNLABELED
+    raw = _seeded_features(np, n, ANALYSIS_DIM, SEED + 30, clusters=ANALYSIS_CLUSTERS, duplicates=20)
+    labeled = np.arange(n) < ANALYSIS_LABELED
+    truth = np.where(np.arange(n) % 2 == 0, "cancer", "normal")
+    counts.reset()
+
+    def both(fn):
+        card_out, card_s, card_gib = _timed(torch, lambda: fn(card))
+        t0 = time.perf_counter()
+        cpu_out = fn(cpu)
+        return card_out, cpu_out, {"seconds": f"{card_s:.3f}", "cpu_seconds": f"{time.perf_counter() - t0:.3f}",
+                                   "peak_gib": f"{card_gib:.2f}"}
+
+    (sc, sp, t) = both(lambda dev: standardize.fit_scaler(raw, device=dev))
+    err = float(np.abs(sc["scale"] - sp["scale"]).max() / sp["scale"].max())
+    if err > 1e-5:
+        raise AssertionError(f"analysis standardize: scale {err} of its max")
+    feats = standardize.transform(raw, sp, device=cpu)
+    say("analysis", fn="standardize", n=n, dim=ANALYSIS_DIM, scale_rel_err=f"{err:.2e}", **t)
+
+    (pc, pp, t) = both(lambda dev: pca.fit_pca(feats, device=dev))
+    k_cluster = max(2, components_for_variance(pp, 0.9))
+    axis_err, group_err = _pca_deviation(np, pc, pp, ANALYSIS_TSNE_DIM)
+    ratio_err = float(np.abs(pc.explained_variance_ratio - pp.explained_variance_ratio).max()
+                      / pp.explained_variance_ratio.max())
+    if axis_err > 1e-3 or group_err > 1e-3 or ratio_err > 1e-4 or components_for_variance(pc, 0.9) != (
+            components_for_variance(pp, 0.9)):
+        raise AssertionError(f"analysis pca: axes {axis_err}, groups {group_err}, ratio {ratio_err}")
+    projected = pp.transform(feats)
+    space, tsne_in = projected[:, :k_cluster], projected[:, :ANALYSIS_TSNE_DIM]
+    say("analysis", fn="pca", cluster_dims=k_cluster, axis_max_err=f"{axis_err:.2e}",
+        group_max_err=f"{group_err:.2e}", ratio_max_err=f"{ratio_err:.2e}", **t)
+
+    for perplexity in TSNE_PERPLEXITIES:
+        (yc, yp, t) = both(lambda dev: tsne.tsne(tsne_in, perplexity=perplexity, device=dev))
+        kl_c, kl_p = (tsne.kl_divergence(tsne_in, y, perplexity, device=card) for y in (yc, yp))
+        pres_c, pres_p = (_neighbour_preservation(torch, tsne_in, y) for y in (yc, yp))
+        if not (np.isfinite(yc).all() and abs(kl_c / kl_p - 1) <= EMBED_KL_RTOL
+                and abs(pres_c - pres_p) <= NEIGHBOUR_ATOL):
+            raise AssertionError(f"analysis tsne {perplexity}: KL {kl_c} vs {kl_p}, preservation {pres_c} vs {pres_p}")
+        say("analysis", fn="tsne", perplexity=perplexity, kl=f"{kl_c:.4f}", cpu_kl=f"{kl_p:.4f}",
+            preservation=f"{pres_c:.3f}", cpu_preservation=f"{pres_p:.3f}", **t)
+
+    for neighbours, min_dist in UMAP_GRID:
+        (yc, yp, t) = both(lambda dev: umap.umap(tsne_in, n_neighbors=neighbours, min_dist=min_dist, device=dev))
+        pres_c, pres_p = (_neighbour_preservation(torch, tsne_in, y) for y in (yc, yp))
+        if not (np.isfinite(yc).all() and abs(pres_c - pres_p) <= NEIGHBOUR_ATOL):
+            raise AssertionError(f"analysis umap {neighbours} {min_dist}: preservation {pres_c} vs {pres_p}")
+        say("analysis", fn="umap", n_neighbors=neighbours, min_dist=min_dist, preservation=f"{pres_c:.3f}",
+            cpu_preservation=f"{pres_p:.3f}", **t)
+
+    labels = {}
+    for k in KMEANS_KS:
+        (kc, kp, t) = both(lambda dev: kmeans.kmeans(space, k, n_init=10, seed=42, device=dev))
+        ari = cluster_metrics.adjusted_rand_index(kc.labels, kp.labels)
+        inertia_err = abs(kc.inertia / kp.inertia - 1)
+        if ari < 0.999 or inertia_err > 1e-4:
+            raise AssertionError(f"analysis kmeans k={k}: ARI {ari}, inertia {kc.inertia} vs {kp.inertia}")
+        say("analysis", fn="kmeans", k=k, n_init=10, ari_card_vs_cpu=f"{ari:.6f}", inertia_rel_err=f"{inertia_err:.2e}",
+            n_iter=kc.n_iter, cpu_n_iter=kp.n_iter, **t)
+        labels[k] = kp.labels
+
+    chosen = labels[ANALYSIS_CLUSTERS]
+    (sc_c, sc_p, t) = both(lambda dev: cluster_metrics.silhouette_score(space, chosen, device=dev))
+    if abs(sc_c / sc_p - 1) > 1e-4:
+        raise AssertionError(f"analysis silhouette: {sc_c} vs {sc_p}")
+    ari = cluster_metrics.adjusted_rand_index(truth[labeled], chosen[labeled])
+    nmi = cluster_metrics.normalized_mutual_info(truth[labeled], chosen[labeled])
+    say("analysis", fn="silhouette", k=ANALYSIS_CLUSTERS, value=f"{sc_c:.6f}", cpu_value=f"{sc_p:.6f}", ari=f"{ari:.4f}",
+        nmi=f"{nmi:.4f}", **t)
+
+    sub = space[~labeled]
+    grid = []
+    for ms in DBSCAN_MIN_SAMPLES:
+        (ec, ep, t) = both(lambda dev: dbscan.auto_eps_from_kdistance(sub, ms, quantile=0.98, device=dev))
+        if abs(ec / ep - 1) > 1e-5:
+            raise AssertionError(f"analysis auto eps ms={ms}: {ec} vs {ep}")
+        say("analysis", fn="auto_eps", min_samples=ms, eps=f"{ec:.6f}", cpu_eps=f"{ep:.6f}", **t)
+        grid.extend(max(1e-6, ep * f) for f in (0.8, 1.0, 1.2))
+    near_total, seconds, cpu_seconds, clusters = 0, 0.0, 0.0, []
+    for eps in sorted(set(grid)):
+        near = _near_radius_pairs(torch, sub, eps)
+        near_total += near
+        for ms in DBSCAN_MIN_SAMPLES:
+            (dc, dp, t) = both(lambda dev: dbscan.dbscan(sub, eps, ms, device=dev))
+            seconds, cpu_seconds = seconds + float(t["seconds"]), cpu_seconds + float(t["cpu_seconds"])
+            same = np.array_equal(dc.labels, dp.labels)
+            if not same and (near == 0 or cluster_metrics.adjusted_rand_index(dc.labels, dp.labels) < 0.99):
+                raise AssertionError(f"analysis dbscan eps={eps} ms={ms}: labels differ with {near} pairs near eps")
+            clusters.append(dc.n_clusters)
+    say("analysis", fn="dbscan", scope="unlabeled", fits=len(set(grid)) * len(DBSCAN_MIN_SAMPLES),
+        pairs_near_eps=near_total, clusters=clusters, seconds=f"{seconds:.3f}",
+        cpu_seconds=f"{cpu_seconds:.3f}")
+    launched = {k: v for k, v in counts.read().items() if v}
+    if launched:
+        raise AssertionError(f"analysis: the stack launched hand kernels {launched}")
+
+
+def phase_analysis_scale(torch, np) -> None:
+    """Above ``DENSE_LIMIT``: 50,000 × 512 through the blocked k-distance,
+    DBSCAN and silhouette paths and k-means, t-SNE and UMAP at their
+    20,000-point cap; seconds and peak memory of each. The blocked paths are
+    held to the dense ones on a 4,096-row slice."""
+    from ssip_tpu_torch.analysis import cluster_metrics, dbscan, kmeans, pca, tsne, umap
+    from ssip_tpu_torch.analysis.distances import pairwise_d2
+
+    card = torch.device("cuda")
+    x = _seeded_features(np, SCALE_N, ANALYSIS_DIM, SEED + 31, duplicates=100)
+
+    curve, s, gib = _timed(torch, lambda: dbscan.k_distance_curve(x, 5, include_self=True, device=card))
+    # the 25th-percentile 4th-neighbour distance keeps neighbourhoods to a few points
+    # on these features (at the median they hold thousands, all sent to the host's BFS)
+    eps = float(np.quantile(curve, SCALE_EPS_QUANTILE))
+    say("analysis_scale", fn="k_distance", n=SCALE_N, k=5, seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+    fit, s, gib = _timed(torch, lambda: dbscan.dbscan(x, eps, 5, device=card))
+    say("analysis_scale", fn="dbscan", eps=f"{eps:.4f}", eps_quantile=SCALE_EPS_QUANTILE, min_samples=5, clusters=fit.n_clusters,
+        noise_rate=f"{fit.noise_rate:.4f}", seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+    km, s, gib = _timed(torch, lambda: kmeans.kmeans(x, SCALE_KMEANS_K, n_init=SCALE_KMEANS_INIT, device=card))
+    say("analysis_scale", fn="kmeans", k=SCALE_KMEANS_K, n_init=SCALE_KMEANS_INIT, n_iter=km.n_iter,
+        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+    sil, s, gib = _timed(torch, lambda: cluster_metrics.silhouette_score(x, km.labels, device=card))
+    if not 0 < sil <= 1:
+        raise AssertionError(f"analysis_scale silhouette {sil}")
+    say("analysis_scale", fn="silhouette", value=f"{sil:.4f}", seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+
+    part = x[:SCALE_SLICE]  # below DENSE_LIMIT: both paths run on it
+    xt = torch.as_tensor(part, device=card)
+    sq = (xt * xt).sum(1)
+    rounding = float(sq.max()) * 2.0**-21
+    dense_k = np.sort(np.sqrt(dbscan._kth_smallest(pairwise_d2(xt, xt, sq, sq), 5).cpu().numpy()))
+    blocked_k = np.sort(np.sqrt(dbscan._kth_distance_blocked(xt, 5, True).cpu().numpy()))
+    kd_err = float(np.abs(dense_k - blocked_k).max())
+    one_hot = torch.eye(SCALE_KMEANS_K, device=card)[torch.as_tensor(km.labels[:SCALE_SLICE], device=card)]
+    sums_d = cluster_metrics._silhouette_sums_dense(xt, one_hot)
+    sums_b = cluster_metrics._silhouette_sums_blocked(xt, one_hot)
+    sil_err = float(((sums_d - sums_b).abs() / sums_d.abs().clamp_min(1.0)).max())
+    dense_nb = dbscan._neighbor_lists_dense(xt, eps)
+    blocked_nb = dbscan._neighbor_lists_blocked(xt, eps)
+    differing = sum(len(set(a.tolist()) ^ set(b.tolist())) for a, b in zip(dense_nb, blocked_nb)) // 2
+    near = _near_radius_pairs(torch, part, eps)
+    if kd_err > 1e-5 * dense_k.max() + np.sqrt(rounding) or sil_err > 1e-5 or differing > near:
+        raise AssertionError(f"analysis_scale blocked vs dense: k-distance {kd_err}, silhouette sums {sil_err}, "
+                             f"{differing} neighbour pairs differ ({near} near eps)")
+    say("analysis_scale", check="blocked_vs_dense", rows=SCALE_SLICE, k_distance_max_err=f"{kd_err:.2e}",
+        silhouette_sums_rel_err=f"{sil_err:.2e}", neighbour_pairs_differing=differing, pairs_near_eps=near)
+
+    sub = pca.fit_pca(x[:EMBED_CAP], device=card).transform(x[:EMBED_CAP], ANALYSIS_TSNE_DIM)
+    emb, s, gib = _timed(torch, lambda: tsne.tsne(sub, perplexity=30.0, device=card))
+    kl = tsne.kl_divergence(sub, emb, 30.0, device=card)
+    queries = np.random.default_rng(SEED + 32).choice(EMBED_CAP, min(2000, EMBED_CAP), replace=False)
+    pres = _neighbour_preservation(torch, sub, emb, queries=queries)
+    if not np.isfinite(emb).all() or not np.isfinite(kl):
+        raise AssertionError("analysis_scale tsne: not finite")
+    say("analysis_scale", fn="tsne", n=EMBED_CAP, perplexity=30.0, kl=f"{kl:.4f}", preservation=f"{pres:.3f}",
+        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+    del emb
+    emb, s, gib = _timed(torch, lambda: umap.umap(sub, n_neighbors=15, min_dist=0.1, device=card))
+    pres = _neighbour_preservation(torch, sub, emb, queries=queries)
+    if not np.isfinite(emb).all():
+        raise AssertionError("analysis_scale umap: not finite")
+    say("analysis_scale", fn="umap", n=EMBED_CAP, n_neighbors=15, min_dist=0.1, preservation=f"{pres:.3f}",
+        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+    torch.cuda.empty_cache()
+
+
+def make_workflow_tree(np, tmp: Path) -> Path:
+    """The reference layout and counts, ``avec_labels/{cancer,normal}`` 50 +
+    50 and ``sans_label`` 1,406, 512² RGB JPEGs drawn from four seeded
+    families (a smooth base image each plus per-image noise): cancer from
+    the first, normal from the second, the pool from all four, so that
+    clusters and a DBSCAN cohort exist."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    root = tmp / "workflow_data"
+    rng = np.random.default_rng(SEED + 40)
+    coarse = rng.integers(0, 256, (WORKFLOW_FAMILIES, 8, 8, 3), dtype=np.uint8)
+    bases = [np.asarray(Image.fromarray(c).resize((SIZE, SIZE), Image.BICUBIC), np.float32) for c in coarse]
+    jobs = [(f"avec_labels/cancer/c_{i:03d}.jpg", 0) for i in range(ANALYSIS_LABELED // 2)]
+    jobs += [(f"avec_labels/normal/n_{i:03d}.jpg", 1) for i in range(ANALYSIS_LABELED // 2)]
+    jobs += [(f"sans_label/u_{i:04d}.jpg", i % WORKFLOW_FAMILIES) for i in range(ANALYSIS_UNLABELED)]
+    for rel in ("avec_labels/cancer", "avec_labels/normal", "sans_label"):
+        (root / rel).mkdir(parents=True)
+    seeds = rng.integers(0, 2**31, len(jobs))
+
+    def write(job):
+        (rel, family), seed = job
+        noise = np.random.default_rng(seed).normal(0.0, 16.0, (SIZE, SIZE, 3))
+        Image.fromarray(np.clip(bases[family] + noise, 0, 255).astype(np.uint8)).save(root / rel, quality=90)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, zip(jobs, seeds)))
+    return root
+
+
+def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> None:
+    """``scripts/run_full_workflow.sh`` on the port's CLIs, in its order and
+    with its flags, on the card, through the cohort-filtered semi-supervised
+    run and both threshold sweeps. Cuts: 2 + 1 + 2 training epochs (the
+    script's defaults are 10 + 5 + 8) and a pseudo-label threshold of 0.5
+    (seeded weights after two epochs keep their confidences near it). Without
+    matplotlib the audit is not run and the clustering stage runs through
+    ``cli.clustering.run_analysis`` (everything but its figures)."""
+    from ssip_tpu_torch.cli import clustering, data_audit, export_unlabeled_cohort, feature_extraction
+    from ssip_tpu_torch.cli import semi_supervised_training, standardize_features, supervised_training
+    from ssip_tpu_torch.cli import threshold_sweep
+
+    data, out = make_workflow_tree(np, tmp), tmp / "workflow_outputs"
+    o, labeled = ["--output-dir", str(out)], str(data / "avec_labels")
+    feats, tables = out / "features", out / "tables"
+    cohort = tables / "unlabeled_cohort_dbscan.csv"
+    cluster_argv = ["--features-npz", str(feats / "standardized_features.npz"), "--output-root", str(out),
+                    "--dbscan-auto", "--dbscan-scope", "unlabeled"]
+
+    def cluster_stage():
+        if host["matplotlib"]:
+            clustering.main(cluster_argv)
+        else:
+            args = clustering.parse_args(cluster_argv)
+            clustering.run_analysis(args, torch.device("cuda"))
+
+    stages = [
+        ("audit", (lambda: data_audit.main(["--data-dir", str(data), *o])) if host["matplotlib"] and host["pandas"]
+         else None),
+        ("extraction", lambda: feature_extraction.main(["--data-dir", str(data), *o])),
+        ("standardize", lambda: standardize_features.main([
+            "--embeddings-npy", str(feats / "embeddings.npy"), "--embeddings-csv", str(feats / "embeddings.csv"),
+            "--output-npz", str(feats / "standardized_features.npz")])),
+        ("clustering", cluster_stage),
+        ("cohort", lambda: export_unlabeled_cohort.main([
+            "--assignments", str(tables / "cluster_assignments.csv"), "--method", "dbscan", "--output", str(cohort)])),
+        ("supervised", lambda: supervised_training.main([
+            "--strong-data-dir", labeled, "--target-recall", "0.98", "--min-precision", "0.60",
+            "--baseline-epochs", str(WORKFLOW_EPOCHS[0]), *o])),
+        ("semi", lambda: semi_supervised_training.main([
+            "--strong-data-dir", labeled, "--weak-data-dir", str(data / "sans_label"),
+            "--unlabeled-cohort-csv", str(cohort), "--target-recall", "0.98", "--min-precision", "0.60",
+            "--baseline-epochs", str(WORKFLOW_EPOCHS[0]), "--weak-pretrain-epochs", str(WORKFLOW_EPOCHS[1]),
+            "--finetune-epochs", str(WORKFLOW_EPOCHS[2]), "--pseudo-threshold", str(SEMI_THRESHOLD), *o])),
+        ("sweep_base", lambda: threshold_sweep.main(["--strong-data-dir", labeled, "--model", "baseline", *o])),
+        ("sweep_semi", lambda: threshold_sweep.main(["--strong-data-dir", labeled, "--model", "semi", *o])),
+    ]
+    n = ANALYSIS_LABELED + ANALYSIS_UNLABELED
+    for name, run in stages:
+        if run is None:
+            missing = " and ".join(name for name, ok in host.items() if not ok)
+            say("workflow", stage=name, run=f"not on this card: {missing} not installed here")
+            continue
+        counts.reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = {k: v for k, v in counts.read().items() if v}
+        if name == "extraction" and launched.get("preprocess_images") != -(-n // 32):
+            raise AssertionError(f"workflow extraction: launches {launched}")
+        if name in ("supervised", "semi") and not launched.get("augment_images"):
+            raise AssertionError(f"workflow {name}: no augment launch: {launched}")
+        say("workflow", stage=name, seconds=f"{seconds:.2f}",
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=launched)
+    say("workflow", stage="comparison, reporting, readme (scripts/generate_*)",
+        run="not on the card: they draw with matplotlib and read the JAX package's artifact registry")
+    _check_workflow_outputs(np, data, out, n)
+
+
+def _check_workflow_outputs(np, data: Path, out: Path, n: int) -> None:
+    """Every artifact of the contract the run wrote, and its form."""
+    from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
+
+    reg = ArtifactRegistry(out)
+    for path in (
+        reg.embeddings_npy, reg.embeddings_csv, reg.features_metadata_json, reg.clustering_metrics_csv,
+        reg.cluster_assignments_csv, reg.clustering_report_md, reg.tables_dir / "unlabeled_cohort_dbscan.csv",
+        reg.baseline_checkpoint, reg.semi_checkpoint, reg.results_comparison_csv, reg.results_comparison_detailed_csv,
+        reg.training_history_json, reg.operating_point_json, reg.triage_csv, reg.threshold_sweep_csv("baseline"),
+        reg.threshold_sweep_csv("semi"), reg.features_dir / "standardized_features.npz",
+    ):
+        if not path.is_file() or path.stat().st_size == 0:
+            raise AssertionError(f"workflow: missing artifact {path}")
+    emb = np.load(reg.embeddings_npy)
+    with np.load(reg.features_dir / "standardized_features.npz") as z:
+        bundle_ok = z["features"].shape == (n, 512) and int(z["is_labeled"].sum()) == ANALYSIS_LABELED
+    metrics = _csv_rows(reg.clustering_metrics_csv)
+    methods = [r["method"] for r in metrics]
+    assignments = _csv_rows(reg.cluster_assignments_csv)
+    cohort = _csv_rows(reg.tables_dir / "unlabeled_cohort_dbscan.csv")
+    history = json.loads(reg.training_history_json.read_text())
+    test_size = len(history["splits"]["test"])
+    sweeps = {m: _csv_rows(reg.threshold_sweep_csv(m)) for m in ("baseline", "semi")}
+    embeddings = sorted(p.name for p in (reg.features_dir / "embeddings").glob("*.npz"))
+    checks = {
+        "embeddings": emb.shape == (n, 512) and bool(np.isfinite(emb).all()),
+        "bundle": bundle_ok,
+        "metrics": methods.count("kmeans") == len(KMEANS_KS) and methods.count("dbscan") == 27,
+        "assignments": len(assignments) == n and {r["cluster_kmeans"] for r in assignments} != {"-1"},
+        "embedding_npz": len(embeddings) == 3 + len(TSNE_PERPLEXITIES) + len(UMAP_GRID),
+        "cohort": 0 < len(cohort) <= ANALYSIS_UNLABELED and all(r["path"].startswith("sans_label") for r in cohort),
+        "histories": all(len(history[p]["val_loss"]) == e for p, e in zip(
+            ("baseline", "semi_pretrain", "semi_finetune"), WORKFLOW_EPOCHS)) and history["pseudo_label_count"] > 0,
+        "sweeps": all(rows and all(sum(float(r[c]) for c in SWEEP_COUNTS) == test_size for r in rows)
+                      for rows in sweeps.values()),
+        "triage": len(_csv_rows(reg.triage_csv)) == ANALYSIS_UNLABELED,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"workflow outputs: {checks}")
+    say("workflow", artifacts="all present and well formed", images=n, cohort=len(cohort),
+        pseudo_labels=history["pseudo_label_count"],
+        dbscan_clusters=len({r["cluster_dbscan"] for r in assignments} - {"-1"}), sweep_rows={m: len(rows) for m, rows in sweeps.items()})
+
+
 def phase_imports() -> None:
     """The run loaded nothing of jax and nothing of the JAX package: the
     port keeps its own copies of the jax-free modules it needs."""
@@ -2262,6 +2794,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_env(torch)
+    host = phase_host_packages()
     phase_build()
     counts = LaunchCounts()
     measured = {**phase_kernel(torch, np), "augment_images": phase_rotate_kernel(torch, np),
@@ -2289,6 +2822,10 @@ def main() -> int:
         pool = make_unlabeled_pool(np, train_tree)
         phase_semi(torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"), "resnet18")
         phase_semi(torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")
+        phase_sweep(torch, np, tmp, train_tree, counts)
+        phase_analysis(torch, np, counts)
+        phase_analysis_scale(torch, np)
+        phase_workflow(torch, np, tmp, counts, host)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_step(torch, np, counts)

@@ -21,11 +21,21 @@ The ViT's LayerNorm and packed-qkv attention are hand-written CUDA kernels
 too, forward and backward (``ops/layernorm.py`` + ``csrc/layernorm.cu``,
 ``ops/attention.py`` + ``csrc/attention.cu``, model ``models/vit.py``).
 
-Nothing here imports jax, flax, optax, scikit-learn or pandas, and nothing
-of the JAX package: the jax-free modules the port needs from it
+Around them, the workflow's other stages: the semi-supervised pipeline
+(``pipelines/semi_supervised.py``), the threshold sweep
+(``pipelines/sweep.py``), the dataset audit (``analysis/audit.py``) and the
+analysis stack (``analysis/``: standardize, PCA, k-means, DBSCAN, t-SNE,
+UMAP, the clustering metrics and orchestration; plain PyTorch ops), each
+with the CLI of ``src/`` of the same name under ``cli/``.
+
+Nothing here imports jax, flax, optax or scikit-learn, and nothing of the
+JAX package: the jax-free modules the port needs from it
 (``data/discovery.py``, ``runtime/artifacts.py``, ``runtime/logging.py``,
-``pipelines/train_config.py``, ``ops/thresholds.py``) are the port's own
-copies. CUDA kernels are compiled on first use
+``pipelines/train_config.py``, ``ops/thresholds.py``,
+``analysis/audit.py``, ``analysis/audit_contract.py``,
+``analysis/blocked.py``) are the port's own copies. pandas is imported by
+the audit alone, and matplotlib only by the functions that draw
+(``report/``). CUDA kernels are compiled on first use
 (``kernels/build.py``), so importing the package needs no compiler.
 """
 

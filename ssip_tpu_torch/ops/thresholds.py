@@ -19,8 +19,7 @@ records them):
   - ``no_positives`` : validation set has no positive example
 
 The port's own copy of ``ssip_tpu/ops/thresholds.py`` (numpy only; the port
-imports nothing of the JAX package), without the sweep helpers, which the
-threshold-sweep CLI alone uses and which is not ported.
+imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -159,3 +158,46 @@ def select_operating_threshold(
         "precision": float(precision[0]),
         "fpr": float(fpr[0]),
     }
+
+
+def confusion_from_threshold(
+    y_true: np.ndarray, y_prob: np.ndarray, pos_index: int, thr: float
+) -> Dict[str, float]:
+    """Single-threshold confusion row (schema: reference threshold_sweep.py:41-70)."""
+    rows = sweep_thresholds(y_true, y_prob, pos_index, np.asarray([thr]))
+    return rows[0]
+
+
+def sweep_thresholds(
+    y_true: np.ndarray,
+    y_prob: np.ndarray,
+    pos_index: int,
+    thresholds: Optional[np.ndarray] = None,
+) -> list[Dict[str, float]]:
+    """Full descending threshold sweep, one vectorized pass.
+
+    Returns rows with the exact ``threshold_sweep_{model}.csv`` column set
+    (reference threshold_sweep.py:41-70, :137-147).
+    """
+    y_true_bin = (np.asarray(y_true) == pos_index).astype(np.int32)
+    if thresholds is None:
+        thresholds = candidate_thresholds(y_prob, include_one=True)[::-1]
+    thresholds = np.asarray(thresholds, dtype=np.float64)
+    host = stats_for_thresholds(y_true_bin, y_prob, thresholds)
+    rows = []
+    for i, t in enumerate(thresholds):
+        rows.append(
+            {
+                "threshold": float(t),
+                "TP": float(host["TP"][i]),
+                "FP": float(host["FP"][i]),
+                "TN": float(host["TN"][i]),
+                "FN": float(host["FN"][i]),
+                "TPR": float(host["recall"][i]),
+                "TNR": float(host["tnr"][i]),
+                "FPR": float(host["fpr"][i]),
+                "precision": float(host["precision"][i]),
+                "accuracy": float(host["accuracy"][i]),
+            }
+        )
+    return rows

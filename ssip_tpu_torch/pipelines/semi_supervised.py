@@ -24,7 +24,8 @@ All four phases run on device-resident data; the phase transitions
 Not ported yet, refused with an error naming the ROADMAP entry:
 ``--strong-augment randaugment``, and what ``pipelines/supervised.py``
 refuses. The eight figures of the JAX run are not drawn yet (ROADMAP Queue 1
-item 15d).
+item 15d): matplotlib is not installed on the card's machine, where a figure
+call would stop the run.
 """
 
 from __future__ import annotations

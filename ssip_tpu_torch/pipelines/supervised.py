@@ -15,8 +15,9 @@ the paths ``ArtifactRegistry`` names and with the JAX run's schemas.
 
 Not ported yet, refused with an error naming the ROADMAP entry: ``--resume``
 snapshots, the seed and cross-validation fan-outs, tensor parallelism and
-FSDP, and the MoE archs. The four training figures
-(``report/plots.py``) are not drawn yet either.
+FSDP, and the MoE archs. The four training figures (``report/plots.py``) are
+not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is not installed on the
+card's machine, where a figure call would stop the run.
 """
 
 from __future__ import annotations

@@ -12,6 +12,8 @@ bfloat16 (throughput mode).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,3 +66,21 @@ def configure_precision(name: str) -> None:
     if name == "float32":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextmanager
+def float32_products():
+    """Float32 matrix products in true float32 inside the block, the
+    caller's setting put back after.
+
+    cuBLAS may run a float32 GEMM in TF32 (about 3 significant digits) when
+    ``torch.backends.cuda.matmul.allow_tf32`` is set, which would move the
+    analysis stack's ``d2 <= eps²`` neighbourhoods, kNN graphs and k-means
+    assignments. Also usable as a decorator.
+    """
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

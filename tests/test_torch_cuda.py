@@ -794,3 +794,69 @@ def test_unpacked_attention_kernel_refuses_what_it_does_not_take(cuda):
         fused_attention(aligned, shifted, aligned)
     with pytest.raises(ValueError, match="16-byte"):
         attention_bwd(aligned, aligned, aligned, shifted)
+
+
+def _analysis_blobs(n=400, d=16, centers=5, seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0.0, 10.0, (centers, d))
+    y = rng.integers(0, centers, n)
+    return (c[y] + rng.normal(0.0, 1.0, (n, d))).astype(np.float32), y
+
+
+@pytest.mark.cuda
+def test_analysis_on_the_card_matches_the_cpu_with_tf32_requested(cuda):
+    """The analysis stack on the card against the same code on the CPU, with
+    TF32 switched on by the caller: the entry points pin float32 products
+    (k-means labels, DBSCAN labels and the kNN edges would move in TF32) and
+    put the caller's setting back."""
+    from ssip_tpu_torch.analysis import cluster_metrics, dbscan, kmeans, pca, standardize, tsne, umap
+    from ssip_tpu_torch.runtime.device import float32_products
+
+    x, y = _analysis_blobs()
+    cpu = torch.device("cpu")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got, want = kmeans.kmeans(x, 5, device=cuda), kmeans.kmeans(x, 5, device=cpu)
+        np.testing.assert_array_equal(got.labels, want.labels)
+        assert got.n_iter == want.n_iter and got.inertia == pytest.approx(want.inertia, rel=1e-5)
+        for eps, ms in ((4.5, 5), (6.0, 10)):
+            np.testing.assert_array_equal(dbscan.dbscan(x, eps, ms, device=cuda).labels,
+                                          dbscan.dbscan(x, eps, ms, device=cpu).labels)
+        np.testing.assert_allclose(dbscan.k_distance_curve(x, 5, True, device=cuda),
+                                   dbscan.k_distance_curve(x, 5, True, device=cpu), rtol=1e-5, atol=2e-2)
+        assert cluster_metrics.silhouette_score(x, y, device=cuda) == pytest.approx(
+            cluster_metrics.silhouette_score(x, y, device=cpu), rel=1e-5)
+        ma, mb = pca.fit_pca(x, device=cuda), pca.fit_pca(x, device=cpu)
+        np.testing.assert_allclose(ma.components[:5], mb.components[:5], atol=1e-3)
+        sa, sb = standardize.fit_scaler(x, device=cuda), standardize.fit_scaler(x, device=cpu)
+        np.testing.assert_allclose(sa["scale"], sb["scale"], rtol=1e-5)
+        xt = torch.as_tensor(x)
+        with float32_products():  # the pieces below are called past the entry points that pin it
+            pa, pb = tsne._joint_p(xt.to(cuda), 30.0).cpu().numpy(), tsne._joint_p(xt, 30.0).numpy()
+            ga, gb = umap._fuzzy_graph(xt.to(cuda), 15).cpu().numpy(), umap._fuzzy_graph(xt, 15).numpy()
+        # P = exp(−β·d²) normalized: a d² rounded 1e-6 apart moves P by β·d² (tens) times that
+        np.testing.assert_allclose(pa, pb, rtol=1e-3, atol=1e-9)
+        np.testing.assert_array_equal(ga > 0, gb > 0)
+        np.testing.assert_allclose(ga, gb, atol=1e-3)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.cuda
+def test_analysis_blocked_paths_on_the_card(cuda):
+    """The corpus-scale paths, called directly below the limit on the card,
+    against the dense ones."""
+    from ssip_tpu_torch.analysis import cluster_metrics, dbscan
+
+    x = np.random.default_rng(3).integers(-4, 5, (3000, 8)).astype(np.float32)  # exact distances
+    xt = torch.as_tensor(x, device=cuda)
+    eps = float(np.sqrt(30.5))
+    for a, b in zip(dbscan._neighbor_lists_dense(xt, eps), dbscan._neighbor_lists_blocked(xt, eps)):
+        np.testing.assert_array_equal(a, b)
+    torch.testing.assert_close(dbscan._kth_distance_blocked(xt, 5, True),
+                               dbscan._kth_smallest(dbscan.pairwise_d2(xt, xt, (xt * xt).sum(1), (xt * xt).sum(1)), 5))
+    one_hot = torch.eye(3, device=cuda)[torch.as_tensor(np.arange(3000) % 3, device=cuda)]
+    torch.testing.assert_close(cluster_metrics._silhouette_sums_blocked(xt, one_hot),
+                               cluster_metrics._silhouette_sums_dense(xt, one_hot), rtol=1e-5, atol=1e-3)

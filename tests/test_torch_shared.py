@@ -1,6 +1,8 @@
 """The port's own copies of the JAX package's jax-free modules, each held to
 its original on seeded inputs: discovery, the artifact registry, the training
-config, logging and the threshold policy.
+config, logging, the threshold policy and sweep, the corpus-scale policy,
+the audit and its contract, and the host halves of the clustering metrics
+(ARI, NMI).
 """
 
 import dataclasses
@@ -177,3 +179,92 @@ def test_threshold_helpers_match(kind):
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     assert thresholds.find_threshold_for_target_recall(y, prob, 0.9) == jthresholds.find_threshold_for_target_recall(y, prob, 0.9)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "no_positives", "no_negatives"])
+def test_sweep_helpers_match_bit_for_bit(kind):
+    y, prob = _threshold_case(kind, seed=5)
+    labels = np.where(y == 1, 0, 1)  # positive class at index 0
+    assert thresholds.sweep_thresholds(labels, prob, 0) == jthresholds.sweep_thresholds(labels, prob, 0)
+    for thr in (0.0, 0.3, float(np.median(prob)), 1.0):
+        assert thresholds.confusion_from_threshold(labels, prob, 0, thr) == jthresholds.confusion_from_threshold(
+            labels, prob, 0, thr)
+
+
+def test_blocked_policy_matches():
+    from ssip_tpu.analysis import blocked as jblocked
+    from ssip_tpu_torch.analysis import blocked
+
+    assert (blocked.DENSE_LIMIT, blocked.CHUNK) == (jblocked.DENSE_LIMIT, jblocked.CHUNK) == (8192, 1024)
+    blocked.check_embedding_cap(20_000, 20_000, "t-SNE")
+    with pytest.raises(ValueError) as got:
+        blocked.check_embedding_cap(20_001, 20_000, "UMAP")
+    with pytest.raises(ValueError) as want:
+        jblocked.check_embedding_cap(20_001, 20_000, "UMAP")
+    assert str(got.value) == str(want.value)
+
+
+def test_audit_contract_matches():
+    from ssip_tpu.analysis import audit_contract as jcontract
+    from ssip_tpu_torch.analysis import audit_contract as contract
+
+    names = [n for n in dir(jcontract) if n.isupper()]
+    assert len(names) == 20 and [n for n in dir(contract) if n.isupper()] == names
+    for name in names:
+        assert getattr(contract, name) == getattr(jcontract, name), name
+
+
+@pytest.mark.parametrize("pair", [("labels", "labels"), ("labels", "shuffled"), ("labels", "one"), ("one", "one")])
+def test_ari_and_nmi_match_bit_for_bit(pair):
+    from ssip_tpu.analysis import cluster_metrics as jmetrics
+    from ssip_tpu_torch.analysis import cluster_metrics
+
+    rng = np.random.default_rng(6)
+    labels = {"labels": rng.integers(0, 4, 80), "shuffled": rng.permutation(rng.integers(-1, 5, 80)),
+              "one": np.zeros(80, int)}
+    a, b = labels[pair[0]], labels[pair[1]]
+    assert cluster_metrics.adjusted_rand_index(a, b) == jmetrics.adjusted_rand_index(a, b)
+    assert cluster_metrics.normalized_mutual_info(a, b) == jmetrics.normalized_mutual_info(a, b)
+    strings = np.asarray(["cancer", "normal"])[a % 2]
+    assert cluster_metrics.adjusted_rand_index(strings, b) == jmetrics.adjusted_rand_index(strings, b)
+
+
+@pytest.fixture()
+def audit_tree(tmp_path):
+    """Two labeled classes, a nested subfolder, an unreadable file and images
+    of three sizes and two modes, made from a seed."""
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    root = tmp_path / "ds"
+    for rel, size, mode in (
+        ("avec_labels/cancer/c_0.jpg", (40, 32), "RGB"), ("avec_labels/cancer/c_1.jpg", (40, 32), "RGB"),
+        ("avec_labels/normal/n_0.png", (32, 32), "L"), ("avec_labels/normal/deep/n_1.jpg", (40, 32), "RGB"),
+        ("sans_label/u_0.jpg", (40, 32), "RGB"), ("sans_label/u_1.png", (24, 48), "L"),
+        ("sans_label/u_2.jpg", (40, 32), "RGB"),
+    ):
+        path = root / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        shape = (size[1], size[0]) + ((3,) if mode == "RGB" else ())
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8), mode).save(path)
+    (root / "sans_label" / "broken.jpg").write_bytes(b"not an image")
+    return root
+
+
+@pytest.mark.parametrize("sample_size", [3, 64])
+def test_audit_tables_and_report_match(audit_tree, tmp_path, sample_size):
+    """The same inventory, sample, tables and report text as the JAX
+    package's audit (the figures are drawn by the same matplotlib calls)."""
+    from ssip_tpu.analysis import audit as jaudit
+    from ssip_tpu_torch.analysis import audit
+
+    outs = {}
+    for name, module in (("jax", jaudit), ("port", audit)):
+        out = tmp_path / name
+        frame = module.audit_dataset(audit_tree, sample_size, 42, out)
+        outs[name] = (frame, out)
+    (want, jout), (got, pout) = outs["jax"], outs["port"]
+    assert got.equals(want) and len(got) == min(sample_size, 8)
+    for rel in ("tables/directory_summary.csv", "tables/image_summary.csv", "notes/data_audit.md"):
+        assert (pout / rel).read_text() == (jout / rel).read_text(), rel
+    assert sorted(p.name for p in (pout / "figures").iterdir()) == sorted(p.name for p in (jout / "figures").iterdir())
