@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's extraction, training and semi-supervised slices, the
-threshold sweep, the analysis stack and the whole workflow once on one NVIDIA GPU,
-for the ResNet family and the ViT family, int8 ViT extraction included.
+threshold sweep, the analysis stack, serving and export, and the whole workflow
+once on one NVIDIA GPU, for the ResNet family and the ViT family, int8 extraction
+of both included.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -102,6 +103,14 @@ non-zero without printing the final line:
            ``+int8_ptq``, cosine against the float32 run of the same weights
            above 0.98 on every image, per forward 1 preprocess-quantize, 25
            LayerNorm, 12 attention and 12 MLP launches; a profiled run;
+   int8_resnet  the same corpus through ``run_extraction`` with
+           ``compute_dtype="int8"`` for resnet18 (twice, the second run
+           timed), the stem's operand from the preprocess kernel's int8
+           epilogue: finite, ``+int8_ptq``, cosine against the float32 run
+           above 0.99 on every image, one preprocess-quantize launch a batch;
+           then each distinct int8 convolution of the forward (im2col and
+           ``torch._int_mm``) at batch 128, card against CPU (equal
+           integers), its time beside ``torch._int_mm`` alone and its bound;
    entry   ``fused_attention`` (no pipeline calls it, in either package)
            driven through autograd on the q, k, v of one vit_b16 attention
            sublayer at batch 128, float32 and bfloat16, against the packed
@@ -149,6 +158,21 @@ non-zero without printing the final line:
            backward launches per FixMatch step and none in the head-only
            pretrain; then the semi-supervised CLI
            for one epoch per phase as a subprocess (resnet18, vit_t16);
+   serve   from the run directories of ``semi`` (resnet18 float32,
+           vit_b16 bfloat16): the card's resize of 128 pool JPEGs 512→224
+           against the CPU's (values off counted), ``ScreeningPredictor`` on
+           the card against the CPU (float32, products pinned, 8 images,
+           1e-4), the ``export_model`` CLI's artifact (``torch.export``,
+           traced on the card) against the in-process predictor at batch 1, 3
+           and 128 (float32 1e-6, bfloat16 1e-3), for vit_b16 with 25
+           LayerNorm and 12 attention launches a forward inside the exported
+           program, images/s at 128; the float32 artifact on the CPU (1e-5)
+           and, for vit_b16, one traced on the CPU run on the card (1e-5, the
+           kernels launched); an int8 resnet18 artifact against the
+           float32 one (0.25); the ``serve`` CLI's server on 127.0.0.1, port
+           0, answering /healthz, /manifest, 17 /predict of 512² JPEGs (urllib
+           and a client with Nagle's algorithm off) and one /predict_paths,
+           ms a request beside the same work in process;
 9. fixmatch_step  one FixMatch step on cuda against the same step on the
            CPU (float32, TF32 off, 8 labeled + 8 unlabeled, same weights and
            draws, EMA teacher): loss ≤ 1e-5 relative, gradients ≤ 1e-2 of
@@ -196,7 +220,9 @@ non-zero without printing the final line:
            reference's layout and counts (50 + 50 labeled, 1,406 unlabeled,
            four image families): audit, extraction, standardize, clustering
            (``--dbscan-auto --dbscan-scope unlabeled``), the DBSCAN cohort,
-           supervised, semi-supervised on the cohort, both sweeps; 2 + 1 + 2
+           supervised, semi-supervised on the cohort, both sweeps, the
+           export of the semi model and a ``predict`` over the unlabeled
+           tree (artifact and CSV checked); 2 + 1 + 2
            epochs and a pseudo-label threshold of 0.5; every artifact
            present and well formed, each stage's seconds, peak memory and
            launches. A stage that needs a host package this machine lacks
@@ -204,7 +230,8 @@ non-zero without printing the final line:
            line and not started: clustering then runs as
            ``cli.clustering.run_analysis``, everything but its figures;
 14. imports no jax module and no module of the JAX package;
-15. the kernels JSON line (all eleven kernels), then ``{"ok": true, "device": {...}}`` last.
+15. a ``[seconds]`` line (each phase's seconds), the kernels JSON line (all
+    eleven kernels), then ``{"ok": true, "device": {...}}`` last.
 
 The ``host`` line, printed first after ``env``, says whether pandas and
 matplotlib are installed.
@@ -329,6 +356,16 @@ ATTN_OPS_TYPE = {"bfloat16": "bfloat16", "float32": "tf32x3"}  # the attention r
 VIT_ARCH, VIT_WIDTH, VIT_TOKENS, VIT_HEADS, VIT_MLP = "vit_b16", 768, 197, 12, 3072
 VIT_LN_PER_FORWARD, VIT_ATTN_PER_FORWARD, VIT_BLOCKS = 25, 12, 12
 INT8_COSINE_FLOOR = 0.98  # int8 vs float32 embeddings, per image (the JAX pipeline's own floor)
+INT8_RESNET_COSINE_FLOOR = 0.99  # the int8 ResNet's, per image (tests/test_quantized.py:127-128)
+SERVE_BATCH = 128  # images of the serving comparisons and timings
+SERVE_CPU_CHECK = 8  # of them, predicted on the CPU too
+SERVE_BATCHES = (1, 3, 128)  # exported against in-process
+SERVE_CPU_ATOL = 1e-4  # float32 probabilities, card vs CPU, float32 products pinned
+SERVE_EXPORT_ATOL = 1e-6  # float32, exported vs in-process on the card (tests/test_deploy.py:79)
+SERVE_BF16_ATOL = 1e-3  # bfloat16, exported vs in-process on the card
+SERVE_MOVED_ATOL = 1e-5  # float32, an artifact traced on one device run on the other
+SERVE_TIMED = 3  # timed predict_probs calls of the 128 images
+SERVE_REQUESTS = 8
 # a stem scale as calibration gives it: normalized pixels reach about ±2.64
 QUANT_INV_SCALE = 127.0 / 2.64
 # (rows, width, hidden, type): 128 images of 197 tokens, then two ragged row counts
@@ -1596,6 +1633,121 @@ def phase_slice_int8(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense: 
                        start_at="preproc_")
 
 
+def _int8_conv_shapes(module, image_size: int = CROP) -> list:
+    """The distinct int8 convolutions of a quantized ResNet's forward at
+    ``image_size``: (site, stride, padding, input side, uses a forward)."""
+    shapes: dict = {}
+
+    def add(site, stride, pad, side):
+        key = (site.kh, site.cin, site.gemm.shape[1], stride, side)
+        shapes.setdefault(key, [site, stride, pad, side, 0])[4] += 1
+
+    add(module.stem, 2, 3, image_size)
+    side = image_size // 4  # after the stem and the max-pool
+    for block, stride in zip(module.blocks, module.strides):
+        if module.bottleneck:
+            add(block.conv1, 1, 0, side)
+            add(block.conv2, stride, 1, side)
+            add(block.conv3, 1, 0, side // stride)
+        else:
+            add(block.conv1, stride, 1, side)
+            add(block.conv2, 1, 1, side // stride)
+        if block.downsample is not None:
+            add(block.downsample, stride, 0, side)
+        side //= stride
+    return list(shapes.values())
+
+
+def phase_int8_resnet(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense: dict) -> None:
+    """``run_extraction`` of resnet18 with ``compute_dtype="int8"`` on the
+    corpus (the stem's operand from the preprocess kernel's int8 epilogue),
+    beside the float32 and bfloat16 runs of the same seeded weights
+    (``dense``); then each distinct int8 convolution of the forward at batch
+    128: card against CPU (equal integers) and timed beside its
+    ``torch._int_mm`` and its bound."""
+    from ssip_tpu_torch.models.quantized import _qconv_raw, im2col
+    from ssip_tpu_torch.pipelines import extraction
+    from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
+
+    data, records, _, store = corpus
+    arch, batches, runs = "resnet18", N_IMAGES // BATCH, 2
+    out = tmp / f"out_{arch}_int8"
+    cfg = extraction.ExtractionConfig(data_dir=data, output_dir=out, batch_size=BATCH, device="cuda",
+                                      compute_dtype="int8", cache_decoded=False, arch=arch)
+    built = []
+    real_quantize = extraction._quantize_variables
+
+    def keep(*args):  # the quantized module the run built, for the convolutions below
+        built.append(real_quantize(*args))
+        return built[-1]
+
+    extraction._quantize_variables = keep
+    counts.reset()  # count only the main path's launches
+    try:
+        extraction.run_extraction(cfg, store=store)  # warm: cuBLASLt and allocator set-up
+        torch.cuda.reset_peak_memory_stats()
+        summary = extraction.run_extraction(cfg, store=store)
+    finally:
+        extraction._quantize_variables = real_quantize
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = counts.read()
+    emb = summary.embeddings
+    if emb.shape != (N_IMAGES, 512) or not np.isfinite(emb).all():
+        raise AssertionError(f"{arch} int8: embeddings {emb.shape}, finite={np.isfinite(emb).all()}")
+    reg = ArtifactRegistry(out)
+    for path in (reg.embeddings_npy, reg.embeddings_csv, reg.features_metadata_json, reg.feature_summary_md,
+                 reg.extraction_log):
+        if not path.is_file():
+            raise AssertionError(f"{arch} int8: missing artifact {path}")
+    meta = json.loads(reg.features_metadata_json.read_text())
+    if meta["weights"] != "random_init:seed=42+int8_ptq" or meta["embedding_dimension"] != 512:
+        raise AssertionError(f"{arch} int8: metadata {meta['weights']} {meta['embedding_dimension']}")
+    # calibration runs the host chain and float32 convolutions: no kernel
+    want = {"preprocess_quantize": runs * batches, "preprocess_images": 0}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{arch} int8: the extraction path launched {got}, expected {want}")
+    f32_emb, f32_rate, _ = dense["float32"]
+    _, bf16_rate, bf16_peak = dense["bfloat16"]
+    cos = (_unit(np, emb) * _unit(np, f32_emb)).sum(axis=1)
+    if not cos.min() > INT8_RESNET_COSINE_FLOOR:
+        raise AssertionError(f"{arch}: int8 vs f32 per-image cosine min {cos.min()}, floor {INT8_RESNET_COSINE_FLOOR}")
+    rate = N_IMAGES / summary.embed_seconds
+    say("int8_resnet", arch=arch, images=N_IMAGES, batch=BATCH, embed_s=f"{summary.embed_seconds:.4f}",
+        imgs_per_s=f"{rate:.1f}", bf16_imgs_per_s=f"{bf16_rate:.1f}", f32_imgs_per_s=f"{f32_rate:.1f}",
+        vs_bf16=f"{rate / bf16_rate:.3f}", e2e_s=f"{summary.total_seconds:.3f}", peak_mem_gib=f"{peak_gib:.2f}",
+        bf16_peak_mem_gib=f"{bf16_peak:.2f}", launches=got, cos_int8_f32_min=f"{cos.min():.6f}",
+        cos_int8_f32_mean=f"{cos.mean():.6f}", floor=INT8_RESNET_COSINE_FLOOR)
+
+    module = built[-1]
+    rng = np.random.default_rng(SEED + 60)
+    total_ms = total_mm = total_bound = 0.0
+    for site, stride, pad, side, uses in _int8_conv_shapes(module):
+        x = torch.from_numpy(rng.integers(-127, 128, (BATCH, side, side, site.cin), dtype=np.int8))
+        card = _qconv_raw(x.cuda(), site, stride, pad)
+        cpu_site = type(site)(**site.leaves())
+        cpu = _qconv_raw(x, cpu_site, stride, pad)
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"int8 conv {site.kh}x{site.kh}/{stride} {side}² {site.cin}→{site.gemm.shape[1]}: "
+                                 f"card and CPU differ on {(card.cpu() != cpu).sum().item()} values")
+        xc = x.cuda()
+        cols, _ = im2col(xc, site.kh, site.kw, stride, pad, site.gemm.shape[0])
+        m, k, n = cols.shape[0], site.kh * site.kw * site.cin, site.gemm.shape[1]
+        conv_ms = median_ms(torch, lambda: _qconv_raw(xc, site, stride, pad))
+        mm_ms = median_ms(torch, lambda: torch._int_mm(cols, site.gemm))
+        bound = bound_ms(xc.numel() + site.gemm.numel() + 4 * m * n, 2.0 * m * k * n, "int8")
+        total_ms, total_mm, total_bound = total_ms + uses * conv_ms, total_mm + uses * mm_ms, \
+            total_bound + uses * bound["bound_ms"]
+        say("int8_resnet", conv=f"{site.kh}x{site.kw}/{stride}", input=f"[{BATCH},{side},{side},{site.cin}]",
+            out_channels=n, gemm=f"[{m},{cols.shape[1]}]x[{cols.shape[1]},{n}]", uses=uses,
+            card_vs_cpu="equal", ms=f"{conv_ms:.4f}", int_mm_ms=f"{mm_ms:.4f}",
+            im2col_and_rest_ms=f"{conv_ms - mm_ms:.4f}", bound_ms=f"{bound['bound_ms']:.4f}",
+            bound_by=bound["bound_by"])
+    say("int8_resnet", forward_convs_ms=f"{total_ms:.3f}", forward_int_mm_ms=f"{total_mm:.3f}",
+        forward_bound_ms=f"{total_bound:.3f}", batch=BATCH,
+        embed_ms_a_batch=f"{summary.embed_seconds / batches * 1e3:.3f}")
+
+
 def phase_cli(np, tmp: Path) -> None:
     """The extraction CLI as a subprocess, with a ResNet and with a ViT."""
     from PIL import Image
@@ -2105,6 +2257,200 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
     payload = _check_semi_outputs(np, out, cli_arch, (1, 1, 1), f"semi cli {cli_arch}")
     say("semi", cli="semi_supervised_training", arch=cli_arch, epochs=(1, 1, 1),
         pseudo_labels=payload["pseudo_label_count"], val_loss=f"{payload['semi_finetune']['val_loss'][0]:.4f}")
+
+
+def _bucket(n: int, max_batch: int = 256) -> int:
+    """``ExportedModel``'s power-of-two batch for ``n`` images."""
+    b = 1
+    while b < n and b < max_batch:
+        b *= 2
+    return b
+
+
+def phase_serve(torch, np, tmp: Path, pool: Path, counts: LaunchCounts) -> None:
+    """Serving on the card, from the run directories ``semi`` wrote
+    (``resnet18`` float32, ``vit_b16`` bfloat16; their checkpoints hold
+    float32 weights): the in-process predictor against the CPU's, the
+    ``export_model`` CLI's artifact against the predictor at batch 1, 3 and
+    128 (float32 and bfloat16, and for the ViT the launches of the LayerNorm
+    and attention kernels inside the exported program), the float32 artifact
+    on the CPU (and for the ViT one traced on the CPU run on the card), the
+    int8 ``resnet18`` artifact against the float32 one, the ``serve`` CLI's server answering
+    requests, and the card's training resize against the CPU's at 512→224."""
+    from ssip_tpu_torch.cli import export_model, serve
+    from ssip_tpu_torch.data.decode import decode_batch
+    from ssip_tpu_torch.deploy import server as server_module
+    from ssip_tpu_torch.deploy.export import ExportedModel
+    from ssip_tpu_torch.runtime.device import float32_products
+    from ssip_tpu_torch.serving import ScreeningPredictor
+    from ssip_tpu_torch.train.data import resize_on_device
+
+    pool_paths = sorted(pool.glob("*.jpg"))
+    arrays, _ = decode_batch(pool_paths[:SERVE_BATCH], num_threads=8, convert_rgb=True)
+    card_u8 = resize_on_device(arrays, TRAIN_SIZE, torch.device("cuda"))
+    cpu_u8 = resize_on_device(arrays, TRAIN_SIZE, torch.device("cpu"))
+    resize_diff = card_u8.cpu() != cpu_u8
+    say("serve", resize=f"{SIZE}->{TRAIN_SIZE}", images=len(arrays), card_vs_cpu_values_off=int(resize_diff.sum()),
+        of=resize_diff.numel(), largest_step=int((card_u8.cpu().int() - cpu_u8.int()).abs().max()))
+    images = cpu_u8.numpy()  # one set of eval-resized inputs for every comparison below
+
+    for arch, run in (("resnet18", "semi_out_resnet18_float32"), (VIT_ARCH, "semi_out_vit_b16_bfloat16")):
+        out = tmp / run
+        with float32_products():
+            card = ScreeningPredictor.from_artifacts(out, batch_size=BATCH, device="cuda")
+            cpu = ScreeningPredictor.from_artifacts(out, batch_size=SERVE_CPU_CHECK, device="cpu")
+            card_probs = card.predict_probs(images[:SERVE_CPU_CHECK])
+            cpu_probs = cpu.predict_probs(images[:SERVE_CPU_CHECK])
+        vs_cpu = float(np.abs(card_probs - cpu_probs).max())
+        if not vs_cpu <= SERVE_CPU_ATOL:
+            raise AssertionError(f"serve {arch}: card vs CPU probabilities {vs_cpu} > {SERVE_CPU_ATOL}")
+        for dtype in ("float32", "bfloat16"):
+            artifact = tmp / f"serve_{arch}_{dtype}.ssip.npz"
+            t0 = time.perf_counter()
+            export_model.main(["--output-dir", str(out), "--out", str(artifact), "--compute-dtype", dtype])
+            export_s = time.perf_counter() - t0
+            exported = ExportedModel.load(artifact)
+            predictor = ScreeningPredictor.from_artifacts(out, compute_dtype=dtype, device="cuda")
+            worst, forwards = 0.0, 0
+            counts.reset()
+            for n in SERVE_BATCHES:
+                predictor.batch_size = _bucket(n)  # the exported model's bucket: the same shapes on both
+                got = exported.predict_probs(images[:n])
+                forwards += 1
+                worst = max(worst, float(np.abs(got - predictor.predict_probs(images[:n])).max()))
+            launches = counts.read()
+            if dtype == "float32" and not worst <= SERVE_EXPORT_ATOL:
+                raise AssertionError(f"serve {arch}: exported vs in-process {worst} > {SERVE_EXPORT_ATOL}")
+            if dtype == "bfloat16" and not worst <= SERVE_BF16_ATOL:
+                raise AssertionError(f"serve {arch} bf16: exported vs in-process {worst} > {SERVE_BF16_ATOL}")
+            if arch == VIT_ARCH:
+                # each batch runs once exported and once in process
+                want = {"layer_norm": 2 * forwards * VIT_LN_PER_FORWARD,
+                        "attention_qkv": 2 * forwards * VIT_ATTN_PER_FORWARD}
+                if {k: launches[k] for k in want} != want:
+                    raise AssertionError(f"serve {arch} {dtype}: launches {launches}, expected {want}")
+            t0 = time.perf_counter()
+            for _ in range(SERVE_TIMED):
+                exported.predict_probs(images)
+            rate = SERVE_TIMED * len(images) / (time.perf_counter() - t0)  # predict_probs returns host numbers
+            say("serve", arch=arch, dtype=dtype, export_s=f"{export_s:.2f}", batches=SERVE_BATCHES,
+                exported_vs_in_process=worst, card_vs_cpu_f32=vs_cpu, artifact_mb=f"{artifact.stat().st_size / 1e6:.1f}",
+                imgs_per_s_at_128=f"{rate:.1f}", launches={k: v for k, v in launches.items() if v})
+
+        # one artifact, both platforms: the card's float32 trace run on the
+        # CPU, and for the ViT a trace made on the CPU run on the card (the
+        # program moved to the device it is loaded on, where its custom
+        # operators launch the kernels)
+        card_traced = ExportedModel.load(tmp / f"serve_{arch}_float32.ssip.npz", device="cpu")
+        on_cpu = float(np.abs(card_traced.predict_probs(images[:SERVE_CPU_CHECK]) - cpu_probs).max())
+        if arch != VIT_ARCH:
+            if not on_cpu <= SERVE_MOVED_ATOL:
+                raise AssertionError(f"serve {arch}: card trace on the CPU {on_cpu}")
+            say("serve", arch=arch, dtype="float32", card_trace_on_cpu_vs_cpu_predictor=on_cpu)
+            continue
+        cpu_traced = tmp / f"serve_{arch}_cpu_traced.ssip.npz"
+        export_model.main(["--output-dir", str(out), "--out", str(cpu_traced), "--device", "cpu"])
+        counts.reset()
+        on_card = float(np.abs(ExportedModel.load(cpu_traced).predict_probs(images) - card.predict_probs(images)).max())
+        launches = counts.read()
+        if (launches["layer_norm"], launches["attention_qkv"]) != (
+                2 * VIT_LN_PER_FORWARD, 2 * VIT_ATTN_PER_FORWARD):
+            raise AssertionError(f"serve {arch}: the CPU-traced program on the card launched {launches}")
+        if not (on_cpu <= SERVE_MOVED_ATOL and on_card <= SERVE_MOVED_ATOL):
+            raise AssertionError(f"serve {arch}: card trace on the CPU {on_cpu}, CPU trace on the card {on_card}")
+        say("serve", arch=arch, dtype="float32", card_trace_on_cpu_vs_cpu_predictor=on_cpu,
+            cpu_trace_on_card_vs_card_predictor=on_card, launches={k: v for k, v in launches.items() if v})
+
+    out = tmp / "semi_out_resnet18_float32"
+    f32 = ExportedModel.load(tmp / "serve_resnet18_float32.ssip.npz")
+    artifact = tmp / "serve_resnet18_int8.ssip.npz"
+    export_model.main(["--output-dir", str(out), "--out", str(artifact), "--compute-dtype", "int8",
+                       "--calibration-images", str(pool)])
+    int8 = ExportedModel.load(artifact)
+    int8_probs = int8.predict_probs(images)
+    vs_f32 = float(np.abs(int8_probs - f32.predict_probs(images)).max())
+    if int8.manifest["calibration_images"] != 32 or not np.isfinite(int8_probs).all() or not vs_f32 <= 0.25:
+        raise AssertionError(f"serve int8: {int8.manifest['calibration_images']} calibration images, vs f32 {vs_f32}")
+    t0 = time.perf_counter()
+    for _ in range(SERVE_TIMED):
+        int8.predict_probs(images)
+    say("serve", arch="resnet18", dtype="int8", vs_f32=vs_f32, calibration_images=32,
+        imgs_per_s_at_128=f"{SERVE_TIMED * len(images) / (time.perf_counter() - t0):.1f}")
+
+    # the serve CLI's server (its model and server, as its main builds them)
+    # on 127.0.0.1, port 0, in a thread of this process
+    import http.client
+    import socket
+    import threading
+    import urllib.request
+
+    args = serve.parse_args(["--model-file", str(tmp / "serve_resnet18_float32.ssip.npz"), "--port", "0"])
+    httpd = server_module.make_server(serve.build_model(args), host=args.host, port=args.port)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def call(path, body=None):
+            req = urllib.request.Request(base + path, data=body, method="POST" if body is not None else "GET")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.load(r)
+
+        health, manifest = call("/healthz"), call("/manifest")
+        if health != {"status": "ok", "model": "resnet18"} or manifest["arch"] != "resnet18":
+            raise AssertionError(f"serve: /healthz {health}, /manifest arch {manifest.get('arch')}")
+        def call_nodelay(body):
+            # a client with Nagle's algorithm off: urllib sends a body above
+            # 2,920 bytes in a write of its own, which then waits for the
+            # server's delayed ACK of the headers
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=120)
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            conn.request("POST", "/predict", body=body)
+            answer = json.load(conn.getresponse())
+            conn.close()
+            return answer
+
+        call("/predict", pool_paths[0].read_bytes())  # warm
+        times, answers, in_process, in_thread, nodelay = [], [], [], [], []
+        for path in pool_paths[:SERVE_REQUESTS]:
+            body = path.read_bytes()
+            t0 = time.perf_counter()
+            answers.append(call("/predict", body))
+            times.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            if call_nodelay(body) != answers[-1]:
+                raise AssertionError("serve: two clients got two answers to one image")
+            nodelay.append((time.perf_counter() - t0) * 1e3)
+            # the same work without HTTP (decode, resize on the card, batch 1),
+            # here and in a thread started for it, as the server starts one
+            # a request
+            def work():
+                arr = server_module._decode_image_bytes(body)
+                f32.predict_images(resize_on_device([arr], TRAIN_SIZE, f32.device))
+
+            t0 = time.perf_counter()
+            work()
+            in_process.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            worker = threading.Thread(target=work)
+            worker.start()
+            worker.join()
+            in_thread.append((time.perf_counter() - t0) * 1e3)
+        rows = call("/predict_paths", json.dumps({"paths": [str(p) for p in pool_paths[:SERVE_REQUESTS]]}).encode())
+        direct = f32.predict_paths(pool_paths[:SERVE_REQUESTS])[0]
+        if (len(answers) != SERVE_REQUESTS or len(rows["rows"]) != SERVE_REQUESTS or rows["failures"]
+                or max(abs(a["prob_positive"] - float(p)) for a, p in zip(answers, direct.prob_positive)) > 1e-5
+                or max(abs(r["prob_positive"] - float(p)) for r, p in zip(rows["rows"], direct.prob_positive)) > 1e-5):
+            raise AssertionError(f"serve: answers {answers[:2]}, rows {rows['rows'][:2]}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=30)
+    say("serve", server="cli.serve --model-file resnet18 float32", requests=2 + 1 + 2 * SERVE_REQUESTS + 1,
+        answered="all", predict_ms_a_request=f"{sum(times) / len(times):.2f}",
+        predict_ms_median=f"{_median(times):.2f}", nodelay_client_ms_median=f"{_median(nodelay):.2f}",
+        same_work_in_process_ms_median=f"{_median(in_process):.2f}",
+        same_work_in_a_new_thread_ms_median=f"{_median(in_thread):.2f}", jpeg=f"{SIZE}x{SIZE}")
 
 
 def _fixmatch_inputs(torch, np, b: int, padded_rows: int = 0):
@@ -2668,7 +3014,7 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
     ``cli.clustering.run_analysis`` (everything but its figures)."""
     from ssip_tpu_torch.cli import clustering, data_audit, export_unlabeled_cohort, feature_extraction
     from ssip_tpu_torch.cli import semi_supervised_training, standardize_features, supervised_training
-    from ssip_tpu_torch.cli import threshold_sweep
+    from ssip_tpu_torch.cli import export_model, predict, threshold_sweep
 
     data, out = make_workflow_tree(np, tmp), tmp / "workflow_outputs"
     o, labeled = ["--output-dir", str(out)], str(data / "avec_labels")
@@ -2704,6 +3050,9 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
             "--finetune-epochs", str(WORKFLOW_EPOCHS[2]), "--pseudo-threshold", str(SEMI_THRESHOLD), *o])),
         ("sweep_base", lambda: threshold_sweep.main(["--strong-data-dir", labeled, "--model", "baseline", *o])),
         ("sweep_semi", lambda: threshold_sweep.main(["--strong-data-dir", labeled, "--model", "semi", *o])),
+        ("export", lambda: export_model.main(["--model", "semi", *o])),
+        ("predict", lambda: predict.main(["--images", str(data / "sans_label"), "--model", "semi", *o,
+                                          "--output", str(tables / "predictions_semi.csv")])),
     ]
     n = ANALYSIS_LABELED + ANALYSIS_UNLABELED
     for name, run in stages:
@@ -2724,7 +3073,7 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
             raise AssertionError(f"workflow {name}: no augment launch: {launched}")
         say("workflow", stage=name, seconds=f"{seconds:.2f}",
             peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=launched)
-    say("workflow", stage="comparison, reporting, readme (scripts/generate_*)",
+    say("workflow", stage="comparison, reporting, readme (scripts/generate_*), after export",
         run="not on the card: they draw with matplotlib and read the JAX package's artifact registry")
     _check_workflow_outputs(np, data, out, n)
 
@@ -2739,7 +3088,8 @@ def _check_workflow_outputs(np, data: Path, out: Path, n: int) -> None:
         reg.cluster_assignments_csv, reg.clustering_report_md, reg.tables_dir / "unlabeled_cohort_dbscan.csv",
         reg.baseline_checkpoint, reg.semi_checkpoint, reg.results_comparison_csv, reg.results_comparison_detailed_csv,
         reg.training_history_json, reg.operating_point_json, reg.triage_csv, reg.threshold_sweep_csv("baseline"),
-        reg.threshold_sweep_csv("semi"), reg.features_dir / "standardized_features.npz",
+        reg.threshold_sweep_csv("semi"), reg.features_dir / "standardized_features.npz", reg.serving_artifact("semi"),
+        reg.tables_dir / "predictions_semi.csv",
     ):
         if not path.is_file() or path.stat().st_size == 0:
             raise AssertionError(f"workflow: missing artifact {path}")
@@ -2754,7 +3104,17 @@ def _check_workflow_outputs(np, data: Path, out: Path, n: int) -> None:
     test_size = len(history["splits"]["test"])
     sweeps = {m: _csv_rows(reg.threshold_sweep_csv(m)) for m in ("baseline", "semi")}
     embeddings = sorted(p.name for p in (reg.features_dir / "embeddings").glob("*.npz"))
+    from ssip_tpu_torch.deploy.export import MANIFEST_VERSION, ExportedModel
+
+    served = ExportedModel.load(reg.serving_artifact("semi"))
+    predictions = _csv_rows(reg.tables_dir / "predictions_semi.csv")
+    op = json.loads(reg.operating_point_json.read_text())
     checks = {
+        "artifact": (served.manifest["version"], served.manifest["arch"], served.threshold) == (
+            MANIFEST_VERSION, "resnet18", op["threshold"]) and served.manifest["platforms"] == ["cpu", "cuda"],
+        "predictions": len(predictions) == ANALYSIS_UNLABELED and list(predictions[0]) == [
+            "path", "prob_positive", "flagged"] and all(0.0 <= float(r["prob_positive"]) <= 1.0 for r in predictions)
+        and all(r["flagged"] == str(bool(np.float32(r["prob_positive"]) >= op["threshold"])) for r in predictions),
         "embeddings": emb.shape == (n, 512) and bool(np.isfinite(emb).all()),
         "bundle": bundle_ok,
         "metrics": methods.count("kmeans") == len(KMEANS_KS) and methods.count("dbscan") == 27,
@@ -2793,48 +3153,62 @@ def main() -> int:
     import numpy as np
 
     t0 = time.perf_counter()
-    phase_env(torch)
+    laps: dict = {}
+
+    def lap(name: str, fn, *args, **kwargs):
+        """Run one phase and keep its seconds for the ``[seconds]`` line."""
+        start = time.perf_counter()
+        result = fn(*args, **kwargs)
+        laps[name] = round(laps.get(name, 0.0) + time.perf_counter() - start, 1)
+        return result
+
+    lap("env", phase_env, torch)
     host = phase_host_packages()
-    phase_build()
+    lap("build", phase_build)
     counts = LaunchCounts()
-    measured = {**phase_kernel(torch, np), "augment_images": phase_rotate_kernel(torch, np),
-                **phase_layer_norm_kernels(torch, np), **phase_attention_kernels(torch, np),
-                **phase_qmlp_kernel(torch, np), **phase_unpacked_attention_kernels(torch, np),
-                "rotate_images": phase_rotate_u8_kernel(torch, np)}
-    phase_attention_entry(torch, np, counts)
+    measured = {**lap("kernel", phase_kernel, torch, np),
+                "augment_images": lap("rotate", phase_rotate_kernel, torch, np),
+                **lap("ln", phase_layer_norm_kernels, torch, np), **lap("attn", phase_attention_kernels, torch, np),
+                **lap("qmlp", phase_qmlp_kernel, torch, np), **lap("attn4", phase_unpacked_attention_kernels, torch, np),
+                "rotate_images": lap("rotate_u8", phase_rotate_u8_kernel, torch, np)}
+    lap("entry", phase_attention_entry, torch, np, counts)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         corpus = make_corpus(np, tmp)
-        phase_slice(torch, np, tmp, corpus, counts, "resnet18", 512, N_CPU_CHECK)
-        dense = phase_slice(torch, np, tmp, corpus, counts, VIT_ARCH, VIT_WIDTH, VIT_N_CPU_CHECK)
-        phase_slice_int8(torch, np, tmp, corpus, counts, dense)
-        del corpus, dense
-        phase_cli(np, tmp)
+        resnet = lap("slice", phase_slice, torch, np, tmp, corpus, counts, "resnet18", 512, N_CPU_CHECK)
+        dense = lap("slice", phase_slice, torch, np, tmp, corpus, counts, VIT_ARCH, VIT_WIDTH, VIT_N_CPU_CHECK)
+        lap("int8", phase_slice_int8, torch, np, tmp, corpus, counts, dense)
+        lap("int8_resnet", phase_int8_resnet, torch, np, tmp, corpus, counts, resnet)
+        del corpus, dense, resnet
+        lap("cli", phase_cli, np, tmp)
         train_tree = make_train_tree(np, tmp)
-        phase_train(torch, np, tmp, train_tree, counts, "resnet18",
-                    (("float32", TRAIN_EPOCHS), ("bfloat16", TRAIN_EPOCHS)), "resnet18")
-        phase_train(torch, np, tmp, train_tree, counts, VIT_ARCH,
-                    (("bfloat16", TRAIN_EPOCHS), ("float32", 1)), "vit_t16")
+        lap("train", phase_train, torch, np, tmp, train_tree, counts, "resnet18",
+            (("float32", TRAIN_EPOCHS), ("bfloat16", TRAIN_EPOCHS)), "resnet18")
+        lap("train", phase_train, torch, np, tmp, train_tree, counts, VIT_ARCH,
+            (("bfloat16", TRAIN_EPOCHS), ("float32", 1)), "vit_t16")
         # vit_b16 past 224²: 257 and 1,025 tokens, where the attention kernels
         # once refused sequences the reference trains
-        phase_train(torch, np, tmp, train_tree, counts, VIT_ARCH, VIT_LONG_RUNS, VIT_ARCH, cli_size=256,
-                    tag="vit_long")
+        lap("vit_long", phase_train, torch, np, tmp, train_tree, counts, VIT_ARCH, VIT_LONG_RUNS, VIT_ARCH,
+            cli_size=256, tag="vit_long")
         pool = make_unlabeled_pool(np, train_tree)
-        phase_semi(torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"), "resnet18")
-        phase_semi(torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")
-        phase_sweep(torch, np, tmp, train_tree, counts)
-        phase_analysis(torch, np, counts)
-        phase_analysis_scale(torch, np)
-        phase_workflow(torch, np, tmp, counts, host)
+        lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"),
+            "resnet18")
+        lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")
+        lap("serve", phase_serve, torch, np, tmp, pool, counts)
+        lap("sweep", phase_sweep, torch, np, tmp, train_tree, counts)
+        lap("analysis", phase_analysis, torch, np, counts)
+        lap("analysis_scale", phase_analysis_scale, torch, np)
+        lap("workflow", phase_workflow, torch, np, tmp, counts, host)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    phase_step(torch, np, counts)
-    phase_vit_step(torch, np, counts)
-    phase_fixmatch_step(torch, np, counts)
+    lap("step", phase_step, torch, np, counts)
+    lap("vit_step", phase_vit_step, torch, np, counts)
+    lap("fixmatch_step", phase_fixmatch_step, torch, np, counts)
     phase_imports()
     never = [name for name, n in counts.total.items() if n == 0]
     if never:
         raise AssertionError(f"the main paths never launched {never}")
+    say("seconds", **laps)
     say("done", seconds=f"{time.perf_counter() - t0:.1f}")
     print(json.dumps({"kernels": [
         {"name": name, **KERNELS[name], "launches": counts.total[name], **measured[name]} for name in KERNELS

@@ -26,7 +26,12 @@ Around them, the workflow's other stages: the semi-supervised pipeline
 (``pipelines/sweep.py``), the dataset audit (``analysis/audit.py``) and the
 analysis stack (``analysis/``: standardize, PCA, k-means, DBSCAN, t-SNE,
 UMAP, the clustering metrics and orchestration; plain PyTorch ops), each
-with the CLI of ``src/`` of the same name under ``cli/``.
+with the CLI of ``src/`` of the same name under ``cli/``; and deployment:
+the screening predictor (``serving.py``), the ``torch.export`` serving
+artifact and its HTTP server (``deploy/``), the ResNets' BN fold and int8
+post-training quantization (``models/inference.py``,
+``models/quantized.py``), with the CLIs ``predict``, ``export_model`` and
+``serve``.
 
 Nothing here imports jax, flax, optax or scikit-learn, and nothing of the
 JAX package: the jax-free modules the port needs from it

@@ -4,13 +4,13 @@ Counterpart of ``src/feature_extraction.py``, with the same flags and
 defaults. Flags whose code paths are not ported yet are accepted by the
 parser and refused with an error naming the ROADMAP entry:
 ``--streaming always``, ``--fast-decode``, ``--host-preproc``,
-``--shard-size > 0``, the MoE archs, and ``--compute-dtype int8`` with a
-ResNet. With ``--streaming auto`` a corpus above the host budget, which the
-JAX CLI would stream, is refused the same way.
+``--shard-size > 0`` and the MoE archs. With ``--streaming auto`` a corpus
+above the host budget, which the JAX CLI would stream, is refused the same
+way.
 
-``--compute-dtype int8`` with ``vit_t16``, ``vit_s16`` or ``vit_b16`` is
-post-training int8 extraction: calibrated on the corpus's first 32 images,
-``metadata.json``'s ``weights`` ends in ``+int8_ptq``.
+``--compute-dtype int8`` (with a ResNet or with ``vit_t16``, ``vit_s16`` or
+``vit_b16``) is post-training int8 extraction: calibrated on the corpus's
+first 32 images, ``metadata.json``'s ``weights`` ends in ``+int8_ptq``.
 
     python -m ssip_tpu_torch.cli.feature_extraction --data-dir DATA --device cuda --batch-size 128
     python -m ssip_tpu_torch.cli.feature_extraction --data-dir DATA --arch vit_b16 --compute-dtype int8
@@ -38,7 +38,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--compute-dtype", choices=["float32", "bfloat16", "int8"], default="float32",
-        help="int8: post-training quantized extraction, the dense ViT archs only",
+        help="int8: post-training quantized extraction (the ResNets and the dense ViTs)",
     )
     parser.add_argument(
         "--arch",

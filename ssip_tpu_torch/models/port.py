@@ -18,7 +18,10 @@ The int8 ViT tree (``quantize_vit_extractor``'s output in either package, as
 numpy arrays) carries over unchanged in layout: ``quantized_vit_from_tree``
 builds the port's ``QuantizedVisionTransformer`` from it after checking every
 leaf's size and type against the arch, ``tree_from_quantized_vit`` is the way
-back.
+back. The int8 ResNet tree (``quantize_extractor``'s output: ``stem`` and
+``blocks[i].{conv1, conv2[, conv3][, downsample]}``, each ``kernel`` int8
+HWIO, ``mult``, ``bias``, ``inv_in_scale``) likewise:
+``quantized_resnet_from_tree`` and ``tree_from_quantized_resnet``.
 """
 
 from __future__ import annotations
@@ -237,4 +240,64 @@ def tree_from_quantized_vit(module: nn.Module) -> Dict[str, Any]:
             for blk in module.blocks
         ],
         "ln": ln(module.ln),
+    }
+
+
+def _check_quantized_resnet_tree(tree: Mapping[str, Any], arch: str) -> None:
+    """Raise unless ``tree`` is an int8 tree of the ResNet ``arch``: the
+    block count, each block's sites, every kernel's shape and int8 type,
+    ``mult`` and ``bias`` as wide as the kernel's output."""
+    from ssip_tpu_torch.models.resnet import MODEL_STAGES, STAGE_WIDTHS
+
+    if arch not in MODEL_STAGES:
+        raise ValueError(f"int8 ResNet trees are for {', '.join(MODEL_STAGES)}, got {arch}")
+    stages, bottleneck = MODEL_STAGES[arch], arch == "resnet50"
+    if len(tree["blocks"]) != sum(stages):
+        raise ValueError(f"the int8 tree has {len(tree['blocks'])} blocks, {arch} has {sum(stages)}")
+    sites = [("stem", tree["stem"], (7, 7, 3, 64))]
+    cin, i = 64, 0
+    for stage, n in enumerate(stages):
+        w = STAGE_WIDTHS[stage]
+        out = 4 * w if bottleneck else w
+        for block in range(n):
+            blk = tree["blocks"][i]
+            want = ({"conv1": (1, 1, cin, w), "conv2": (3, 3, w, w), "conv3": (1, 1, w, out)} if bottleneck
+                    else {"conv1": (3, 3, cin, w), "conv2": (3, 3, w, w)})
+            if cin != out or (stage > 0 and block == 0):
+                want["downsample"] = (1, 1, cin, out)
+            if set(blk) != set(want):
+                raise ValueError(f"block {i} has sites {sorted(blk)}, {arch} wants {sorted(want)}")
+            sites += [(f"block{i}.{name}", blk[name], shape) for name, shape in want.items()]
+            cin, i = out, i + 1
+    for name, site, shape in sites:
+        kernel = np.asarray(site["kernel"])
+        if kernel.dtype != np.int8 or kernel.shape != shape:
+            raise ValueError(f"{name}.kernel is {kernel.dtype} {kernel.shape}, {arch} wants int8 {shape}")
+        for leaf in ("mult", "bias"):
+            if np.shape(site[leaf]) != (shape[-1],):
+                raise ValueError(f"{name}.{leaf} has shape {np.shape(site[leaf])}, {arch} wants ({shape[-1]},)")
+
+
+def quantized_resnet_from_tree(
+    tree: Mapping[str, Any], arch: str, inter_dtype: torch.dtype = torch.bfloat16, stem_prequantized: bool = False
+) -> nn.Module:
+    """The int8 ResNet tree of either package → the port's quantized module."""
+    from ssip_tpu_torch.models.quantized import QuantizedResNet
+    from ssip_tpu_torch.models.resnet import MODEL_STAGES
+
+    _check_quantized_resnet_tree(tree, arch)
+    return QuantizedResNet(tree, MODEL_STAGES[arch], bottleneck=arch == "resnet50", inter_dtype=inter_dtype,
+                           stem_prequantized=stem_prequantized)
+
+
+def tree_from_quantized_resnet(module: nn.Module) -> Dict[str, Any]:
+    """The way back: the module's buffers as the int8 tree (numpy)."""
+    from ssip_tpu_torch.models.quantized import site_names
+
+    return {
+        "stem": module.stem.leaves(),
+        "blocks": [
+            {name: getattr(blk, name).leaves() for name in site_names(dict(blk.named_children()))}
+            for blk in module.blocks
+        ],
     }

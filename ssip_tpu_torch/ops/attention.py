@@ -51,6 +51,15 @@ and so does the port's.
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version (autograd differentiates it); a CUDA tensor launches the
 kernels or raises.
+
+While a program is traced (``torch.export``; ``torch.compiler.is_compiling``)
+and nothing is differentiated, the packed forward is the custom operator
+``torch.ops.ssip_tpu_torch.attention_qkv`` (``torch.library.custom_op``,
+with a fake implementation for tracing): its CPU implementation is the plain
+version and its CUDA one the kernel, so the exported program keeps one node
+that runs the kernel on whichever device it is given (``deploy/export.py``).
+An exported program needs this module imported. Eager calls launch
+directly: the operator's dispatch would add host time to every call.
 """
 
 from __future__ import annotations
@@ -336,6 +345,21 @@ class _AttentionKernel(torch.autograd.Function):
         return dqkv, None, None
 
 
+@torch.library.custom_op("ssip_tpu_torch::attention_qkv", mutates_args=())
+def attention_qkv_op(qkv: torch.Tensor, num_heads: int, kv_len: int) -> torch.Tensor:
+    """The packed forward with nothing to differentiate, as a traced program
+    holds it: the plain version on the CPU, the kernel on the card."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_plain(qkv, num_heads, kv_len)
+    return _launch_fwd(qkv, num_heads, kv_len)[0]
+
+
+@attention_qkv_op.register_fake
+def _(qkv, num_heads, kv_len):
+    b, s, three_d = qkv.shape
+    return qkv.new_empty((b, s, three_d // 3))
+
+
 def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, kv_len: int = 0) -> torch.Tensor:
     """Multi-head attention straight off the packed qkv [B, S, 3·D] →
     [B, S, D]. ``kv_len`` (0 means S) is the number of real keys of a padded
@@ -344,11 +368,14 @@ def fused_attention_qkv(qkv: torch.Tensor, num_heads: int, kv_len: int = 0) -> t
     calls and empty inputs launch nothing and count nothing).
     """
     _geometry(qkv, num_heads, kv_len)
+    differentiate = torch.is_grad_enabled() and qkv.requires_grad
+    if not differentiate and torch.compiler.is_compiling():
+        return attention_qkv_op(qkv, num_heads, kv_len)  # a traced program keeps the operator
     if qkv.device.type == "cpu":
         return attention_qkv_plain(qkv, num_heads, kv_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"attention runs on cpu or cuda tensors, got {qkv.device}")
-    if torch.is_grad_enabled() and qkv.requires_grad:
+    if differentiate:
         return _AttentionKernel.apply(qkv, num_heads, kv_len)
     return _launch_fwd(qkv, num_heads, kv_len)[0]  # nothing to differentiate: no autograd node to set up
 

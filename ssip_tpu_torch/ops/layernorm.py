@@ -16,6 +16,15 @@ row statistics.
 Dispatch is by the tensor's device and nothing else: a CPU tensor runs the
 plain version (autograd differentiates it); a CUDA tensor launches the
 kernels or raises.
+
+While a program is traced (``torch.export``; ``torch.compiler.is_compiling``)
+and nothing is differentiated, the forward is the custom operator
+``torch.ops.ssip_tpu_torch.layer_norm`` (``torch.library.custom_op``, with a
+fake implementation for tracing): its CPU implementation is the plain version
+and its CUDA one the kernel, so the exported program keeps one node that runs
+the kernel on whichever device it is given (``deploy/export.py``). An
+exported program needs this module imported. Eager calls launch directly:
+the operator's dispatch would add host time to every call.
 """
 
 from __future__ import annotations
@@ -207,6 +216,22 @@ class _LayerNormKernel(torch.autograd.Function):
         return dx, dscale, dbias, None
 
 
+@torch.library.custom_op("ssip_tpu_torch::layer_norm", mutates_args=())
+def layer_norm_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The forward with nothing to differentiate, as a traced program holds
+    it: the plain version on the CPU, the kernel on the card."""
+    if x.device.type == "cpu":
+        return layer_norm_plain(x, scale, bias, eps)
+    if not x.is_contiguous():
+        raise ValueError("layer_norm kernel needs a contiguous input")
+    return _launch_fwd(x.view(-1, x.shape[-1]), scale, bias, eps).view(x.shape)
+
+
+@layer_norm_op.register_fake
+def _(x, scale, bias, eps):
+    return torch.empty_like(x)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm over the last axis of ``x`` [..., D]; ``x``'s type out.
 
@@ -217,13 +242,16 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     d = x.shape[-1]
     if tuple(scale.shape) != (d,) or tuple(bias.shape) != (d,):
         raise ValueError(f"layer_norm scale and bias must be [{d}], got {tuple(scale.shape)} and {tuple(bias.shape)}")
+    differentiate = torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad)
+    if not differentiate and torch.compiler.is_compiling():
+        return layer_norm_op(x, scale, bias, float(eps))  # a traced program keeps the operator
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm runs on cpu or cuda tensors, got {x.device}")
     if not x.is_contiguous():
         raise ValueError("layer_norm kernel needs a contiguous input")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+    if differentiate:
         return _LayerNormKernel.apply(x.view(-1, d), scale, bias, float(eps)).view(x.shape)
     return _launch_fwd(x.view(-1, d), scale, bias, float(eps)).view(x.shape)  # nothing to differentiate
 

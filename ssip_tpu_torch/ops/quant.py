@@ -10,9 +10,10 @@ Counterpart of ``ssip_tpu/models/quantized_vit.py:50-62`` (``_quant`` and
     qdense(x_q, site)      = float32(x_q · kernel as int32) · mult + bias
 
 The s8×s8→s32 product is outside any hand-written kernel, as the JAX package
-leaves it to XLA outside any Pallas kernel: ``torch._int_mm`` (cuBLASLt) on
-the card, an int32 ``matmul`` on the CPU. Integer sums are exact, so both
-give the same bits. ``torch.round`` rounds half to even, like ``jnp.round``.
+leaves it to XLA outside any Pallas kernel: ``torch._int_mm`` on both devices
+(cuBLASLt on the card), so a traced program holds the same operation for
+either. Integer sums are exact, so both give the same bits. ``torch.round``
+rounds half to even, like ``jnp.round``.
 """
 
 from __future__ import annotations
@@ -75,9 +76,12 @@ class QuantSite(nn.Module):
 def int8_matmul(x_q: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] @ int8 [K, N] → int32 [M, N], exact.
 
-    On the card this is ``torch._int_mm``, which takes more than 16 rows and
-    K and N that are multiples of 8, and raises otherwise (every dense site
-    of the three ViT configs at one image or more meets this).
+    ``torch._int_mm`` on both devices. On the card it takes more than 16
+    rows and K and N that are multiples of 8, and raises otherwise (every
+    dense site of the three ViT configs at one image or more meets this, and
+    every convolution of ``models/quantized.py`` at 224² and one image or
+    more). A size that is symbolic (a traced batch) is left to the library's
+    own check.
     """
     if x_q.dtype != torch.int8 or kernel.dtype != torch.int8 or x_q.dim() != 2 or kernel.dim() != 2:
         raise ValueError(
@@ -87,12 +91,12 @@ def int8_matmul(x_q: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if x_q.shape[1] != kernel.shape[0]:
         raise ValueError(f"inner sizes differ: {tuple(x_q.shape)} @ {tuple(kernel.shape)}")
     if x_q.device.type == "cpu":
-        return torch.matmul(x_q.to(torch.int32), kernel.to(torch.int32))
+        return torch._int_mm(x_q.contiguous(), kernel.contiguous())
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cpu or cuda tensors, got {x_q.device}")
     m, k = x_q.shape
     n = kernel.shape[1]
-    if m < _INT_MM_MIN_ROWS or k % 8 or n % 8:
+    if all(isinstance(v, int) for v in (m, k, n)) and (m < _INT_MM_MIN_ROWS or k % 8 or n % 8):
         raise ValueError(
             f"the int8 product on the card (torch._int_mm) takes more than 16 rows and inner and "
             f"output sizes that are multiples of 8, got [{m}, {k}] @ [{k}, {n}]"

@@ -12,12 +12,14 @@ attention kernels) → embeddings as wide as the model (512, 2048, 192, 384 or
 768) → ``embeddings.npy/.csv``, ``metadata.json``, ``feature_summary.md``
 and the log, at the paths ``ArtifactRegistry`` names.
 
-``compute_dtype="int8"`` (the dense ViTs only) is post-training quantized
-extraction (``:205-250, 427-485, 640-642`` there): the float32 model is
-calibrated on the corpus's first 32 readable images, quantized
-(``models/quantized_vit.py``), and the embed step becomes
-``preprocess_images(quant_inv_scale=stem scale)`` → the quantized forward on
-the prequantized int8 images; ``weights_source`` gains ``+int8_ptq``.
+``compute_dtype="int8"`` (the ResNets and the dense ViTs) is post-training
+quantized extraction (``:205-250, 427-485, 640-642`` there): the float32
+model is calibrated on the corpus's first 32 readable images, quantized
+(``models/quantized.py`` for a ResNet, ``models/quantized_vit.py`` for a
+ViT), and the embed step becomes ``preprocess_images(quant_inv_scale=stem
+scale)`` → the quantized forward on the prequantized int8 images (the stem's
+operand comes from the preprocess kernel's int8 epilogue, as ``:240-249``
+there); ``weights_source`` gains ``+int8_ptq``.
 
 Execution shapes:
 
@@ -29,7 +31,7 @@ Execution shapes:
 
 Not ported yet (refused with an error naming the ROADMAP entry): the
 streamed shape with its host-preproc and fast-decode variants, sharded
-extraction, int8 PTQ of the ResNets, the folded-BN forward and the MoE archs. A corpus
+extraction, the folded-BN forward (``fast_inference``) and the MoE archs. A corpus
 that ``streaming="auto"`` would stream (above ``_HOST_STAGE_BUDGET_BYTES``
 decoded, ``:410-424``) is refused the same way rather than decoded whole
 into host memory.
@@ -56,10 +58,13 @@ from ssip_tpu_torch.data.decode import preprocess_host_exact
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
 from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import (
-    load_flax_variables, load_state_dict_arrays, quantized_vit_from_tree, read_torch_checkpoint,
+    load_flax_variables, load_state_dict_arrays, quantized_resnet_from_tree, quantized_vit_from_tree,
+    read_torch_checkpoint,
 )
+from ssip_tpu_torch.models.quantized import quantize_extractor
 from ssip_tpu_torch.models.quantized_vit import quantize_vit_extractor
 from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
+from ssip_tpu_torch.models.resnet import MODEL_STAGES
 from ssip_tpu_torch.models.vit import VIT_CONFIGS
 from ssip_tpu_torch.ops.preproc import preprocess_images
 from ssip_tpu_torch.ops.resize import IMAGENET_MEAN, IMAGENET_STD
@@ -96,7 +101,7 @@ class ExtractionConfig:
     crop: int = 224
     seed: int = 42
     neighbor_sample: int = 8
-    compute_dtype: str = "float32"  # "float32" (parity) | "bfloat16" (throughput) | "int8" (PTQ, dense ViTs)
+    compute_dtype: str = "float32"  # "float32" (parity) | "bfloat16" (throughput) | "int8" (PTQ)
     arch: str = "resnet18"
     cache_decoded: bool = True
     num_decode_threads: int = 8
@@ -112,12 +117,6 @@ class ExtractionConfig:
                 raise ValueError(
                     "int8 PTQ is implemented for the dense ViTs only; run "
                     f"--arch {self.arch} with --compute-dtype float32/bfloat16"
-                )
-            if self.arch not in VIT_CONFIGS:
-                raise ValueError(
-                    f"--compute-dtype int8 --arch {self.arch} is not ported to ssip_tpu_torch yet "
-                    "(ROADMAP.md, Queue 1 slice 3 item 16: models/quantized.py, the ResNets' int8 "
-                    "convolutions); ported for: " + ", ".join(VIT_CONFIGS)
                 )
         else:
             compute_dtype(self.compute_dtype)  # validates the name
@@ -320,13 +319,18 @@ def _calibration_batch(cfg: ExtractionConfig, store: ImageStore) -> torch.Tensor
 
 
 def _quantize_variables(cfg: ExtractionConfig, model: nn.Module, store: ImageStore, device: torch.device) -> nn.Module:
-    """The float32 dense ViT → its int8 module for this corpus, on
+    """The float32 ResNet or dense ViT → its int8 module for this corpus, on
     ``device``, taking the images the preprocess kernel's int8 epilogue
     wrote (``stem_prequantized``)."""
     calib = _calibration_batch(cfg, store).to(device)
-    tree = quantize_vit_extractor(model, calib, arch=cfg.arch)
+    if cfg.arch in VIT_CONFIGS:
+        tree = quantize_vit_extractor(model, calib, arch=cfg.arch)
+        quantized = quantized_vit_from_tree(tree, cfg.arch, stem_prequantized=True)
+    else:
+        tree = quantize_extractor(model, calib, MODEL_STAGES[cfg.arch], bottleneck=cfg.arch == "resnet50")
+        quantized = quantized_resnet_from_tree(tree, cfg.arch, stem_prequantized=True)
     LOGGER.info("int8 PTQ: calibrated activation scales on %d images", calib.shape[0])
-    return quantized_vit_from_tree(tree, cfg.arch, stem_prequantized=True).to(device).eval()
+    return quantized.to(device).eval()
 
 
 def extract_embeddings(

@@ -91,7 +91,7 @@ def test_bf16_slice_tracks_jax_bf16(tiny_image_tree, tmp_path):
 @pytest.mark.parametrize(
     "extra",
     [
-        ["--compute-dtype", "int8"],
+        ["--arch", "vit_moe_s16"],
         ["--streaming", "always"],
         ["--fast-decode"],
         ["--host-preproc"],

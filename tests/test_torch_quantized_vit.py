@@ -206,10 +206,19 @@ def test_int8_extraction_per_batch_shape_equals_the_resident_one(tiny_image_tree
 
 @pytest.mark.parametrize(
     "arch,match",
-    [("resnet18", r"ROADMAP\.md, Queue 1 slice 3 item 16"), ("resnet50", r"ROADMAP\.md, Queue 1 slice 3 item 16"),
-     ("vit_moe_t16", "dense ViTs only"), ("vit_moe_s16", "dense ViTs only")],
+    [("resnet18", None), ("resnet50", None), ("vit_moe_t16", "dense ViTs only"), ("vit_moe_s16", "dense ViTs only")],
 )
 def test_int8_refused_for_resnets_and_moe(arch, match, tmp_path):
+    """int8 with an MoE arch is refused, as in the JAX package. The ResNets
+    are taken since ``models/quantized.py`` is ported: the config holds, and
+    the CLI gets past its checks to the (empty) data directory
+    (``tests/test_torch_quantized.py`` runs them)."""
+    if match is None:
+        assert ExtractionConfig(data_dir=tmp_path, arch=arch, compute_dtype="int8").compute_dtype == "int8"
+        with pytest.raises(RuntimeError, match="No image files discovered"):
+            extraction_cli.main(["--data-dir", str(tmp_path), "--device", "cpu", "--arch", arch, "--compute-dtype",
+                                 "int8", "--output-dir", str(tmp_path / "out")])
+        return
     with pytest.raises(ValueError, match=match):
         ExtractionConfig(data_dir=tmp_path, arch=arch, compute_dtype="int8")
     with pytest.raises(ValueError, match=match):

@@ -1,8 +1,8 @@
 """The port's own copies of the JAX package's jax-free modules, each held to
 its original on seeded inputs: discovery, the artifact registry, the training
 config, logging, the threshold policy and sweep, the corpus-scale policy,
-the audit and its contract, and the host halves of the clustering metrics
-(ARI, NMI).
+the audit and its contract, the host halves of the clustering metrics
+(ARI, NMI), and the HTTP serving endpoint.
 """
 
 import dataclasses
@@ -268,3 +268,75 @@ def test_audit_tables_and_report_match(audit_tree, tmp_path, sample_size):
     for rel in ("tables/directory_summary.csv", "tables/image_summary.csv", "notes/data_audit.md"):
         assert (pout / rel).read_text() == (jout / rel).read_text(), rel
     assert sorted(p.name for p in (pout / "figures").iterdir()) == sorted(p.name for p in (jout / "figures").iterdir())
+
+
+class _StubPredictor:
+    """A predictor with the serving surface whose probability is an image's
+    mean pixel over 255, whatever array type the server hands it."""
+
+    image_size, threshold, positive_class, arch = 8, 0.5, "cancer", "stub"
+
+    def predict_images(self, images, paths=None):
+        from types import SimpleNamespace
+
+        x = np.asarray(images.cpu() if hasattr(images, "cpu") else images, np.float32)
+        prob = (x.mean(axis=(1, 2, 3)) / 255.0).astype(np.float32)
+        return SimpleNamespace(paths=[str(p) for p in (paths or range(len(prob)))], prob_positive=prob,
+                               flagged=prob >= self.threshold, threshold=self.threshold,
+                               positive_class=self.positive_class)
+
+
+def test_http_server_answers_like_the_original(tmp_path):
+    """Both packages' ``make_server`` around one predictor give the same
+    status and JSON on every endpoint: health, manifest, a raw image (at the
+    serving size, so neither resizes), server-side paths with one
+    undecodable file, an empty path list, a bad body and an unknown path."""
+    import json
+    import re
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from PIL import Image
+
+    from ssip_tpu.deploy import server as jserver
+    from ssip_tpu_torch.deploy import server
+
+    rng = np.random.default_rng(4)
+    img = tmp_path / "a.png"
+    Image.fromarray(rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(img)
+    (tmp_path / "bad.jpg").write_bytes(b"not an image")
+    paths = {"paths": [str(img), str(tmp_path / "bad.jpg")]}
+    requests = [
+        ("GET", "/healthz", None), ("GET", "/manifest", None), ("GET", "/nowhere", None),
+        ("POST", "/predict", img.read_bytes()), ("POST", "/predict", b"not an image"),
+        ("POST", "/predict_paths", json.dumps(paths).encode()),
+        ("POST", "/predict_paths", json.dumps({"paths": []}).encode()), ("POST", "/elsewhere", b"{}"),
+    ]
+
+    def answers(module):
+        httpd = module.make_server(_StubPredictor(), host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        out = []
+        try:
+            for method, path, body in requests:
+                req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}{path}", data=body,
+                                             method=method)
+                try:
+                    with urllib.request.urlopen(req, timeout=30) as r:
+                        out.append((r.status, json.load(r)))
+                except urllib.error.HTTPError as err:
+                    out.append((err.code, json.load(err)))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=10)
+        return out
+
+    def without_addresses(out):  # an error may name a buffer object by its address
+        return [(status, re.sub(r"0x[0-9a-f]+", "0x…", json.dumps(body))) for status, body in out]
+
+    want, got = answers(jserver), answers(server)
+    assert without_addresses(got) == without_addresses(want)
+    assert [status for status, _ in got] == [200, 200, 404, 200, 400, 200, 400, 404]

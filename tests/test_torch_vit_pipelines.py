@@ -73,9 +73,10 @@ def test_run_extraction_vit_t16_matches_the_jax_pipeline(vit_tree, tmp_path, mon
 
 
 def test_cli_drives_vit_t16_on_the_cpu(vit_tree, tmp_path, capsys):
-    """Both CLIs with ``--arch vit_t16 --device cpu``; the MoE archs and
-    int8 with a ResNet stay refused with their ROADMAP items (int8 with a
-    dense ViT runs: ``tests/test_torch_quantized_vit.py``)."""
+    """Both CLIs with ``--arch vit_t16 --device cpu``; the MoE archs stay
+    refused with their ROADMAP item (int8 runs with a dense ViT,
+    ``tests/test_torch_quantized_vit.py``, and with a ResNet,
+    ``tests/test_torch_quantized.py``)."""
     data = vit_tree / "avec_labels"
     out = tmp_path / "train"
     training_cli.main(["--strong-data-dir", str(data), "--device", "cpu", "--arch", "vit_t16", "--image-size", "32",
@@ -85,7 +86,7 @@ def test_cli_drives_vit_t16_on_the_cpu(vit_tree, tmp_path, capsys):
     assert payload["arch"] == "vit_t16" and len(payload["baseline"]["val_loss"]) == 1
     with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 1 slice 6 item 20"):
         training_cli.main(["--strong-data-dir", str(data), "--device", "cpu", "--arch", "vit_moe_t16"])
-    for extra, item in ((["--arch", "vit_moe_s16"], "slice 6 item 20"), (["--arch", "resnet18", "--compute-dtype", "int8"], "slice 3")):
+    for extra, item in ((["--arch", "vit_moe_s16"], "slice 6 item 20"),):
         with pytest.raises(ValueError, match=rf"ROADMAP\.md, Queue 1 {item}"):
             extraction_cli.main(["--data-dir", str(vit_tree), "--device", "cpu", "--output-dir", str(tmp_path / "x"), *extra])
 

@@ -1,7 +1,8 @@
 """``scripts/run_full_workflow.sh`` on the port's CLIs, on the CPU: audit →
 extraction → standardize → clustering → cohort export → supervised →
-semi-supervised → both threshold sweeps, with the script's flags, then the
-three ``scripts/generate_*`` on the port's ``outputs/``.
+semi-supervised → both threshold sweeps → the serving export, with the
+script's flags, then the three ``scripts/generate_*`` on the port's
+``outputs/``.
 
 Cut to run in seconds: 64² JPEGs (8 + 8 labeled, 24 unlabeled) drawn from
 three seeded families, so that clusters and a DBSCAN cohort exist; training
@@ -21,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ssip_tpu_torch.cli import clustering, data_audit, export_unlabeled_cohort, feature_extraction
+from ssip_tpu_torch.cli import clustering, data_audit, export_model, export_unlabeled_cohort, feature_extraction
 from ssip_tpu_torch.cli import semi_supervised_training, standardize_features, supervised_training, threshold_sweep
 from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
 
@@ -71,6 +72,7 @@ def workflow(tmp_path_factory):
             "--weak-pretrain-epochs", "1", "--finetune-epochs", "1", "--pseudo-threshold", "0.5", *o]),
         (threshold_sweep.main, ["--strong-data-dir", str(data / "avec_labels"), "--model", "baseline", *CPU, *o]),
         (threshold_sweep.main, ["--strong-data-dir", str(data / "avec_labels"), "--model", "semi", *CPU, *o]),
+        (export_model.main, ["--model", "semi", *CPU, *o]),
     ]
     for main, argv in stages:
         main(argv)
@@ -94,7 +96,7 @@ def test_every_stage_writes_its_artifacts(workflow):
         out / "tables/unlabeled_cohort_dbscan.csv",
         reg.baseline_checkpoint, reg.semi_checkpoint, reg.results_comparison_csv,
         reg.results_comparison_detailed_csv, reg.training_history_json, reg.operating_point_json,
-        reg.threshold_sweep_csv("baseline"), reg.threshold_sweep_csv("semi"),
+        reg.threshold_sweep_csv("baseline"), reg.threshold_sweep_csv("semi"), reg.serving_artifact("semi"),
         out / "figures/model_comparison.png", out / "figures/pipeline_architecture.png",
         out / "notes/summary_slides.pdf", reg.outputs_readme_md,
     ):
