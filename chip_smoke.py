@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's extraction, training and semi-supervised slices, the
 threshold sweep, the analysis stack, serving and export, and the whole workflow
-once on one NVIDIA GPU, for the ResNet family and the ViT family, int8 extraction
-of both included.
+once on one NVIDIA GPU, for the ResNet family, the ViT family and the MoE ViT,
+int8 extraction included, with resumed training and the streamed extraction
+shape.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -229,12 +230,47 @@ non-zero without printing the final line:
            (the audit and the figures need matplotlib) is named on its own
            line and not started: clustering then runs as
            ``cli.clustering.run_analysis``, everything but its figures;
-14. imports no jax module and no module of the JAX package;
-15. a ``[seconds]`` line (each phase's seconds), the kernels JSON line (all
+14. moe     ``vit_moe_s16`` at full width (hidden 384, 12 layers, every
+           other block an 8-expert block, 6 heads of 64, 197 tokens): the
+           extraction slice as ``slice`` runs it (bf16 and f32, cuda vs CPU
+           f32, 25 LayerNorm and 12 attention launches a forward, a profiled
+           bf16 run; bf16 vs f32 cosine > 0.98 per image and > 0.995 on
+           average, ``MOE_COSINE_FLOOR``: a top-1 choice that flips under
+           bf16 sends a token to another expert, in the JAX package too); ``run_supervised`` in bf16 and its
+           CLI; ``run_pipeline`` with the FixMatch fine-tune in bf16; the
+           ``[semi]`` MoE run through ``export_model`` (f32 and bf16 against
+           the in-process predictor) and ``predict``; one f32 train step
+           cuda vs CPU at batch 4 (the loss with the aux term, the aux term,
+           every gradient, the routers' included, at the dense ViT step
+           check's bounds, and the count of router choices that differ); a
+           ``vit_moe_t16`` forward (3 heads) cuda vs CPU; the steady-state
+           bf16 train step and FixMatch step at 128 (+ 128), timed and
+           profiled. The MoE window must launch the LayerNorm and packed
+           attention pairs (rows 5, 6, 9, 10). ``ln`` and ``attn`` also time
+           the kernels at the MoE width: [25216, 384] and [128, 197, 1152];
+15. resume  ``--resume`` on the card: ``run_supervised`` of resnet18 f32
+           for 4 epochs three times, then 2 epochs with snapshots and resumed
+           to 4; the restored state equal to the snapshot bit for bit, the
+           resumed run within twice the uninterrupted runs' own spread (the
+           card's cuDNN backward is not bitwise reproducible); the same for
+           ``train_fixmatch`` (EMA off, 3 epochs, cut after 1); with an EMA
+           teacher, the teacher after the resume equal to the ``.best``
+           sidecar's parameters;
+16. stream  the streamed extraction shape on the workflow's 1,506-image 512²
+           JPEG tree, resnet18 bf16 at batch 128, each run in a fresh
+           interpreter (end-to-end imgs/s and the resident set's growth): the resident shape,
+           ``streaming="always"`` and ``host_preproc`` (embeddings against
+           the resident ones), ``fast_decode`` twice (equal; cosine to the
+           exact path printed); the preprocess kernel at 224² → 224 (scale 1)
+           bit for bit against its plain version;
+17. imports no jax module and no module of the JAX package;
+18. a ``[seconds]`` line (each phase's seconds), the kernels JSON line (all
     eleven kernels), then ``{"ok": true, "device": {...}}`` last.
 
 The ``host`` line, printed first after ``env``, says whether pandas and
-matplotlib are installed.
+matplotlib are installed, and whether g++ and libjpeg's header are there
+(without them ``stream`` runs ``streaming="always"`` alone and names the
+two native variants as not run).
 
 Needs no network and no data: everything is made from seeds. It builds the
 kernels from the checkout, so a fresh clone is enough. It imports
@@ -252,6 +288,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 from pathlib import Path
 
@@ -355,7 +392,17 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32x3
 ATTN_OPS_TYPE = {"bfloat16": "bfloat16", "float32": "tf32x3"}  # the attention rows' products by input type
 VIT_ARCH, VIT_WIDTH, VIT_TOKENS, VIT_HEADS, VIT_MLP = "vit_b16", 768, 197, 12, 3072
 VIT_LN_PER_FORWARD, VIT_ATTN_PER_FORWARD, VIT_BLOCKS = 25, 12, 12
+# the MoE ViT at full width: 12 layers (every other one an expert block) of
+# 6 heads of 64, so 25 LayerNorm and 12 attention launches a forward too
+MOE_ARCH, MOE_WIDTH, MOE_T16 = "vit_moe_s16", 384, "vit_moe_t16"
+VIT_FAMILY = (VIT_ARCH, MOE_ARCH)
 INT8_COSINE_FLOOR = 0.98  # int8 vs float32 embeddings, per image (the JAX pipeline's own floor)
+# bf16 vs f32 embeddings of the MoE ViT, per image, and their mean: a token
+# whose top-1 expert flips under bf16 rounding of the router's input takes
+# another expert's MLP, so 0.995 does not hold for the model itself (the JAX
+# package's vit_moe_s16 on the CPU, 16 seeded 224² images: min 0.9842, mean
+# 0.9986; the port's there: min 0.9906, mean 0.9994)
+MOE_COSINE_FLOOR, MOE_COSINE_MEAN_FLOOR = 0.98, 0.995
 INT8_RESNET_COSINE_FLOOR = 0.99  # the int8 ResNet's, per image (tests/test_quantized.py:127-128)
 SERVE_BATCH = 128  # images of the serving comparisons and timings
 SERVE_CPU_CHECK = 8  # of them, predicted on the CPU too
@@ -391,6 +438,7 @@ LN_SHAPES = (
     (128 * 197, 768, "bfloat16"), (128 * 197, 768, "float32"),
     (128 * 208, 768, "bfloat16"), (128 * 208, 768, "float32"),
     (128, 768, "float32"), (1001, 384, "bfloat16"),
+    (128 * 197, 384, "bfloat16"),  # vit_moe_s16's stream
 )
 # (batch, tokens, heads, kv_len, type), heads of 64: vit_b16 at 224² (and
 # its token axis padded to 16), then at 256², 384², 512² and 576² (257, 577,
@@ -402,6 +450,7 @@ ATTN_SHAPES = (
     (64, 257, 12, 0, "bfloat16"), (16, 257, 12, 250, "float32"), (16, 577, 12, 0, "bfloat16"),
     (4, 1024, 12, 0, "bfloat16"), (4, 1024, 12, 1000, "float32"), (4, 1025, 12, 1001, "bfloat16"),
     (4, 1025, 12, 0, "float32"), (2, 1297, 12, 0, "bfloat16"), (2, 1297, 12, 1200, "float32"),
+    (128, 197, 6, 0, "bfloat16"),  # vit_moe_s16: [128, 197, 1152]
 )
 # the rotation body's two epilogues as torch.profiler names them (csrc/rotation.cu)
 AUGMENT_KERNELS = ("rotate_kernel<float>", "rotate_kernel<__nv_bfloat16>")
@@ -1471,7 +1520,7 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
     from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
 
     data, records, images, store = corpus
-    vit = arch == VIT_ARCH
+    vit = arch in VIT_FAMILY
     batches = N_IMAGES // BATCH
     counts.reset()  # count only the main path's launches
     embeddings, rates = {}, {}
@@ -1546,8 +1595,9 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
             embed_s=f"{batched.embed_seconds:.4f}")
 
     cos = (_unit(np, embeddings["bfloat16"]) * _unit(np, embeddings["float32"])).sum(axis=1)
-    if cos.min() <= 0.995:
-        raise AssertionError(f"{arch}: bf16 vs f32 per-image cosine min {cos.min()}")
+    floor, mean_floor = (MOE_COSINE_FLOOR, MOE_COSINE_MEAN_FLOOR) if arch == MOE_ARCH else (0.995, 0.995)
+    if cos.min() <= floor or cos.mean() <= mean_floor:
+        raise AssertionError(f"{arch}: bf16 vs f32 per-image cosine min {cos.min()}, mean {cos.mean()}")
 
     model = build_model(arch, compute_dtype=torch.float32)
     load_flax_variables(model, seeded_init_host(arch, 42))
@@ -1558,7 +1608,8 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
     rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
     if rel > 1e-4:
         raise AssertionError(f"{arch}: cuda f32 vs cpu f32 relative error {rel} > 1e-4 (TF32 on?)")
-    say("slice", arch=arch, launches=got, cos_bf16_f32_min=f"{cos.min():.6f}", cuda_vs_cpu_f32_rel=rel,
+    say("slice", arch=arch, launches=got, cos_bf16_f32_min=f"{cos.min():.6f}", cos_bf16_f32_mean=f"{cos.mean():.6f}",
+        cuda_vs_cpu_f32_rel=rel,
         cpu_checked=n_cpu)
     return {dtype: (embeddings[dtype], *rates[dtype]) for dtype in embeddings}
 
@@ -1834,7 +1885,7 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
         load_checkpoint(reg.baseline_checkpoint, model)
         steps = epochs * steps_per_epoch
         want = {"augment_images": steps}
-        if arch == VIT_ARCH:
+        if arch in VIT_FAMILY:
             want.update(layer_norm_bwd=steps * VIT_LN_PER_FORWARD, attention_qkv_bwd=steps * VIT_ATTN_PER_FORWARD)
             # every forward, train or eval, is 25 LayerNorm and 12 attention launches
             forwards = launches["attention_qkv"] // VIT_ATTN_PER_FORWARD
@@ -1984,8 +2035,8 @@ def _one_step(torch, arch: str, dev, batch, coeffs, kink_free: bool = False, rem
             {k: v.cpu() for k, v in state.model.state_dict().items() if "running" in k})
 
 
-def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes) -> None:
-    """The steady-state step at batch 128 in bfloat16 and float32: timed,
+def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes, dtypes=("bfloat16", "float32")) -> None:
+    """The steady-state step at batch 128 in each of ``dtypes``: timed,
     then profiled."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2000,7 +2051,8 @@ def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes) -> None:
     coeffs = torch.from_numpy(np.stack([
         augment_coeffs(*augment_draws(SEED, "smoke", 1, s, b)) for s in range(2 * n_steps)
     ])).to(dev)
-    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+    for dtype_name in dtypes:
+        dtype = getattr(torch, dtype_name)
         state = _seeded_state(torch, dev, dtype, arch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2019,7 +2071,7 @@ def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes) -> None:
         if not torch.isfinite(loss):
             raise AssertionError(f"{arch} {dtype_name} train step loss {loss.item()}")
         want = {"augment_images": 1.0}
-        if arch == VIT_ARCH:
+        if arch in VIT_FAMILY:
             want.update(layer_norm=VIT_LN_PER_FORWARD, layer_norm_bwd=VIT_LN_PER_FORWARD,
                         attention_qkv=VIT_ATTN_PER_FORWARD, attention_qkv_bwd=VIT_ATTN_PER_FORWARD)
         if launches != want:
@@ -2156,10 +2208,11 @@ def _check_semi_outputs(np, out: Path, arch: str, epochs, tag: str) -> dict:
     return payload
 
 
-def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCounts, arch: str, dtypes, cli_arch: str) -> None:
+def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCounts, arch: str, dtypes,
+               cli_arch) -> None:
     """``run_pipeline`` of ``arch`` with the FixMatch fine-tune on the JPEG
     tree and pool, once per compute type, then the semi-supervised CLI with
-    ``cli_arch`` for one epoch per phase. The pipeline's two epoch loops are
+    ``cli_arch`` (if not None) for one epoch per phase. The pipeline's two epoch loops are
     wrapped to read what no artifact holds: the state after the weak
     pretrain, and the keep rates (cut from the history file)."""
     from ssip_tpu_torch.data.discovery import labeled_folder
@@ -2218,13 +2271,13 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
         moved_means = [k for k in seen["moved"] if k.endswith("running_mean")]
         if not seen["mask"] or not moved_params or not all(k.startswith(head) for k in moved_params):
             raise AssertionError(f"{tag}: the weak pretrain moved {moved_params[:6]}")
-        if arch != VIT_ARCH and not moved_means:
+        if arch not in VIT_FAMILY and not moved_means:
             raise AssertionError(f"{tag}: the weak pretrain left every BN running mean where it was")
         fix_steps = SEMI_EPOCHS[2] * steps_per_epoch
         pretrain_steps = SEMI_EPOCHS[1] * -(-payload["pseudo_label_count"] // TRAIN_BATCH)
         backward_steps = SEMI_EPOCHS[0] * steps_per_epoch + pretrain_steps + fix_steps
         want = {"rotate_images": fix_steps, "augment_images": backward_steps}
-        if arch == VIT_ARCH:
+        if arch in VIT_FAMILY:
             # a FixMatch step's backward runs through the labeled and the
             # strong view; the weak pretrain's stops at the head (the frozen
             # backbone needs no gradient), so it launches no backward kernel
@@ -2245,6 +2298,8 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
             test_f1=f"{thr['f1']:.4f}", threshold=f"{thr['threshold']:.4f}", pretrain_moved=len(moved_params),
             bn_means_moved=len(moved_means), launches={k: v for k, v in launches.items() if v})
 
+    if cli_arch is None:
+        return
     out = tmp / f"semi_cli_out_{cli_arch}"
     subprocess.run(
         [sys.executable, "-m", "ssip_tpu_torch.cli.semi_supervised_training", "--strong-data-dir", str(data),
@@ -2555,9 +2610,10 @@ def _fixmatch_cuda_vs_cpu(torch, np, arch: str, kink_free: bool) -> dict:
     return r
 
 
-def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes) -> None:
+def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
+                          dtypes=("bfloat16", "float32")) -> None:
     """The steady-state FixMatch step at 128 labeled + 128 unlabeled in
-    bfloat16 and float32: timed, the strong view alone beside it, then
+    each of ``dtypes``: timed, the strong view alone beside it, then
     profiled."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2571,7 +2627,8 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes) -
     unlabeled = unlabeled.to(dev)
     n_steps = STEP_WARMUP + STEP_TIMED
     draws = epoch_view_draws(SEED, "smoke_fixmatch", 1, 2 * n_steps, b, b, dev)
-    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+    for dtype_name in dtypes:
+        dtype = getattr(torch, dtype_name)
         state = _seeded_state(torch, dev, dtype, arch)
         ema = init_ema(state.model)
 
@@ -2596,7 +2653,7 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes) -
         if not (torch.isfinite(loss) and torch.isfinite(cons)):
             raise AssertionError(f"{arch} {dtype_name} FixMatch step loss {loss.item()}, consistency {cons.item()}")
         want = {"augment_images": 1.0, "rotate_images": 1.0}
-        if arch == VIT_ARCH:
+        if arch in VIT_FAMILY:
             want.update(layer_norm=3 * VIT_LN_PER_FORWARD, layer_norm_bwd=2 * VIT_LN_PER_FORWARD,
                         attention_qkv=3 * VIT_ATTN_PER_FORWARD, attention_qkv_bwd=2 * VIT_ATTN_PER_FORWARD)
         if launches != want:
@@ -2652,15 +2709,22 @@ def phase_fixmatch_step(torch, np, counts: LaunchCounts) -> None:
 
 def phase_host_packages() -> dict:
     """Which of the host packages the audit and the figures need are here:
-    pandas (the audit's tables) and matplotlib (every figure). A stage that
-    needs a missing one is not started on the card, and is named."""
+    pandas (the audit's tables) and matplotlib (every figure); and whether
+    the native JPEG decoder can be built (g++ and libjpeg's header), which
+    ``--host-preproc`` and ``--fast-decode`` need. A stage that needs a
+    missing one is not started on the card, and is named."""
     import importlib.util
+    import shutil as _shutil
 
     found = {name: importlib.util.find_spec(name) is not None for name in ("pandas", "matplotlib")}
     missing = [name for name, ok in found.items() if not ok]
+    gxx, header = _shutil.which("g++") is not None, Path("/usr/include/jpeglib.h").is_file()
+    not_run = (["the audit, the clustering figures, scripts/generate_*"] if missing else []) + (
+        [] if gxx and header else ["[stream]'s --host-preproc and --fast-decode"])
     say("host", **{name: "installed" if ok else "missing" for name, ok in found.items()},
-        not_run_on_this_card=("the audit, the clustering figures, scripts/generate_*" if missing else "none"))
-    return found
+        gxx="installed" if gxx else "missing", jpeglib_h="present" if header else "missing",
+        not_run_on_this_card="; ".join(not_run) or "none")
+    return {**found, "native_decoder": gxx and header}
 
 
 def _csv_rows(path: Path) -> list:
@@ -3134,6 +3198,404 @@ def _check_workflow_outputs(np, data: Path, out: Path, n: int) -> None:
         dbscan_clusters=len({r["cluster_dbscan"] for r in assignments} - {"-1"}), sweep_rows={m: len(rows) for m, rows in sweeps.items()})
 
 
+# --------------------------------------------------------------------------
+# The MoE ViTs, resume snapshots and the streamed extraction shape
+
+# MoE routing on the card: the router's softmax, the stable sort of top-k,
+# the slotting cumsum and the one-hot compares
+_MOE_PROFILE_CLASSES = (
+    _VIT_PROFILE_CLASSES[:5]
+    + (("MoE routing (sort, cumsum, one-hot compares)", ("sort", "radix", "scan", "cumsum", "segmented", "compare",
+                                                          "eq_kernel")),)
+    + _VIT_PROFILE_CLASSES[5:]
+)
+MOE_STEP_CHECK_BATCH = 4
+MOE_ROUTER_GRAD = "encoder.layers.encoder_layer_1.moe.router.weight"
+
+
+def _router_choices(torch, model) -> list:
+    """A forward hook on each expert layer that keeps the argmax of its
+    router's logits; the list fills as the model runs."""
+    import torch.nn.functional as F
+
+    from ssip_tpu_torch.models.moe import MoEMlp
+
+    seen, handles = [], []
+    for layer in (m for m in model.modules() if isinstance(m, MoEMlp)):
+        def hook(module, inputs, output):
+            logits = F.linear(inputs[0].detach().float(), module.router.weight, module.router.bias)
+            seen.append(logits.argmax(dim=-1).cpu())
+
+        handles.append(layer.register_forward_hook(hook))
+    return seen, handles
+
+
+def phase_moe_step(torch, np, counts: LaunchCounts) -> None:
+    """vit_moe_s16: one float32 train step on the card against the CPU at
+    the seeded weights (the loss with the aux term, the aux term alone, the
+    gradients, the routers' included, at the dense ViT step check's bounds,
+    and how many router choices the two devices made differently); a
+    vit_moe_t16 forward (3 heads) on the card against the CPU; then the
+    steady-state train and FixMatch steps at batch 128 in bfloat16."""
+    from ssip_tpu_torch.models.host_init import seeded_init_host
+    from ssip_tpu_torch.models.port import load_flax_variables
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.ops.augment import augment_coeffs, eval_preprocess
+    from ssip_tpu_torch.runtime.device import configure_precision
+    from ssip_tpu_torch.runtime.prng import augment_draws
+    from ssip_tpu_torch.train.engine import train_step
+
+    configure_precision("float32")
+    b = MOE_STEP_CHECK_BATCH
+    batch = _step_inputs(torch, np, b, padded_rows=1)
+    coeffs = torch.from_numpy(augment_coeffs(*augment_draws(SEED, "smoke_moe", 0, 0, b)))
+
+    def one(dev):
+        state = _seeded_state(torch, dev, torch.float32, MOE_ARCH)
+        choices, handles = _router_choices(torch, state.model)
+        try:
+            loss, pred = train_step(state, *(t.to(dev) for t in batch), coeffs.to(dev))
+        finally:
+            for h in handles:
+                h.remove()
+        aux = sum(t.detach() for t in state.model.aux_losses())
+        return loss.cpu(), pred.cpu(), aux.cpu(), {k: p.grad.cpu() for k, p in state.model.named_parameters()}, choices
+
+    l_cpu, p_cpu, a_cpu, g_cpu, c_cpu = one(torch.device("cpu"))
+    counts.reset()
+    l_gpu, p_gpu, a_gpu, g_gpu, c_gpu = one(torch.device("cuda"))
+    launches = counts.read()
+    r = {
+        "loss": l_cpu.item(), "aux": a_cpu.item(), "loss_rel": _rel(l_gpu, l_cpu), "aux_rel": _rel(a_gpu, a_cpu),
+        "argmax_equal": torch.equal(p_gpu, p_cpu), "grad_rel": max(_rel(g_gpu[k], g_cpu[k]) for k in g_cpu),
+        "grad_worst": max(g_cpu, key=lambda k: _rel(g_gpu[k], g_cpu[k])),
+        "router_grad_rel": _rel(g_gpu[MOE_ROUTER_GRAD], g_cpu[MOE_ROUTER_GRAD]),
+        "router_choices_differ": int(sum((a != c).sum() for a, c in zip(c_gpu, c_cpu))),
+        "router_choices": int(sum(c.numel() for c in c_cpu)),
+    }
+    say("moe", arch=MOE_ARCH, check="step_cuda_vs_cpu_f32_seeded", batch=b, padded_rows=1, **r,
+        launches={k: v for k, v in launches.items() if v})
+    want = {"layer_norm": VIT_LN_PER_FORWARD, "layer_norm_bwd": VIT_LN_PER_FORWARD,
+            "attention_qkv": VIT_ATTN_PER_FORWARD, "attention_qkv_bwd": VIT_ATTN_PER_FORWARD}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{MOE_ARCH} step launched {launches}, expected {want}")
+    if (r["loss_rel"] > 1e-5 or r["aux_rel"] > 1e-5 or r["grad_rel"] > 1e-3 or not r["argmax_equal"]
+            or not r["aux"] > 0):
+        raise AssertionError(f"{MOE_ARCH} train step cuda vs cpu out of bounds: {r}")
+
+    model = build_model(MOE_T16, compute_dtype=torch.float32)
+    load_flax_variables(model, seeded_init_host(MOE_T16, 42))
+    x = eval_preprocess(_step_inputs(torch, np, VIT_N_CPU_CHECK)[0], torch.float32)
+    with torch.inference_mode():
+        cpu = model.eval()(x)
+        counts.reset()
+        gpu = model.cuda()(x.cuda()).cpu()
+        launches = counts.read()
+    rel = _rel(gpu, cpu)
+    say("moe", arch=MOE_T16, check="forward_cuda_vs_cpu_f32", images=VIT_N_CPU_CHECK, heads=3, rel=rel,
+        launches={k: v for k, v in launches.items() if v})
+    if rel > 1e-4 or launches["attention_qkv"] != VIT_ATTN_PER_FORWARD:
+        raise AssertionError(f"{MOE_T16} forward cuda vs cpu {rel}, launches {launches}")
+    del model
+    _timed_steps(torch, np, MOE_ARCH, counts, _MOE_PROFILE_CLASSES, dtypes=("bfloat16",))
+    _timed_fixmatch_steps(torch, np, MOE_ARCH, counts, (("rotate kernel", ROTATE_U8_KERNELS),) + _MOE_PROFILE_CLASSES,
+                          dtypes=("bfloat16",))
+
+
+def phase_moe_serve(torch, np, tmp: Path, pool: Path) -> None:
+    """The ``[semi]`` MoE run directory (bfloat16 training, float32
+    checkpoint) through ``export_model`` in bfloat16, the artifact against
+    the in-process predictor at batch 1, 3 and 128, then ``predict`` over
+    the pool from it."""
+    from ssip_tpu_torch.cli import export_model, predict
+    from ssip_tpu_torch.data.decode import decode_batch
+    from ssip_tpu_torch.deploy.export import ExportedModel
+    from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
+    from ssip_tpu_torch.serving import ScreeningPredictor
+    from ssip_tpu_torch.train.data import resize_on_device
+
+    out = tmp / f"semi_out_{MOE_ARCH}_bfloat16"
+    arrays, _ = decode_batch(sorted(pool.glob("*.jpg"))[:SERVE_BATCH], num_threads=8, convert_rgb=True)
+    images = resize_on_device(arrays, TRAIN_SIZE, torch.device("cpu")).numpy()
+    reg = ArtifactRegistry(out)
+    t0 = time.perf_counter()
+    export_model.main(["--output-dir", str(out), "--model", "semi", "--compute-dtype", "bfloat16"])
+    export_s = time.perf_counter() - t0
+    exported = ExportedModel.load(reg.serving_artifact("semi"))
+    predictor = ScreeningPredictor.from_artifacts(out, compute_dtype="bfloat16", device="cuda")
+    worst = 0.0
+    for n in SERVE_BATCHES:
+        predictor.batch_size = _bucket(n)
+        worst = max(worst, float(np.abs(exported.predict_probs(images[:n]) - predictor.predict_probs(images[:n])).max()))
+    if not worst <= SERVE_BF16_ATOL:
+        raise AssertionError(f"moe serve: exported vs in-process {worst} > {SERVE_BF16_ATOL}")
+    csv_path = tmp / "moe_predictions.csv"
+    predict.main(["--images", str(pool), "--output-dir", str(out), "--model", "semi", "--output", str(csv_path)])
+    rows = _csv_rows(csv_path)
+    ok = (len(rows) == POOL_IMAGES and exported.manifest["arch"] == MOE_ARCH
+          and all(0.0 <= float(r["prob_positive"]) <= 1.0 for r in rows)
+          and all(r["flagged"] == str(bool(np.float32(r["prob_positive"]) >= exported.threshold)) for r in rows))
+    if not ok:
+        raise AssertionError(f"moe predict: {len(rows)} rows, manifest {exported.manifest.get('arch')}")
+    say("moe", arch=MOE_ARCH, serve="bfloat16", export_s=f"{export_s:.2f}", batches=SERVE_BATCHES,
+        exported_vs_in_process=worst, artifact_mb=f"{reg.serving_artifact('semi').stat().st_size / 1e6:.1f}",
+        predict_images=len(rows), flagged=sum(r["flagged"] == "True" for r in rows))
+
+
+def _max_diff(np, a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)))) if len(a) else 0.0
+
+
+def _state_diff(torch, a: dict, b: dict) -> float:
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a if a[k].is_floating_point())
+
+
+RESUME_RUNS = 3  # uninterrupted runs of each resumed one: the card's own run-to-run spread
+
+
+def _restore_spy(torch, module, seen: dict):
+    """Wrap ``module.restore_resume_state`` so that, after each restore, it
+    records whether the live train state equals the snapshot file bit for
+    bit (model, optimizer moments, step counts, learning rate, step)."""
+    from ssip_tpu_torch.train.checkpoints import load_train_snapshot
+
+    real = module.restore_resume_state
+
+    def spy(path, state):
+        driver, best = real(path, state)
+        snap, _ = load_train_snapshot(path)
+        live_opt = state.optimizer.state_dict()
+        seen["restored_bitwise"] = driver is not None and state.step == snap.step and all(
+            torch.equal(v.cpu(), snap.model[k]) for k, v in state.model.state_dict().items()
+        ) and live_opt["param_groups"] == snap.optimizer["param_groups"] and all(
+            torch.equal(t.cpu(), snap.optimizer["state"][i][name])
+            for i, leaves in live_opt["state"].items() for name, t in leaves.items()
+        )
+        return driver, best
+
+    module.restore_resume_state = spy
+    return real
+
+
+def _resume_bar(torch, np, uninterrupted: list, resumed) -> tuple:
+    """(bar, got): the largest val-loss and weight distances between the
+    uninterrupted runs (each a (history, state_dict)), and the median of the
+    resumed run's distances to them."""
+    def dist(a, b):
+        return {"val_loss": _max_diff(np, a[0]["val_loss"], b[0]["val_loss"]), "weights": _state_diff(torch, a[1], b[1])}
+
+    pairs = [dist(a, b) for i, a in enumerate(uninterrupted) for b in uninterrupted[i + 1:]]
+    to_resumed = [dist(resumed, a) for a in uninterrupted]
+    bar = {k: max(p[k] for p in pairs) for k in ("val_loss", "weights")}
+    got = {k: float(np.median([d[k] for d in to_resumed])) for k in ("val_loss", "weights")}
+    return bar, got
+
+
+def phase_resume(torch, np, tmp: Path, data: Path, pool: Path) -> None:
+    """``--resume`` on the card. resnet18 float32 ``run_supervised``: 4
+    epochs three times without snapshots, then 2 epochs with ``resume`` and
+    resumed to 4. The restored train state must equal the snapshot file bit
+    for bit; past the cut the card's cuDNN backward (atomics in the max-pool
+    and weight gradients) is not bitwise reproducible, so the resumed run is
+    held to the card's own spread: the median of its distances to the three
+    uninterrupted runs (final checkpoint, val losses) within twice the
+    largest distance between two of them (bit for bit is the CPU test's
+    bar). ``train_fixmatch`` (EMA off) likewise, 3 epochs, cut after 1; and
+    with an EMA teacher, the teacher at the first step after the resume
+    equal to the ``.best`` sidecar's parameters."""
+    from ssip_tpu_torch.pipelines.supervised import TrainingConfig, build_classifier_state, prepare_datasets, run_supervised
+    from ssip_tpu_torch.runtime.device import configure_precision
+    from ssip_tpu_torch.train import consistency, engine
+    from ssip_tpu_torch.train.checkpoints import load_train_snapshot
+    from ssip_tpu_torch.train.data import load_unlabeled_dataset
+
+    def supervised(name, epochs, resume):
+        out = tmp / f"resume_{name}"
+        cfg = TrainingConfig(strong_data_dir=data, output_dir=out, device="cuda", batch_size=TRAIN_BATCH,
+                             image_size=TRAIN_SIZE, baseline_epochs=epochs, compute_dtype="float32", resume=resume)
+        run_supervised(cfg)
+        hist = json.loads(cfg.artifacts.training_history_json.read_text())["baseline"]
+        return hist, torch.load(cfg.artifacts.baseline_checkpoint, map_location="cpu", weights_only=True)
+
+    configure_precision("float32")
+    seen: dict = {}
+    t0 = time.perf_counter()
+    straight = [supervised(f"u{i}", 4, False) for i in range(RESUME_RUNS)]
+    supervised("r", 2, True)
+    real = _restore_spy(torch, engine, seen)
+    try:
+        resumed = supervised("r", 4, True)
+    finally:
+        engine.restore_resume_state = real
+    bar, got = _resume_bar(torch, np, straight, resumed)
+    say("resume", arch="resnet18", dtype="float32", run="run_supervised", epochs="2+2 vs 4",
+        restored_bitwise=seen.get("restored_bitwise"), uninterrupted_spread=bar, resumed_vs_uninterrupted=got,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    if (not seen.get("restored_bitwise") or len(resumed[0]["val_loss"]) != 4
+            or any(got[k] > 2 * bar[k] for k in got)):
+        raise AssertionError(f"resume run_supervised: restored {seen}, resumed {got} against the card's spread {bar}")
+
+    cfg = TrainingConfig(strong_data_dir=data, device="cuda", batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE)
+    datasets, _, _ = prepare_datasets(cfg, torch.device("cuda"))
+    pool_images, _ = load_unlabeled_dataset(pool, TRAIN_SIZE, torch.device("cuda"), num_threads=8)
+    kw = dict(batch_size=TRAIN_BATCH, unlabeled_batch_size=TRAIN_BATCH, seed=42, stream_name="semi_finetune",
+              consistency_weight=1.0, confidence_threshold=SEMI_THRESHOLD)
+
+    def fixmatch(epochs, resume_path=None, ema_decay=0.0):
+        state = build_classifier_state(cfg, 2, 1e-4, torch.device("cuda"))
+        state, hist = consistency.train_fixmatch(state, datasets["train"], datasets["val"], pool_images,
+                                                 num_epochs=epochs, resume_path=resume_path, ema_decay=ema_decay, **kw)
+        return hist, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+    seen.clear()
+    straight = [fixmatch(3) for _ in range(RESUME_RUNS)]
+    snap = tmp / "resume_fixmatch" / "semi_finetune.torchsnap"
+    fixmatch(1, snap)
+    real = _restore_spy(torch, consistency, seen)
+    try:
+        resumed = fixmatch(3, snap)
+    finally:
+        consistency.restore_resume_state = real
+    bar, got = _resume_bar(torch, np, straight, resumed)
+    say("resume", arch="resnet18", dtype="float32", run="train_fixmatch", ema_decay=0.0, epochs="1+2 vs 3",
+        restored_bitwise=seen.get("restored_bitwise"), uninterrupted_spread=bar, resumed_vs_uninterrupted=got)
+    if (not seen.get("restored_bitwise") or len(resumed[0]["val_loss"]) != 3
+            or any(got[k] > 2 * bar[k] for k in got)):
+        raise AssertionError(f"resume train_fixmatch: restored {seen}, resumed {got} against the card's spread {bar}")
+
+    snap = tmp / "resume_ema" / "semi_finetune.torchsnap"
+    fixmatch(1, snap, SEMI_EMA_DECAY)
+    best, _ = load_train_snapshot(str(snap) + ".best")
+    teacher = []
+    real_step = consistency.fixmatch_step
+
+    def step_spy(state, ema_params, *args, **kwargs):
+        if not teacher:
+            teacher.append({k: v.detach().cpu().clone() for k, v in ema_params.items()})
+        return real_step(state, ema_params, *args, **kwargs)
+
+    consistency.fixmatch_step = step_spy
+    try:
+        fixmatch(2, snap, SEMI_EMA_DECAY)
+    finally:
+        consistency.fixmatch_step = real_step
+    equal = all(torch.equal(teacher[0][k], best.model[k]) for k in teacher[0])
+    say("resume", arch="resnet18", run="train_fixmatch", ema_decay=SEMI_EMA_DECAY,
+        teacher_after_resume_equals_best_sidecar=equal, parameters=len(teacher[0]))
+    if not equal:
+        raise AssertionError("resume with an EMA teacher: the teacher did not restart from the .best sidecar")
+
+
+def _rss_run(code: str) -> dict:
+    """Run ``code`` in a fresh interpreter from the repository root, after
+    the card and the kernel library are initialized; ``code`` sets
+    ``result`` (a dict). Returns it with the process's resident set before
+    ``code`` (``rss_base_mib``) and its peak while ``code`` ran
+    (``rss_peak_mib``, VmRSS sampled every 5 ms)."""
+    prelude = textwrap.dedent("""
+        import json, threading, time
+        import torch
+        from ssip_tpu_torch.kernels.build import load_library
+        torch.zeros(1, device="cuda"); load_library()
+
+        def rss_mib():
+            for line in open("/proc/self/status"):
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024
+
+        base, peak, done = rss_mib(), [0.0], threading.Event()
+
+        def sample():
+            while not done.is_set():
+                peak[0] = max(peak[0], rss_mib())
+                time.sleep(0.005)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+    """)
+    coda = "\ndone.set(); sampler.join()\nprint(json.dumps({**result, 'rss_base_mib': base, 'rss_peak_mib': max(peak[0], rss_mib())}))\n"
+    proc = subprocess.run([sys.executable, "-c", prelude + code + coda], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"stream run failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_stream(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> None:
+    """The streamed extraction shape on the workflow's 1,506-image 512² JPEG
+    tree, resnet18 bfloat16 at batch 128, each run in a fresh interpreter
+    (end-to-end imgs/s, decode included, and how far the resident set grew): the
+    resident store shape, ``streaming="always"`` and ``host_preproc``
+    (embeddings against the resident ones), and ``fast_decode`` twice (the
+    two equal, the cosine to the exact path printed). Then the preprocess
+    kernel at 224² → 224 (the identity resample the host-preproc path runs
+    on the card) bit for bit against its plain version."""
+    from ssip_tpu_torch.ops.preproc import preprocess_images
+    from ssip_tpu_torch.ops.resize import extraction_preprocess
+    from ssip_tpu_torch.runtime.device import configure_precision
+
+    root = tmp / "workflow_data"
+    if not root.exists():
+        make_workflow_tree(np, tmp)
+    n = ANALYSIS_LABELED + ANALYSIS_UNLABELED
+    variants = [("resident", {"streaming": "never"}), ("always", {"streaming": "always"})]
+    if host["native_decoder"]:
+        variants += [("host_preproc", {"host_preproc": True}), ("fast_decode", {"fast_decode": True})]
+    emb = {}
+    for name, kw in variants:
+        out = tmp / f"stream_{name}"
+        runs = 2 if name == "fast_decode" else 1
+        code = textwrap.dedent(f"""
+            from pathlib import Path
+            import numpy as np
+            from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
+            for i in range({runs}):
+                cfg = ExtractionConfig(data_dir=Path({str(root)!r}), output_dir=Path({str(out)!r}) / str(i),
+                                       batch_size={BATCH}, device="cuda", compute_dtype="bfloat16",
+                                       cache_decoded=False, **{kw!r})
+                s = run_extraction(cfg)
+                np.save(Path({str(out)!r}) / f"emb{{i}}.npy", s.embeddings)
+            result = {{"seconds": s.total_seconds, "images": int(s.embeddings.shape[0]),
+                       "failures": len(s.failures), "embed_s": s.embed_seconds}}
+        """)
+        r = _rss_run(code)
+        emb[name] = [np.load(out / f"emb{i}.npy") for i in range(runs)]
+        if r["images"] != n or r["failures"] or not np.isfinite(emb[name][0]).all():
+            raise AssertionError(f"stream {name}: {r}")
+        fields = {"imgs_per_s_e2e": f"{n / r['seconds']:.1f}", "e2e_s": f"{r['seconds']:.3f}",
+                  "embed_span_s": f"{r['embed_s']:.3f}", "rss_base_mib": f"{r['rss_base_mib']:.0f}",
+                  "rss_peak_mib": f"{r['rss_peak_mib']:.0f}",
+                  "rss_growth_mib": f"{r['rss_peak_mib'] - r['rss_base_mib']:.0f}"}
+        if name != "resident":
+            diff = float(np.abs(emb[name][0] - emb["resident"][0]).max())
+            cos = (_unit(np, emb[name][0]) * _unit(np, emb["resident"][0])).sum(axis=1)
+            fields.update(max_abs_diff_vs_resident=diff, equal_to_resident=bool(diff == 0.0),
+                          cos_vs_resident_min=f"{cos.min():.6f}")
+            if name in ("always", "host_preproc") and cos.min() <= 0.9999:
+                raise AssertionError(f"stream {name}: cosine to the resident shape {cos.min()}")
+        if name == "fast_decode":
+            fields["two_runs_equal"] = bool(np.array_equal(emb[name][0], emb[name][1]))
+            if not fields["two_runs_equal"]:
+                raise AssertionError("fast_decode: two runs differ")
+        say("stream", arch="resnet18", dtype="bfloat16", images=n, batch=BATCH, shape=name, **fields)
+    if not host["native_decoder"]:
+        say("stream", not_run="host_preproc, fast_decode", reason="no g++ or no /usr/include/jpeglib.h on this machine")
+
+    configure_precision("float32")
+    x = torch.from_numpy(np.random.default_rng(SEED + 50).integers(0, 256, (BATCH, CROP, CROP, 3),
+                                                                     dtype=np.uint8)).cuda()
+    got = {dt: preprocess_images(x, CROP, CROP, getattr(torch, dt)) for dt in ("float32", "bfloat16")}
+    ref = extraction_preprocess(x, CROP, CROP, torch.float32)
+    exact = torch.equal(got["float32"], ref) and torch.equal(got["bfloat16"], ref.to(torch.bfloat16))
+    kernel_ms, plain_ms = timed_pair(torch, lambda: preprocess_images(x, CROP, CROP, torch.bfloat16),
+                                     lambda: extraction_preprocess(x, CROP, CROP, torch.bfloat16))
+    counts.reset()
+    say("stream", kernel="preprocess_images", shape=f"{BATCH}x{CROP}x{CROP}x3 -> {CROP}", bitwise_f32_and_bf16=exact,
+        ms=f"{kernel_ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    if not exact:
+        raise AssertionError(f"preprocess at {CROP} -> {CROP}: not bit for bit its plain version")
+
+
 def phase_imports() -> None:
     """The run loaded nothing of jax and nothing of the JAX package: the
     port keeps its own copies of the jax-free modules it needs."""
@@ -3162,6 +3624,17 @@ def main() -> int:
         laps[name] = round(laps.get(name, 0.0) + time.perf_counter() - start, 1)
         return result
 
+    moe_launches: dict = {}
+
+    def moe_lap(part: str, fn, *args, **kwargs):
+        """``lap`` under ``moe``, summing the launches the part adds."""
+        before = dict(counts.total)
+        result = lap("moe", fn, *args, **kwargs)
+        for name, n in counts.total.items():
+            moe_launches[name] = moe_launches.get(name, 0) + n - before[name]
+        say("moe", part=part, seconds_so_far=laps["moe"])
+        return result
+
     lap("env", phase_env, torch)
     host = phase_host_packages()
     lap("build", phase_build)
@@ -3179,6 +3652,7 @@ def main() -> int:
         dense = lap("slice", phase_slice, torch, np, tmp, corpus, counts, VIT_ARCH, VIT_WIDTH, VIT_N_CPU_CHECK)
         lap("int8", phase_slice_int8, torch, np, tmp, corpus, counts, dense)
         lap("int8_resnet", phase_int8_resnet, torch, np, tmp, corpus, counts, resnet)
+        moe_lap("slice", phase_slice, torch, np, tmp, corpus, counts, MOE_ARCH, MOE_WIDTH, VIT_N_CPU_CHECK)
         del corpus, dense, resnet
         lap("cli", phase_cli, np, tmp)
         train_tree = make_train_tree(np, tmp)
@@ -3194,16 +3668,29 @@ def main() -> int:
         lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"),
             "resnet18")
         lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")
+        moe_lap("train", phase_train, torch, np, tmp, train_tree, counts, MOE_ARCH, (("bfloat16", TRAIN_EPOCHS),),
+                MOE_ARCH, tag="moe")
+        moe_lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, MOE_ARCH, ("bfloat16",), None)
+        moe_lap("serve", phase_moe_serve, torch, np, tmp, pool)
+        lap("resume", phase_resume, torch, np, tmp, train_tree, pool)
         lap("serve", phase_serve, torch, np, tmp, pool, counts)
         lap("sweep", phase_sweep, torch, np, tmp, train_tree, counts)
         lap("analysis", phase_analysis, torch, np, counts)
         lap("analysis_scale", phase_analysis_scale, torch, np)
         lap("workflow", phase_workflow, torch, np, tmp, counts, host)
+        lap("stream", phase_stream, torch, np, tmp, counts, host)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lap("step", phase_step, torch, np, counts)
     lap("vit_step", phase_vit_step, torch, np, counts)
     lap("fixmatch_step", phase_fixmatch_step, torch, np, counts)
+    moe_lap("step", phase_moe_step, torch, np, counts)
+    # the MoE window ran rows 5, 6, 9 and 10 (the LayerNorm and packed
+    # attention pairs) at width 384
+    moe_need = ("layer_norm", "layer_norm_bwd", "attention_qkv", "attention_qkv_bwd")
+    say("moe", window_launches={k: v for k, v in moe_launches.items() if v})
+    if not all(moe_launches[k] > 0 for k in moe_need):
+        raise AssertionError(f"the MoE window launched {moe_launches}, needs {moe_need}")
     phase_imports()
     never = [name for name, n in counts.total.items() if n == 0]
     if never:

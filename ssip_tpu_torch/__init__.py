@@ -2,20 +2,24 @@
 
 A second package beside the JAX reference ``ssip_tpu/``, which stays as it
 is and is what every module here is tested against. The port covers two
-slices today, for the ResNet family and the dense ViT family:
+slices today, for the ResNet family, the dense ViT family and the MoE ViTs
+(``models/moe.py``):
 
 - extraction: uint8 JPEG corpus → fused resize/crop/normalize (a
   hand-written CUDA kernel, ``ops/preproc.py`` + ``csrc/preproc.cu``) →
-  frozen ``--arch`` eval forward (ResNet-18/34/50, ViT-T/S/B/16) →
-  embeddings and the ``outputs/features`` artifact set
+  frozen ``--arch`` eval forward (ResNet-18/34/50, ViT-T/S/B/16, MoE
+  ViT-T/S/16) → embeddings and the ``outputs/features`` artifact set
   (``pipelines/extraction.py``, CLI
-  ``python -m ssip_tpu_torch.cli.feature_extraction``);
+  ``python -m ssip_tpu_torch.cli.feature_extraction``), resident, per batch
+  or streamed, the streamed shape also with the host's resize on the native
+  JPEG decoder (``native/``, built with g++ at first use);
 - supervised training: device-resident resized images → fused flip/rotate/
   normalize (a hand-written CUDA kernel, ``ops/rotate.py`` +
   ``csrc/rotation.cu``) → train-mode forward (a ResNet with masked
   BatchNorm, or a ViT) → masked cross-entropy → AdamW, under the
   reference's epoch loop (``train/engine.py``, ``pipelines/supervised.py``,
-  CLI ``python -m ssip_tpu_torch.cli.supervised_training``).
+  CLI ``python -m ssip_tpu_torch.cli.supervised_training``), with resume
+  snapshots (``train/checkpoints.py``).
 
 The ViT's LayerNorm and packed-qkv attention are hand-written CUDA kernels
 too, forward and backward (``ops/layernorm.py`` + ``csrc/layernorm.cu``,
@@ -41,7 +45,8 @@ JAX package: the jax-free modules the port needs from it
 ``analysis/blocked.py``) are the port's own copies. pandas is imported by
 the audit alone, and matplotlib only by the functions that draw
 (``report/``). CUDA kernels are compiled on first use
-(``kernels/build.py``), so importing the package needs no compiler.
+(``kernels/build.py``), and so is the native decoder (``native/build.py``),
+so importing the package needs no compiler.
 """
 
 __version__ = "0.1.0"

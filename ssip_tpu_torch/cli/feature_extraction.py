@@ -1,15 +1,16 @@
 """CLI: frozen-backbone feature extraction on PyTorch (CUDA or CPU).
 
 Counterpart of ``src/feature_extraction.py``, with the same flags and
-defaults. Flags whose code paths are not ported yet are accepted by the
-parser and refused with an error naming the ROADMAP entry:
-``--streaming always``, ``--fast-decode``, ``--host-preproc``,
-``--shard-size > 0`` and the MoE archs. With ``--streaming auto`` a corpus
-above the host budget, which the JAX CLI would stream, is refused the same
-way.
+defaults. ``--streaming always`` (and ``auto`` above the host budget) takes
+the streamed shape; ``--host-preproc`` (exact) and ``--fast-decode``
+(approximate) resize and crop on the host and imply it, and need the native
+decoder, built at first use with g++ and libjpeg. ``--shard-size > 0`` is
+accepted by the parser and refused with an error naming its ROADMAP entry
+(item 22).
 
 ``--compute-dtype int8`` (with a ResNet or with ``vit_t16``, ``vit_s16`` or
-``vit_b16``) is post-training int8 extraction: calibrated on the corpus's
+``vit_b16``; refused with the MoE archs, as in JAX) is post-training int8
+extraction: calibrated on the corpus's
 first 32 images, ``metadata.json``'s ``weights`` ends in ``+int8_ptq``.
 
     python -m ssip_tpu_torch.cli.feature_extraction --data-dir DATA --device cuda --batch-size 128
@@ -21,7 +22,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from ssip_tpu_torch.pipelines.extraction import _STREAMED_NOT_PORTED, ExtractionConfig, run_extraction
+from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -48,17 +49,26 @@ def parse_args(argv=None) -> argparse.Namespace:
             "vit_moe_t16", "vit_moe_s16",
         ],
         default="resnet18",
-        help="backbone architecture (the vit_moe archs are not ported yet)",
+        help="backbone architecture; vit_moe_* are Switch-style mixture-of-experts towers",
     )
     parser.add_argument("--no-cache", action="store_true", help="skip decode cache")
     parser.add_argument(
         "--streaming", choices=["auto", "always", "never"], default="auto",
-        help="'always' (the streamed shape) is not ported yet; 'auto' takes the "
-        "decode-once store path and refuses a corpus above the host budget",
+        help="'always': decode→copy→embed overlapped in O(batch) host memory; "
+        "'auto': stream only when no decode cache exists and the corpus "
+        "exceeds the host-RAM budget",
     )
     speed = parser.add_mutually_exclusive_group()
-    speed.add_argument("--fast-decode", action="store_true", help="not ported yet")
-    speed.add_argument("--host-preproc", action="store_true", help="not ported yet")
+    speed.add_argument(
+        "--fast-decode", action="store_true",
+        help="streaming turbo mode: DCT-scaled JPEG decode + host crop "
+        "(approximate resample numerics; implies --streaming always)",
+    )
+    speed.add_argument(
+        "--host-preproc", action="store_true",
+        help="streaming with EXACT host-side resize+crop so only the crop "
+        "crosses the host→device link (numerics unchanged; implies --streaming always)",
+    )
     parser.add_argument(
         "--shard-size", type=int, default=0,
         help="sharded resumable extraction (not ported yet; 0 = single-shot)",
@@ -68,13 +78,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    for flag, on in (
-        ("--fast-decode", args.fast_decode),
-        ("--host-preproc", args.host_preproc),
-        ("--shard-size > 0", args.shard_size > 0),
-    ):
-        if on:
-            raise ValueError(f"{flag} {_STREAMED_NOT_PORTED}")
+    if args.shard_size > 0:
+        raise ValueError(
+            "--shard-size > 0 is not ported to ssip_tpu_torch yet (ROADMAP.md, "
+            "Queue 1 item 22: sharded extraction with parallelism)"
+        )
     cfg = ExtractionConfig(
         data_dir=args.data_dir,
         output_dir=args.output_dir,
@@ -85,7 +93,9 @@ def main(argv=None) -> None:
         compute_dtype=args.compute_dtype,
         arch=args.arch,
         cache_decoded=not args.no_cache,
-        streaming=args.streaming,
+        streaming="always" if (args.fast_decode or args.host_preproc) else args.streaming,
+        fast_decode=args.fast_decode,
+        host_preproc=args.host_preproc,
     )
     summary = run_extraction(cfg)
     print(

@@ -2,11 +2,12 @@
 
 Counterpart of ``src/semi_supervised_training.py``, with the same flags and
 defaults (copied here: that module imports the JAX pipeline) and the shared
-flags of ``cli/supervised_training.py``. Flags whose code paths are not
-ported yet are accepted by the parser and refused with an error naming the
-ROADMAP entry: ``--strong-augment randaugment`` and what the supervised CLI
-refuses (``--resume``, ``--num-seeds > 1``, ``--cv-folds``,
-``--mesh-model > 1``, ``--fsdp`` and the MoE archs).
+flags of ``cli/supervised_training.py`` (``--resume`` and the MoE archs
+included). Flags whose code paths are not ported yet are accepted by the
+parser and refused with an error naming the ROADMAP entry:
+``--strong-augment randaugment`` (item 18) and what the supervised CLI
+refuses (``--num-seeds > 1``, ``--cv-folds``, ``--mesh-model > 1``,
+``--fsdp``).
 
     python -m ssip_tpu_torch.cli.semi_supervised_training \\
         --strong-data-dir DATA/avec_labels --weak-data-dir DATA/sans_label --device cuda

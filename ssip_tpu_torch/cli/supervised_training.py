@@ -2,11 +2,13 @@
 
 Counterpart of ``src/supervised_training.py``, with the same flags, defaults
 and flag-to-config mapping (copied here: that module imports the JAX
-pipeline). Flags whose code paths are not ported yet are accepted by the
-parser and refused with an error naming the ROADMAP entry: ``--resume``,
-``--num-seeds > 1``, ``--cv-folds``, ``--mesh-model > 1``, ``--fsdp`` and the
-MoE archs. ``--remat`` checkpoints the ViT encoder blocks and is ignored for
-the ResNet archs, as in JAX.
+pipeline). ``--resume`` snapshots the run every epoch and resumes an
+interrupted one; the MoE archs (``vit_moe_t16``, ``vit_moe_s16``) train with
+their auxiliary losses. Flags whose code paths are not ported yet are
+accepted by the parser and refused with an error naming the ROADMAP entry:
+``--num-seeds > 1`` and ``--cv-folds`` (item 18), ``--mesh-model > 1`` and
+``--fsdp`` (item 22). ``--remat`` checkpoints the ViT encoder blocks and is
+ignored for the ResNet archs, as in JAX.
 
     python -m ssip_tpu_torch.cli.supervised_training --strong-data-dir DATA/avec_labels --device cuda
 """
@@ -43,7 +45,10 @@ def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
         "--pretrained-weights", type=Path, default=None,
         help="torch resnet18 state_dict to port as the backbone init",
     )
-    parser.add_argument("--resume", action="store_true", help="not ported yet")
+    parser.add_argument(
+        "--resume", action="store_true",
+        help="snapshot the train state every epoch and resume an interrupted run",
+    )
     parser.add_argument(
         "--arch",
         choices=[
@@ -52,7 +57,9 @@ def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
             "vit_moe_t16", "vit_moe_s16",
         ],
         default="resnet18",
-        help="backbone architecture (the vit_moe archs are not ported yet)",
+        help="backbone architecture (recorded in artifacts so threshold_sweep/predict "
+        "rebuild the right model); vit_* need --image-size divisible by 16; vit_moe_* "
+        "are Switch-style mixture-of-experts towers",
     )
     parser.add_argument("--mesh-model", type=int, default=1, help="values above 1 are not ported yet")
     parser.add_argument("--remat", action="store_true", help="ViT only; ignored for resnet archs")

@@ -1,13 +1,20 @@
-"""Host image decode with PIL, one thread pool per batch.
+"""Host image decode: PIL, or the native libjpeg decoder, on a thread pool.
 
 Counterpart of ``ssip_tpu/data/decode.py:30-57`` (``decode_image``,
-``try_decode_image``), ``:69-108`` (``preprocess_host_exact``, PIL branch:
-the int8 calibration batch takes it) and ``:109-168`` (``decode_batch``,
-PIL branch). The
-channel policy is the same: no RGB conversion unless asked, grayscale
-stacked to 3 channels. PIL is imported inside the functions, so the rest
-of the port runs on a machine without it; the native libjpeg decoder of
-the JAX package is not used yet.
+``try_decode_image``), ``:69-108`` (``preprocess_host_exact``) and
+``:109-168`` (``decode_batch``). The channel policy is the same: no RGB
+conversion unless asked, grayscale stacked to 3 channels.
+
+``decode_batch`` decodes with PIL, bit for bit what the native decoder
+gives for a JPEG, unless it is given ``fast_scale`` (DCT-domain scaled
+decode, approximate) or ``host_resize`` and ``host_crop`` (the exact
+short-side resize and center crop inside the decode worker): those run the
+native library of ``ssip_tpu_torch/native/``, built at first use, and raise
+where it cannot be built. As in the JAX package with its library built, a
+file the library declines (not a JPEG) is decoded by PIL (with ``draft``
+for ``fast_scale``), and a shape the library's resize does not take by PIL's
+resize. PIL is imported inside the functions, so the rest of the port runs
+on a machine without it.
 """
 
 from __future__ import annotations
@@ -23,11 +30,15 @@ import numpy as np
 LOGGER = logging.getLogger(__name__)
 
 
-def decode_image(path: Path, convert_rgb: bool = False) -> np.ndarray:
-    """Decode one image to uint8 [H, W, C]."""
+def decode_image(path: Path, convert_rgb: bool = False, fast_scale: Optional[int] = None) -> np.ndarray:
+    """Decode one image to uint8 [H, W, C]; ``fast_scale``: the short side
+    to decode towards in draft mode (DCT-domain scaling), None for a full
+    decode."""
     from PIL import Image
 
     with Image.open(path) as img:
+        if fast_scale is not None:
+            img.draft("RGB", (fast_scale, fast_scale))
         if convert_rgb and img.mode != "RGB":
             img = img.convert("RGB")
         arr = np.asarray(img)
@@ -36,10 +47,10 @@ def decode_image(path: Path, convert_rgb: bool = False) -> np.ndarray:
     return arr
 
 
-def try_decode_image(path: Path, convert_rgb: bool = False) -> Optional[np.ndarray]:
+def try_decode_image(path: Path, convert_rgb: bool = False, fast_scale: Optional[int] = None) -> Optional[np.ndarray]:
     """``decode_image`` that logs and returns None on any decode failure."""
     try:
-        return decode_image(path, convert_rgb=convert_rgb)
+        return decode_image(path, convert_rgb=convert_rgb, fast_scale=fast_scale)
     except Exception as exc:  # noqa: BLE001 — any decode failure is tolerated
         LOGGER.warning("Failed to decode %s: %s", path, exc)
         return None
@@ -72,12 +83,46 @@ def preprocess_host_exact(arr: np.ndarray, resize: int, crop: int) -> np.ndarray
 
 
 def decode_batch(
-    paths: Sequence[Path], num_threads: int, convert_rgb: bool = False
+    paths: Sequence[Path],
+    num_threads: int,
+    convert_rgb: bool = False,
+    fast_scale: Optional[int] = None,
+    host_resize: Optional[int] = None,
+    host_crop: Optional[int] = None,
 ) -> Tuple[List[Optional[np.ndarray]], List[Path]]:
     """(arrays with None for failures, failed paths), threads capped at the
-    core count."""
+    core count. ``host_resize`` and ``host_crop`` together: each array is
+    the exact resize and crop of its image, [host_crop, host_crop, 3]."""
     num_threads = max(1, min(num_threads, os.cpu_count() or 1))
-    with ThreadPoolExecutor(max_workers=num_threads) as pool:
-        arrays = list(pool.map(lambda p: try_decode_image(p, convert_rgb), paths))
+    preprocess = host_resize is not None and host_crop is not None
+    if preprocess or fast_scale is not None:
+        from ssip_tpu_torch.native import decoder as native
+
+        native.load()  # raises, naming what is missing, where it cannot be built
+
+        def work(p: Path) -> Optional[np.ndarray]:
+            arr = native.decode_one(p, fast_scale)
+            if arr is None:
+                arr = try_decode_image(p, convert_rgb, fast_scale)
+            if arr is None or not preprocess:
+                return arr
+            try:
+                if host_crop > host_resize:
+                    raise ValueError(f"crop ({host_crop}) must be <= resize ({host_resize})")
+                out = native.resize_crop(arr, host_resize, host_crop)
+                return out if out is not None else preprocess_host_exact(arr, host_resize, host_crop)
+            except Exception as exc:  # noqa: BLE001 — tolerated like a decode failure
+                LOGGER.warning("Failed to preprocess %s: %s", p, exc)
+                return None
+    else:
+
+        def work(p: Path) -> Optional[np.ndarray]:
+            return try_decode_image(p, convert_rgb)
+
+    if num_threads <= 1 or len(paths) <= 1:
+        arrays = [work(p) for p in paths]
+    else:
+        with ThreadPoolExecutor(max_workers=num_threads) as pool:
+            arrays = list(pool.map(work, paths))
     failures = [p for p, a in zip(paths, arrays) if a is None]
     return arrays, failures

@@ -3,15 +3,19 @@
 Counterpart of ``ssip_tpu/data/pipeline.py:29-183`` (``ImageStore``: the
 majority shape packed into one uint8 array, odd shapes kept aside, decode
 failures listed, the same ``raw_<key>.u8.npy`` + ``.meta.json`` cache) and
-``:340-401`` (``iter_device_batches``).
+``:340-401`` (``iter_device_batches``) and ``:192-339``
+(``iter_streamed_decode_batches``).
 
-The feed on a CUDA device: a background thread gathers and zero-pads each
-batch on the host; the consumer copies it into one of ``_DEPTH`` pinned
-buffers and from there to the card with ``non_blocking=True`` on a side
-stream, so the copy of batch i+1 overlaps the compute of batch i. A pinned
-buffer is reused only after the event of its previous copy has completed,
-and each device batch is handed to the caller's stream through an event
-wait plus ``record_stream``.
+The feed on a CUDA device: a background thread makes each batch on the host
+(``iter_device_batches`` gathers it from the store and zero-pads it;
+``iter_streamed_decode_batches`` decodes it on a thread pool, so host memory
+stays O(prefetch × batch) whatever the corpus size); the consumer copies it
+into one of ``_DEPTH`` pinned buffers and from there to the card with
+``non_blocking=True`` on a side stream, so the decode of batch i+2, the copy
+of batch i+1 and the compute of batch i overlap. A pinned buffer is reused
+only after the event of its previous copy has completed, and each device
+batch is handed to the caller's stream through an event wait plus
+``record_stream``.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import queue
 import threading
 from collections import Counter, deque
 from pathlib import Path
-from typing import Iterator, List, NamedTuple, Optional, Sequence
+from typing import Callable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -189,31 +193,26 @@ class Batch(NamedTuple):
     valid: int  # number of valid rows (the rest is padding)
 
 
-def _host_batches(
-    store: ImageStore, indices: np.ndarray, batch_size: int
+def _background(
+    make: Callable[[Callable[[], bool]], Iterator[tuple[np.ndarray, np.ndarray, int]]], depth: int, name: str
 ) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
-    """Gather + pad on a background thread, ``_DEPTH`` batches ahead."""
-    num_batches = (len(indices) + batch_size - 1) // batch_size
-    q: queue.Queue = queue.Queue(maxsize=_DEPTH)
+    """The host batches of ``make(stopped)``, made on a background thread at
+    most ``depth`` ahead of the consumer; ``stopped()`` turns true once the
+    consumer has gone."""
+    q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     stop = threading.Event()
 
     def stage() -> None:
         try:
-            for bi in range(num_batches):
+            for item in make(stop.is_set):
                 if stop.is_set():
                     return
-                batch_idx = indices[bi * batch_size : (bi + 1) * batch_size]
-                arr = store.gather(batch_idx)
-                valid = len(batch_idx)
-                if valid < batch_size:
-                    pad = np.zeros((batch_size - valid, *arr.shape[1:]), arr.dtype)
-                    arr = np.concatenate([arr, pad], axis=0)
-                q.put((np.ascontiguousarray(arr), batch_idx, valid))
+                q.put(item)
             q.put(None)
         except BaseException as exc:  # handed to the consumer, which raises it
             q.put(exc)
 
-    thread = threading.Thread(target=stage, daemon=True, name="ssip-feeder")
+    thread = threading.Thread(target=stage, daemon=True, name=name)
     thread.start()
     try:
         while True:
@@ -233,6 +232,27 @@ def _host_batches(
         thread.join(timeout=5)
 
 
+def _host_batches(
+    store: ImageStore, indices: np.ndarray, batch_size: int
+) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
+    """Gather + pad on a background thread, ``_DEPTH`` batches ahead."""
+    num_batches = (len(indices) + batch_size - 1) // batch_size
+
+    def make(stopped: Callable[[], bool]) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
+        for bi in range(num_batches):
+            if stopped():
+                return
+            batch_idx = indices[bi * batch_size : (bi + 1) * batch_size]
+            arr = store.gather(batch_idx)
+            valid = len(batch_idx)
+            if valid < batch_size:
+                pad = np.zeros((batch_size - valid, *arr.shape[1:]), arr.dtype)
+                arr = np.concatenate([arr, pad], axis=0)
+            yield np.ascontiguousarray(arr), batch_idx, valid
+
+    return _background(make, _DEPTH, "ssip-feeder")
+
+
 def iter_device_batches(
     store: ImageStore,
     indices: Sequence[int],
@@ -243,7 +263,71 @@ def iter_device_batches(
     indices = np.asarray(indices)
     if len(indices) == 0:
         return
-    host = _host_batches(store, indices, batch_size)
+    yield from _to_device(_host_batches(store, indices, batch_size), device)
+
+
+def iter_streamed_decode_batches(
+    paths: Sequence[Path],
+    batch_size: int,
+    image_shape: tuple[int, int, int],
+    device: torch.device,
+    num_threads: int,
+    convert_rgb: bool = False,
+    fast_scale: Optional[int] = None,
+    host_resize: Optional[int] = None,
+    host_crop: Optional[int] = None,
+    prefetch: int = 2,
+    failures: Optional[List[Path]] = None,
+) -> Iterator[Batch]:
+    """The constant-host-memory stream: decode ∥ copy ∥ compute.
+
+    Each batch of ``paths`` is decoded on a pool of ``num_threads`` in a
+    background thread (``decode_batch``, with ``fast_scale``,
+    ``host_resize`` and ``host_crop``), at most ``prefetch`` batches ahead,
+    then copied to ``device``. Rows that fail to decode are dropped (and
+    appended to ``failures``); rows of another shape than ``image_shape``
+    are PIL-resized to it, as ``ImageStore.gather`` does. The valid rows
+    are compacted to the front of each fixed-shape, zero-padded batch and
+    ``Batch.indices`` names them; a batch with no valid row is skipped.
+    """
+    paths = [Path(p) for p in paths]
+    if not paths:
+        return
+    h, w, c = image_shape
+    num_batches = (len(paths) + batch_size - 1) // batch_size
+
+    def make(stopped: Callable[[], bool]) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
+        from PIL import Image
+
+        for bi in range(num_batches):
+            if stopped():
+                return
+            lo = bi * batch_size
+            arrays, failed = decode_batch(
+                paths[lo : lo + batch_size], num_threads=num_threads, convert_rgb=convert_rgb,
+                fast_scale=fast_scale, host_resize=host_resize, host_crop=host_crop,
+            )
+            if failed and failures is not None:
+                failures.extend(failed)
+            out = np.zeros((batch_size, h, w, c), dtype=np.uint8)
+            kept: list[int] = []
+            for j, arr in enumerate(arrays):
+                if arr is None:
+                    continue
+                if arr.shape != (h, w, c):
+                    arr = np.asarray(Image.fromarray(arr).resize((w, h), Image.BILINEAR))
+                out[len(kept)] = arr
+                kept.append(lo + j)
+            if kept:
+                yield out, np.asarray(kept, dtype=np.int64), len(kept)
+
+    yield from _to_device(_background(make, prefetch, "ssip-decode"), device)
+
+
+def _to_device(host: Iterator[tuple[np.ndarray, np.ndarray, int]], device: torch.device) -> Iterator[Batch]:
+    """Host batches → batches on ``device``; on a card through ``_DEPTH``
+    pinned buffers and a side stream, one copy in flight ahead of the one
+    the caller computes on."""
     if device.type != "cuda":
         for arr, idx, valid in host:
             yield Batch(torch.from_numpy(arr).to(device), idx, valid)

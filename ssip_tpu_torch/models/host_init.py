@@ -1,4 +1,4 @@
-"""Seeded random init of the ResNet and ViT families, with numpy and no jax.
+"""Seeded random init of the ResNet, ViT and MoE ViT families, with numpy and no jax.
 
 Counterpart of ``ssip_tpu/models/host_init.py:20-57`` (``seeded_init_host``),
 leaf for leaf and bit for bit. The JAX version walks the Flax variable tree
@@ -14,6 +14,10 @@ the seeds are drawn from:
   ``fc`` kernel [features, classes] and the ViT's patch kernel
   [16, 16, 3, D] and Dense kernels [in, out] included;
 - the ViT's ``pos_embedding`` draws ``normal(0, 0.02)``;
+- an MoE block's expert kernels ``w_in`` [E, D, F] and ``w_out`` [E, F, D]
+  draw ``normal(0, sqrt(1/fan))`` with the fan from axis −2 (the expert
+  axis is a batch axis), its router [D, E] is a ``kernel``; the ``aux``
+  collection holds no state and is not in the tree;
 - BN and LayerNorm ``scale`` and BN ``var`` are ones; every other leaf
   (biases, BN ``mean``, the ViT's ``cls_token``) is zeros.
 
@@ -28,6 +32,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from ssip_tpu_torch.models.moe import MOE_CONFIGS
 from ssip_tpu_torch.models.resnet import MODEL_STAGES, STAGE_WIDTHS
 from ssip_tpu_torch.models.vit import VIT_CONFIGS
 
@@ -75,8 +80,11 @@ def resnet_leaves(arch: str, num_classes: Optional[int] = None) -> Iterator[Leaf
 def vit_leaves(arch: str, num_classes: Optional[int] = None, image_size: int = 224) -> Iterator[Leaf]:
     """Every leaf of the Flax ViT's ``params`` tree, with its shape, for
     ``image_size``² inputs (the position embedding covers the unpadded
-    tokens); the Dense ``fc`` head only for a classifier."""
-    cfg = VIT_CONFIGS[arch]
+    tokens); the Dense ``fc`` head only for a classifier. An MoE arch's
+    expert blocks (every other block) hold ``moe/{router, w_in, b_in, w_out,
+    b_out}`` in place of ``mlp_1`` and ``mlp_2``."""
+    moe = arch in MOE_CONFIGS
+    cfg = MOE_CONFIGS[arch] if moe else VIT_CONFIGS[arch]
     patch, d, mlp = cfg["patch_size"], cfg["hidden_dim"], cfg["mlp_dim"]
     yield ("params", "conv_proj", "kernel"), (patch, patch, 3, d)
     yield ("params", "conv_proj", "bias"), (d,)
@@ -97,8 +105,16 @@ def vit_leaves(arch: str, num_classes: Optional[int] = None, image_size: int = 2
         yield from dense((block, "qkv"), d, 3 * d)
         yield from dense((block, "out"), d, d)
         yield from ln((block, "ln_2"))
-        yield from dense((block, "mlp_1"), d, mlp)
-        yield from dense((block, "mlp_2"), mlp, d)
+        if moe and i % 2 == 1:
+            e = cfg["num_experts"]
+            yield from dense((block, "moe", "router"), d, e)
+            yield ("params", block, "moe", "w_in"), (e, d, mlp)
+            yield ("params", block, "moe", "b_in"), (e, mlp)
+            yield ("params", block, "moe", "w_out"), (e, mlp, d)
+            yield ("params", block, "moe", "b_out"), (e, d)
+        else:
+            yield from dense((block, "mlp_1"), d, mlp)
+            yield from dense((block, "mlp_2"), mlp, d)
     yield from ln(("ln",))
     if num_classes is not None:
         yield from dense(("fc",), d, num_classes)
@@ -106,7 +122,7 @@ def vit_leaves(arch: str, num_classes: Optional[int] = None, image_size: int = 2
 
 def arch_leaves(arch: str, num_classes: Optional[int] = None, image_size: int = 224) -> Iterator[Leaf]:
     """The Flax variable tree's leaves for any ported arch."""
-    if arch in VIT_CONFIGS:
+    if arch in VIT_CONFIGS or arch in MOE_CONFIGS:
         return vit_leaves(arch, num_classes, image_size)
     return resnet_leaves(arch, num_classes)
 
@@ -121,7 +137,7 @@ def seeded_init_host(
     arch: str, seed: int, num_classes: Optional[int] = None, image_size: int = 224
 ) -> Dict[str, Dict]:
     """Flax-layout ``{"params": …, "batch_stats": …}`` tree for ``arch``
-    (``params`` alone for a ViT): the extractor, or with ``num_classes`` the
+    (``params`` alone for a ViT or an MoE ViT): the extractor, or with ``num_classes`` the
     classifier of the JAX package's module. ``image_size`` sizes the ViT's
     position embedding and is ignored for a ResNet."""
     tree: Dict[str, Dict] = {}
@@ -131,6 +147,10 @@ def seeded_init_host(
             fan_in = int(np.prod(shape[:-1]))
             value = _path_rng(seed, path).normal(
                 0.0, float(np.sqrt(1.0 / max(fan_in, 1))), size=shape
+            ).astype(np.float32)
+        elif leaf in ("w_in", "w_out"):  # fan from the per-expert (in, out) axes
+            value = _path_rng(seed, path).normal(
+                0.0, float(np.sqrt(1.0 / max(shape[-2], 1))), size=shape
             ).astype(np.float32)
         elif leaf == "pos_embedding":  # torch inits it normal(std=0.02)
             value = _path_rng(seed, path).normal(0.0, 0.02, size=shape).astype(np.float32)

@@ -1,4 +1,4 @@
-"""Carry weights between the Flax ResNet and ViT trees and the torch modules.
+"""Carry weights between the Flax ResNet, ViT and MoE trees and the torch modules.
 
 Counterpart of ``ssip_tpu/models/port_torch.py:38-141`` (torch key → Flax
 path) and ``:200-282`` (``export_state_dict``, Flax tree → torchvision
@@ -12,7 +12,15 @@ names). Layouts:
 - BN ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``;
   LayerNorm ``scale/bias`` → ``weight/bias``;
 - the ViT's ``cls_token`` → ``class_token``, ``pos_embedding`` →
-  ``encoder.pos_embedding``.
+  ``encoder.pos_embedding``;
+- an MoE ViT's dense blocks as a ViT's; its expert blocks'
+  ``block{i}/moe/router/{kernel, bias}`` → ``…encoder_layer_{i}.moe.router.
+  {weight, bias}`` (the kernel transposed) and ``block{i}/moe/{w_in, b_in,
+  w_out, b_out}`` → ``…moe.{w_in, …}`` as they are, the expert axis leading.
+  No torchvision topology exists for an MoE, so these names, and the
+  ``.pt`` the port's training writes for an MoE arch, are the port's own;
+  the port's readers of a run (the sweep, ``ScreeningPredictor``,
+  ``export_model``, ``predict``) take it.
 
 The int8 ViT tree (``quantize_vit_extractor``'s output in either package, as
 numpy arrays) carries over unchanged in layout: ``quantized_vit_from_tree``
@@ -79,6 +87,10 @@ def _torch_key_vit(path: Sequence[str]) -> str:
         prefix, mods = f"encoder.layers.encoder_layer_{m.group(1)}.", mods[1:]
     if mods == ["qkv"]:
         return f"{prefix}self_attention.in_proj_{_VIT_LEAVES[leaf]}"
+    if mods == ["moe", "router"]:
+        return f"{prefix}moe.router.{_VIT_LEAVES[leaf]}"
+    if mods == ["moe"]:  # the expert leaves, their [E] axis leading in both layouts
+        return f"{prefix}moe.{leaf}"
     return f"{prefix}{_VIT_MODS[mods[0]]}.{_VIT_LEAVES[leaf]}"
 
 
@@ -102,7 +114,7 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             arr = np.asarray(value, dtype=np.float32)
             if arr.ndim == 4:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO → OIHW
-            elif key == "fc.weight" or (vit and arr.ndim == 2):
+            elif key == "fc.weight" or (vit and name == "kernel" and arr.ndim == 2):
                 arr = np.transpose(arr, (1, 0))
             out[key] = np.ascontiguousarray(arr)
 
@@ -124,7 +136,7 @@ def flax_from_state_dict(
         arr = np.asarray(state[key].detach().cpu() if hasattr(state[key], "detach") else state[key], np.float32)
         if arr.ndim == 4:
             arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW → HWIO
-        elif key == "fc.weight" or (vit and arr.ndim == 2):
+        elif key == "fc.weight" or (vit and path[-1] == "kernel" and arr.ndim == 2):
             arr = np.transpose(arr, (1, 0))
         if arr.shape != tuple(shape):
             raise ValueError(f"{key} has shape {arr.shape}, the tree wants {tuple(shape)}")
@@ -159,7 +171,7 @@ def load_state_dict_arrays(module: nn.Module, arrays: Mapping[str, Any], source:
 
 
 def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> None:
-    """Load a Flax ResNet or ViT variable tree into the torch module."""
+    """Load a Flax ResNet, ViT or MoE ViT variable tree into the torch module."""
     load_state_dict_arrays(module, state_dict_from_flax(variables), "<flax variables>")
 
 

@@ -7,10 +7,10 @@ set (``:623-879``):
 
 discovery → decode-once ``ImageStore`` → uint8 batches on the device →
 ``preprocess_images`` (the CUDA kernel on the card) → eval forward of the
-``--arch`` backbone (ResNet-18/34/50, or ViT-T/S/B/16 with its LayerNorm and
-attention kernels) → embeddings as wide as the model (512, 2048, 192, 384 or
-768) → ``embeddings.npy/.csv``, ``metadata.json``, ``feature_summary.md``
-and the log, at the paths ``ArtifactRegistry`` names.
+``--arch`` backbone (ResNet-18/34/50, ViT-T/S/B/16 or MoE ViT-T/S/16 with
+their LayerNorm and attention kernels) → embeddings as wide as the model
+(512, 2048, 192, 384 or 768) → ``embeddings.npy/.csv``, ``metadata.json``,
+``feature_summary.md`` and the log, at the paths ``ArtifactRegistry`` names.
 
 ``compute_dtype="int8"`` (the ResNets and the dense ViTs) is post-training
 quantized extraction (``:205-250, 427-485, 640-642`` there): the float32
@@ -27,14 +27,26 @@ Execution shapes:
   Python loop embeds it batch by batch (taken when the corpus fits
   ``_RESIDENT_BUDGET_BYTES`` and nothing failed to decode);
 - per-batch: ``iter_device_batches`` feeds padded batches through pinned
-  buffers on a side stream.
+  buffers on a side stream;
+- streamed (``:352-424, 512-620`` there): no decode-once store; each batch
+  is decoded on a thread pool while the previous one is copied to the card
+  and the one before is embedded (``iter_streamed_decode_batches``), the
+  features come back through pinned host buffers with an event each, at
+  most 8 batches in flight, so host memory stays O(batch) whatever the
+  corpus size. Taken with ``streaming="always"``, with ``host_preproc`` or
+  ``fast_decode``, and under ``streaming="auto"`` when no decode cache
+  exists and the first readable image's shape × the corpus size exceeds
+  ``_HOST_STAGE_BUDGET_BYTES``. Rows are canonicalized to the majority
+  shape of the corpus's leading sample, as the store packs them.
+  ``host_preproc`` runs the exact resize and crop on the host (the native
+  decoder's bit-for-bit PIL resample, ``native/``), so only crop² bytes
+  cross the link and the card's preprocess resamples crop → crop;
+  ``fast_decode`` adds the DCT-scaled JPEG decode (approximate). The two
+  exclude each other, and both need the native library.
 
-Not ported yet (refused with an error naming the ROADMAP entry): the
-streamed shape with its host-preproc and fast-decode variants, sharded
-extraction, the folded-BN forward (``fast_inference``) and the MoE archs. A corpus
-that ``streaming="auto"`` would stream (above ``_HOST_STAGE_BUDGET_BYTES``
-decoded, ``:410-424``) is refused the same way rather than decoded whole
-into host memory.
+Not ported yet (refused with an error naming the ROADMAP entry): sharded
+extraction (item 22) and the folded-BN forward (``fast_inference``). int8
+with an MoE arch is refused with the JAX package's own message.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import csv
 import json
 import os
 import time
+from collections import Counter, deque
 from dataclasses import dataclass
 from datetime import datetime, timezone
 from pathlib import Path
@@ -54,8 +67,8 @@ import torch
 from torch import nn
 
 from ssip_tpu_torch.data.discovery import ImageRecord, compute_dataset_digest, discover_image_records
-from ssip_tpu_torch.data.decode import preprocess_host_exact
-from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches
+from ssip_tpu_torch.data.decode import decode_batch, preprocess_host_exact
+from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches, iter_streamed_decode_batches
 from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import (
     load_flax_variables, load_state_dict_arrays, quantized_resnet_from_tree, quantized_vit_from_tree,
@@ -80,13 +93,11 @@ DEFAULT_WEIGHTS_ENV = "SSIP_RESNET18_WEIGHTS"
 # 80 GB H100 from a measurement is a ROADMAP item.
 _RESIDENT_BUDGET_BYTES = 6 * 1024**3
 # Host-RAM budget of the decode-once store (the JAX package's value,
-# ``ssip_tpu/pipelines/extraction.py:349``); above it the JAX package
-# streams, a shape the port does not have yet.
+# ``ssip_tpu/pipelines/extraction.py:349``); above it ``streaming="auto"``
+# takes the streamed shape.
 _HOST_STAGE_BUDGET_BYTES = 4 * 1024**3
-_STREAMED_NOT_PORTED = (
-    "is not ported to ssip_tpu_torch yet (ROADMAP.md, Queue 1 slice 1 "
-    "item 8: the streamed and sharded extraction shapes)"
-)
+# batches whose features are still on their way to the host (``:562-576``)
+_MAX_OUTSTANDING = 8
 
 
 @dataclass
@@ -105,13 +116,22 @@ class ExtractionConfig:
     arch: str = "resnet18"
     cache_decoded: bool = True
     num_decode_threads: int = 8
-    streaming: str = "auto"  # "auto" | "never"; "always" is not ported
+    streaming: str = "auto"  # "auto" | "always" | "never"
+    # the streamed shape with DCT-scaled decode and the host's resize and
+    # crop (approximate: the resample numerics change)
+    fast_decode: bool = False
+    # the streamed shape with the exact resize and crop on the host: only
+    # crop² bytes cross the link, the numerics unchanged
+    host_preproc: bool = False
 
     def __post_init__(self) -> None:
         if self.streaming not in ("auto", "always", "never"):
             raise ValueError(f"streaming must be auto, always or never, got {self.streaming!r}")
-        if self.streaming == "always":
-            raise ValueError(f"--streaming always {_STREAMED_NOT_PORTED}")
+        if self.fast_decode and self.host_preproc:
+            raise ValueError(
+                "fast_decode (approximate DCT-scaled decode) and host_preproc "
+                "(exact numerics) are mutually exclusive — pick one."
+            )
         if self.compute_dtype == "int8":
             if self.arch.startswith("vit_moe"):
                 raise ValueError(
@@ -270,42 +290,52 @@ def _header_shape(path: Path) -> Optional[tuple[int, int, int]]:
     return h, w, 3 if bands == 1 else bands
 
 
-def _refuse_streamed_corpus(cfg: ExtractionConfig, paths: List[Path], digest: str) -> None:
-    """Raise where the JAX package's ``_should_stream`` (``:410-424``) would
-    take the streamed shape under ``streaming="auto"``: no decode cache for
-    this corpus, and first readable image's shape × corpus size above
+def _probe_image_shape(paths: List[Path]) -> tuple[int, int, int]:
+    """Shape of the first readable image (header read, no decode)."""
+    for p in paths:
+        shape = _header_shape(p)
+        if shape is not None:
+            return shape
+    raise RuntimeError("All images failed to decode")
+
+
+def _probe_majority_shape(paths: List[Path], sample_size: int = 64) -> tuple[int, int, int]:
+    """Majority decoded shape over the corpus's leading sample, from the
+    headers (``:370-405``): the streamed shape canonicalizes every row to
+    it, as the store packs the majority shape."""
+    shapes = [s for s in map(_header_shape, paths[:sample_size]) if s is not None]
+    if not shapes:
+        return _probe_image_shape(paths[sample_size:])
+    return Counter(shapes).most_common(1)[0][0]
+
+
+def _should_stream(cfg: ExtractionConfig, paths: List[Path], digest: str) -> bool:
+    """``:408-424``: always for ``streaming="always"``, ``fast_decode`` and
+    ``host_preproc``; under ``"auto"`` when there is no decode cache for this
+    corpus and the first readable image's shape × the corpus size exceeds
     ``_HOST_STAGE_BUDGET_BYTES``."""
+    if cfg.streaming == "always" or cfg.fast_decode or cfg.host_preproc:
+        return True
     if cfg.streaming != "auto" or not paths:
-        return
+        return False
     if cfg.cache_decoded:
         data_path, meta_path = ImageStore._cache_paths(Path(cfg.output_dir) / "cache", digest[:16])
         if data_path.exists() and meta_path.exists():
-            return
-    shape = next((s for s in map(_header_shape, paths) if s is not None), None)
-    if shape is None:
-        raise RuntimeError("All images failed to decode")
-    corpus_bytes = int(np.prod(shape)) * len(paths)
-    if corpus_bytes > _HOST_STAGE_BUDGET_BYTES:
-        raise ValueError(
-            f"a {corpus_bytes / 2**30:.1f} GiB decoded corpus (above the "
-            f"{_HOST_STAGE_BUDGET_BYTES / 2**30:.0f} GiB host budget) needs the streamed "
-            f"shape, which {_STREAMED_NOT_PORTED}"
-        )
+            return False
+    return int(np.prod(_probe_image_shape(paths))) * len(paths) > _HOST_STAGE_BUDGET_BYTES
 
 
 _CALIBRATION_IMAGES = 32
 
 
-def _calibration_batch(cfg: ExtractionConfig, store: ImageStore) -> torch.Tensor:
+def _calibration_batch(cfg: ExtractionConfig, arrays: List[Optional[np.ndarray]]) -> torch.Tensor:
     """Normalized float32 [n, crop, crop, 3] batch for the int8 calibration:
     the readable ones of the corpus's first 32 images (discovery order, so
-    deterministic), taken from the decode-once store, through the exact host
-    chain (short-side resize → center crop), normalized on the host with the
-    JAX package's expression (``ssip_tpu/pipelines/extraction.py:455-458``)."""
-    frames = [
-        preprocess_host_exact(np.asarray(store.get(int(i))), cfg.resize, cfg.crop)
-        for i in store.valid_indices() if i < _CALIBRATION_IMAGES
-    ]
+    deterministic; ``arrays`` holds them decoded, None where a file failed),
+    through the exact host chain (short-side resize → center crop),
+    normalized on the host with the JAX package's expression
+    (``ssip_tpu/pipelines/extraction.py:455-458``)."""
+    frames = [preprocess_host_exact(np.asarray(a), cfg.resize, cfg.crop) for a in arrays if a is not None]
     frames = [f for f in frames if f.shape == (cfg.crop, cfg.crop, 3)]
     if not frames:
         raise RuntimeError(
@@ -318,11 +348,13 @@ def _calibration_batch(cfg: ExtractionConfig, store: ImageStore) -> torch.Tensor
     return torch.from_numpy((x - mean) * inv_std)
 
 
-def _quantize_variables(cfg: ExtractionConfig, model: nn.Module, store: ImageStore, device: torch.device) -> nn.Module:
+def _quantize_variables(
+    cfg: ExtractionConfig, model: nn.Module, arrays: List[Optional[np.ndarray]], device: torch.device
+) -> nn.Module:
     """The float32 ResNet or dense ViT → its int8 module for this corpus, on
     ``device``, taking the images the preprocess kernel's int8 epilogue
     wrote (``stem_prequantized``)."""
-    calib = _calibration_batch(cfg, store).to(device)
+    calib = _calibration_batch(cfg, arrays).to(device)
     if cfg.arch in VIT_CONFIGS:
         tree = quantize_vit_extractor(model, calib, arch=cfg.arch)
         quantized = quantized_vit_from_tree(tree, cfg.arch, stem_prequantized=True)
@@ -333,14 +365,111 @@ def _quantize_variables(cfg: ExtractionConfig, model: nn.Module, store: ImageSto
     return quantized.to(device).eval()
 
 
+def _embed_fn(cfg: ExtractionConfig, model: nn.Module, dtype: torch.dtype, resize: int):
+    """uint8 batch on the model's device → float32 features: the preprocess
+    kernel (to ``resize``, then the crop) and the forward; in int8 the
+    kernel's epilogue writes the stem's int8 operand."""
+    if cfg.compute_dtype == "int8":
+        stem_inv_scale = model.stem.inv_scale
+        return lambda u8: model(preprocess_images(u8, resize=resize, crop=cfg.crop, quant_inv_scale=stem_inv_scale))
+    return lambda u8: model(preprocess_images(u8, resize=resize, crop=cfg.crop, out_dtype=dtype))
+
+
+def _extract_streaming(
+    records: List[ImageRecord], cfg: ExtractionConfig, model: nn.Module, dtype: torch.dtype,
+    weights_source: str, device: torch.device,
+) -> "ExtractionSummary":
+    """The constant-host-memory shape: decode ∥ copy ∥ embed
+    (``ssip_tpu/pipelines/extraction.py:512-620``)."""
+    paths = [r.absolute_path for r in records]
+    t_start = time.perf_counter()
+    stream_kwargs: Dict[str, Any] = {}
+    if cfg.fast_decode or cfg.host_preproc:
+        # the host resizes and crops; the card's preprocess resamples
+        # crop → crop, the identity, and normalizes
+        shape = (cfg.crop, cfg.crop, 3)
+        stream_kwargs = dict(host_resize=cfg.resize, host_crop=cfg.crop)
+        if cfg.fast_decode:
+            stream_kwargs["fast_scale"] = cfg.resize
+        resize_for_device = cfg.crop
+    else:
+        shape = _probe_majority_shape(paths, sample_size=max(cfg.batch_size, 64))
+        resize_for_device = cfg.resize
+    if cfg.compute_dtype == "int8":
+        arrays, _ = decode_batch(paths[:_CALIBRATION_IMAGES], num_threads=cfg.num_decode_threads)
+        model = _quantize_variables(cfg, model, arrays, device)
+        weights_source += "+int8_ptq"
+    embed = _embed_fn(cfg, model, dtype, resize_for_device)
+
+    failures: List[Path] = []
+    chunks: List[np.ndarray] = []
+    kept_positions: List[int] = []
+    # features on their way to the host: (device features, pinned host copy,
+    # valid rows, the copy's event); the oldest is read once more than
+    # _MAX_OUTSTANDING are in flight, so the loop never waits on a batch it
+    # just launched
+    pending: deque = deque()
+
+    def drain(limit: int) -> None:
+        while len(pending) > limit:
+            _feats, host, valid, event = pending.popleft()
+            if event is not None:
+                event.synchronize()
+            chunks.append(host[:valid].numpy())
+
+    timer = _Timer(device)
+    with torch.inference_mode():
+        for i, batch in enumerate(iter_streamed_decode_batches(
+            paths, cfg.batch_size, shape, device, num_threads=cfg.num_decode_threads,
+            convert_rgb=False,  # extraction policy: no RGB conversion
+            prefetch=2, failures=failures, **stream_kwargs,
+        )):
+            if i == 0:
+                timer.start()
+            feats = embed(batch.data)
+            if device.type == "cuda":
+                host = torch.empty(feats.shape, dtype=feats.dtype, pin_memory=True)
+                host.copy_(feats, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host, event = feats, None
+            pending.append((feats, host, batch.valid, event))
+            kept_positions.extend(int(j) for j in batch.indices)
+            drain(_MAX_OUTSTANDING)
+        embed_seconds = timer.stop() if kept_positions else 0.0
+        drain(0)
+    total = time.perf_counter() - t_start
+    if not chunks:
+        raise RuntimeError("No embeddings were generated; all images failed to decode?")
+    embeddings = np.concatenate(chunks, axis=0)
+    kept_records = [records[i] for i in kept_positions]
+    LOGGER.info(
+        "Streamed %d embeddings in %.2fs (%.1f imgs/s end-to-end, overlapped "
+        "decode/H2D/compute, O(batch) host memory; embed span %.3fs)",
+        len(embeddings), total, len(embeddings) / max(total, 1e-9), embed_seconds,
+    )
+    stats = run_sanity_checks(embeddings)
+    probe = nearest_neighbor_probe(embeddings, kept_records, sample_size=cfg.neighbor_sample, seed=cfg.seed)
+    return ExtractionSummary(
+        embeddings=embeddings, records=kept_records, failures=failures, stats=stats, neighbor_probe=probe,
+        total_seconds=total, per_image_seconds=[total / len(kept_positions)] * len(kept_positions),
+        weights_source=weights_source, embed_seconds=embed_seconds,
+    )
+
+
 def extract_embeddings(
     records: List[ImageRecord],
     cfg: ExtractionConfig,
     store: Optional[ImageStore] = None,
 ) -> ExtractionSummary:
     """Embed ``records``. ``store`` may hold the corpus already decoded
-    (in dataset order); otherwise it is decoded here (or read from the
-    decode cache)."""
+    (in dataset order); otherwise the corpus streams (``_should_stream``)
+    or is decoded here (or read from the decode cache)."""
+    if cfg.fast_decode or cfg.host_preproc:
+        from ssip_tpu_torch.native import decoder as native
+
+        native.load()  # raises, naming what is missing, before any model or decode work
     device = resolve_device(cfg.device)
     int8 = cfg.compute_dtype == "int8"
     # the model that int8 calibrates and quantizes is the float32 one
@@ -354,11 +483,12 @@ def extract_embeddings(
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 
+    if store is None and _should_stream(cfg, [r.absolute_path for r in records], compute_dataset_digest(records)):
+        return _extract_streaming(records, cfg, model, dtype, weights_source, device)
     t_start = time.perf_counter()
     if store is None:
         digest = compute_dataset_digest(records)
         paths = [r.absolute_path for r in records]
-        _refuse_streamed_corpus(cfg, paths, digest)
         store = ImageStore.from_paths(
             paths,
             convert_rgb=False,  # extraction policy: no RGB conversion
@@ -372,17 +502,10 @@ def extract_embeddings(
     batch = cfg.batch_size
 
     if int8:
-        model = _quantize_variables(cfg, model, store, device)
+        arrays = [store.get(int(i)) for i in valid if i < _CALIBRATION_IMAGES]
+        model = _quantize_variables(cfg, model, arrays, device)
         weights_source += "+int8_ptq"
-        stem_inv_scale = model.stem.inv_scale
-
-        def embed(u8: torch.Tensor) -> torch.Tensor:
-            # the preprocess kernel's epilogue writes the stem's int8 operand
-            return model(preprocess_images(u8, resize=cfg.resize, crop=cfg.crop, quant_inv_scale=stem_inv_scale))
-    else:
-
-        def embed(u8: torch.Tensor) -> torch.Tensor:
-            return model(preprocess_images(u8, resize=cfg.resize, crop=cfg.crop, out_dtype=dtype))
+    embed = _embed_fn(cfg, model, dtype, cfg.resize)
 
     corpus_bytes = int(np.prod(store.image_shape)) * len(valid)
     resident = corpus_bytes <= _RESIDENT_BUDGET_BYTES and not store.failures

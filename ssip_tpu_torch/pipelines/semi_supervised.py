@@ -21,9 +21,13 @@ run's schemas (written without pandas).
 All four phases run on device-resident data; the phase transitions
 (pseudo-label selection, cohort filtering) are the only host round-trips.
 
+With ``--resume`` each of the streams ``baseline``, ``semi_pretrain`` and
+``semi_finetune`` (the FixMatch fine-tune or the plain one) snapshots every
+epoch and restores an interrupted run, as the JAX pipeline's do.
+
 Not ported yet, refused with an error naming the ROADMAP entry:
-``--strong-augment randaugment``, and what ``pipelines/supervised.py``
-refuses. The eight figures of the JAX run are not drawn yet (ROADMAP Queue 1
+``--strong-augment randaugment`` (item 18), and what
+``pipelines/supervised.py`` refuses. The eight figures of the JAX run are not drawn yet (ROADMAP Queue 1
 item 15d): matplotlib is not installed on the card's machine, where a figure
 call would stop the run.
 """
@@ -153,6 +157,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         augment=True,
         early_stopping_patience=config.early_stopping_patience,
         checkpoint_fn=lambda s: save_checkpoint(reg.baseline_checkpoint, s.model),
+        resume_path=config.resume_path("baseline"),
     )
     baseline_time = timed(t0)
     base = threshold_and_eval(baseline_state.model, datasets, config, pos_index, "baseline")
@@ -193,6 +198,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         augment=True,
         early_stopping_patience=config.early_stopping_patience,
         trainable_mask=head_only_mask(semi_state.model),
+        resume_path=config.resume_path("semi_pretrain"),
     )
 
     # ---- Phase D: fine-tune (unfrozen, a fresh optimizer at lr/2) ---------
@@ -216,6 +222,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
             confidence_threshold=config.consistency_threshold,
             ema_decay=config.ema_decay,
             early_stopping_patience=config.early_stopping_patience,
+            resume_path=config.resume_path("semi_finetune"),
         )
         save_checkpoint(reg.semi_checkpoint, semi_state.model)
         # keep the history schema uniform with the pretrain phase's
@@ -233,6 +240,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
             augment=True,
             early_stopping_patience=config.early_stopping_patience,
             checkpoint_fn=lambda s: save_checkpoint(reg.semi_checkpoint, s.model),
+            resume_path=config.resume_path("semi_finetune"),
         )
     semi_time = timed(t0)
     semi_model = semi_state.model

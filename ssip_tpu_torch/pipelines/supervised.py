@@ -13,9 +13,13 @@ the paths ``ArtifactRegistry`` names and with the JAX run's schemas.
 ``build_classifier_state``, ``prepare_datasets``, ``threshold_and_eval`` and
 ``write_results_csv`` with it.
 
-Not ported yet, refused with an error naming the ROADMAP entry: ``--resume``
-snapshots, the seed and cross-validation fan-outs, tensor parallelism and
-FSDP, and the MoE archs. The four training figures (``report/plots.py``) are
+``--resume`` snapshots the run every epoch under ``models/checkpoints/``
+and restores an interrupted one (``train/checkpoints.py``); every ``--arch``
+of the JAX package trains, the MoE ViTs with their auxiliary losses.
+
+Not ported yet, refused with an error naming the ROADMAP entry: the seed and
+cross-validation fan-outs (item 18), tensor parallelism and FSDP (item 22).
+The four training figures (``report/plots.py``) are
 not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is not installed on the
 card's machine, where a figure call would stop the run.
 """
@@ -56,7 +60,6 @@ _NOT_PORTED = "is not ported to ssip_tpu_torch yet (ROADMAP.md, {item})"
 def refuse_unported(config: TrainingConfig) -> None:
     """Raise for a setting whose code path the port does not have yet."""
     for setting, on, item in (
-        ("--resume", config.resume, "Queue 1 item 15c: --resume snapshots and the .msgpack checkpoint"),
         ("--num-seeds > 1", config.num_seeds > 1, "Queue 1 item 18: seed and CV fan-out"),
         ("--cv-folds", config.cv_folds != 0, "Queue 1 item 18: seed and CV fan-out"),
         ("--mesh-model > 1", config.mesh_model > 1, "Queue 1 item 22: parallelism"),
@@ -208,6 +211,7 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         augment=True,
         early_stopping_patience=config.early_stopping_patience,
         checkpoint_fn=lambda s: save_checkpoint(reg.baseline_checkpoint, s.model),
+        resume_path=config.resume_path("baseline"),
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -6,7 +6,8 @@ ArtifactRegistry instead of hard-coded strings.
 
 The port's own copy of ``ssip_tpu/pipelines/train_config.py`` (the port
 imports nothing of the JAX package): the same fields and defaults, without
-``build_mesh`` (the mesh is not ported). Comments that name jax mechanisms
+``build_mesh`` (the mesh is not ported), and ``resume_path`` names the
+port's snapshot file. Comments that name jax mechanisms
 describe the JAX package's settings; the port refuses the ones it lacks.
 """
 
@@ -103,9 +104,12 @@ class TrainingConfig:
     cv_folds: int = 0
 
     def resume_path(self, stream: str):
+        """The stream's resume snapshot: the JAX package's directory and
+        stream name, the port's own format and suffix
+        (``train/checkpoints.py``)."""
         if not self.resume:
             return None
-        return self.artifacts.models_dir / "checkpoints" / f"{stream}.msgpack"
+        return self.artifacts.models_dir / "checkpoints" / f"{stream}.torchsnap"
 
     @property
     def artifacts(self) -> ArtifactRegistry:

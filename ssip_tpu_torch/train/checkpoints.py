@@ -1,19 +1,50 @@
-"""Checkpoints: the torchvision-layout ``.pt`` state_dict.
+"""Checkpoints: the torchvision-layout ``.pt`` state_dict, and resume snapshots.
 
-Counterpart of ``ssip_tpu/train/checkpoints.py:30-49`` (``save_checkpoint``).
+Counterpart of ``ssip_tpu/train/checkpoints.py:30-49`` (``save_checkpoint``)
+and ``:52-199`` (``save_train_snapshot``, ``load_train_snapshot``,
+``restore_resume_state``).
+
 The reference persists best-val-loss state_dicts at
 ``outputs/models/baseline_resnet18.pt`` (reference common.py:418-424); the
 port's modules already carry torchvision's names (a ViT's
-``encoder.layers.encoder_layer_0.…`` and ``heads.head`` included), so
-``save_checkpoint`` writes ``model.state_dict()`` as it is. The JAX package also writes a Flax
-``.msgpack`` beside it; that needs flax, so the port does not write it, and
-the JAX package's ``load_checkpoint`` (``:141-152``) ports the ``.pt`` when
-no ``.msgpack`` is there.
+``encoder.layers.encoder_layer_0.…`` and ``heads.head`` included; an MoE
+ViT's expert leaves are the port's own, ``models/port.py``), so
+``save_checkpoint`` writes ``model.state_dict()`` as it is. The JAX package
+also writes a Flax ``.msgpack`` beside it; that needs flax, so the port does
+not write it, and the JAX package's ``load_checkpoint`` (``:141-152``) ports
+the ``.pt`` when no ``.msgpack`` is there.
+
+A resume snapshot (``--resume``) is one file, committed by an atomic rename
+(a temporary name, then ``os.replace``): a kill at any instant leaves the
+previous complete snapshot or the new one. It holds the whole train state
+(the model's ``state_dict`` with any BatchNorm statistics, AdamW's
+``state_dict`` with its moments, step counts and the learning rate the
+plateau rule lowered, and the step) and the epoch driver's dict, with the
+JAX package's keys and meanings: ``epoch``, ``history``, ``best_val_loss``,
+``early_patience``, ``plateau_best``, ``plateau_bad``, ``finished``. No
+random state is saved: the port's epoch plans and augmentation draws are
+pure functions of (seed, stream, epoch, step) (``runtime/prng.py``).
+
+The format is the port's own, because flax's msgpack needs flax: the magic
+``SSIPTORCHSNAP1``, the driver JSON's length (8 bytes, big endian), the
+driver JSON, then ``torch.save`` of the state. Neither package misreads the
+other's snapshot: the JAX loader finds no magic of its own and no legacy
+``.driver.json`` beside it and calls it unreadable, and so does this one of a
+JAX snapshot. The JAX package's sharded snapshots
+(``SSIP_SNAPSHOT_FORMAT=orbax``, a snapshot path that is a directory) are
+refused with their ROADMAP item: they go with parallelism.
 """
 
 from __future__ import annotations
 
+import copy
+import io
+import json
+import math
+import os
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +53,12 @@ from ssip_tpu_torch.models.port import load_state_dict_arrays
 from ssip_tpu_torch.runtime.logging import get_logger
 
 LOGGER = get_logger(__name__)
+
+_SNAPSHOT_MAGIC = b"SSIPTORCHSNAP1\n"
+_ORBAX_NOT_PORTED = (
+    "sharded (orbax) resume snapshots are not ported to ssip_tpu_torch yet "
+    "(ROADMAP.md, Queue 1 item 22: parallelism)"
+)
 
 
 def save_checkpoint(path: Path, model: nn.Module) -> None:
@@ -39,3 +76,118 @@ def load_checkpoint(path: Path, model: nn.Module) -> None:
     """Load a ``.pt`` state_dict written by either package into ``model``."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     load_state_dict_arrays(model, state, path)
+
+
+@dataclass
+class Snapshot:
+    """A copy of a train state: the step, the model's and the optimizer's
+    state_dicts. ``take`` clones on the state's device; ``restore`` loads it
+    back into a state of the same model."""
+
+    step: int
+    model: Dict[str, torch.Tensor]
+    optimizer: dict
+
+    @classmethod
+    def take(cls, state) -> "Snapshot":
+        return cls(
+            state.step,
+            {k: v.detach().clone() for k, v in state.model.state_dict().items()},
+            copy.deepcopy(state.optimizer.state_dict()),
+        )
+
+    def restore(self, state) -> None:
+        state.model.load_state_dict(self.model)
+        state.optimizer.load_state_dict(self.optimizer)
+        state.step = self.step
+
+
+def check_snapshot_format(path: Path) -> None:
+    """Raise for the JAX package's sharded snapshot format, which the port
+    does not have."""
+    if os.environ.get("SSIP_SNAPSHOT_FORMAT") == "orbax":
+        raise ValueError(f"SSIP_SNAPSHOT_FORMAT=orbax: {_ORBAX_NOT_PORTED}")
+    if Path(path).is_dir():
+        raise ValueError(f"the resume snapshot {path} is a directory: {_ORBAX_NOT_PORTED}")
+
+
+def _to_cpu(obj: Any) -> Any:
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_train_snapshot(path: Path, snapshot: Snapshot, driver: Dict[str, Any]) -> None:
+    """Write ``snapshot`` and the driver dict to ``path`` in one file,
+    committed by an atomic rename."""
+    check_snapshot_format(path)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    driver_bytes = json.dumps(driver).encode()
+    state = io.BytesIO()
+    torch.save(
+        {"step": int(snapshot.step), "model": _to_cpu(snapshot.model), "optimizer": _to_cpu(snapshot.optimizer)},
+        state,
+    )
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_bytes(_SNAPSHOT_MAGIC + len(driver_bytes).to_bytes(8, "big") + driver_bytes + state.getvalue())
+    os.replace(tmp, path)
+
+
+def load_train_snapshot(path: Path) -> Tuple[Snapshot, Dict[str, Any]]:
+    """(snapshot with CPU tensors, driver dict); raises on a missing,
+    corrupt or foreign file."""
+    check_snapshot_format(path)
+    raw = Path(path).read_bytes()
+    if not raw.startswith(_SNAPSHOT_MAGIC):
+        raise ValueError(f"{path} is not a resume snapshot of ssip_tpu_torch")
+    off = len(_SNAPSHOT_MAGIC)
+    dlen = int.from_bytes(raw[off : off + 8], "big")
+    driver = json.loads(raw[off + 8 : off + 8 + dlen].decode())
+    state = torch.load(io.BytesIO(raw[off + 8 + dlen :]), map_location="cpu", weights_only=True)
+    return Snapshot(int(state["step"]), state["model"], state["optimizer"]), driver
+
+
+def restore_resume_state(resume_path: Path, state) -> Tuple[Optional[Dict[str, Any]], Snapshot]:
+    """Restore ``state`` in place from the snapshot at ``resume_path``; then
+    read the ``.best`` sidecar with its two failure modes (unreadable: warn;
+    missing while the driver records a finite best: warn that the current
+    state stands in).
+
+    Returns ``(driver, best)``. ``driver`` is None when the snapshot is
+    unreadable: ``state`` is left as it was and the caller starts fresh (a
+    resume point must never brick the run it protects).
+    """
+    path = Path(resume_path)
+    check_snapshot_format(path)
+    fresh = Snapshot.take(state)
+    try:
+        snapshot, driver = load_train_snapshot(path)
+        snapshot.restore(state)
+    except Exception as exc:  # noqa: BLE001 — any unreadable snapshot starts the run fresh
+        fresh.restore(state)
+        LOGGER.warning("Unreadable resume snapshot %s (%s) — starting fresh", path, exc)
+        return None, fresh
+
+    best_path = Path(str(path) + ".best")
+    best = Snapshot.take(state)
+    best_val = driver.get("best_val_loss", math.inf)
+    if best_path.exists():
+        try:
+            best, _ = load_train_snapshot(best_path)
+        except Exception as exc:  # noqa: BLE001
+            LOGGER.warning("Unreadable best-state snapshot %s (%s) — using current", best_path, exc)
+    elif math.isfinite(best_val):
+        # the improvement was recorded but its state is gone: the current
+        # state stands in as best while the historic loss still gates
+        # improvements
+        LOGGER.warning(
+            "Best-state snapshot %s missing (historic best %.4f) — current "
+            "state stands in as best until the next improvement",
+            best_path, best_val,
+        )
+    return driver, best

@@ -17,15 +17,20 @@ One step, in the JAX step's order of effects on the BatchNorm statistics:
 2. the labeled batch (``train_augment``) in train mode with the valid mask;
 3. the strong view in train mode with no mask, from the statistics pass 2
    left: the BatchNorm momentum is applied twice a step, in that order;
-4. loss = sup + λ·cons with ``cons`` divided by ``max(Σkeep, 1)``, backward,
-   AdamW, then ``ema = d·ema + (1 − d)·params`` (parameters only: the
-   statistics are the live ones).
+4. loss = sup + λ·cons with ``cons`` divided by ``max(Σkeep, 1)``, plus the
+   auxiliary terms (an MoE ViT's load-balance and router z-losses) of pass
+   2 alone, as ``:86-92`` counts them once a step; backward, AdamW, then
+   ``ema = d·ema + (1 − d)·params`` (parameters only: the statistics are the
+   live ones).
 
 The strong view's rotation is the CUDA kernel of ``ops/rotate.py:
 rotate_images`` on the card; the labeled view's is ``augment_images``.
-The strong view is the JAX step's ``strong_aug="jitter"``; ``"randaugment"``,
-``resume_path`` and the mesh are not ported;
-the whole-epoch ``lax.scan`` is a Python loop of steps.
+The strong view is the JAX step's ``strong_aug="jitter"``; ``"randaugment"``
+and the mesh are not ported; the whole-epoch ``lax.scan`` is a Python loop
+of steps. ``resume_path`` snapshots the student every epoch, as
+``train_model`` does (``:295-400``); with an EMA teacher the resumed run
+reseeds the average from the ``.best`` sidecar, which holds the EMA
+parameters, the JAX package's approximation.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import math
 from contextlib import contextmanager
 from dataclasses import dataclass, fields
+from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -45,8 +51,9 @@ from ssip_tpu_torch.ops.metrics import accuracy_f1
 from ssip_tpu_torch.ops.rotate import augment_images
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.runtime.prng import fixmatch_draws, host_rng
+from ssip_tpu_torch.train.checkpoints import Snapshot, check_snapshot_format, restore_resume_state, save_train_snapshot
 from ssip_tpu_torch.train.engine import (
-    ROTATE_DEGREES, DeviceDataset, TrainState, Snapshot, get_lr, masked_cross_entropy, run_eval_epoch, set_lr,
+    ROTATE_DEGREES, DeviceDataset, TrainState, aux_loss_terms, get_lr, masked_cross_entropy, run_eval_epoch, set_lr,
     stacked_epoch,
 )
 
@@ -152,9 +159,12 @@ def fixmatch_step(
 
     model.train()
     logits_sup = model(x_sup, mask=valid)
+    aux_terms = aux_loss_terms(model)  # the labeled view's; the strong view's are dropped
     sup_loss = masked_cross_entropy(logits_sup, labels, valid)
     cons_loss = masked_cross_entropy(model(x_strong), pseudo, keep)
     loss = sup_loss + consistency_weight * cons_loss
+    for term in aux_terms:
+        loss = loss + term
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     state.optimizer.step()
@@ -182,6 +192,7 @@ def train_fixmatch(
     plateau_patience: int = 2,
     plateau_factor: float = 0.5,
     ema_decay: float = 0.0,
+    resume_path: Optional[Path] = None,
 ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """Epoch loop with ``train_model``'s control flow plus consistency.
 
@@ -190,7 +201,11 @@ def train_fixmatch(
     ``ema_decay > 0`` the validation metrics, the plateau and early-stop
     signals and the returned best state are the EMA model's (the model
     FixMatch reports). Trains ``state`` in place and returns it restored to
-    its best validation loss, with the per-epoch history.
+    its best validation loss, with the per-epoch history. ``resume_path``
+    as in ``train_model``; the per-epoch snapshot is the student's, and on
+    resume the EMA average restarts from the ``.best`` sidecar's parameters
+    (EMA parameters), an approximation that re-converges within about
+    1/(1 − d) steps, as in the JAX package.
     """
     if not 0.0 <= ema_decay < 1.0:
         raise ValueError(f"ema_decay={ema_decay} must be in [0, 1)")
@@ -206,8 +221,28 @@ def train_fixmatch(
     best_val, early = math.inf, 0
     plateau_best, plateau_bad = math.inf, 0
     n_unlabeled = int(unlabeled_images.shape[0])
+    epoch_start = 0
 
-    for epoch in range(num_epochs):
+    if resume_path is not None:
+        check_snapshot_format(resume_path)
+        if Path(resume_path).exists():
+            driver, best_r = restore_resume_state(resume_path, state)
+            if driver is not None:
+                best = best_r
+                if ema_params is not None:  # the .best parameters are EMA parameters
+                    ema_params = {name: best.model[name].detach().to(dev, copy=True) for name in ema_params}
+                history = driver["history"]
+                best_val = driver["best_val_loss"]
+                early = driver["early_patience"]
+                plateau_best = driver["plateau_best"]
+                plateau_bad = driver["plateau_bad"]
+                epoch_start = driver["epoch"] + 1
+                LOGGER.info("Resumed '%s' from %s at epoch %d", stream_name, resume_path, epoch_start)
+                if driver.get("finished"):
+                    best.restore(state)
+                    return state, history
+
+    for epoch in range(epoch_start, num_epochs):
         order = balanced_epoch_indices(
             train_dataset.labels, seed=seed, epoch=epoch, num_samples=len(train_dataset)
         )
@@ -266,13 +301,24 @@ def train_fixmatch(
             history["consistency_keep_rate"][-1], val_loss, val_acc,
         )
 
+        stopped = False
         if improved:
             best_val, early = val_loss, 0
+            if resume_path is not None:
+                save_train_snapshot(Path(str(resume_path) + ".best"), best, {"epoch": epoch})
         else:
             early += 1
             if early >= early_stopping_patience:
                 LOGGER.info("Early stopping triggered at epoch %d", epoch + 1)
-                break
+                stopped = True
+
+        if resume_path is not None:
+            save_train_snapshot(resume_path, Snapshot.take(state), {
+                "epoch": epoch, "history": history, "best_val_loss": best_val, "early_patience": early,
+                "plateau_best": plateau_best, "plateau_bad": plateau_bad, "finished": stopped,
+            })
+        if stopped:
+            break
 
     best.restore(state)
     return state, history

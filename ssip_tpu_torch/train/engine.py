@@ -28,17 +28,23 @@ Counterpart of ``ssip_tpu/train/engine.py``: the train state and optimizer
   does: the model stays in train mode, so a frozen backbone's BatchNorm
   running statistics still move, while a frozen parameter gets no gradient
   and hence no AdamW update and no decoupled weight decay.
+- The loss adds every auxiliary term the train-mode forward left
+  (``aux_loss_terms``: an MoE ViT's load-balance and router z-losses,
+  ``models/moe.py``), as ``:113-117`` adds every sown ``"aux"`` leaf.
+- ``resume_path``: a snapshot of the train state and the driver every
+  epoch, and a ``.best`` sidecar at each new best; an existing snapshot
+  restores the run mid-stream (``train/checkpoints.py``, ``:488-606``).
 
-Not ported: the mesh and FSDP, ``resume_path`` snapshots, and the fused
-whole-epoch program (a Python loop over steps takes its place).
+Not ported: the mesh and FSDP, and the fused whole-epoch program (a Python
+loop over steps takes its place).
 """
 
 from __future__ import annotations
 
-import copy
 import math
 from contextlib import contextmanager
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -52,6 +58,7 @@ from ssip_tpu_torch.ops.metrics import accuracy_f1
 from ssip_tpu_torch.ops.rotate import augment_images
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.runtime.prng import augment_draws, host_rng
+from ssip_tpu_torch.train.checkpoints import Snapshot, check_snapshot_format, restore_resume_state, save_train_snapshot
 
 LOGGER = get_logger(__name__)
 
@@ -110,6 +117,13 @@ def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torc
     return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+def aux_loss_terms(model: nn.Module) -> List[torch.Tensor]:
+    """The auxiliary loss terms of ``model``'s last train-mode forward
+    (coefficient-scaled already); none for a model without them."""
+    aux_losses = getattr(model, "aux_losses", None)
+    return [] if aux_losses is None else aux_losses()
+
+
 HEAD_PREFIXES = ("fc.", "heads.head.")  # a ResNet's classifier, a ViT's
 
 
@@ -155,6 +169,7 @@ def train_step(
     trainable_mask: Optional[Dict[str, bool]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step; returns (loss, argmax predictions), on the device.
+    The loss is the masked cross-entropy plus the model's auxiliary terms.
 
     ``coeffs`` is the int32 [3, B] augmentation of ``ops/augment.py:
     augment_coeffs`` on the images' device, or None for no augmentation
@@ -171,6 +186,8 @@ def train_step(
     with only_trainable(model, trainable_mask):
         logits = model(x, mask=valid)
         loss = masked_cross_entropy(logits, labels, valid)
+        for term in aux_loss_terms(model):
+            loss = loss + term
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
     state.optimizer.step()
@@ -266,28 +283,6 @@ def run_eval_epoch(
     return avg_loss, dataset.labels.copy(), torch.cat(preds).cpu().numpy(), torch.cat(probs).cpu().numpy()
 
 
-@dataclass
-class Snapshot:
-    """A copy of the train state, taken at a new best validation loss."""
-
-    step: int
-    model: Dict[str, torch.Tensor]
-    optimizer: dict
-
-    @classmethod
-    def take(cls, state: TrainState) -> "Snapshot":
-        return cls(
-            state.step,
-            {k: v.detach().clone() for k, v in state.model.state_dict().items()},
-            copy.deepcopy(state.optimizer.state_dict()),
-        )
-
-    def restore(self, state: TrainState) -> None:
-        state.model.load_state_dict(self.model)
-        state.optimizer.load_state_dict(self.optimizer)
-        state.step = self.step
-
-
 def train_model(
     state: TrainState,
     train_dataset: DeviceDataset,
@@ -304,6 +299,7 @@ def train_model(
     plateau_factor: float = 0.5,
     checkpoint_fn: Optional[Callable[[TrainState], None]] = None,
     trainable_mask: Optional[Dict[str, bool]] = None,
+    resume_path: Optional[Path] = None,
 ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """Epoch driver with reference-parity control flow (common.py:345-432).
 
@@ -312,6 +308,10 @@ def train_model(
     learning rate, step count), with the per-epoch history.
     ``checkpoint_fn(state)`` runs at each new best, as in the JAX package.
     ``trainable_mask`` freezes the parameters it marks false (``only_trainable``).
+    ``resume_path``: a snapshot is written there every epoch (and its
+    ``.best`` sidecar at each new best), and an existing one restores the
+    run at the epoch after it; a snapshot that records an early stop
+    (``finished``) ends the run at once.
     """
     history: Dict[str, List[float]] = {
         "train_loss": [], "val_loss": [], "train_acc": [],
@@ -322,8 +322,26 @@ def train_model(
     early_patience = 0
     plateau_best = math.inf
     plateau_bad = 0
+    epoch_start = 0
 
-    for epoch in range(num_epochs):
+    if resume_path is not None:
+        check_snapshot_format(resume_path)
+        if Path(resume_path).exists():
+            driver, best_r = restore_resume_state(resume_path, state)
+            if driver is not None:
+                best = best_r
+                history = driver["history"]
+                best_val_loss = driver["best_val_loss"]
+                early_patience = driver["early_patience"]
+                plateau_best = driver["plateau_best"]
+                plateau_bad = driver["plateau_bad"]
+                epoch_start = driver["epoch"] + 1
+                LOGGER.info("Resumed '%s' from %s at epoch %d", stream_name, resume_path, epoch_start)
+                if driver.get("finished"):
+                    best.restore(state)
+                    return state, history
+
+    for epoch in range(epoch_start, num_epochs):
         pidx, valid, coeffs = epoch_plan(
             train_dataset, seed=seed, epoch=epoch, stream_name=stream_name,
             balanced=balanced, batch_size=batch_size,
@@ -366,17 +384,30 @@ def train_model(
             val_loss, val_acc, val_f1,
         )
 
+        stopped = False
         if val_loss < best_val_loss:
             best_val_loss = val_loss
             best = Snapshot.take(state)
             early_patience = 0
             if checkpoint_fn is not None:
                 checkpoint_fn(state)
+            if resume_path is not None:
+                save_train_snapshot(Path(str(resume_path) + ".best"), best, {"epoch": epoch})
         else:
             early_patience += 1
             if early_patience >= early_stopping_patience:
                 LOGGER.info("Early stopping triggered at epoch %d", epoch + 1)
-                break
+                stopped = True
+
+        if resume_path is not None:
+            save_train_snapshot(resume_path, Snapshot.take(state), {
+                "epoch": epoch, "history": history, "best_val_loss": best_val_loss,
+                "early_patience": early_patience, "plateau_best": plateau_best, "plateau_bad": plateau_bad,
+                # an early stop is terminal; a run that ran out of epochs stays extendable
+                "finished": stopped,
+            })
+        if stopped:
+            break
 
     best.restore(state)
     return state, history

@@ -860,3 +860,58 @@ def test_analysis_blocked_paths_on_the_card(cuda):
     one_hot = torch.eye(3, device=cuda)[torch.as_tensor(np.arange(3000) % 3, device=cuda)]
     torch.testing.assert_close(cluster_metrics._silhouette_sums_blocked(xt, one_hot),
                                cluster_metrics._silhouette_sums_dense(xt, one_hot), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_identity_resample_at_the_crop_size_on_cuda(cuda, dtype):
+    """The host-preproc path's preprocess: 224² → 224, a resample at scale
+    1, bit for bit its plain version."""
+    configure_precision("float32")
+    x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    got = preprocess_images(x, 224, 224, dtype)
+    ref = extraction_preprocess(x, 224, 224, torch.float32).to(dtype)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,routing", [("vit_moe_t16", {}), ("vit_moe_s16", {}),
+                                          ("vit_moe_t16", {"router_top_k": 2}),
+                                          ("vit_moe_t16", {"routing": "expert_choice"})])
+def test_moe_forward_and_step_on_cuda_match_cpu(cuda, arch, routing):
+    """A 2-layer MoE tower at the arch's width: the eval forward within 1e-4
+    of the CPU's, one float32 train step's loss (with the aux term) within
+    1e-5, the aux term within 1e-5, every gradient (the router's included)
+    within 1e-3 of its tensor's max; the LayerNorm and attention kernels
+    launched."""
+    import copy
+
+    from ssip_tpu_torch.models.moe import MOE_CONFIGS, MoEVisionTransformer
+    from ssip_tpu_torch.ops.augment import eval_preprocess
+    from ssip_tpu_torch.train.engine import TrainState, train_step
+
+    configure_precision("float32")
+    torch.manual_seed(0)
+    cpu_model = MoEVisionTransformer(**{**MOE_CONFIGS[arch], "num_layers": 2}, num_classes=2, image_size=64, **routing)
+    gpu_model = copy.deepcopy(cpu_model).to(cuda)
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 2, 4).astype(np.int64))
+    valid = torch.tensor([True, True, True, False])
+    with torch.inference_mode():
+        want = cpu_model.eval()(eval_preprocess(images, torch.float32))
+        before = layer_norm.launches, fused_attention_qkv.launches
+        got = gpu_model.eval()(eval_preprocess(images.to(cuda), torch.float32)).cpu()
+        assert (layer_norm.launches - before[0], fused_attention_qkv.launches - before[1]) == (5, 2)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+    results = []
+    for model, dev in ((cpu_model, torch.device("cpu")), (gpu_model, cuda)):
+        state = TrainState.create(model, 1e-4, 1e-4)
+        loss, _ = train_step(state, images.to(dev), labels.to(dev), valid.to(dev), None)
+        aux = sum(t.detach() for t in model.aux_losses())
+        results.append((loss.cpu(), aux.cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (l_c, a_c, g_c), (l_g, a_g, g_g) = results
+    assert abs(l_g - l_c) <= 1e-5 * abs(l_c) and abs(a_g - a_c) <= 1e-5 * abs(a_c) + 1e-9
+    assert any(".moe.router." in k for k in g_c)
+    for name, g in g_c.items():
+        assert ((g_g[name] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item() <= 1e-3, name

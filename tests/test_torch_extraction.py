@@ -99,33 +99,44 @@ def test_bf16_slice_tracks_jax_bf16(tiny_image_tree, tmp_path):
         ["--arch", "vit_moe_t16"],
     ],
 )
-def test_unported_flags_refused(extra, tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        port_main(["--data-dir", str(tmp_path), "--device", "cpu",
-                   "--output-dir", str(tmp_path / "o"), *extra])
+def test_unported_flags_refused(extra, tiny_image_tree, tmp_path):
+    """``--shard-size`` (sharded extraction) is refused with its ROADMAP
+    item; the flags this slice ported (the MoE archs, the streamed shape,
+    ``--fast-decode``, ``--host-preproc``) run and write the artifact set,
+    one embedding per image, as wide as the arch."""
+    argv = ["--data-dir", str(tiny_image_tree), "--device", "cpu", "--output-dir", str(tmp_path / "o"),
+            "--batch-size", "8", "--no-cache", *extra]
+    if extra[0] == "--shard-size":
+        with pytest.raises(ValueError, match="ROADMAP.*item 22"):
+            port_main(argv)
+        return
+    port_main(argv)
+    meta = json.loads((tmp_path / "o" / "features" / "metadata.json").read_text())
+    width = {"vit_moe_s16": 384, "vit_moe_t16": 192}.get(extra[-1], 512)
+    emb = np.load(tmp_path / "o" / "features" / "embeddings.npy")
+    assert emb.shape == (22, width) and np.isfinite(emb).all()
+    assert meta["num_images"] == 22 and meta["architecture"] == (extra[1] if extra[0] == "--arch" else "resnet18")
 
 
 @pytest.mark.parametrize("budget", [1024, 4 * 1024**3])
 def test_auto_refuses_what_jax_would_stream(budget, tiny_image_tree, tmp_path, monkeypatch):
     """With the host budget below the corpus the JAX package's
-    ``streaming="auto"`` streams; the port refuses that run with the ROADMAP
-    pointer (and ``streaming="never"`` still takes the store path). At the
-    real 4 GiB budget both take the store path."""
+    ``streaming="auto"`` streams, and so does the port: no decode cache is
+    written, and the embeddings equal those of ``streaming="never"`` (the
+    store path). At the real 4 GiB budget both take the store path."""
     monkeypatch.setattr(jax_extraction, "_HOST_STAGE_BUDGET_BYTES", budget)
     monkeypatch.setattr(port_extraction, "_HOST_STAGE_BUDGET_BYTES", budget)
     records = discover_image_records(tiny_image_tree)
-    streams = jax_extraction._should_stream(
-        JaxConfig(data_dir=tiny_image_tree, output_dir=tmp_path / "jax"),
-        [r.absolute_path for r in records], compute_dataset_digest(records),
-    )
+    paths, digest = [r.absolute_path for r in records], compute_dataset_digest(records)
+    streams = jax_extraction._should_stream(JaxConfig(data_dir=tiny_image_tree, output_dir=tmp_path / "jax"), paths, digest)
     assert streams == (budget == 1024)
     cfg = dict(data_dir=tiny_image_tree, output_dir=tmp_path / "o", device="cpu", batch_size=8)
-    if streams:
-        with pytest.raises(ValueError, match="ROADMAP.*item 8"):
-            run_extraction(ExtractionConfig(**cfg))
-        assert not (tmp_path / "o" / "cache").exists()  # refused before any decode
-        cfg["streaming"] = "never"
-    assert run_extraction(ExtractionConfig(**cfg)).embeddings.shape == (22, 512)
+    assert port_extraction._should_stream(ExtractionConfig(**cfg), paths, digest) == streams
+    auto = run_extraction(ExtractionConfig(**cfg)).embeddings
+    assert (tmp_path / "o" / "cache").exists() == (not streams)  # the streamed shape writes no cache
+    never = run_extraction(ExtractionConfig(**dict(cfg, output_dir=tmp_path / "n"), streaming="never")).embeddings
+    assert auto.shape == (22, 512)
+    np.testing.assert_array_equal(auto, never)
 
 
 def test_port_imports_no_jax_flax_or_triton(tiny_image_tree, tmp_path):

@@ -360,15 +360,31 @@ def test_phase_c_moves_only_the_head_and_the_statistics(runs, monkeypatch):
     "argv,item",
     [
         (["--consistency-weight", "1.0", "--strong-augment", "randaugment"], "item 18"),
-        (["--resume"], "item 15c"),
+        (["--resume"], None),
         (["--num-seeds", "2"], "item 18"),
         (["--cv-folds", "3"], "item 18"),
         (["--mesh-model", "2"], "item 22"),
         (["--fsdp"], "item 22"),
-        (["--arch", "vit_moe_t16"], "slice 6"),
+        (["--arch", "vit_moe_t16"], None),
     ],
 )
-def test_cli_refuses_unported_flags(tmp_path, argv, item):
+def test_cli_refuses_unported_flags(runs, tmp_path, argv, item):
+    """A flag whose code path the port lacks is refused with its ROADMAP
+    item; the ported ones (``--resume``, the MoE archs) run the pipeline
+    for one epoch a phase and write its artifacts: the history names the
+    arch, and ``--resume`` leaves the three streams' snapshots."""
+    if item is None:
+        root, out = runs[0], tmp_path / "o"
+        cli.main(["--strong-data-dir", str(root / "avec_labels"), "--weak-data-dir", str(root / "sans_label"),
+                  "--device", "cpu", "--image-size", str(SIZE), "--batch-size", "4", "--baseline-epochs", "1",
+                  "--weak-pretrain-epochs", "1", "--finetune-epochs", "1", "--pseudo-threshold", "0.0",
+                  "--output-dir", str(out), *argv])
+        payload = json.loads((out / "notes" / "training_history.json").read_text())
+        assert payload["arch"] == (argv[1] if argv[0] == "--arch" else "resnet18")
+        assert all(np.isfinite(payload[s]["train_loss"]).all() for s in ("baseline", "semi_pretrain", "semi_finetune"))
+        for stream in ("baseline", "semi_pretrain", "semi_finetune"):
+            assert (out / "models" / "checkpoints" / f"{stream}.torchsnap").exists() == (argv == ["--resume"])
+        return
     with pytest.raises(ValueError, match=rf"not ported to ssip_tpu_torch yet \(ROADMAP\.md, Queue 1 {item}"):
         cli.main(["--strong-data-dir", str(tmp_path / "missing"), "--weak-data-dir", str(tmp_path / "missing"),
                   "--device", "cpu", *argv])

@@ -104,7 +104,8 @@ def test_training_config_fields_and_defaults_match(tmp_path):
     cfg = TrainingConfig(strong_data_dir=tmp_path, output_dir=tmp_path / "o", resume=True)
     jcfg = JaxTrainingConfig(strong_data_dir=tmp_path, output_dir=tmp_path / "o", resume=True)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert cfg.resume_path("baseline") == jcfg.resume_path("baseline")
+    # the same directory and stream name, the port's own snapshot format
+    assert cfg.resume_path("baseline") == jcfg.resume_path("baseline").with_suffix(".torchsnap")
     assert TrainingConfig(strong_data_dir=tmp_path).resume_path("baseline") is None
     assert cfg.artifacts.baseline_checkpoint == jcfg.artifacts.baseline_checkpoint
 
@@ -340,3 +341,30 @@ def test_http_server_answers_like_the_original(tmp_path):
     want, got = answers(jserver), answers(server)
     assert without_addresses(got) == without_addresses(want)
     assert [status for status, _ in got] == [200, 200, 404, 200, 400, 200, 400, 404]
+
+
+@pytest.mark.parametrize("shape", [(384, 512, 3), (512, 512, 3), (97, 131, 3)])
+def test_native_decoder_copy_matches(shape, tmp_path):
+    """``ssip_tpu_torch/native/decode.cpp`` is the JAX package's source byte
+    for byte, and its build decodes, DCT-scales and resizes-and-crops as the
+    JAX package's library does, bit for bit."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from ssip_tpu.native import decoder as jdecoder
+    from ssip_tpu_torch.native import decoder as pdecoder
+
+    root = Path(__file__).resolve().parents[1]
+    assert (root / "ssip_tpu_torch/native/decode.cpp").read_bytes() == (root / "ssip_tpu/native/decode.cpp").read_bytes()
+    path = tmp_path / "x.jpg"
+    Image.fromarray(np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.uint8)).save(path, quality=90)
+    assert jdecoder.available()
+    for fast_scale in (None, 128, 256):
+        got, want = pdecoder.decode_one(path, fast_scale), jdecoder.decode_one(path, fast_scale)
+        np.testing.assert_array_equal(got, want)
+    full = pdecoder.decode_one(path)
+    np.testing.assert_array_equal(full, np.asarray(Image.open(path)))
+    for resize, crop in ((256, 224), (96, 96)):
+        np.testing.assert_array_equal(pdecoder.resize_crop(full, resize, crop), jdecoder.resize_crop(full, resize, crop))
+    assert pdecoder.decode_one(tmp_path / "x.png") is None  # JPEG only, as there

@@ -73,8 +73,8 @@ def test_run_extraction_vit_t16_matches_the_jax_pipeline(vit_tree, tmp_path, mon
 
 
 def test_cli_drives_vit_t16_on_the_cpu(vit_tree, tmp_path, capsys):
-    """Both CLIs with ``--arch vit_t16 --device cpu``; the MoE archs stay
-    refused with their ROADMAP item (int8 runs with a dense ViT,
+    """Both CLIs with ``--arch vit_t16 --device cpu``, and with the MoE
+    archs (``vit_moe_t16`` training, ``vit_moe_s16`` extraction; int8 runs with a dense ViT,
     ``tests/test_torch_quantized_vit.py``, and with a ResNet,
     ``tests/test_torch_quantized.py``)."""
     data = vit_tree / "avec_labels"
@@ -84,11 +84,15 @@ def test_cli_drives_vit_t16_on_the_cpu(vit_tree, tmp_path, capsys):
     assert "baseline_argmax" in capsys.readouterr().out
     payload = json.loads((out / "notes" / "training_history.json").read_text())
     assert payload["arch"] == "vit_t16" and len(payload["baseline"]["val_loss"]) == 1
-    with pytest.raises(ValueError, match=r"ROADMAP\.md, Queue 1 slice 6 item 20"):
-        training_cli.main(["--strong-data-dir", str(data), "--device", "cpu", "--arch", "vit_moe_t16"])
-    for extra, item in ((["--arch", "vit_moe_s16"], "slice 6 item 20"),):
-        with pytest.raises(ValueError, match=rf"ROADMAP\.md, Queue 1 {item}"):
-            extraction_cli.main(["--data-dir", str(vit_tree), "--device", "cpu", "--output-dir", str(tmp_path / "x"), *extra])
+    moe = tmp_path / "moe"
+    training_cli.main(["--strong-data-dir", str(data), "--device", "cpu", "--arch", "vit_moe_t16", "--image-size", "32",
+                       "--batch-size", "4", "--baseline-epochs", "1", "--output-dir", str(moe)])
+    payload = json.loads((moe / "notes" / "training_history.json").read_text())
+    assert payload["arch"] == "vit_moe_t16" and np.isfinite(payload["baseline"]["train_loss"]).all()
+    extraction_cli.main(["--data-dir", str(vit_tree), "--device", "cpu", "--output-dir", str(tmp_path / "x"),
+                         "--arch", "vit_moe_s16", "--batch-size", "8"])
+    meta = json.loads((tmp_path / "x" / "features" / "metadata.json").read_text())
+    assert meta["architecture"] == "vit_moe_s16" and meta["embedding_dimension"] == 384 and meta["num_images"] == 16
 
 
 def test_run_supervised_vit_t16_writes_what_the_jax_package_reads(vit_tree, tmp_path):
