@@ -2,8 +2,9 @@
 """Drive the PyTorch port's extraction, training and semi-supervised slices, the
 threshold sweep, the analysis stack, serving and export, and the whole workflow
 once on one NVIDIA GPU, for the ResNet family, the ViT family and the MoE ViT,
-int8 extraction included, with resumed training and the streamed extraction
-shape.
+int8 extraction included, with resumed training, the streamed extraction
+shape, the seed and cross-validation fan-outs, FixMatch's RandAugment strong
+view and the folded-BN extraction.
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -60,7 +61,9 @@ non-zero without printing the final line:
            bytes/s and bound/time, ptxas's registers, shared memory and
            spills of the tensor-core kernels, which bf16 forward runs at
            each shape and its resources, the float32 TF32 rates and times
-           over the library's.
+           over the library's; at [128, 197, 2304] in both types the
+           device time of a forward and a backward call and of the
+           library's two (``torch.profiler``, every kernel of the call);
    qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
            float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
            off the plain version by more than 1e-5 (absolute and relative),
@@ -82,6 +85,7 @@ non-zero without printing the final line:
            ``attention_plain`` and ``attention_rounded_bwd_plain`` (the bf16
            calls run the packed pair's kernels); the three bf16 kernels'
            registers, spills, shared memory a block and resident blocks an SM;
+           at [128, 12, 197, 64] in both types the device times, as attn;
    Tolerances of ln and attn (kernel and plain version sum in another
    order): float32 outputs within 2e-5 of O(1) values, bfloat16 outputs
    within one bfloat16 step of the plain value (2e-5 where a step is
@@ -112,6 +116,12 @@ non-zero without printing the final line:
            then each distinct int8 convolution of the forward (im2col and
            ``torch._int_mm``) at batch 128, card against CPU (equal
            integers), its time beside ``torch._int_mm`` alone and its bound;
+   fold    the same corpus through ``run_extraction`` of resnet18 in
+           bfloat16 with ``fast_inference`` (the folded-BN forward) and
+           without, in the order plain, folded, folded, plain: per-image
+           cosine > 0.995, the largest difference, each forward's embed-loop
+           imgs/s, a profile of each loop; the folded forward in float32
+           within 1e-4 of the plain one on 128 images;
    entry   ``fused_attention`` (no pipeline calls it, in either package)
            driven through autograd on the q, k, v of one vit_b16 attention
            sublayer at batch 128, float32 and bfloat16, against the packed
@@ -120,8 +130,8 @@ non-zero without printing the final line:
            resnet18, with vit_t16 and with vit_t16 in int8;
 6. train   a seeded 100-image 512² JPEG tree ``avec_labels/{cancer,normal}``
            (50 + 50) through ``run_supervised`` on cuda at 224², 2 classes,
-           batch 16, target recall 0.9: resnet18 for 2 epochs in float32
-           (TF32 off) and bfloat16, vit_b16 for 2 epochs in bfloat16 and 1 in
+           batch 16, target recall 0.9: resnet18 for 1 epoch in float32
+           (TF32 off) and bfloat16, vit_b16 for 1 epoch in bfloat16 and in
            float32. Every artifact is written, the history holds finite
            losses, the ``.pt`` loads into the port's model, the split indices
            are those of the CPU split, and the kernels launched (for vit_b16
@@ -148,7 +158,7 @@ non-zero without printing the final line:
 8. semi    the same labeled tree plus a flat ``sans_label/`` pool of 256
            seeded 512² JPEGs through ``run_pipeline`` (baseline → pseudo-label
            → head-only pretrain → FixMatch fine-tune with an EMA teacher) on
-           cuda at 224², batch 16, 2 + 1 + 2 epochs, both thresholds 0.5:
+           cuda at 224², batch 16, 1 + 1 + 1 epochs, both thresholds 0.5:
            resnet18 in float32 and bfloat16, vit_b16 in bfloat16. Every
            artifact is written, the histories are finite, pseudo-labels were
            kept and the mean keep rate is above 0, after the pretrain only
@@ -223,7 +233,7 @@ non-zero without printing the final line:
            (``--dbscan-auto --dbscan-scope unlabeled``), the DBSCAN cohort,
            supervised, semi-supervised on the cohort, both sweeps, the
            export of the semi model and a ``predict`` over the unlabeled
-           tree (artifact and CSV checked); 2 + 1 + 2
+           tree (artifact and CSV checked); 1 + 1 + 1
            epochs and a pseudo-label threshold of 0.5; every artifact
            present and well formed, each stage's seconds, peak memory and
            launches. A stage that needs a host package this machine lacks
@@ -256,6 +266,19 @@ non-zero without printing the final line:
            ``train_fixmatch`` (EMA off, 3 epochs, cut after 1); with an EMA
            teacher, the teacher after the resume equal to the ``.best``
            sidecar's parameters;
+   seeds   ``run_supervised`` with ``num_seeds=4`` (resnet18 f32, 224²,
+           batch 16, 3 epochs); each lane against a solo ``train_model`` of
+           its seed: the JAX test's envelope, else the median distance to
+           three solo runs within twice their spread; ``seed_sweep.csv``
+           equal to the lanes' summary, the checkpoint to the selected
+           lane's state; the lanes' seconds beside four solo runs';
+   cv      ``run_supervised`` with ``cv_folds=3``: ``cv_results.csv`` with
+           the three folds (their validation sets a partition of the train
+           + val pool), the mean and the std;
+   randaug RandAugment's strong view (128 images at 224²) on the card
+           against the CPU on the same draws, uint8; the resnet18 bf16
+           FixMatch step at 128 + 128 with it, timed and profiled; one
+           ``run_pipeline`` with ``strong_augment="randaugment"``;
 16. stream  the streamed extraction shape on the workflow's 1,506-image 512²
            JPEG tree, resnet18 bf16 at batch 128, each run in a fresh
            interpreter (end-to-end imgs/s and the resident set's growth): the resident shape,
@@ -463,11 +486,11 @@ AUG_SHAPES = ((128, 224, 224, 3), (16, 224, 160, 3), (8, 64, 96, 3))
 ROTATE_U8_SHAPES = AUG_SHAPES + ((4, 64, 36, 3),)  # 64 x 36: the TPU geometry has no block for it
 PINNED_DEGREES = (10.0, -10.0, 25.0, -25.0)
 POOL_IMAGES = 256  # the flat unlabeled pool of the semi-supervised runs
-SEMI_EPOCHS = (2, 1, 2)  # baseline, weak pretrain, fine-tune
+SEMI_EPOCHS = (1, 1, 1)  # baseline, weak pretrain, fine-tune ((2, 1, 2) until PR 15)
 SEMI_THRESHOLD = 0.5  # pseudo-label and consistency thresholds: the seeded init keeps rows at 0.5
 SEMI_EMA_DECAY = 0.99
 TRAIN_PER_CLASS = 50  # the real labeled layout: avec_labels/{cancer,normal}, 50 + 50
-TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SIZE = 16, 2, 224
+TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_SIZE = 16, 1, 224  # 2 epochs until PR 15
 VIT_LONG_RUNS = (("bfloat16", 1, 256), ("bfloat16", 1, 512), ("float32", 1, 512))  # (type, epochs, image size)
 STEP_CHECK_BATCH, STEP_TIMED_BATCH, STEP_WARMUP, STEP_TIMED = 8, 128, 3, 10
 # The cuda-vs-CPU gradient check runs at kink-free weights: the seeded ones
@@ -511,7 +534,7 @@ SCALE_N, SCALE_SLICE, EMBED_CAP = 50_000, 4096, 20_000
 SCALE_EPS_QUANTILE = 0.25  # of the k-distance curve: DBSCAN's eps at scale
 SCALE_KMEANS_K, SCALE_KMEANS_INIT = 8, 3  # few restarts: the host's k-means++ seeding dominates at 50,000 × 512
 WORKFLOW_FAMILIES = 4
-WORKFLOW_EPOCHS = (2, 1, 2)  # baseline, weak pretrain, fine-tune (run_full_workflow.sh leaves 10, 5, 8)
+WORKFLOW_EPOCHS = (1, 1, 1)  # baseline, weak pretrain, fine-tune (run_full_workflow.sh leaves 10, 5, 8; (2, 1, 2) until PR 15)
 
 
 
@@ -889,6 +912,20 @@ def one_kernel_device_ms(torch, fns, what: str) -> list:
     return [(_median(next(iter(w.values()))), next(iter(w))) for w in windows]
 
 
+def call_device_ms(torch, fns, what: str) -> list:
+    """For each function of ``fns``: (the device ms of one call, every
+    kernel of its window summed over the calls, and the kernels' names),
+    all from one ``torch.profiler`` session (``checked_device_windows``),
+    which is measured again where a kernel was not seen once a call."""
+    def wrong(windows):
+        bad = {i: {k: len(v) for k, v in w.items()} for i, w in enumerate(windows)
+               if not w or any(len(ts) % TIMED_LAUNCHES for ts in w.values())}
+        return None if not bad else f"launches by window {bad}"
+
+    windows = checked_device_windows(torch, fns, wrong, what)
+    return [(_library_device_ms(w)[0], sorted(name[:60] for name in w)) for w in windows]
+
+
 def host_ms(torch, fn, iters: int = 100) -> float:
     """Host time a call of ``fn`` takes to return (its launches enqueued),
     the mean of ``iters`` calls after one warm-up; the card is drained
@@ -1155,6 +1192,15 @@ def phase_attention_kernels(torch, np) -> dict:
         ops_type = ATTN_OPS_TYPE[dtype_name]
         fwd_bound = bound_ms((qkv.numel() + out.numel()) * item, 4 * b * heads * s * kv * dh, ops_type)
         bwd_bound = bound_ms((2 * qkv.numel() + d_o.numel()) * item, 10 * b * heads * s * kv * dh, ops_type)
+        device = {}
+        if (b, s, heads, kv_len, dtype_name) in ATTN_SHAPES[:2]:  # the main shape, both types
+            device = _attention_device_times(
+                torch, "attn", f"{b}x{s}x{3 * d}", dtype_name,
+                (lambda: fused_attention_qkv(qkv, heads, kv_len),
+                 lambda: attention_qkv_bwd(qkv, d_o, heads, kv_len, residuals),
+                 lambda: F.scaled_dot_product_attention(q.detach(), k.detach(), v.detach()),
+                 lambda: torch.autograd.grad(o_lib, leaf, do_view, retain_graph=True)),
+                fwd_bound, bwd_bound)
         say("attn", shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len, dtype=dtype_name, max_abs_err=err_o,
             dq_rel=rels[0], dk_rel=rels[1], dv_rel=rels[2], fwd_ms=f"{fwd_ms:.4f}",
             fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_library_ms=f"{lib_fwd_ms:.4f}",
@@ -1181,14 +1227,30 @@ def phase_attention_kernels(torch, np) -> dict:
                              b * heads * s * kv * dh))
         if (b, s, heads, kv_len, dtype_name) == ATTN_SHAPES[0]:
             result = {
-                "attention_qkv": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-                                  **fwd_bound, "library_ms": lib_fwd_ms},
-                "attention_qkv_bwd": {"max_abs_err": err_dqkv, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
-                                      **bwd_bound, "library_ms": lib_bwd_ms},
+                "attention_qkv": {"max_abs_err": err_o, "ms": fwd_ms, "device_ms": device["fwd"],
+                                  "plain_ms": fwd_plain_ms, **fwd_bound, "library_ms": lib_fwd_ms,
+                                  "library_device_ms": device["lib_fwd"]},
+                "attention_qkv_bwd": {"max_abs_err": err_dqkv, "ms": bwd_ms, "device_ms": device["bwd"],
+                                      "plain_ms": bwd_plain_ms, **bwd_bound, "library_ms": lib_bwd_ms,
+                                      "library_device_ms": device["lib_bwd"]},
             }
         del qkv, d_o, out, dqkv, leaf, o_lib, residuals
         torch.cuda.empty_cache()
     return result
+
+
+def _attention_device_times(torch, phase: str, shape: str, dtype_name: str, calls, fwd_bound, bwd_bound) -> dict:
+    """The device ms of a forward and a backward call of an attention pair
+    and of the library's two calls (``call_device_ms``: the kernels alone,
+    without the wrapper's host work), printed beside the bounds."""
+    names = ("fwd", "bwd", "lib_fwd", "lib_bwd")
+    timed = call_device_ms(torch, list(calls), f"{phase} {shape} {dtype_name}")
+    device = {name: ms for name, (ms, _) in zip(names, timed)}
+    say(phase, shape=shape, dtype=dtype_name, fwd_device_ms=f"{device['fwd']:.4f}",
+        bwd_device_ms=f"{device['bwd']:.4f}", fwd_library_device_ms=f"{device['lib_fwd']:.4f}",
+        bwd_library_device_ms=f"{device['lib_bwd']:.4f}", fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}",
+        bwd_bound_ms=f"{bwd_bound['bound_ms']:.4f}", fwd_kernels=timed[0][1], bwd_kernels=timed[1][1])
+    return device
 
 
 def _f32_rates(fwd_ms, fwd_stats_ms, lib_fwd_ms, fwd_bound, bwd_ms, lib_bwd_ms, bwd_bound, work) -> dict:
@@ -1389,6 +1451,14 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
         ops_type = ATTN_OPS_TYPE[dtype_name]
         fwd_bound = bound_ms(4 * q.numel() * item, 4 * b * heads * s * s * dh, ops_type)
         bwd_bound = bound_ms(7 * q.numel() * item, 10 * b * heads * s * s * dh, ops_type)
+        device = {}
+        if (b, heads, s, dh, dtype_name) in UNPACKED_ATTN_SHAPES[:2]:  # the main shape, both types
+            device = _attention_device_times(
+                torch, "attn4", f"{b}x{heads}x{s}x{dh}", dtype_name,
+                (lambda: fused_attention(q, k, v), lambda: attention_bwd(q, k, v, d_o, residuals),
+                 lambda: F.scaled_dot_product_attention(q, k, v),
+                 lambda: torch.autograd.grad(o_lib, leaves, d_o, retain_graph=True)),
+                fwd_bound, bwd_bound)
         say("attn4", shape=f"{b}x{heads}x{s}x{dh}", dtype=dtype_name, max_abs_err=err_o, dq_rel=rels[0],
             dk_rel=rels[1], dv_rel=rels[2], fwd_ms=f"{fwd_ms:.4f}", fwd_plain_ms=f"{fwd_plain_ms:.4f}",
             fwd_library_ms=f"{lib_fwd_ms:.4f}", fwd_bound_ms=f"{fwd_bound['bound_ms']:.4f}", bwd_ms=f"{bwd_ms:.4f}",
@@ -1408,10 +1478,11 @@ def phase_unpacked_attention_kernels(torch, np) -> dict:
                              b * heads * s * s * dh))
         if (b, heads, s, dh, dtype_name) == UNPACKED_ATTN_SHAPES[0]:
             result = {
-                "attention": {"max_abs_err": err_o, "ms": fwd_ms, "plain_ms": fwd_plain_ms, **fwd_bound,
-                              "library_ms": lib_fwd_ms},
-                "attention_bwd": {"max_abs_err": err_g, "ms": bwd_ms, "plain_ms": bwd_plain_ms, **bwd_bound,
-                                  "library_ms": lib_bwd_ms},
+                "attention": {"max_abs_err": err_o, "ms": fwd_ms, "device_ms": device["fwd"], "plain_ms": fwd_plain_ms,
+                              **fwd_bound, "library_ms": lib_fwd_ms, "library_device_ms": device["lib_fwd"]},
+                "attention_bwd": {"max_abs_err": err_g, "ms": bwd_ms, "device_ms": device["bwd"],
+                                  "plain_ms": bwd_plain_ms, **bwd_bound, "library_ms": lib_bwd_ms,
+                                  "library_device_ms": device["lib_bwd"]},
             }
         del q, k, v, d_o, out, grads, leaves, o_lib, residuals
         torch.cuda.empty_cache()
@@ -2209,8 +2280,9 @@ def _check_semi_outputs(np, out: Path, arch: str, epochs, tag: str) -> dict:
 
 
 def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCounts, arch: str, dtypes,
-               cli_arch) -> None:
-    """``run_pipeline`` of ``arch`` with the FixMatch fine-tune on the JPEG
+               cli_arch, strong_aug: str = "jitter", tag: str = "semi") -> None:
+    """``run_pipeline`` of ``arch`` with the FixMatch fine-tune (its strong
+    view ``strong_aug``) on the JPEG
     tree and pool, once per compute type, then the semi-supervised CLI with
     ``cli_arch`` (if not None) for one epoch per phase. The pipeline's two epoch loops are
     wrapped to read what no artifact holds: the state after the weak
@@ -2242,13 +2314,14 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
         return state, history
 
     for dtype in dtypes:
-        out = tmp / f"semi_out_{arch}_{dtype}"
+        # the jitter runs' outputs are read again by [serve] and [moe]
+        out = tmp / (f"semi_out_{arch}_{dtype}" if strong_aug == "jitter" else f"semi_out_{arch}_{dtype}_{strong_aug}")
         cfg = TrainingConfig(
             strong_data_dir=data, weak_data_dir=pool, output_dir=out, device="cuda", batch_size=TRAIN_BATCH, arch=arch,
             image_size=TRAIN_SIZE, baseline_epochs=SEMI_EPOCHS[0], weak_pretrain_epochs=SEMI_EPOCHS[1],
             finetune_epochs=SEMI_EPOCHS[2], target_recall=0.9, compute_dtype=dtype,
             pseudo_label_threshold=SEMI_THRESHOLD, consistency_weight=1.0, consistency_threshold=SEMI_THRESHOLD,
-            ema_decay=SEMI_EMA_DECAY,
+            ema_decay=SEMI_EMA_DECAY, strong_augment=strong_aug,
         )
         seen.clear()
         semi.train_model, semi.train_fixmatch = train_model_spy, train_fixmatch_spy
@@ -2260,23 +2333,23 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
             semi.train_model, semi.train_fixmatch = real_train_model, real_train_fixmatch
         seconds = time.perf_counter() - t0
         launches = counts.read()
-        tag = f"semi {arch} {dtype}"
-        payload = _check_semi_outputs(np, out, arch, SEMI_EPOCHS, tag)
+        what = f"semi {arch} {dtype} {strong_aug}"
+        payload = _check_semi_outputs(np, out, arch, SEMI_EPOCHS, what)
         if not (seen["keep_rate"] > 0 and np.isfinite(seen["cons_loss"]).all()):
-            raise AssertionError(f"{tag}: keep rate {seen['keep_rate']}, consistency losses {seen['cons_loss']}")
+            raise AssertionError(f"{what}: keep rate {seen['keep_rate']}, consistency losses {seen['cons_loss']}")
         # after the weak pretrain: of the parameters only the head moved; a
         # ResNet's frozen backbone still moved its BatchNorm running means
         head = ("fc.", "heads.head.")
         moved_params = [k for k in seen["moved"] if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
         moved_means = [k for k in seen["moved"] if k.endswith("running_mean")]
         if not seen["mask"] or not moved_params or not all(k.startswith(head) for k in moved_params):
-            raise AssertionError(f"{tag}: the weak pretrain moved {moved_params[:6]}")
+            raise AssertionError(f"{what}: the weak pretrain moved {moved_params[:6]}")
         if arch not in VIT_FAMILY and not moved_means:
-            raise AssertionError(f"{tag}: the weak pretrain left every BN running mean where it was")
+            raise AssertionError(f"{what}: the weak pretrain left every BN running mean where it was")
         fix_steps = SEMI_EPOCHS[2] * steps_per_epoch
         pretrain_steps = SEMI_EPOCHS[1] * -(-payload["pseudo_label_count"] // TRAIN_BATCH)
         backward_steps = SEMI_EPOCHS[0] * steps_per_epoch + pretrain_steps + fix_steps
-        want = {"rotate_images": fix_steps, "augment_images": backward_steps}
+        want = {"rotate_images": fix_steps if strong_aug == "jitter" else 0, "augment_images": backward_steps}
         if arch in VIT_FAMILY:
             # a FixMatch step's backward runs through the labeled and the
             # strong view; the weak pretrain's stops at the head (the frozen
@@ -2286,12 +2359,12 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
                         attention_qkv_bwd=backwards * VIT_ATTN_PER_FORWARD)
             forwards = launches["attention_qkv"] // VIT_ATTN_PER_FORWARD
             if forwards <= backward_steps + 2 * fix_steps or launches["layer_norm"] != forwards * VIT_LN_PER_FORWARD:
-                raise AssertionError(f"{tag}: forward launches {launches}")
+                raise AssertionError(f"{what}: forward launches {launches}")
         got = {k: launches[k] for k in want}
         if got != want:
-            raise AssertionError(f"{tag}: the semi-supervised path launched {got}, expected {want}")
+            raise AssertionError(f"{what}: the semi-supervised path launched {got}, expected {want}")
         thr = results["semi_thresholded"]
-        say("semi", arch=arch, dtype=dtype, labeled=2 * TRAIN_PER_CLASS, pool=POOL_IMAGES, batch=TRAIN_BATCH,
+        say(tag, arch=arch, dtype=dtype, strong_aug=strong_aug, labeled=2 * TRAIN_PER_CLASS, pool=POOL_IMAGES, batch=TRAIN_BATCH,
             epochs=SEMI_EPOCHS, seconds=f"{seconds:.2f}", pseudo_labels=payload["pseudo_label_count"],
             fixmatch_steps=fix_steps, keep_rate=f"{seen['keep_rate']:.3f}",
             cons_loss=f"{seen['cons_loss'][-1]:.4f}", val_loss=f"{payload['semi_finetune']['val_loss'][-1]:.4f}",
@@ -2611,14 +2684,13 @@ def _fixmatch_cuda_vs_cpu(torch, np, arch: str, kink_free: bool) -> dict:
 
 
 def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
-                          dtypes=("bfloat16", "float32")) -> None:
+                          dtypes=("bfloat16", "float32"), strong_aug: str = "jitter", tag: str = "fixmatch_step") -> None:
     """The steady-state FixMatch step at 128 labeled + 128 unlabeled in
-    each of ``dtypes``: timed, the strong view alone beside it, then
-    profiled."""
+    each of ``dtypes`` with the ``strong_aug`` strong view: timed, the
+    strong view alone beside it, then profiled."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ssip_tpu_torch.ops.augment import strong_augment
-    from ssip_tpu_torch.train.consistency import epoch_view_draws, fixmatch_step, init_ema
+    from ssip_tpu_torch.train.consistency import epoch_view_draws, fixmatch_step, init_ema, strong_view
 
     b = STEP_TIMED_BATCH
     dev = torch.device("cuda")
@@ -2626,7 +2698,7 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
     images, labels, valid = (t.to(dev) for t in batch)
     unlabeled = unlabeled.to(dev)
     n_steps = STEP_WARMUP + STEP_TIMED
-    draws = epoch_view_draws(SEED, "smoke_fixmatch", 1, 2 * n_steps, b, b, dev)
+    draws = epoch_view_draws(SEED, "smoke_fixmatch", 1, 2 * n_steps, b, b, dev, strong_aug, (TRAIN_SIZE, TRAIN_SIZE))
     for dtype_name in dtypes:
         dtype = getattr(torch, dtype_name)
         state = _seeded_state(torch, dev, dtype, arch)
@@ -2652,17 +2724,17 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if not (torch.isfinite(loss) and torch.isfinite(cons)):
             raise AssertionError(f"{arch} {dtype_name} FixMatch step loss {loss.item()}, consistency {cons.item()}")
-        want = {"augment_images": 1.0, "rotate_images": 1.0}
+        # the jitter's rotation is the uint8 kernel; RandAugment's warp is plain PyTorch
+        want = {"augment_images": 1.0, **({"rotate_images": 1.0} if strong_aug == "jitter" else {})}
         if arch in VIT_FAMILY:
             want.update(layer_norm=3 * VIT_LN_PER_FORWARD, layer_norm_bwd=2 * VIT_LN_PER_FORWARD,
                         attention_qkv=3 * VIT_ATTN_PER_FORWARD, attention_qkv_bwd=2 * VIT_ATTN_PER_FORWARD)
         if launches != want:
             raise AssertionError(f"{arch} {dtype_name}: launches per FixMatch step {launches}, expected {want}")
         d = draws[0]
-        strong_ms = median_ms(torch, lambda: strong_augment(unlabeled, d.strong_coeffs, d.brightness, d.contrast,
-                                                            dtype))
+        strong_ms = median_ms(torch, lambda: strong_view(unlabeled, d, dtype))
         counts.reset()  # the strong view timed alone is no launch of the path
-        say("fixmatch_step", arch=arch, dtype=dtype_name, labeled=b, unlabeled=b, timed_steps=STEP_TIMED,
+        say(tag, arch=arch, dtype=dtype_name, strong_aug=strong_aug, labeled=b, unlabeled=b, timed_steps=STEP_TIMED,
             ms_per_step=f"{step_ms:.3f}", imgs_per_s=f"{2 * b / step_ms * 1000:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
             keep_rate=f"{keep.item():.3f}", strong_view_ms=f"{strong_ms:.4f}",
             strong_view_share=f"{strong_ms / step_ms:.5f}", launches_per_step=launches)
@@ -2674,7 +2746,8 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
             end.record()
             end.synchronize()
         counts.read()
-        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_fixmatch_step_{dtype_name}", classes)
+        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_fixmatch_step_{strong_aug}_{dtype_name}",
+                           classes)
         del state, ema
     torch.cuda.empty_cache()
 
@@ -3071,9 +3144,9 @@ def make_workflow_tree(np, tmp: Path) -> Path:
 def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> None:
     """``scripts/run_full_workflow.sh`` on the port's CLIs, in its order and
     with its flags, on the card, through the cohort-filtered semi-supervised
-    run and both threshold sweeps. Cuts: 2 + 1 + 2 training epochs (the
+    run and both threshold sweeps. Cuts: 1 + 1 + 1 training epochs (the
     script's defaults are 10 + 5 + 8) and a pseudo-label threshold of 0.5
-    (seeded weights after two epochs keep their confidences near it). Without
+    (seeded weights after an epoch keep their confidences near it). Without
     matplotlib the audit is not run and the clustering stage runs through
     ``cli.clustering.run_analysis`` (everything but its figures)."""
     from ssip_tpu_torch.cli import clustering, data_audit, export_unlabeled_cohort, feature_extraction
@@ -3596,6 +3669,259 @@ def phase_stream(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> None
         raise AssertionError(f"preprocess at {CROP} -> {CROP}: not bit for bit its plain version")
 
 
+SEEDS_LANES, SEEDS_EPOCHS = 4, 3
+SEEDS_SOLO_RUNS = 3  # solo runs of each seed: the card's spread is the largest distance between two
+# lane against its solo run (tests/test_multi_seed.py:180-210): the losses of
+# epoch 0 and of later epochs (relative), the best weights (rtol, atol)
+SEEDS_ENVELOPE = {"epoch0": 1e-4, "later": 5e-2, "weights": (5e-2, 5e-4)}
+CV_FOLDS, CV_EPOCHS = 3, 2
+
+
+def _within_envelope(np, torch, lane, solo) -> bool:
+    ok = len(lane[0]["val_loss"]) == len(solo[0]["val_loss"])
+    for key in ("train_loss", "val_loss"):
+        got, want = np.asarray(lane[0][key]), np.asarray(solo[0][key])
+        ok = ok and abs(got[0] - want[0]) <= SEEDS_ENVELOPE["epoch0"] * abs(want[0])
+        ok = ok and bool(np.all(np.abs(got[1:] - want[1:]) <= SEEDS_ENVELOPE["later"] * np.abs(want[1:])))
+    rtol, atol = SEEDS_ENVELOPE["weights"]
+    return bool(ok) and all(torch.allclose(lane[1][k].double(), v.double(), rtol=rtol, atol=atol)
+                            for k, v in solo[1].items() if v.is_floating_point())
+
+
+def phase_seeds(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
+    """``run_supervised`` with ``--num-seeds 4`` (resnet18 float32 at 224²,
+    batch 16, 3 epochs), its lanes read through a wrap of
+    ``train_multi_seed``; then three solo ``train_model`` runs of each seed
+    on the same split. Each lane is held to its seed's first solo run at the
+    JAX test's envelope where the card allows it, else as ``[resume]``
+    holds a resumed run (Queue 3 #11): the median of its distances to the
+    three solo runs within twice the largest distance between two of them
+    (val losses, weights). The seed sweep
+    CSV to the lanes' summary and the saved checkpoint to the selected
+    lane's state, bit for bit."""
+    import csv
+
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.pipelines import supervised
+    from ssip_tpu_torch.pipelines.supervised import TrainingConfig, build_classifier_state, prepare_datasets
+    from ssip_tpu_torch.train.checkpoints import load_checkpoint
+    from ssip_tpu_torch.train.engine import train_model
+
+    dev = torch.device("cuda")
+    cfg = TrainingConfig(strong_data_dir=data, output_dir=tmp / "seeds_out", device="cuda", batch_size=TRAIN_BATCH,
+                         image_size=TRAIN_SIZE, baseline_epochs=SEEDS_EPOCHS, num_seeds=SEEDS_LANES,
+                         compute_dtype="float32")
+    seeds = [cfg.seed + i for i in range(SEEDS_LANES)]
+    real, seen = supervised.train_multi_seed, {}
+
+    def spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        states, histories, summary = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        seen["seconds"] = time.perf_counter() - t0
+        seen["lanes"] = [(h, {k: v.detach().cpu().clone() for k, v in st.model.state_dict().items()})
+                         for h, st in zip(histories, states)]
+        seen["summary"] = [dict(row) for row in summary]
+        return states, histories, summary
+
+    supervised.train_multi_seed = spy
+    counts.reset()  # count only the main path's launches
+    try:
+        supervised.run_supervised(cfg)
+    finally:
+        supervised.train_multi_seed = real
+    launches = counts.read()
+    datasets, _, splits = prepare_datasets(cfg, dev)
+    steps = -(-len(splits["train"]) // TRAIN_BATCH)
+    if launches["augment_images"] != SEEDS_LANES * SEEDS_EPOCHS * steps:
+        raise AssertionError(f"seeds: the lanes launched {launches}")
+
+    def solo(seed):
+        state = build_classifier_state(cfg, 2, cfg.learning_rate, dev, seed=seed)
+        t0 = time.perf_counter()
+        state, hist = train_model(state, datasets["train"], datasets["val"], num_epochs=SEEDS_EPOCHS,
+                                  batch_size=TRAIN_BATCH, seed=seed, stream_name="baseline", balanced=True,
+                                  augment=True, early_stopping_patience=cfg.early_stopping_patience)
+        torch.cuda.synchronize()
+        return (hist, {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+                time.perf_counter() - t0)
+
+    solos = [[solo(seed) for _ in range(SEEDS_SOLO_RUNS)] for seed in seeds]
+    rows = []
+    for lane, (run, refs) in enumerate(zip(seen["lanes"], solos)):
+        spread, dist = _resume_bar(torch, np, [r[:2] for r in refs], run)
+        rows.append({"seed": seeds[lane], "envelope": _within_envelope(np, torch, run, refs[0]),
+                     "within_twice_spread": all(dist[k] <= 2 * spread[k] for k in dist),
+                     "median_distance": dist, "spread": spread})
+    bar = ("envelope" if all(r["envelope"] for r in rows)
+           else "twice_spread" if all(r["within_twice_spread"] for r in rows) else None)
+    for r in rows:
+        say("seeds", lane_vs_solo=r)
+
+    with open(cfg.artifacts.seed_sweep_csv, newline="") as fh:
+        written = list(csv.DictReader(fh))
+    best = int(np.argmin([row["best_val_loss"] for row in seen["summary"]]))
+    want = [{k: str(v) for k, v in {**row, "selected": i == best}.items()} for i, row in enumerate(seen["summary"])]
+    model = build_model("resnet18", num_classes=2)
+    load_checkpoint(cfg.artifacts.baseline_checkpoint, model)
+    saved = {k: v.cpu() for k, v in model.state_dict().items()}
+    checkpoint_is_lane = all(torch.equal(saved[k], v) for k, v in seen["lanes"][best][1].items())
+    history = json.loads(cfg.artifacts.training_history_json.read_text())
+    solo_seconds = sum(refs[0][2] for refs in solos)
+    say("seeds", arch="resnet18", dtype="float32", lanes=SEEDS_LANES, epochs=SEEDS_EPOCHS, batch=TRAIN_BATCH,
+        bar=bar, solo_runs=SEEDS_SOLO_RUNS, envelope=SEEDS_ENVELOPE, selected_seed=seeds[best],
+        csv_equals_summary=written == want, checkpoint_is_selected_lane=checkpoint_is_lane,
+        history_num_seeds=history.get("num_seeds"), lanes_seconds=f"{seen['seconds']:.2f}",
+        four_solo_seconds=f"{solo_seconds:.2f}", lanes_over_solo=f"{seen['seconds'] / solo_seconds:.3f}",
+        launches={k: v for k, v in launches.items() if v})
+    if bar is None or written != want or not checkpoint_is_lane or history.get("num_seeds") != SEEDS_LANES:
+        raise AssertionError(f"seeds: lanes {rows}, csv {written} vs {want}, "
+                             f"checkpoint is the lane: {checkpoint_is_lane}")
+
+
+def phase_cv(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
+    """``run_supervised`` with ``--cv-folds 3`` (resnet18 float32 at 224²,
+    batch 16, 2 epochs): ``cv_results.csv`` holds the three folds, whose
+    validation sets partition the train + val pool, then their mean and
+    std."""
+    import csv
+
+    from ssip_tpu_torch.pipelines.supervised import TrainingConfig, run_supervised
+
+    cfg = TrainingConfig(strong_data_dir=data, output_dir=tmp / "cv_out", device="cuda", batch_size=TRAIN_BATCH,
+                         image_size=TRAIN_SIZE, baseline_epochs=CV_EPOCHS, cv_folds=CV_FOLDS, compute_dtype="float32")
+    counts.reset()  # count only the main path's launches
+    t0 = time.perf_counter()
+    run_supervised(cfg)
+    seconds = time.perf_counter() - t0
+    launches = counts.read()
+    with open(cfg.artifacts.cv_results_csv, newline="") as fh:
+        rows = list(csv.DictReader(fh))
+    splits = json.loads(cfg.artifacts.training_history_json.read_text())["splits"]
+    pool = len(splits["train"]) + len(splits["val"])
+    folds = rows[:CV_FOLDS]
+    stats = ("best_val_loss", "val_acc", "val_f1")
+    means = {k: float(np.mean([float(r[k]) for r in folds])) for k in stats}
+    ok = ([r["fold"] for r in rows] == [*map(str, range(CV_FOLDS)), "mean", "std"]
+          and sum(float(r["n_val"]) for r in folds) == pool
+          and all(float(r["n_train"]) + float(r["n_val"]) == pool for r in folds)
+          and all(np.isfinite(float(r[k])) for r in rows for k in stats)
+          and all(abs(float(rows[CV_FOLDS][k]) - means[k]) <= 1e-12 for k in stats)
+          and launches["augment_images"] > 0)
+    say("cv", arch="resnet18", dtype="float32", folds=CV_FOLDS, epochs=CV_EPOCHS, pool=pool,
+        n_val=[r["n_val"] for r in folds], val_acc=[r["val_acc"] for r in rows],
+        best_val_loss=[r["best_val_loss"] for r in rows], seconds=f"{seconds:.2f}",
+        launches={k: v for k, v in launches.items() if v})
+    if not ok:
+        raise AssertionError(f"cv: rows {rows} for a pool of {pool}, launches {launches}")
+
+
+RANDAUG_MAX_SHARE_OFF = 1e-4  # values of the card's uint8 strong view off the CPU's, each by one step at most
+
+
+def phase_randaug(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCounts) -> None:
+    """FixMatch's RandAugment strong view: card against CPU on the same
+    draws (128 images at 224², uint8 before the normalize), the timed
+    resnet18 bf16 FixMatch step at 128 + 128 with it (``[fixmatch_step]``
+    times the jitter's), and one ``run_pipeline`` with it."""
+    from ssip_tpu_torch.ops.randaugment import strong_augment_randaugment, strong_view_u8
+    from ssip_tpu_torch.train.consistency import epoch_view_draws
+
+    b = STEP_TIMED_BATCH
+    _, unlabeled = _fixmatch_inputs(torch, np, b)
+    d = epoch_view_draws(SEED, "smoke_randaug", 0, 1, b, b, torch.device("cpu"), "randaugment",
+                         (TRAIN_SIZE, TRAIN_SIZE))[0]
+    cpu = strong_view_u8(unlabeled, d.randaugment, d.randaugment_geo)
+    g = d.to(torch.device("cuda"))
+    card_in = unlabeled.cuda()
+    card = strong_view_u8(card_in, g.randaugment, g.randaugment_geo).cpu()
+    off = (card.int() - cpu.int()).abs()
+    n_off, worst = int((off > 0).sum()), int(off.max())
+    u8_ms = median_ms(torch, lambda: strong_view_u8(card_in, g.randaugment, g.randaugment_geo))
+    bf16_ms = median_ms(torch, lambda: strong_augment_randaugment(card_in, g.randaugment, torch.bfloat16,
+                                                                  g.randaugment_geo))
+    ops = np.bincount(d.randaugment.op.numpy().reshape(-1), minlength=14).tolist()
+    say("randaug", check="card_vs_cpu_u8", images=b, size=TRAIN_SIZE, values_off=n_off, values=off.numel(),
+        max_step=worst, bitwise=n_off == 0, ops_drawn=ops, view_u8_ms=f"{u8_ms:.4f}", view_bf16_ms=f"{bf16_ms:.4f}")
+    if worst > 1 or n_off > RANDAUG_MAX_SHARE_OFF * off.numel():
+        raise AssertionError(f"randaug: card vs CPU {n_off} values off, by up to {worst}")
+    _timed_fixmatch_steps(torch, np, "resnet18", counts, (("rotate kernel", ROTATE_U8_KERNELS),) + _PROFILE_CLASSES,
+                          dtypes=("bfloat16",), strong_aug="randaugment", tag="randaug")
+    phase_semi(torch, np, tmp, data, pool, counts, "resnet18", ("bfloat16",), None, strong_aug="randaugment",
+               tag="randaug")
+
+
+# the folded embed loop by layer: the preprocess kernel, the convolutions
+# (cuDNN), the bias, ReLU and residual adds, the max-pool
+_FOLD_PROFILE_CLASSES = (
+    ("preprocess kernel", ("preproc_",)),
+    ("max-pool", ("max_pool",)),
+    _PROFILE_CLASSES[2],
+    ("BatchNorm, bias, ReLU, adds, pool (elementwise and reductions)", _PROFILE_CLASSES[4][1]),
+)
+
+
+def phase_fold(torch, np, tmp: Path, corpus, counts: LaunchCounts) -> None:
+    """``run_extraction`` of resnet18 in bfloat16 with ``fast_inference``
+    (the folded-BN forward) beside the plain forward on the corpus, resident
+    shape, runs in the order plain, folded, folded, plain: per-image cosine
+    > 0.995 and the largest difference, and each forward's embed-loop
+    imgs/s; each loop profiled once; the folded forward computed in float32
+    within 1e-4 of the plain one on 128 images."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssip_tpu_torch.models.host_init import seeded_init_host
+    from ssip_tpu_torch.models.port import load_flax_variables
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.ops.preproc import preprocess_images
+    from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, extract_embeddings, folded_forward, run_extraction
+    from ssip_tpu_torch.runtime.device import configure_precision
+
+    data, records, images, store = corpus
+
+    def cfg(fast: bool) -> ExtractionConfig:
+        return ExtractionConfig(data_dir=data, output_dir=tmp / f"fold_out_{fast}", batch_size=BATCH, device="cuda",
+                                compute_dtype="bfloat16", cache_decoded=False, fast_inference=fast)
+
+    run_extraction(cfg(True), store=store)  # warm: the folded convolutions' cuDNN set-up
+    counts.reset()  # count only the main path's launches
+    rates = {False: [], True: []}
+    emb = {}
+    for fast in (False, True, True, False):
+        summary = run_extraction(cfg(fast), store=store)
+        rates[fast].append(N_IMAGES / summary.embed_seconds)
+        emb[fast] = summary.embeddings
+    launches = counts.read()
+    if launches["preprocess_images"] != 4 * (N_IMAGES // BATCH):
+        raise AssertionError(f"fold: the extraction path launched {launches}")
+    cos = (_unit(np, emb[True]) * _unit(np, emb[False])).sum(axis=1)
+    diff = float(np.abs(emb[True] - emb[False]).max())
+    for fast in (False, True):
+        counts.reset()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            summary = extract_embeddings(records, cfg(fast), store=store)
+        counts.read()
+        _profile_breakdown(torch, prof, summary.embed_seconds * 1e3, f"resnet18_embed_bfloat16_fold_{fast}",
+                           _FOLD_PROFILE_CLASSES, start_at="preproc_")
+
+    configure_precision("float32")  # true float32 products for the 1e-4 bound
+    model = build_model("resnet18", compute_dtype=torch.float32)
+    load_flax_variables(model, seeded_init_host("resnet18", 42))
+    model = model.cuda().eval().to(memory_format=torch.channels_last)
+    with torch.inference_mode():
+        x = preprocess_images(torch.from_numpy(images[:BATCH]).cuda(), RESIZE, CROP, torch.float32)
+        plain = model(x)
+        folded = folded_forward("resnet18", model, torch.float32)(x)
+    rel32 = float((folded - plain).abs().max() / plain.abs().max())
+    say("fold", arch="resnet18", dtype="bfloat16", images=N_IMAGES, batch=BATCH, cos_min=f"{cos.min():.6f}",
+        cos_mean=f"{cos.mean():.6f}", max_abs_diff=diff, max_abs=float(np.abs(emb[False]).max()),
+        plain_imgs_per_s=[f"{r:.1f}" for r in rates[False]], folded_imgs_per_s=[f"{r:.1f}" for r in rates[True]],
+        folded_over_plain=f"{max(rates[True]) / max(rates[False]):.4f}", f32_folded_vs_plain_rel=rel32,
+        launches={k: v for k, v in launches.items() if v})
+    if cos.min() <= 0.995 or rel32 > 1e-4 or not np.isfinite(emb[True]).all():
+        raise AssertionError(f"fold: cosine min {cos.min()}, float32 folded vs plain {rel32}")
+
+
 def phase_imports() -> None:
     """The run loaded nothing of jax and nothing of the JAX package: the
     port keeps its own copies of the jax-free modules it needs."""
@@ -3652,6 +3978,7 @@ def main() -> int:
         dense = lap("slice", phase_slice, torch, np, tmp, corpus, counts, VIT_ARCH, VIT_WIDTH, VIT_N_CPU_CHECK)
         lap("int8", phase_slice_int8, torch, np, tmp, corpus, counts, dense)
         lap("int8_resnet", phase_int8_resnet, torch, np, tmp, corpus, counts, resnet)
+        lap("fold", phase_fold, torch, np, tmp, corpus, counts)
         moe_lap("slice", phase_slice, torch, np, tmp, corpus, counts, MOE_ARCH, MOE_WIDTH, VIT_N_CPU_CHECK)
         del corpus, dense, resnet
         lap("cli", phase_cli, np, tmp)
@@ -3673,6 +4000,9 @@ def main() -> int:
         moe_lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, MOE_ARCH, ("bfloat16",), None)
         moe_lap("serve", phase_moe_serve, torch, np, tmp, pool)
         lap("resume", phase_resume, torch, np, tmp, train_tree, pool)
+        lap("seeds", phase_seeds, torch, np, tmp, train_tree, counts)
+        lap("cv", phase_cv, torch, np, tmp, train_tree, counts)
+        lap("randaug", phase_randaug, torch, np, tmp, train_tree, pool, counts)
         lap("serve", phase_serve, torch, np, tmp, pool, counts)
         lap("sweep", phase_sweep, torch, np, tmp, train_tree, counts)
         lap("analysis", phase_analysis, torch, np, counts)

@@ -3,11 +3,10 @@
 Counterpart of ``src/semi_supervised_training.py``, with the same flags and
 defaults (copied here: that module imports the JAX pipeline) and the shared
 flags of ``cli/supervised_training.py`` (``--resume`` and the MoE archs
-included). Flags whose code paths are not ported yet are accepted by the
-parser and refused with an error naming the ROADMAP entry:
-``--strong-augment randaugment`` (item 18) and what the supervised CLI
-refuses (``--num-seeds > 1``, ``--cv-folds``, ``--mesh-model > 1``,
-``--fsdp``).
+included), ``--num-seeds`` and ``--cv-folds``, and ``--strong-augment
+randaugment``. Flags whose code paths are not ported yet are accepted by
+the parser and refused with an error naming the ROADMAP entry: what the
+supervised CLI refuses (``--mesh-model > 1``, ``--fsdp``).
 
     python -m ssip_tpu_torch.cli.semi_supervised_training \\
         --strong-data-dir DATA/avec_labels --weak-data-dir DATA/sans_label --device cuda
@@ -41,7 +40,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument(
         "--strong-augment", choices=("jitter", "randaugment"), default="jitter",
         help="strong view for the consistency loss: 'jitter' (flip/rotate/"
-        "brightness/contrast); 'randaugment' is not ported yet",
+        "brightness/contrast) or 'randaugment' (the FixMatch paper's "
+        "RandAugment+Cutout policy)",
     )
     parser.add_argument(
         "--ema-decay", type=float, default=0.0,

@@ -4,10 +4,11 @@ Counterpart of ``src/supervised_training.py``, with the same flags, defaults
 and flag-to-config mapping (copied here: that module imports the JAX
 pipeline). ``--resume`` snapshots the run every epoch and resumes an
 interrupted one; the MoE archs (``vit_moe_t16``, ``vit_moe_s16``) train with
-their auxiliary losses. Flags whose code paths are not ported yet are
-accepted by the parser and refused with an error naming the ROADMAP entry:
-``--num-seeds > 1`` and ``--cv-folds`` (item 18), ``--mesh-model > 1`` and
-``--fsdp`` (item 22). ``--remat`` checkpoints the ViT encoder blocks and is
+their auxiliary losses. ``--num-seeds N`` trains N seeds and keeps the best
+(``tables/seed_sweep.csv``); ``--cv-folds k`` runs a stratified k-fold CV
+first (``tables/cv_results.csv``). Flags whose code paths are not ported yet
+are accepted by the parser and refused with an error naming the ROADMAP
+entry: ``--mesh-model > 1`` and ``--fsdp`` (item 22). ``--remat`` checkpoints the ViT encoder blocks and is
 ignored for the ResNet archs, as in JAX.
 
     python -m ssip_tpu_torch.cli.supervised_training --strong-data-dir DATA/avec_labels --device cuda
@@ -69,8 +70,16 @@ def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
         help="activation dtype for the train/eval forwards (params, BN stats, "
         "loss and optimizer stay float32)",
     )
-    parser.add_argument("--cv-folds", type=int, default=0, help="not ported yet; 0 = off")
-    parser.add_argument("--num-seeds", type=int, default=1, help="values above 1 are not ported yet")
+    parser.add_argument(
+        "--cv-folds", type=int, default=0,
+        help="stratified k-fold cross-validation before the main run (test split held out); per-fold and "
+        "mean/std metrics land in tables/cv_results.csv. 0 = off",
+    )
+    parser.add_argument(
+        "--num-seeds", type=int, default=1,
+        help="train this many independent seeds (seed, seed+1, ...) and keep the best by validation loss "
+        "(tables/seed_sweep.csv records all lanes). 1 = reference behavior",
+    )
 
 
 def parse_args(argv=None) -> argparse.Namespace:

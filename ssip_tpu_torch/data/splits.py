@@ -1,6 +1,7 @@
 """Stratified splits and balanced resampling, with numpy and no scikit-learn.
 
-Counterpart of ``ssip_tpu/data/splits.py:23-49`` and ``:85-104``. The JAX
+Counterpart of ``ssip_tpu/data/splits.py:23-49``, ``:52-82`` (the k-fold
+split of ``--cv-folds``) and ``:85-104``. The JAX
 package splits with scikit-learn's two-stage ``train_test_split(...,
 stratify=...)``; the split indices are a persisted artifact
 (``training_history.json``, read back by the threshold sweep), so the port
@@ -93,6 +94,33 @@ def split_dict(
 ) -> Dict[str, np.ndarray]:
     train, val, test = stratified_split(targets, val_size, test_size, seed)
     return {"train": train, "val": val, "test": test}
+
+
+def stratified_kfold_indices(targets: Sequence[int], k: int, seed: int) -> list[Tuple[np.ndarray, np.ndarray]]:
+    """K stratified folds: [(train_idx, val_idx)] covering every index once.
+
+    Per class, a seeded shuffle dealt round-robin over the folds, so each
+    class spreads as evenly as it can; index for index the JAX package's.
+    """
+    targets = np.asarray(targets, dtype=np.int64)
+    if not 2 <= k <= len(targets):
+        raise ValueError(f"cv folds must be in [2, n_samples], got {k}")
+    max_class = int(np.bincount(targets).max())
+    if k > max_class:
+        # round-robin would leave the folds past the largest class count
+        # without a validation sample (NaN metrics downstream)
+        raise ValueError(
+            f"cv folds ({k}) exceeds the largest class count ({max_class}); "
+            "every fold needs at least one validation sample"
+        )
+    rng = host_rng(seed, "kfold")
+    fold_of = np.empty(len(targets), dtype=np.int64)
+    for cls in np.unique(targets):
+        idx = np.flatnonzero(targets == cls)
+        idx = idx[rng.permutation(len(idx))]
+        fold_of[idx] = np.arange(len(idx)) % k
+    all_idx = np.arange(len(targets))
+    return [(all_idx[fold_of != f], all_idx[fold_of == f]) for f in range(k)]
 
 
 def balanced_sample_weights(labels: Sequence[int]) -> np.ndarray:

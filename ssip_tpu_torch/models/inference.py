@@ -90,6 +90,21 @@ def fold_resnet_extractor(
     return tree
 
 
+def folded_to_device(folded: Dict[str, Any], device: torch.device, dtype: torch.dtype) -> Dict[str, Any]:
+    """``fold_resnet_extractor``'s tree as tensors on ``device`` in ``dtype``,
+    for ``make_folded_apply`` to run without a copy a call: each HWIO
+    kernel is a view of an OIHW tensor in the channels-last layout the
+    convolutions take on the card."""
+    def site(leaf: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        oihw = torch.as_tensor(leaf["kernel"]).permute(3, 2, 0, 1).to(device, dtype)
+        if device.type == "cuda":
+            oihw = oihw.contiguous(memory_format=torch.channels_last)
+        return {"kernel": oihw.permute(2, 3, 1, 0), "bias": torch.as_tensor(leaf["bias"]).to(device, dtype)}
+
+    return {"stem": site(folded["stem"]),
+            "blocks": [{name: site(leaf) for name, leaf in block.items()} for block in folded["blocks"]]}
+
+
 def block_strides(stage_sizes: Sequence[int]) -> List[int]:
     """Each block's stride: 2 at the first block of every stage but the first."""
     return [2 if (stage > 0 and block == 0) else 1 for stage, n in enumerate(stage_sizes) for block in range(n)]

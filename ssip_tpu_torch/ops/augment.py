@@ -51,6 +51,17 @@ def _libm() -> ctypes.CDLL:
     return lib
 
 
+def cos_sin_f32(angles) -> tuple[np.ndarray, np.ndarray]:
+    """float32 ``cosf`` and ``sinf`` of float32 angles (radians), element by
+    element: XLA's CPU ``jnp.cos`` and ``jnp.sin``, bit for bit."""
+    angles = np.asarray(angles, dtype=np.float32)
+    lib = _libm()
+    values = angles.reshape(-1).tolist()
+    cos = np.fromiter((lib.cosf(v) for v in values), np.float32, len(values)).reshape(angles.shape)
+    sin = np.fromiter((lib.sinf(v) for v in values), np.float32, len(values)).reshape(angles.shape)
+    return cos, sin
+
+
 def augment_coeffs(flip, angles) -> np.ndarray:
     """int32 [3, B]: ``icos``, ``isin`` and the flip flag of each image.
 
@@ -62,10 +73,7 @@ def augment_coeffs(flip, angles) -> np.ndarray:
     flip = np.asarray(flip, dtype=bool).reshape(-1)
     if flip.shape != angles.shape:
         raise ValueError(f"one flip flag per angle: {flip.shape} vs {angles.shape}")
-    lib = _libm()
-    values = angles.tolist()
-    cos = np.fromiter((lib.cosf(v) for v in values), np.float32, len(values))
-    sin = np.fromiter((lib.sinf(v) for v in values), np.float32, len(values))
+    cos, sin = cos_sin_f32(angles)
     q = np.float32(Q)
     return np.stack([np.rint(cos * q), np.rint(sin * q), flip]).astype(np.int32)
 

@@ -44,9 +44,17 @@ Execution shapes:
   ``fast_decode`` adds the DCT-scaled JPEG decode (approximate). The two
   exclude each other, and both need the native library.
 
+``fast_inference`` (``:85-91``, ``:488-507`` there): in bfloat16, a ResNet
+embeds through its folded forward, each BatchNorm folded into the conv
+before it (``models/inference.py``: ``fold_resnet_extractor``,
+``make_folded_apply``); a ViT, which has no BatchNorm, keeps its plain
+forward, as does every other type. The JAX package folds with its
+space-to-depth stem, a TPU layout; the port computes the same function with
+the plain 7×7 stride-2 stem.
+
 Not ported yet (refused with an error naming the ROADMAP entry): sharded
-extraction (item 22) and the folded-BN forward (``fast_inference``). int8
-with an MoE arch is refused with the JAX package's own message.
+extraction (item 22). int8 with an MoE arch is refused with the JAX
+package's own message.
 """
 
 from __future__ import annotations
@@ -70,6 +78,7 @@ from ssip_tpu_torch.data.discovery import ImageRecord, compute_dataset_digest, d
 from ssip_tpu_torch.data.decode import decode_batch, preprocess_host_exact
 from ssip_tpu_torch.data.pipeline import ImageStore, iter_device_batches, iter_streamed_decode_batches
 from ssip_tpu_torch.models.host_init import seeded_init_host
+from ssip_tpu_torch.models.inference import fold_resnet_extractor, folded_to_device, make_folded_apply
 from ssip_tpu_torch.models.port import (
     load_flax_variables, load_state_dict_arrays, quantized_resnet_from_tree, quantized_vit_from_tree,
     read_torch_checkpoint,
@@ -123,6 +132,8 @@ class ExtractionConfig:
     # the streamed shape with the exact resize and crop on the host: only
     # crop² bytes cross the link, the numerics unchanged
     host_preproc: bool = False
+    # bfloat16 ResNets: the forward with BatchNorm folded into the convs
+    fast_inference: bool = False
 
     def __post_init__(self) -> None:
         if self.streaming not in ("auto", "always", "never"):
@@ -365,14 +376,32 @@ def _quantize_variables(
     return quantized.to(device).eval()
 
 
+def uses_folded_forward(cfg: ExtractionConfig) -> bool:
+    """``_prepare_inference``'s rule: the folded forward for a ResNet in
+    bfloat16 when asked for; a ViT has no BatchNorm to fold."""
+    return cfg.fast_inference and cfg.compute_dtype == "bfloat16" and not cfg.arch.startswith("vit")
+
+
+def folded_forward(arch: str, model: nn.Module, dtype: torch.dtype):
+    """normalized NHWC batch → float32 features of ``model`` (a ResNet, eval
+    statistics) through its folded forward, computed in ``dtype``."""
+    bottleneck = arch == "resnet50"
+    device = next(model.parameters()).device
+    folded = folded_to_device(fold_resnet_extractor(model, MODEL_STAGES[arch], bottleneck), device, dtype)
+    apply = make_folded_apply(MODEL_STAGES[arch], bottleneck, compute_dtype=dtype)
+    return lambda x: apply(folded, x)
+
+
 def _embed_fn(cfg: ExtractionConfig, model: nn.Module, dtype: torch.dtype, resize: int):
     """uint8 batch on the model's device → float32 features: the preprocess
     kernel (to ``resize``, then the crop) and the forward; in int8 the
-    kernel's epilogue writes the stem's int8 operand."""
+    kernel's epilogue writes the stem's int8 operand; with
+    ``fast_inference`` the folded forward."""
     if cfg.compute_dtype == "int8":
         stem_inv_scale = model.stem.inv_scale
         return lambda u8: model(preprocess_images(u8, resize=resize, crop=cfg.crop, quant_inv_scale=stem_inv_scale))
-    return lambda u8: model(preprocess_images(u8, resize=resize, crop=cfg.crop, out_dtype=dtype))
+    forward = folded_forward(cfg.arch, model, dtype) if uses_folded_forward(cfg) else model
+    return lambda u8: forward(preprocess_images(u8, resize=resize, crop=cfg.crop, out_dtype=dtype))
 
 
 def _extract_streaming(

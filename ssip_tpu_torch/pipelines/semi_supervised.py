@@ -3,7 +3,10 @@
 Counterpart of ``ssip_tpu/pipelines/semi_supervised.py`` (reference
 src/training/semi_supervised.py:75-516):
 
-Phase A  baseline classifier on the strong labeled split
+(``--cv-folds``: the k-fold CV of ``pipelines/supervised.py`` first)
+Phase A  baseline classifier on the strong labeled split (with
+         ``--num-seeds > 1`` the seed fan-out's best lane, which then
+         pseudo-labels, as ``:165-182`` there)
 Phase B  pseudo-label the (optionally cohort-filtered) unlabeled pool at
          confidence ≥ 0.7 with a batched eval forward
 Phase C  fresh model, backbone frozen by a gradient mask (the model stays in
@@ -11,7 +14,8 @@ Phase C  fresh model, backbone frozen by a gradient mask (the model stays in
          on the pseudo-labels with a balanced sampler
 Phase D  everything unfrozen, a fresh optimizer at lr/2, fine-tune on the
          strong labels; with ``consistency_weight > 0`` the FixMatch
-         fine-tune of ``train/consistency.py``
+         fine-tune of ``train/consistency.py``, its strong view the jitter
+         or ``--strong-augment randaugment``
 Then: argmax and recall-first thresholded evaluation of both models,
 training histories (with split indices and the pseudo-label count), the two
 comparison tables, ``operating_point.json`` and the triage CSV over the full
@@ -25,11 +29,9 @@ With ``--resume`` each of the streams ``baseline``, ``semi_pretrain`` and
 ``semi_finetune`` (the FixMatch fine-tune or the plain one) snapshots every
 epoch and restores an interrupted run, as the JAX pipeline's do.
 
-Not ported yet, refused with an error naming the ROADMAP entry:
-``--strong-augment randaugment`` (item 18), and what
-``pipelines/supervised.py`` refuses. The eight figures of the JAX run are not drawn yet (ROADMAP Queue 1
-item 15d): matplotlib is not installed on the card's machine, where a figure
-call would stop the run.
+Not ported yet: what ``pipelines/supervised.py`` refuses. The eight figures
+of the JAX run are not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is
+not installed on the card's machine, where a figure call would stop the run.
 """
 
 from __future__ import annotations
@@ -46,13 +48,14 @@ import torch
 from ssip_tpu_torch.data.discovery import unlabeled_files
 from ssip_tpu_torch.ops.metrics import binary_confusion_metrics
 from ssip_tpu_torch.pipelines.supervised import (
-    _NOT_PORTED, build_classifier_state, prepare_datasets, refuse_unported, threshold_and_eval, write_results_csv,
+    build_classifier_state, check_cv_folds, prepare_datasets, refuse_unported, run_cross_validation,
+    threshold_and_eval, train_baseline, write_results_csv,
 )
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.runtime.device import configure_precision, device_label, resolve_device
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.train.checkpoints import save_checkpoint
-from ssip_tpu_torch.train.consistency import train_fixmatch
+from ssip_tpu_torch.train.consistency import check_strong_aug, train_fixmatch
 from ssip_tpu_torch.train.data import load_unlabeled_dataset
 from ssip_tpu_torch.train.engine import DeviceDataset, TrainState, head_only_mask, train_model
 from ssip_tpu_torch.train.pseudo_label import generate_pseudo_labels, pool_probabilities
@@ -94,16 +97,6 @@ def resolve_cohort_paths(cohort_csv: Path, weak_data_dir: Path) -> set[str]:
     return allowed
 
 
-def refuse_unported_semi(config: TrainingConfig) -> None:
-    """Raise for a setting whose code path the port does not have yet."""
-    refuse_unported(config)
-    if config.consistency_weight > 0 and config.strong_augment != "jitter":
-        raise ValueError(
-            f"--strong-augment {config.strong_augment} "
-            + _NOT_PORTED.format(item="Queue 1 item 18: ops/randaugment.py")
-        )
-
-
 def _cohort_keep_paths(config: TrainingConfig) -> Optional[List[Path]]:
     if config.unlabeled_cohort_csv is None:
         return None
@@ -122,7 +115,10 @@ def _cohort_keep_paths(config: TrainingConfig) -> Optional[List[Path]]:
 
 
 def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
-    refuse_unported_semi(config)
+    refuse_unported(config)
+    check_cv_folds(config)
+    if config.consistency_weight > 0:
+        check_strong_aug(config.strong_augment)
     if config.weak_data_dir is None:
         raise ValueError("semi-supervised pipeline requires weak_data_dir")
     device = resolve_device(config.device)
@@ -142,24 +138,11 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
             torch.cuda.synchronize(device)
         return time.time() - t0
 
+    if config.cv_folds:
+        run_cross_validation(config, datasets, len(classes), device)
+
     # ---- Phase A: baseline ------------------------------------------------
-    baseline_state = build_classifier_state(config, len(classes), config.learning_rate, device)
-    t0 = time.time()
-    baseline_state, baseline_history = train_model(
-        baseline_state,
-        datasets["train"],
-        datasets["val"],
-        num_epochs=config.baseline_epochs,
-        batch_size=config.batch_size,
-        seed=config.seed,
-        stream_name="baseline",
-        balanced=True,
-        augment=True,
-        early_stopping_patience=config.early_stopping_patience,
-        checkpoint_fn=lambda s: save_checkpoint(reg.baseline_checkpoint, s.model),
-        resume_path=config.resume_path("baseline"),
-    )
-    baseline_time = timed(t0)
+    baseline_state, baseline_history, baseline_time = train_baseline(config, datasets, len(classes), device)
     base = threshold_and_eval(baseline_state.model, datasets, config, pos_index, "baseline")
     base.arg_metrics["training_time_sec"] = baseline_time
     base.thr_metrics["training_time_sec"] = baseline_time
@@ -221,6 +204,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
             consistency_weight=config.consistency_weight,
             confidence_threshold=config.consistency_threshold,
             ema_decay=config.ema_decay,
+            strong_aug=config.strong_augment,
             early_stopping_patience=config.early_stopping_patience,
             resume_path=config.resume_path("semi_finetune"),
         )

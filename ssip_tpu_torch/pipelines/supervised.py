@@ -1,6 +1,6 @@
 """Supervised baseline pipeline (reference semantics: supervised.py:38-144).
 
-Counterpart of ``ssip_tpu/pipelines/supervised.py:39-105`` and ``:236-361``.
+Counterpart of ``ssip_tpu/pipelines/supervised.py:39-105`` and ``:108-361``.
 Flow: seeded stratified split (index for index the JAX package's) →
 ``--arch`` classifier (ResNet or ViT) trained by ``train/engine.py`` (balanced sampler, device
 augmentation, plateau LR, early stop, best-state checkpoint) → argmax test
@@ -17,8 +17,16 @@ the paths ``ArtifactRegistry`` names and with the JAX run's schemas.
 and restores an interrupted one (``train/checkpoints.py``); every ``--arch``
 of the JAX package trains, the MoE ViTs with their auxiliary losses.
 
-Not ported yet, refused with an error naming the ROADMAP entry: the seed and
-cross-validation fan-outs (item 18), tensor parallelism and FSDP (item 22).
+The fan-outs of ``train/multi_seed.py``: ``--num-seeds N`` trains seeds
+``seed … seed + N − 1`` and keeps the lane of least validation loss
+(``tables/seed_sweep.csv``, its checkpoint, its history); ``--cv-folds k``
+first trains k stratified folds of the train + val pool, each from the
+same init, and writes ``tables/cv_results.csv`` (one row a fold, then the
+mean and the ddof-0 std). Both tables are written with the ``csv`` module
+in the bytes pandas' ``to_csv(index=False)`` writes for the JAX run's rows.
+
+Not ported yet, refused with an error naming the ROADMAP entry: tensor
+parallelism and FSDP (item 22).
 The four training figures (``report/plots.py``) are
 not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is not installed on the
 card's machine, where a figure call would stop the run.
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import csv
 import json
+import math
 import os
 import time
 from dataclasses import dataclass
@@ -38,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ssip_tpu_torch.data.splits import split_dict
+from ssip_tpu_torch.data.splits import split_dict, stratified_kfold_indices
 from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import load_state_dict_arrays, read_torch_checkpoint, state_dict_from_flax
 from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
@@ -51,6 +60,7 @@ from ssip_tpu_torch.train.checkpoints import save_checkpoint
 from ssip_tpu_torch.train.data import load_labeled_dataset, subset
 from ssip_tpu_torch.train.engine import DeviceDataset, TrainState, train_model
 from ssip_tpu_torch.train.evaluate import evaluate_model
+from ssip_tpu_torch.train.multi_seed import train_multi_seed
 
 LOGGER = get_logger(__name__)
 
@@ -60,8 +70,6 @@ _NOT_PORTED = "is not ported to ssip_tpu_torch yet (ROADMAP.md, {item})"
 def refuse_unported(config: TrainingConfig) -> None:
     """Raise for a setting whose code path the port does not have yet."""
     for setting, on, item in (
-        ("--num-seeds > 1", config.num_seeds > 1, "Queue 1 item 18: seed and CV fan-out"),
-        ("--cv-folds", config.cv_folds != 0, "Queue 1 item 18: seed and CV fan-out"),
         ("--mesh-model > 1", config.mesh_model > 1, "Queue 1 item 22: parallelism"),
         ("--fsdp", config.mesh_fsdp, "Queue 1 item 22: parallelism"),
     ):
@@ -70,20 +78,29 @@ def refuse_unported(config: TrainingConfig) -> None:
     refuse_unported_arch(config.arch)
 
 
+def check_cv_folds(config: TrainingConfig) -> None:
+    if config.cv_folds and config.cv_folds < 2:
+        raise ValueError(f"--cv-folds must be >= 2 (or 0 to disable), got {config.cv_folds}")
+
+
 def build_classifier_state(
-    config: TrainingConfig, num_classes: int, learning_rate: float, device: torch.device
+    config: TrainingConfig, num_classes: int, learning_rate: float, device: torch.device,
+    seed: Optional[int] = None,
 ) -> TrainState:
     """Fresh classifier on ``device``: the seeded init with its ``fc`` head
     (bit for bit the JAX package's), or a ported torchvision backbone from
     ``--pretrained-weights`` / ``$SSIP_RESNET18_WEIGHTS`` with the fresh
     head (``fc``, or a ViT's ``heads.head``) kept. ``--remat`` checkpoints a
-    ViT's encoder blocks (``ssip_tpu/pipelines/supervised.py:53-56``)."""
+    ViT's encoder blocks (``ssip_tpu/pipelines/supervised.py:53-56``).
+    ``seed`` overrides ``config.seed`` for the init: each lane of the seed
+    fan-out has its own."""
     model = build_model(
         config.arch, num_classes=num_classes, compute_dtype=compute_dtype(config.compute_dtype),
         remat=config.remat, image_size=config.image_size,
     )
     arrays = state_dict_from_flax(
-        seeded_init_host(config.arch, config.seed, num_classes, image_size=config.image_size)
+        seeded_init_host(config.arch, config.seed if seed is None else seed, num_classes,
+                         image_size=config.image_size)
     )
     weights = config.pretrained_weights or os.environ.get(DEFAULT_WEIGHTS_ENV)
     if weights and Path(weights).exists():
@@ -123,6 +140,110 @@ def write_results_csv(path: Path, rows: Dict[str, Dict[str, Any]]) -> None:
         writer.writerow(["", *columns])
         for name, row in rows.items():
             writer.writerow([name, *(row.get(key) for key in columns)])
+
+
+def _column_cells(values: List[Any]) -> List[str]:
+    """One column's cells as pandas writes them: a column of integers with
+    a missing cell is float64 (``3.0``), floats in their shortest repr,
+    everything else by ``str``; a missing cell, None or NaN is empty."""
+    def missing(v):
+        return v is None or (isinstance(v, float) and math.isnan(v))
+
+    present = [v for v in values if not missing(v)]
+    numbers = all(isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, (bool, np.bool_))
+                  for v in present)
+    as_float = bool(present) and numbers and (
+        len(present) < len(values) or any(isinstance(v, (float, np.floating)) for v in present))
+    return ["" if missing(v) else repr(float(v)) if as_float else str(v) for v in values]
+
+
+def write_table_csv(path: Path, rows: List[Dict[str, Any]]) -> None:
+    """``pandas.DataFrame(rows).to_csv(path, index=False)``'s text for rows
+    of numbers, booleans and strings, without pandas: the union of the
+    rows' keys in first-seen order."""
+    columns: List[str] = []
+    for row in rows:
+        columns.extend(key for key in row if key not in columns)
+    cells = [_column_cells([row.get(key) for row in rows]) for key in columns]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh, lineterminator="\n")
+        writer.writerow(columns)
+        writer.writerows(zip(*cells))
+
+
+def train_baseline_multi_seed(
+    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device
+) -> Tuple[TrainState, Dict[str, List[float]], float]:
+    """``--num-seeds``: seeds ``seed + i`` trained side by side, the lane of
+    least validation loss (the reference's checkpoint criterion) kept and
+    saved as the baseline checkpoint; ``tables/seed_sweep.csv`` gets one
+    row a seed with its ``selected`` flag (``ssip_tpu/pipelines/
+    supervised.py:108-156``). Returns (best state, its history, seconds)."""
+    reg = config.artifacts
+    seeds = [config.seed + i for i in range(config.num_seeds)]
+    if config.resume:
+        LOGGER.warning("--resume is not supported with --num-seeds > 1; training without mid-run snapshots")
+    states = [build_classifier_state(config, num_classes, config.learning_rate, device, seed=s) for s in seeds]
+    t0 = time.time()
+    states, histories, summary = train_multi_seed(
+        states, datasets["train"], datasets["val"], seeds=seeds, num_epochs=config.baseline_epochs,
+        batch_size=config.batch_size, stream_name="baseline", balanced=True, augment=True,
+        early_stopping_patience=config.early_stopping_patience,
+    )
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_time = time.time() - t0
+    best_lane = int(np.argmin([row["best_val_loss"] for row in summary]))
+    for row in summary:
+        row["selected"] = row["seed"] == seeds[best_lane]
+    write_table_csv(reg.seed_sweep_csv, summary)
+    LOGGER.info(
+        "Seed sweep: best seed %d (val loss %.4f of %s)", seeds[best_lane], summary[best_lane]["best_val_loss"],
+        [round(r["best_val_loss"], 4) for r in summary],
+    )
+    save_checkpoint(reg.baseline_checkpoint, states[best_lane].model)
+    return states[best_lane], histories[best_lane], train_time
+
+
+def run_cross_validation(
+    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device
+) -> List[Dict[str, Any]]:
+    """``--cv-folds``: stratified k-fold over the train + val pool (the test
+    split held out), every fold from the same init, trained side by side;
+    writes and returns ``tables/cv_results.csv``'s rows (``ssip_tpu/
+    pipelines/supervised.py:159-236``)."""
+    reg = config.artifacts
+    pool = DeviceDataset.create(
+        torch.cat([datasets["train"].images_u8, datasets["val"].images_u8]),
+        np.concatenate([datasets["train"].labels, datasets["val"].labels]),
+    )
+    folds = stratified_kfold_indices(pool.labels, config.cv_folds, config.seed)
+    states = [build_classifier_state(config, num_classes, config.learning_rate, device) for _ in folds]
+    _, histories, summary = train_multi_seed(
+        states, pool, pool, seeds=[config.seed] * len(folds), num_epochs=config.baseline_epochs,
+        batch_size=config.batch_size, stream_name="cv", balanced=True, augment=True,
+        early_stopping_patience=config.early_stopping_patience,
+        lane_train_pools=[f[0] for f in folds], lane_val_pools=[f[1] for f in folds],
+    )
+    rows: List[Dict[str, Any]] = []
+    for f, (h, row, (tr, va)) in enumerate(zip(histories, summary, folds)):
+        best_ep = int(np.argmin(h["val_loss"]))
+        rows.append({
+            "fold": f, "n_train": len(tr), "n_val": len(va), "best_val_loss": row["best_val_loss"],
+            "val_acc": h["val_acc"][best_ep], "val_f1": h["val_f1"][best_ep],
+            "epochs_run": row["epochs_run"], "stopped_early": row["stopped_early"],
+        })
+    stats = ("best_val_loss", "val_acc", "val_f1")
+    columns = {k: np.array([row[k] for row in rows], np.float64) for k in stats}
+    rows.append({"fold": "mean", **{k: float(v.mean()) for k, v in columns.items()}})
+    rows.append({"fold": "std", **{k: float(v.std(ddof=0)) for k, v in columns.items()}})
+    write_table_csv(reg.cv_results_csv, rows)
+    LOGGER.info(
+        "%d-fold CV: val_acc %.3f ± %.3f, val_f1 %.3f ± %.3f → %s", len(folds), rows[-2]["val_acc"],
+        rows[-1]["val_acc"], rows[-2]["val_f1"], rows[-1]["val_f1"], reg.cv_results_csv,
+    )
+    return rows
 
 
 @dataclass
@@ -185,6 +306,7 @@ def threshold_and_eval(
 
 def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     refuse_unported(config)
+    check_cv_folds(config)
     device = resolve_device(config.device)
     configure_precision(config.compute_dtype)
     LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
@@ -197,7 +319,42 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         )
     pos_index = classes.index(config.positive_class)
 
-    state = build_classifier_state(config, len(classes), config.learning_rate, device)
+    if config.cv_folds:
+        run_cross_validation(config, datasets, len(classes), device)
+    state, history, train_time = train_baseline(config, datasets, len(classes), device)
+    evals = threshold_and_eval(
+        state.model, datasets, config, pos_index, "baseline", arg_extras={"training_time_sec": train_time}
+    )
+    arg_metrics, thr_metrics = evals.arg_metrics, evals.thr_metrics
+    thr_metrics["training_time_sec"] = train_time
+
+    write_results_csv(reg.results_comparison_csv, {"baseline_thresholded": thr_metrics})
+
+    # split indices for post-hoc tooling (the threshold sweep)
+    reg.notes_dir.mkdir(parents=True, exist_ok=True)
+    history_payload = {
+        "arch": config.arch,
+        "image_size": int(config.image_size),
+        "baseline": history,
+        "splits": {k: np.asarray(v).tolist() for k, v in splits.items()},
+    }
+    if config.num_seeds > 1:
+        history_payload["num_seeds"] = config.num_seeds
+    reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
+
+    return {"baseline_thresholded": thr_metrics, "baseline_argmax": arg_metrics}
+
+
+def train_baseline(
+    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device
+) -> Tuple[TrainState, Dict[str, List[float]], float]:
+    """The baseline classifier, the seed fan-out's best lane with
+    ``--num-seeds > 1``: (state at its best validation loss, history,
+    training seconds). Both pipelines' phase A."""
+    if config.num_seeds > 1:
+        return train_baseline_multi_seed(config, datasets, num_classes, device)
+    reg = config.artifacts
+    state = build_classifier_state(config, num_classes, config.learning_rate, device)
     t0 = time.time()
     state, history = train_model(
         state,
@@ -215,23 +372,4 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    train_time = time.time() - t0
-    evals = threshold_and_eval(
-        state.model, datasets, config, pos_index, "baseline", arg_extras={"training_time_sec": train_time}
-    )
-    arg_metrics, thr_metrics = evals.arg_metrics, evals.thr_metrics
-    thr_metrics["training_time_sec"] = train_time
-
-    write_results_csv(reg.results_comparison_csv, {"baseline_thresholded": thr_metrics})
-
-    # split indices for post-hoc tooling (the threshold sweep)
-    reg.notes_dir.mkdir(parents=True, exist_ok=True)
-    history_payload = {
-        "arch": config.arch,
-        "image_size": int(config.image_size),
-        "baseline": history,
-        "splits": {k: np.asarray(v).tolist() for k, v in splits.items()},
-    }
-    reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
-
-    return {"baseline_thresholded": thr_metrics, "baseline_argmax": arg_metrics}
+    return state, history, time.time() - t0

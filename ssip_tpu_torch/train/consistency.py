@@ -23,11 +23,13 @@ One step, in the JAX step's order of effects on the BatchNorm statistics:
    ``ema = d·ema + (1 − d)·params`` (parameters only: the statistics are the
    live ones).
 
-The strong view's rotation is the CUDA kernel of ``ops/rotate.py:
-rotate_images`` on the card; the labeled view's is ``augment_images``.
-The strong view is the JAX step's ``strong_aug="jitter"``; ``"randaugment"``
-and the mesh are not ported; the whole-epoch ``lax.scan`` is a Python loop
-of steps. ``resume_path`` snapshots the student every epoch, as
+The strong view is the JAX step's ``strong_aug`` (``:59-66``): the
+jitter, whose rotation is the CUDA kernel of ``ops/rotate.py:
+rotate_images`` on the card, or ``"randaugment"``, the FixMatch paper's
+RandAugment + Cutout policy of ``ops/randaugment.py`` (plain PyTorch, as
+the JAX package computes it in plain XLA); the labeled view's rotation is
+``augment_images``. The mesh is not ported; the whole-epoch ``lax.scan``
+is a Python loop of steps. ``resume_path`` snapshots the student every epoch, as
 ``train_model`` does (``:295-400``); with an EMA teacher the resumed run
 reseeds the average from the ``.best`` sidecar, which holds the EMA
 parameters, the JAX package's approximation.
@@ -48,9 +50,10 @@ from torch import nn
 from ssip_tpu_torch.data.splits import balanced_epoch_indices
 from ssip_tpu_torch.ops.augment import augment_coeffs, strong_augment, weak_augment
 from ssip_tpu_torch.ops.metrics import accuracy_f1
+from ssip_tpu_torch.ops.randaugment import draws_geometry, strong_augment_randaugment
 from ssip_tpu_torch.ops.rotate import augment_images
 from ssip_tpu_torch.runtime.logging import get_logger
-from ssip_tpu_torch.runtime.prng import fixmatch_draws, host_rng
+from ssip_tpu_torch.runtime.prng import RandAugmentDraws, fixmatch_draws, host_rng
 from ssip_tpu_torch.train.checkpoints import Snapshot, check_snapshot_format, restore_resume_state, save_train_snapshot
 from ssip_tpu_torch.train.engine import (
     ROTATE_DEGREES, DeviceDataset, TrainState, aux_loss_terms, get_lr, masked_cross_entropy, run_eval_epoch, set_lr,
@@ -60,38 +63,77 @@ from ssip_tpu_torch.train.engine import (
 LOGGER = get_logger(__name__)
 
 
+STRONG_AUGS = ("jitter", "randaugment")
+
+
+def check_strong_aug(strong_aug: str) -> None:
+    if strong_aug not in STRONG_AUGS:
+        raise ValueError(f"unknown strong_aug {strong_aug!r}")
+
+
 @dataclass
 class ViewDraws:
     """The three views' draws as tensors on the device: of one step, or
-    stacked along a leading step axis (index it to get one step's)."""
+    stacked along a leading step axis (index it to get one step's). The
+    strong view has the jitter's three fields, or ``randaugment`` with its
+    ``randaugment_geo`` and the three None."""
 
     sup_coeffs: torch.Tensor  # int32 [3, B], ``augment_coeffs`` of the labeled batch
     weak_flip: torch.Tensor  # bool [U]
-    strong_coeffs: torch.Tensor  # int32 [3, U]
-    brightness: torch.Tensor  # float32 [U]
-    contrast: torch.Tensor  # float32 [U]
+    strong_coeffs: Optional[torch.Tensor]  # int32 [3, U]
+    brightness: Optional[torch.Tensor]  # float32 [U]
+    contrast: Optional[torch.Tensor]  # float32 [U]
+    randaugment: Optional[RandAugmentDraws] = None  # of tensors
+    randaugment_geo: Optional[torch.Tensor] = None  # int32 [L, 6, U], ``ops/randaugment.py:geometry``
+
+    def _map(self, fn) -> "ViewDraws":
+        def one(value):
+            if value is None:
+                return None
+            return value.map(fn) if isinstance(value, RandAugmentDraws) else fn(value)
+
+        return ViewDraws(*(one(getattr(self, f.name)) for f in fields(self)))
 
     def __getitem__(self, step: int) -> "ViewDraws":
-        return ViewDraws(*(getattr(self, f.name)[step] for f in fields(self)))
+        return self._map(lambda t: t[step])
 
     def to(self, device: torch.device) -> "ViewDraws":
-        return ViewDraws(*(getattr(self, f.name).to(device) for f in fields(self)))
+        return self._map(lambda t: t.to(device))
 
 
 def epoch_view_draws(
-    seed: int, stream: str, epoch: int, steps: int, batch: int, unlabeled_batch: int, device: torch.device
+    seed: int, stream: str, epoch: int, steps: int, batch: int, unlabeled_batch: int, device: torch.device,
+    strong_aug: str = "jitter", image_size: Optional[Tuple[int, int]] = None,
 ) -> ViewDraws:
     """Every step's draws of one epoch (``runtime/prng.py:fixmatch_draws``),
-    stacked and sent to ``device`` in one copy each."""
-    draws = [fixmatch_draws(seed, stream, epoch, s, batch, unlabeled_batch, ROTATE_DEGREES) for s in range(steps)]
+    stacked and sent to ``device`` in one copy each. RandAugment's warp
+    matrices are made here on the host, from the draws, for images of
+    ``image_size`` (H, W)."""
+    draws = [fixmatch_draws(seed, stream, epoch, s, batch, unlabeled_batch, ROTATE_DEGREES, strong_aug, image_size)
+             for s in range(steps)]
+    sup = np.stack([augment_coeffs(d.sup_flip, d.sup_angles) for d in draws])
+    weak = np.stack([d.weak_flip for d in draws])
+    if strong_aug == "randaugment":
+        ra = RandAugmentDraws(*(np.stack(column) for column in zip(*(
+            [getattr(d.randaugment, f.name) for f in fields(RandAugmentDraws)] for d in draws))))
+        view = ViewDraws(torch.from_numpy(sup), torch.from_numpy(weak), None, None, None,
+                         ra.map(torch.from_numpy), torch.from_numpy(draws_geometry(ra, *image_size)))
+        return view.to(device)
     stacked = (
-        np.stack([augment_coeffs(d.sup_flip, d.sup_angles) for d in draws]),
-        np.stack([d.weak_flip for d in draws]),
+        sup, weak,
         np.stack([augment_coeffs(d.strong_flip, d.strong_angles) for d in draws]),
         np.stack([d.brightness for d in draws]),
         np.stack([d.contrast for d in draws]),
     )
     return ViewDraws(*map(torch.from_numpy, stacked)).to(device)
+
+
+def strong_view(unlabeled_u8: torch.Tensor, draws: ViewDraws, dtype) -> torch.Tensor:
+    """The step's strong view: RandAugment when its draws are there, else
+    the jitter."""
+    if draws.randaugment is not None:
+        return strong_augment_randaugment(unlabeled_u8, draws.randaugment, dtype, draws.randaugment_geo)
+    return strong_augment(unlabeled_u8, draws.strong_coeffs, draws.brightness, draws.contrast, dtype)
 
 
 @contextmanager
@@ -149,7 +191,7 @@ def fixmatch_step(
     dtype = model.compute_dtype
     x_sup = augment_images(images_u8, draws.sup_coeffs, dtype)
     x_weak = weak_augment(unlabeled_u8, draws.weak_flip, dtype)
-    x_strong = strong_augment(unlabeled_u8, draws.strong_coeffs, draws.brightness, draws.contrast, dtype)
+    x_strong = strong_view(unlabeled_u8, draws, dtype)
 
     model.eval()
     with torch.no_grad(), swapped_parameters(model, ema_params):
@@ -192,6 +234,7 @@ def train_fixmatch(
     plateau_patience: int = 2,
     plateau_factor: float = 0.5,
     ema_decay: float = 0.0,
+    strong_aug: str = "jitter",
     resume_path: Optional[Path] = None,
 ) -> Tuple[TrainState, Dict[str, List[float]]]:
     """Epoch loop with ``train_model``'s control flow plus consistency.
@@ -207,6 +250,7 @@ def train_fixmatch(
     (EMA parameters), an approximation that re-converges within about
     1/(1 − d) steps, as in the JAX package.
     """
+    check_strong_aug(strong_aug)
     if not 0.0 <= ema_decay < 1.0:
         raise ValueError(f"ema_decay={ema_decay} must be in [0, 1)")
     model = state.model
@@ -250,7 +294,8 @@ def train_fixmatch(
         steps = pidx.shape[0]
         u_rng = host_rng(seed, f"{stream_name}/unlabeled/{epoch}")
         u_idx = u_rng.integers(0, n_unlabeled, size=(steps, unlabeled_batch_size))
-        draws = epoch_view_draws(seed, stream_name, epoch, steps, batch_size, unlabeled_batch_size, dev)
+        draws = epoch_view_draws(seed, stream_name, epoch, steps, batch_size, unlabeled_batch_size, dev,
+                                 strong_aug, tuple(unlabeled_images.shape[1:3]))
         pidx_dev = torch.from_numpy(pidx.astype(np.int64)).to(dev)
         valid_dev = torch.from_numpy(valid).to(dev)
         u_idx_dev = torch.from_numpy(u_idx.astype(np.int64)).to(dev)

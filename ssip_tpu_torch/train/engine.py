@@ -3,7 +3,8 @@
 Counterpart of ``ssip_tpu/train/engine.py``: the train state and optimizer
 (``:38-86``), the step (``_step_core``, ``:89-142``), the epoch plan
 (``:253-347``), the eval epoch (``:379-419``) and the epoch driver
-(``train_model``, ``:422-610``).
+(``train_model``, ``:422-610``). ``train/multi_seed.py`` runs several
+such drivers side by side.
 
 - One step: train augment (the CUDA kernel of ``ops/rotate.py`` on the
   card) or the eval normalize, the train-mode forward (masked BatchNorm in
@@ -217,6 +218,8 @@ def epoch_plan(
     stream_name: str,
     balanced: bool,
     batch_size: int,
+    pool: Optional[np.ndarray] = None,
+    num_samples: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One epoch's plan: (pidx [steps, B], valid [steps, B], coeffs
     int32 [steps, 3, B]).
@@ -224,12 +227,22 @@ def epoch_plan(
     The index and valid arrays are ``ssip_tpu``'s ``epoch_plan``'s, bit for
     bit; the augmentation keys become ``runtime/prng.py:augment_draws`` of
     the same (seed, stream, epoch, step).
+
+    ``pool``: sample only these dataset indices (a cross-validation fold of
+    one shared dataset); the returned ``pidx`` are dataset indices.
+    ``num_samples``: the epoch's length in place of the pool's (the CV
+    fan-out gives every fold the largest fold's length).
     """
-    labels = train_dataset.labels
+    labels = train_dataset.labels if pool is None else train_dataset.labels[pool]
+    n = len(labels) if num_samples is None else int(num_samples)
     if balanced:
-        order = balanced_epoch_indices(labels, seed=seed, epoch=epoch, num_samples=len(labels))
+        order = balanced_epoch_indices(labels, seed=seed, epoch=epoch, num_samples=n)
     else:
         order = host_rng(seed, f"shuffle/{stream_name}/{epoch}").permutation(len(labels))
+        if num_samples is not None:
+            order = np.resize(order, n)  # truncated or cycled to n
+    if pool is not None:
+        order = np.asarray(pool)[order]
     pidx, valid = stacked_epoch(order, batch_size)
     coeffs = np.stack([
         augment_coeffs(*augment_draws(seed, stream_name, epoch, step, batch_size, ROTATE_DEGREES))

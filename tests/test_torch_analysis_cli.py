@@ -28,6 +28,7 @@ from ssip_tpu_torch.cli import clustering as port_clustering
 from ssip_tpu_torch.cli import data_audit as port_audit
 from ssip_tpu_torch.cli import export_unlabeled_cohort as port_cohort
 from ssip_tpu_torch.cli import standardize_features as port_standardize
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CLUSTER_ARGS = [

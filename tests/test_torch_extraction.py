@@ -26,6 +26,7 @@ from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import state_dict_from_flax
 from ssip_tpu_torch.models.resnet import build_resnet
 from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, _resolve_weights, run_extraction
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

@@ -34,6 +34,7 @@ from ssip_tpu_torch.models.port import flax_from_state_dict, load_flax_variables
 from ssip_tpu_torch.models.registry import PORTED_ARCHS, build_model
 from ssip_tpu_torch.train import consistency, engine
 from ssip_tpu_torch.ops.augment import augment_coeffs
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

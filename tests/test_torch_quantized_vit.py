@@ -50,6 +50,7 @@ from ssip_tpu_torch.models.quantized_vit import SITES, patches, quantize_vit_ext
 from ssip_tpu_torch.models.registry import build_model
 from ssip_tpu_torch.ops.quant import quantize
 from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

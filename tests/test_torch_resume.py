@@ -24,6 +24,7 @@ from ssip_tpu_torch.models.port import load_flax_variables
 from ssip_tpu_torch.models.registry import build_model
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.train import checkpoints, consistency, engine
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 
@@ -32,6 +33,16 @@ COMMON = dict(batch_size=8, seed=42, stream_name="resume_test", balanced=True, a
               early_stopping_patience=10)
 FIXMATCH = dict(batch_size=8, unlabeled_batch_size=8, seed=42, stream_name="semi_finetune",
                 consistency_weight=1.0, confidence_threshold=0.5, early_stopping_patience=10)
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(request):
+    """Each test's tmp_path goes when the test ends: a full-width snapshot
+    is 134 MB."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
 
 
 def _state(lr: float = 1e-3) -> engine.TrainState:

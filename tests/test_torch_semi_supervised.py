@@ -41,6 +41,7 @@ from ssip_tpu_torch.train.checkpoints import load_checkpoint
 from ssip_tpu_torch.train.data import load_unlabeled_dataset
 from tests.test_torch_train import _kink_free, _rel
 from tests.test_torch_vit import SMALL, _small_tree
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 
@@ -359,10 +360,10 @@ def test_phase_c_moves_only_the_head_and_the_statistics(runs, monkeypatch):
 @pytest.mark.parametrize(
     "argv,item",
     [
-        (["--consistency-weight", "1.0", "--strong-augment", "randaugment"], "item 18"),
+        (["--consistency-weight", "1.0", "--strong-augment", "randaugment"], None),
         (["--resume"], None),
-        (["--num-seeds", "2"], "item 18"),
-        (["--cv-folds", "3"], "item 18"),
+        (["--num-seeds", "2"], None),
+        (["--cv-folds", "3"], None),
         (["--mesh-model", "2"], "item 22"),
         (["--fsdp"], "item 22"),
         (["--arch", "vit_moe_t16"], None),
@@ -370,9 +371,11 @@ def test_phase_c_moves_only_the_head_and_the_statistics(runs, monkeypatch):
 )
 def test_cli_refuses_unported_flags(runs, tmp_path, argv, item):
     """A flag whose code path the port lacks is refused with its ROADMAP
-    item; the ported ones (``--resume``, the MoE archs) run the pipeline
-    for one epoch a phase and write its artifacts: the history names the
-    arch, and ``--resume`` leaves the three streams' snapshots."""
+    item; the ported ones (RandAugment, ``--resume``, the fan-outs, the MoE
+    archs) run the pipeline for one epoch a phase and write its artifacts:
+    the history names the arch, ``--resume`` leaves the three streams'
+    snapshots, ``--num-seeds`` the seed sweep and ``--cv-folds`` the CV
+    table; RandAugment's FixMatch fine-tune writes the semi checkpoint."""
     if item is None:
         root, out = runs[0], tmp_path / "o"
         cli.main(["--strong-data-dir", str(root / "avec_labels"), "--weak-data-dir", str(root / "sans_label"),
@@ -384,6 +387,13 @@ def test_cli_refuses_unported_flags(runs, tmp_path, argv, item):
         assert all(np.isfinite(payload[s]["train_loss"]).all() for s in ("baseline", "semi_pretrain", "semi_finetune"))
         for stream in ("baseline", "semi_pretrain", "semi_finetune"):
             assert (out / "models" / "checkpoints" / f"{stream}.torchsnap").exists() == (argv == ["--resume"])
+        sweep, cv = out / "tables" / "seed_sweep.csv", out / "tables" / "cv_results.csv"
+        assert sweep.exists() == (argv[0] == "--num-seeds") and cv.exists() == (argv[0] == "--cv-folds")
+        if argv[0] == "--num-seeds":
+            assert [r["seed"] for r in csv.DictReader(sweep.read_text().splitlines())] == ["42", "43"]
+        if argv[0] == "--cv-folds":
+            assert [r["fold"] for r in csv.DictReader(cv.read_text().splitlines())] == ["0", "1", "2", "mean", "std"]
+        assert (out / "models" / "semi_resnet18.pt").is_file()
         return
     with pytest.raises(ValueError, match=rf"not ported to ssip_tpu_torch yet \(ROADMAP\.md, Queue 1 {item}"):
         cli.main(["--strong-data-dir", str(tmp_path / "missing"), "--weak-data-dir", str(tmp_path / "missing"),

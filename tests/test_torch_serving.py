@@ -35,6 +35,7 @@ from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
 from ssip_tpu_torch.serving import ScreeningPredictor, load_serving_bundle
 from ssip_tpu_torch.train.checkpoints import save_checkpoint
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

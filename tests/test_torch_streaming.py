@@ -21,6 +21,7 @@ from ssip_tpu_torch.native import build as native_build
 from ssip_tpu_torch.native import decoder as native
 from ssip_tpu_torch.pipelines import extraction as port_extraction
 from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -27,6 +27,7 @@ from ssip_tpu_torch.models.resnet import build_resnet
 from ssip_tpu_torch.ops import metrics
 from ssip_tpu_torch.pipelines.supervised import TrainingConfig, run_supervised
 from ssip_tpu_torch.train.checkpoints import load_checkpoint
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 
@@ -201,8 +202,8 @@ def test_jax_threshold_sweep_consumes_the_port_outputs(port_run, capsys):
     "argv,item",
     [
         (["--resume"], None),
-        (["--num-seeds", "2"], "item 18"),
-        (["--cv-folds", "3"], "item 18"),
+        (["--num-seeds", "2"], None),
+        (["--cv-folds", "3"], None),
         (["--mesh-model", "2"], "item 22"),
         (["--fsdp"], "item 22"),
         (["--arch", "vit_moe_t16"], None),
@@ -211,9 +212,10 @@ def test_jax_threshold_sweep_consumes_the_port_outputs(port_run, capsys):
 )
 def test_cli_refuses_unported_flags(port_run, tmp_path, argv, item):
     """A flag whose code path the port lacks is refused with its ROADMAP
-    item; the ported ones (``--resume``, the MoE archs) run one epoch and
-    write their artifacts: the history names the arch, and ``--resume``
-    leaves the stream's snapshot."""
+    item; the ported ones (``--resume``, the fan-outs, the MoE archs) run
+    one epoch and write their artifacts: the history names the arch,
+    ``--resume`` leaves the stream's snapshot, ``--num-seeds`` the seed
+    sweep and ``--cv-folds`` the CV table."""
     if item is None:
         out = tmp_path / "o"
         cli.main(["--strong-data-dir", str(port_run[0]), "--device", "cpu", "--image-size", "32", "--batch-size", "4",
@@ -222,6 +224,13 @@ def test_cli_refuses_unported_flags(port_run, tmp_path, argv, item):
         assert payload["arch"] == (argv[1] if argv[0] == "--arch" else "resnet18")
         assert len(payload["baseline"]["train_loss"]) == 1 and np.isfinite(payload["baseline"]["train_loss"]).all()
         assert (out / "models" / "checkpoints" / "baseline.torchsnap").exists() == (argv == ["--resume"])
+        sweep, cv = out / "tables" / "seed_sweep.csv", out / "tables" / "cv_results.csv"
+        assert sweep.exists() == (argv[0] == "--num-seeds") and cv.exists() == (argv[0] == "--cv-folds")
+        if argv[0] == "--num-seeds":
+            rows = pd.read_csv(sweep)
+            assert rows["seed"].tolist() == [42, 43] and rows["selected"].sum() == 1 and payload["num_seeds"] == 2
+        if argv[0] == "--cv-folds":
+            assert pd.read_csv(cv)["fold"].astype(str).tolist() == ["0", "1", "2", "mean", "std"]
         return
     with pytest.raises(ValueError, match=rf"not ported to ssip_tpu_torch yet \(ROADMAP\.md, Queue 1 {item}"):
         cli.main(["--strong-data-dir", str(tmp_path / "missing"), "--device", "cpu", *argv])

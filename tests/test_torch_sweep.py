@@ -31,6 +31,7 @@ from ssip_tpu_torch.pipelines.sweep import SweepConfig, run_sweep, write_sweep_c
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.train.data import subset
 from ssip_tpu_torch.train.engine import run_eval_epoch
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 PROB_TOL = 1e-4
 

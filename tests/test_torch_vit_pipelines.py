@@ -24,6 +24,7 @@ from ssip_tpu_torch.models.registry import build_model
 from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
 from ssip_tpu_torch.pipelines.supervised import TrainingConfig, run_supervised
 from ssip_tpu_torch.train.checkpoints import load_checkpoint
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 torch.set_num_threads(2)
 

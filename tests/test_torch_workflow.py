@@ -25,6 +25,7 @@ import pytest
 from ssip_tpu_torch.cli import clustering, data_audit, export_model, export_unlabeled_cohort, feature_extraction
 from ssip_tpu_torch.cli import semi_supervised_training, standardize_features, supervised_training, threshold_sweep
 from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
+from tests.test_torch_temp_dirs import remove_temp_dirs  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 CPU = ["--device", "cpu"]
