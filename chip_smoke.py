@@ -4,7 +4,8 @@ threshold sweep, the analysis stack, serving and export, and the whole workflow
 once on one NVIDIA GPU, for the ResNet family, the ViT family and the MoE ViT,
 int8 extraction included, with resumed training, the streamed extraction
 shape, the seed and cross-validation fan-outs, FixMatch's RandAugment strong
-view and the folded-BN extraction.
+view, the folded-BN extraction, and data parallelism (FSDP, two ranks on the
+card, ``--shard-size``, the sharded snapshots).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -127,19 +128,20 @@ non-zero without printing the final line:
            sublayer at batch 128, float32 and bfloat16, against the packed
            pair on the same values;
 5. cli     the extraction CLI on a small 512² JPEG tree (needs Pillow), with
-           resnet18, with vit_t16 and with vit_t16 in int8;
+           resnet18 in bfloat16 and with vit_t16 in int8;
 6. train   a seeded 100-image 512² JPEG tree ``avec_labels/{cancer,normal}``
            (50 + 50) through ``run_supervised`` on cuda at 224², 2 classes,
            batch 16, target recall 0.9: resnet18 for 1 epoch in float32
            (TF32 off) and bfloat16, vit_b16 for 1 epoch in bfloat16 and in
-           float32. Every artifact is written, the history holds finite
+           float32, vit_t16 (width 192, 3 heads) for 1 epoch in bfloat16.
+           Every artifact is written, the history holds finite
            losses, the ``.pt`` loads into the port's model, the split indices
            are those of the CPU split, and the kernels launched (for vit_b16
            25 + 25 LayerNorm and 12 + 12 attention launches per train step);
-           then the training CLI for 1 epoch as a subprocess (resnet18,
-           vit_t16); and vit_b16 past 224² (``vit_long``): 1 epoch at 256²
+           and vit_b16 past 224² (``vit_long``): 1 epoch at 256²
            (257 tokens) and 512² (1,025) in bfloat16 and at 512² in float32,
-           then the CLI at 256², with the same checks;
+           with the same checks (the training CLI runs in ``workflow`` and
+           ``dp``);
 7. step    one train step on cuda against the same step on the CPU
            (float32, TF32 off, batch 8 with one padded row, 224², same
            weights, batch and draws). resnet18: loss ≤ 1e-5 relative and BN
@@ -153,8 +155,11 @@ non-zero without printing the final line:
            arch the steady-state step at batch 128 in bfloat16 and float32
            (3 warm-up steps, 10 timed with CUDA events): imgs/s, ms per
            step, peak device memory, launches per step; then 10 more steps
-           under ``torch.profiler``: device time by layer, the top kernels
-           and the idle share;
+           under ``torch.profiler`` (device kernels only, after a lead-in
+           step and a 50 ms sleep, cut at the trace's largest gap, which
+           must be the sleep: tracing the host's ops too slows the
+           host-bound steps it reads): device time by layer, the top
+           kernels and the idle share;
 8. semi    the same labeled tree plus a flat ``sans_label/`` pool of 256
            seeded 512² JPEGs through ``run_pipeline`` (baseline → pseudo-label
            → head-only pretrain → FixMatch fine-tune with an EMA teacher) on
@@ -167,8 +172,7 @@ non-zero without printing the final line:
            FixMatch step and one ``augment_images`` launch per augmented
            step, and for vit_b16 2 × 25 LayerNorm and 2 × 12 attention
            backward launches per FixMatch step and none in the head-only
-           pretrain; then the semi-supervised CLI
-           for one epoch per phase as a subprocess (resnet18, vit_t16);
+           pretrain (the semi-supervised CLI runs in ``workflow``);
    serve   from the run directories of ``semi`` (resnet18 float32,
            vit_b16 bfloat16): the card's resize of 128 pool JPEGs 512→224
            against the CPU's (values off counted), ``ScreeningPredictor`` on
@@ -246,8 +250,8 @@ non-zero without printing the final line:
            f32, 25 LayerNorm and 12 attention launches a forward, a profiled
            bf16 run; bf16 vs f32 cosine > 0.98 per image and > 0.995 on
            average, ``MOE_COSINE_FLOOR``: a top-1 choice that flips under
-           bf16 sends a token to another expert, in the JAX package too); ``run_supervised`` in bf16 and its
-           CLI; ``run_pipeline`` with the FixMatch fine-tune in bf16; the
+           bf16 sends a token to another expert, in the JAX package too); ``run_supervised`` in bf16;
+           ``run_pipeline`` with the FixMatch fine-tune in bf16; the
            ``[semi]`` MoE run through ``export_model`` (f32 and bf16 against
            the in-process predictor) and ``predict``; one f32 train step
            cuda vs CPU at batch 4 (the loss with the aux term, the aux term,
@@ -286,8 +290,29 @@ non-zero without printing the final line:
            the resident ones), ``fast_decode`` twice (equal; cosine to the
            exact path printed); the preprocess kernel at 224² → 224 (scale 1)
            bit for bit against its plain version;
-17. imports no jax module and no module of the JAX package;
-18. a ``[seconds]`` line (each phase's seconds), the kernels JSON line (all
+17. dp      data parallelism (``ssip_tpu_torch/parallel/``): (c)
+           ``--shard-size 512`` through the extraction CLI on the workflow's
+           1,506 JPEGs (resnet18 f32, batch 128), then again with the last
+           manifest removed: 3 shards, 2 reused, 1 recomputed, embeddings
+           against the single-shot run's (bitwise expected: the same
+           batches); (d) ``SSIP_SNAPSHOT_FORMAT=orbax``: resnet18 f32
+           ``run_supervised`` cut after 2 of 4 epochs and resumed from a
+           ``torch.distributed.checkpoint`` directory under cuDNN's
+           deterministic mode, the restore bitwise and the resumed run
+           bitwise an uninterrupted one, as is a resume from the file form
+           at the same point; (b) two gloo ranks sharing the
+           card, the resnet18 f32 step at 2 × 64 against one process at 128
+           for 3 steps (losses 1e-5, BatchNorm statistics after the first
+           step 1e-4, the state after the third inside the JAX
+           final-parameter bound); (a) ``--fsdp`` at world size 1 over NCCL:
+           the supervised CLI under ``torch.distributed.run --standalone``
+           (vit_b16 and resnet18, bf16, batch 128, 1 epoch; the gathered
+           ``.pt`` loads), and in process one bf16 step at 128 with and
+           without FSDP (the same contiguous parameter layout), bitwise or
+           within twice the card's run-to-run spread (two plain steps),
+           then each timed with its peak memory;
+18. imports no jax module and no module of the JAX package;
+19. a ``[seconds]`` line (each phase's seconds), the kernels JSON line (all
     eleven kernels), then ``{"ok": true, "device": {...}}`` last.
 
 The ``host`` line, printed first after ``env``, says whether pandas and
@@ -305,7 +330,9 @@ and fails if the run loaded jax, flax, optax or any module of the JAX package
 
 from __future__ import annotations
 
+import copy
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -538,7 +565,12 @@ WORKFLOW_EPOCHS = (1, 1, 1)  # baseline, weak pretrain, fine-tune (run_full_work
 
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    """One output line; ``t`` is the seconds since the script started."""
+    fields["t"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -1193,7 +1225,8 @@ def phase_attention_kernels(torch, np) -> dict:
         fwd_bound = bound_ms((qkv.numel() + out.numel()) * item, 4 * b * heads * s * kv * dh, ops_type)
         bwd_bound = bound_ms((2 * qkv.numel() + d_o.numel()) * item, 10 * b * heads * s * kv * dh, ops_type)
         device = {}
-        if (b, s, heads, kv_len, dtype_name) in ATTN_SHAPES[:2]:  # the main shape, both types
+        # the main shape in both types, and the MoE width (rows 9-10's device times there)
+        if (b, s, heads, kv_len, dtype_name) in ATTN_SHAPES[:2] + ATTN_SHAPES[-1:]:
             device = _attention_device_times(
                 torch, "attn", f"{b}x{s}x{3 * d}", dtype_name,
                 (lambda: fused_attention_qkv(qkv, heads, kv_len),
@@ -1871,7 +1904,8 @@ def phase_int8_resnet(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense:
 
 
 def phase_cli(np, tmp: Path) -> None:
-    """The extraction CLI as a subprocess, with a ResNet and with a ViT."""
+    """The extraction CLI as a subprocess, with a ResNet in bfloat16 and a ViT
+    in int8 (the extraction CLI runs in process in ``workflow`` and ``dp``)."""
     from PIL import Image
 
     data = tmp / "jpegs"
@@ -1880,7 +1914,7 @@ def phase_cli(np, tmp: Path) -> None:
                 "sans_label/c.jpg", "sans_label/d.jpg"):
         (data / rel).parent.mkdir(parents=True, exist_ok=True)
         Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(data / rel)
-    for arch, width, dtype in (("resnet18", 512, "bfloat16"), ("vit_t16", 192, "bfloat16"), ("vit_t16", 192, "int8")):
+    for arch, width, dtype in (("resnet18", 512, "bfloat16"), ("vit_t16", 192, "int8")):
         out = tmp / f"cli_out_{arch}_{dtype}"
         subprocess.run(
             [sys.executable, "-m", "ssip_tpu_torch.cli.feature_extraction", "--data-dir", str(data),
@@ -1911,12 +1945,9 @@ def make_train_tree(np, tmp: Path) -> Path:
     return data
 
 
-def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: str, runs, cli_arch: str,
-                cli_size: int = 0, tag: str = "train") -> None:
+def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: str, runs, tag: str = "train") -> None:
     """``run_supervised`` of ``arch`` on the JPEG tree, once per
-    (compute type, epochs[, image size]) of ``runs`` (224² unless given),
-    then the training CLI with ``cli_arch`` for one epoch (at ``cli_size``
-    when given)."""
+    (compute type, epochs[, image size]) of ``runs`` (224² unless given)."""
     from ssip_tpu_torch.data.discovery import labeled_folder
     from ssip_tpu_torch.data.splits import split_dict
     from ssip_tpu_torch.models.registry import build_model
@@ -1956,7 +1987,7 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
         load_checkpoint(reg.baseline_checkpoint, model)
         steps = epochs * steps_per_epoch
         want = {"augment_images": steps}
-        if arch in VIT_FAMILY:
+        if arch.startswith("vit"):  # every ViT the repo trains is 12 blocks deep
             want.update(layer_norm_bwd=steps * VIT_LN_PER_FORWARD, attention_qkv_bwd=steps * VIT_ATTN_PER_FORWARD)
             # every forward, train or eval, is 25 LayerNorm and 12 attention launches
             forwards = launches["attention_qkv"] // VIT_ATTN_PER_FORWARD
@@ -1972,21 +2003,6 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
             val_loss=f"{hist['val_loss'][-1]:.4f}", test_f1=f"{thr['f1']:.4f}",
             threshold=f"{thr['threshold']:.4f}", csv_columns=len(header.split(",")) - 1,
             launches={k: v for k, v in launches.items() if v})
-
-    out = tmp / f"train_cli_out_{cli_arch}_{cli_size}"
-    subprocess.run(
-        [sys.executable, "-m", "ssip_tpu_torch.cli.supervised_training", "--strong-data-dir", str(data),
-         "--device", "cuda", "--baseline-epochs", "1", "--target-recall", "0.9", "--arch", cli_arch,
-         "--output-dir", str(out), *(["--image-size", str(cli_size)] if cli_size else [])],
-        cwd=Path(__file__).resolve().parent, check=True, timeout=600,
-    )
-    payload = json.loads((out / "notes" / "training_history.json").read_text())
-    hist = payload["baseline"]
-    if (len(hist["val_loss"]) != 1 or payload["arch"] != cli_arch or payload["image_size"] != (cli_size or TRAIN_SIZE)
-            or not np.isfinite(hist["val_loss"]).all() or not (out / "models" / "baseline_resnet18.pt").is_file()):
-        raise AssertionError(f"train cli {cli_arch}: history {hist}")
-    say(tag, cli="supervised_training", arch=cli_arch, image_size=payload["image_size"], epochs=1,
-        val_loss=f"{hist['val_loss'][0]:.4f}")
 
 
 def _seeded_state(torch, device, dtype, arch: str = "resnet18", kink_free: bool = False, remat: bool = False):
@@ -2053,10 +2069,22 @@ _INT8_PROFILE_CLASSES = (
 )
 
 
-def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE_CLASSES, start_at=None) -> None:
+PROFILE_LEAD_IN_GAP_S = 0.05
+
+
+def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE_CLASSES, start_at=None,
+                       steps: int = 0) -> None:
     """Device time of the profiled steps by layer and by kernel, and the
     idle share of the window. ``start_at``: a kernel-name fragment; kernels
-    before the first kernel that holds it are left out."""
+    before the first kernel that holds it are left out. ``steps``: the
+    session opened with a lead-in step the window does not count (a session
+    that is not the process's first can lose its first records), then a
+    sleep of ``PROFILE_LEAD_IN_GAP_S``, then ``steps`` timed steps; kernels
+    up to the trace's largest gap are left out. That gap must be the sleep:
+    at least 0.9 of its length (the clocks of host and card), with no more
+    kernels before it than 1.1 kept steps have (the cut did not land inside
+    the timed steps; the MoE FixMatch step's count varies by about 1 %);
+    the next largest gap is printed beside it."""
     cuda = torch.autograd.DeviceType.CUDA
     # kernels only: copies between host and card (a corpus being staged) are
     # not work of the window that is measured
@@ -2065,6 +2093,17 @@ def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE
     if start_at is not None:
         first = next((i for i, k in enumerate(kernels) if start_at in k[0]), len(kernels))
         kernels = kernels[first:]
+    if steps:  # the time ranges are in microseconds
+        gaps = [kernels[i][1] - kernels[i - 1][2] for i in range(1, len(kernels))]
+        cut = max(range(len(gaps)), key=gaps.__getitem__) + 1 if gaps else 0
+        lead, kernels = cut, kernels[cut:]
+        per_step = len(kernels) / steps
+        second = sorted(gaps)[-2] if len(gaps) > 1 else 0.0
+        say("profile", run=tag, lead_in_kernels=lead, kernels_per_step=f"{per_step:.1f}",
+            lead_in_gap_ms=f"{gaps[cut - 1] / 1e3 if cut else 0.0:.3f}", next_gap_ms=f"{second / 1e3:.3f}")
+        if not cut or gaps[cut - 1] < 0.9 * PROFILE_LEAD_IN_GAP_S * 1e6 or lead > 1.1 * per_step:
+            raise AssertionError(f"{tag}: the lead-in cut did not land on the sleep (lead-in {lead} kernels, "
+                                 f"{per_step:.1f} a kept step, gaps {gaps[cut - 1] if cut else 0} and {second} us)")
     if not kernels:
         raise AssertionError("torch.profiler saw no kernel on the card")
     by_layer: dict = {}
@@ -2151,13 +2190,19 @@ def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes, dtypes=("b
             train_imgs_per_s=f"{b / step_ms * 1000:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
             launches_per_step=launches)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device kernels only: a CPU trace of the steps' host ops costs far
+        # more to read than the steps take, and the breakdown reads kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            train_step(state, images, labels, valid, coeffs[n_steps - 1])  # the lead-in
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_LEAD_IN_GAP_S)
             start.record()
             for s in range(n_steps, n_steps + STEP_TIMED):
                 train_step(state, images, labels, valid, coeffs[s])
             end.record()
             end.synchronize()
-        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_step_{dtype_name}", classes)
+        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_step_{dtype_name}", classes,
+                           steps=STEP_TIMED)
         del state
     torch.cuda.empty_cache()
 
@@ -2280,13 +2325,12 @@ def _check_semi_outputs(np, out: Path, arch: str, epochs, tag: str) -> dict:
 
 
 def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCounts, arch: str, dtypes,
-               cli_arch, strong_aug: str = "jitter", tag: str = "semi") -> None:
+               strong_aug: str = "jitter", tag: str = "semi") -> None:
     """``run_pipeline`` of ``arch`` with the FixMatch fine-tune (its strong
-    view ``strong_aug``) on the JPEG
-    tree and pool, once per compute type, then the semi-supervised CLI with
-    ``cli_arch`` (if not None) for one epoch per phase. The pipeline's two epoch loops are
-    wrapped to read what no artifact holds: the state after the weak
-    pretrain, and the keep rates (cut from the history file)."""
+    view ``strong_aug``) on the JPEG tree and pool, once per compute type.
+    The pipeline's two epoch loops are wrapped to read what no artifact
+    holds: the state after the weak pretrain, and the keep rates (cut from
+    the history file)."""
     from ssip_tpu_torch.data.discovery import labeled_folder
     from ssip_tpu_torch.data.splits import split_dict
     from ssip_tpu_torch.pipelines import semi_supervised as semi
@@ -2370,21 +2414,6 @@ def phase_semi(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCount
             cons_loss=f"{seen['cons_loss'][-1]:.4f}", val_loss=f"{payload['semi_finetune']['val_loss'][-1]:.4f}",
             test_f1=f"{thr['f1']:.4f}", threshold=f"{thr['threshold']:.4f}", pretrain_moved=len(moved_params),
             bn_means_moved=len(moved_means), launches={k: v for k, v in launches.items() if v})
-
-    if cli_arch is None:
-        return
-    out = tmp / f"semi_cli_out_{cli_arch}"
-    subprocess.run(
-        [sys.executable, "-m", "ssip_tpu_torch.cli.semi_supervised_training", "--strong-data-dir", str(data),
-         "--weak-data-dir", str(pool), "--device", "cuda", "--baseline-epochs", "1", "--weak-pretrain-epochs", "1",
-         "--finetune-epochs", "1", "--target-recall", "0.9", "--arch", cli_arch, "--pseudo-threshold",
-         str(SEMI_THRESHOLD), "--consistency-weight", "1.0", "--consistency-threshold", str(SEMI_THRESHOLD),
-         "--ema-decay", str(SEMI_EMA_DECAY), "--output-dir", str(out)],
-        cwd=Path(__file__).resolve().parent, check=True, timeout=600,
-    )
-    payload = _check_semi_outputs(np, out, cli_arch, (1, 1, 1), f"semi cli {cli_arch}")
-    say("semi", cli="semi_supervised_training", arch=cli_arch, epochs=(1, 1, 1),
-        pseudo_labels=payload["pseudo_label_count"], val_loss=f"{payload['semi_finetune']['val_loss'][0]:.4f}")
 
 
 def _bucket(n: int, max_batch: int = 256) -> int:
@@ -2739,7 +2768,10 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
             keep_rate=f"{keep.item():.3f}", strong_view_ms=f"{strong_ms:.4f}",
             strong_view_share=f"{strong_ms / step_ms:.5f}", launches_per_step=launches)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only, as in _timed_steps
+            step(n_steps - 1)  # the lead-in
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_LEAD_IN_GAP_S)
             start.record()
             for s in range(n_steps, n_steps + STEP_TIMED):
                 step(s)
@@ -2747,7 +2779,7 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
             end.synchronize()
         counts.read()
         _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_fixmatch_step_{strong_aug}_{dtype_name}",
-                           classes)
+                           classes, steps=STEP_TIMED)
         del state, ema
     torch.cuda.empty_cache()
 
@@ -3847,7 +3879,7 @@ def phase_randaug(torch, np, tmp: Path, data: Path, pool: Path, counts: LaunchCo
         raise AssertionError(f"randaug: card vs CPU {n_off} values off, by up to {worst}")
     _timed_fixmatch_steps(torch, np, "resnet18", counts, (("rotate kernel", ROTATE_U8_KERNELS),) + _PROFILE_CLASSES,
                           dtypes=("bfloat16",), strong_aug="randaugment", tag="randaug")
-    phase_semi(torch, np, tmp, data, pool, counts, "resnet18", ("bfloat16",), None, strong_aug="randaugment",
+    phase_semi(torch, np, tmp, data, pool, counts, "resnet18", ("bfloat16",), strong_aug="randaugment",
                tag="randaug")
 
 
@@ -3922,6 +3954,351 @@ def phase_fold(torch, np, tmp: Path, corpus, counts: LaunchCounts) -> None:
         raise AssertionError(f"fold: cosine min {cos.min()}, float32 folded vs plain {rel32}")
 
 
+DP_STEP_BATCH = 128  # (a): the step in process and through the CLI
+DP_STEP_WARMUP, DP_STEP_TIMED = 2, 5
+DP_GLOO_ROWS, DP_GLOO_STEPS = 64, 3  # (b): two ranks of 64 rows against one of 128
+DP_SHARD_SIZE = 512  # (c)
+DP_RESUME_EPOCHS = 4  # (d): cut after half
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_inputs(torch, np, b: int, steps: int):
+    """(images, labels, valid, coeffs [steps, 3, b]) on the CPU, seeded."""
+    from ssip_tpu_torch.ops.augment import augment_coeffs
+    from ssip_tpu_torch.runtime.prng import augment_draws
+
+    images, labels, valid = _step_inputs(torch, np, b)
+    coeffs = torch.from_numpy(np.stack([augment_coeffs(*augment_draws(SEED, "smoke_dp", 0, s, b))
+                                        for s in range(steps)]))
+    return images, labels, valid, coeffs
+
+
+def _dp_gloo_rank(index: int, world: int, init_file: str, out_file: str) -> None:
+    """(b), one of two ranks sharing the card over gloo: ``DP_GLOO_STEPS``
+    resnet18 float32 steps, each on this rank's 64 rows of a global batch
+    of 128, through ``run_train_epoch``; rank 0 saves the step losses, the
+    BatchNorm statistics and the parameters."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ssip_tpu_torch.parallel.mesh import training_mesh
+    from ssip_tpu_torch.runtime.device import configure_precision
+    from ssip_tpu_torch.train.engine import DeviceDataset, run_train_epoch
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    torch.cuda.set_device(0)
+    configure_precision("float32")
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=index, world_size=world)
+    try:
+        state = _seeded_state(torch, torch.device("cuda"), torch.float32, kink_free=True)
+        state.mesh = training_mesh(device_type="cuda")
+        losses, first = _dp_gloo_steps(torch, np, state, DeviceDataset, run_train_epoch)
+        if index == 0:
+            torch.save({"losses": losses, "first": first,
+                        "state": {k: v.cpu() for k, v in state.model.state_dict().items()}}, out_file)
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_gloo_steps(torch, np, state, dataset_cls, run_train_epoch):
+    """``DP_GLOO_STEPS`` steps of the global batch of 128 (one rank's share
+    under a group): (the step losses, the BatchNorm statistics after the
+    first step)."""
+    b = 2 * DP_GLOO_ROWS
+    images, labels, valid, coeffs = _dp_inputs(torch, np, b, DP_GLOO_STEPS)
+    dataset = dataset_cls.create(images.cuda(), labels.numpy())
+    pidx = np.stack([np.arange(b)] * DP_GLOO_STEPS)
+    valid = np.ones_like(pidx, bool)
+    coeffs = coeffs.numpy()
+    first_loss, _ = run_train_epoch(state, dataset, pidx[:1], valid[:1], coeffs[:1])
+    first = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items() if "running" in k}
+    losses, _ = run_train_epoch(state, dataset, pidx[1:], valid[1:], coeffs[1:])
+    return np.concatenate([first_loss, losses]), first
+
+
+def _dp_compare(torch, a: dict, b: dict) -> float:
+    return max(_rel(a[k].float(), b[k].float()) for k in a if a[k].is_floating_point())
+
+
+def _dp_two_ranks_on_one_card(torch, np, tmp: Path) -> None:
+    """(b): two gloo ranks on the card against one process; the one place
+    on the card where the BatchNorm sums and the gradients are all-reduced
+    for real."""
+    import torch.multiprocessing as mp
+
+    from ssip_tpu_torch.runtime.device import configure_precision
+    from ssip_tpu_torch.train.engine import DeviceDataset, run_train_epoch
+
+    out = tmp / "dp_gloo.pt"
+    ctx = mp.start_processes(_dp_gloo_rank, args=(2, str(tmp / "dp_gloo_init"), str(out)), nprocs=2,
+                             start_method="spawn", join=False)
+    configure_precision("float32")
+    state = _seeded_state(torch, torch.device("cuda"), torch.float32, kink_free=True)
+    want_losses, want_first = _dp_gloo_steps(torch, np, state, DeviceDataset, run_train_epoch)
+    want = {k: v.cpu() for k, v in state.model.state_dict().items() if v.is_floating_point()}
+    while not ctx.join(timeout=300):
+        pass
+    got = torch.load(out, weights_only=False)
+    loss_rel = float(np.max(np.abs(got["losses"] - want_losses) / np.abs(want_losses)))
+    first_rel = _dp_compare(torch, got["first"], want_first)
+    state_off = max(float(((got["state"][k] - v).abs() - (5e-4 + 5e-2 * v.abs())).max()) for k, v in want.items())
+    say("dp", part="b", ranks=2, backend="gloo", rows_a_rank=DP_GLOO_ROWS, steps=DP_GLOO_STEPS, arch="resnet18",
+        dtype="float32", losses=[f"{x:.6f}" for x in got["losses"]], one_process=[f"{x:.6f}" for x in want_losses],
+        loss_rel=loss_rel, bn_stats_after_step_1_rel=first_rel,
+        state_after_3_off=_dp_compare(torch, {k: got["state"][k] for k in want}, want), state_over_bound=state_off)
+    # the JAX package's 1-vs-N bounds (tests/test_mesh_training.py, tests/test_torch_data_parallel.py): step losses
+    # 1e-5 relative, the BatchNorm statistics of the first step 1e-4 of each tensor's max (one step: only the
+    # summation order differs), parameters and statistics after the AdamW steps rtol 5e-2 atol 5e-4
+    if loss_rel > 1e-5 or first_rel > 1e-4 or state_off > 0:
+        raise AssertionError(f"dp (b): two ranks against one: losses {loss_rel}, BN after one step {first_rel}, "
+                             f"state after {DP_GLOO_STEPS} over its bound by {state_off}")
+
+
+def _dp_step_pair(torch, np, arch: str, mesh, counts: LaunchCounts) -> None:
+    """(a) in process: one bf16 step at 128 with and without FSDP (world
+    size 1, NCCL), and two plain steps for the card's run-to-run spread;
+    then each timed, with its peak memory."""
+    from ssip_tpu_torch.parallel.fsdp import contiguous_parameters, full_tensor, shard_model
+    from ssip_tpu_torch.train.engine import TrainState, train_step
+
+    steps = 1 + DP_STEP_WARMUP + DP_STEP_TIMED
+    images, labels, valid, coeffs = (t.cuda() for t in _dp_inputs(torch, np, DP_STEP_BATCH, steps))
+    # the same layout both ways: FSDP takes contiguous parameters only, so
+    # the plain step's channels_last conv weights go back to NCHW too
+    seeded = contiguous_parameters(_seeded_state(torch, torch.device("cuda"), torch.bfloat16, arch).model)
+
+    def one(fsdp: bool):
+        model = copy.deepcopy(seeded)
+        state = TrainState.create(shard_model(model, mesh) if fsdp else model, 1e-4, 1e-4, mesh=mesh)
+        loss, _ = train_step(state, images, labels, valid, coeffs[0])
+        grads = {k: full_tensor(p.grad).detach().float().cpu() for k, p in state.model.named_parameters()}
+        params = {k: full_tensor(v).detach().float().cpu() for k, v in state.model.state_dict().items()}
+        return state, (loss.float().cpu(), grads, params)
+
+    counts.reset()
+    (_, again), (plain_state, plain), (fsdp_state, sharded) = one(False), one(False), one(True)
+    launches = counts.read()
+    del seeded
+
+    def off(x, y):
+        return {"loss": _rel(x[0], y[0]), "grads": max(_rel(x[1][k], y[1][k]) for k in y[1]),
+                "params": max(_rel(x[2][k], y[2][k]) for k in y[2] if y[2][k].is_floating_point())}
+
+    spread, got = off(again, plain), off(sharded, plain)
+    bitwise = all(v == 0.0 for v in got.values())
+    ok = bitwise or all(got[k] <= 2 * spread[k] for k in got)
+    times = {}
+    for fsdp, state in ((False, plain_state), (True, fsdp_state)):  # each steps on from its first step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(DP_STEP_WARMUP):
+            train_step(state, images, labels, valid, coeffs[1 + s])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for s in range(DP_STEP_TIMED):
+            train_step(state, images, labels, valid, coeffs[1 + DP_STEP_WARMUP + s])
+        end.record()
+        end.synchronize()
+        times[fsdp] = (start.elapsed_time(end) / DP_STEP_TIMED, torch.cuda.max_memory_allocated() / 2**30)
+    del plain_state, fsdp_state, state
+    counts.read()
+    torch.cuda.empty_cache()
+    say("dp", part="a", arch=arch, dtype="bfloat16", batch=DP_STEP_BATCH, world=1, backend="nccl",
+        fsdp_vs_plain=got, plain_run_to_run=spread, verdict="bitwise" if bitwise else "within 2x run-to-run spread",
+        ms_per_step=f"{times[True][0]:.3f}", plain_ms_per_step=f"{times[False][0]:.3f}",
+        peak_mem_gib=f"{times[True][1]:.2f}", plain_peak_mem_gib=f"{times[False][1]:.2f}",
+        launches={k: v for k, v in launches.items() if v})
+    if not ok:
+        raise AssertionError(f"dp (a) {arch}: FSDP against plain {got}, the card's spread {spread}")
+
+
+DP_CLI_ARCHS = ("vit_b16", "resnet18")
+
+
+def _dp_cli_argv(train_tree: str, out_root: str, arch: str) -> list:
+    return ["--strong-data-dir", train_tree, "--device", "cuda", "--arch", arch, "--compute-dtype", "bfloat16",
+            "--batch-size", str(DP_STEP_BATCH), "--baseline-epochs", "1", "--fsdp",
+            "--output-dir", str(Path(out_root) / f"dp_cli_{arch}")]
+
+
+def dp_cli_worker(train_tree: str, out_root: str) -> int:
+    """``chip_smoke.py --dp-cli TREE OUT`` under torchrun: the supervised
+    CLI's ``main`` for each of ``DP_CLI_ARCHS`` in this one rank (each
+    joins the launcher's group and leaves it)."""
+    from ssip_tpu_torch.cli import supervised_training
+
+    for arch in DP_CLI_ARCHS:
+        supervised_training.main(_dp_cli_argv(train_tree, out_root, arch))
+    return 0
+
+
+def _dp_cli(np, train_tree: Path, tmp: Path) -> None:
+    """(a) through the supervised CLI under torchrun (one launch, one
+    process on the card), ``--fsdp``, bf16, batch 128, one epoch, for
+    vit_b16 and resnet18: the gathered ``.pt`` loads into a plain model."""
+    import torch
+
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.train.checkpoints import load_checkpoint
+
+    t0 = time.perf_counter()
+    subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         str(Path(__file__).resolve()), "--dp-cli", str(train_tree), str(tmp)],
+        cwd=Path(__file__).resolve().parent, check=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    for arch in DP_CLI_ARCHS:
+        out = tmp / f"dp_cli_{arch}"
+        payload = json.loads((out / "notes" / "training_history.json").read_text())
+        model = build_model(arch, num_classes=2)
+        load_checkpoint(out / "models" / "baseline_resnet18.pt", model)
+        if payload["arch"] != arch or not np.isfinite(payload["baseline"]["val_loss"]).all():
+            raise AssertionError(f"dp (a) cli {arch}: {payload['baseline']}")
+        say("dp", part="a", cli="torchrun supervised_training --fsdp", arch=arch, nproc=1, epochs=1,
+            val_loss=f"{payload['baseline']['val_loss'][0]:.4f}",
+            checkpoint_params=sum(p.numel() for p in model.parameters()), launch_seconds=f"{seconds:.2f}")
+
+
+def _dp_shards(torch, np, tmp: Path, counts: LaunchCounts) -> None:
+    """(c): ``--shard-size 512`` through the extraction CLI on the
+    workflow's 1,506 images, then again with the last manifest gone: two
+    shards reused, one recomputed; the embeddings against the single-shot
+    run's (batches of 128 in both: bit for bit expected)."""
+    from ssip_tpu_torch.cli import feature_extraction
+    from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
+
+    data = tmp / "workflow_data"
+    out, single = tmp / "dp_shards", tmp / "dp_single"
+    argv = ["--data-dir", str(data), "--device", "cuda", "--batch-size", str(BATCH), "--output-dir", str(out),
+            "--shard-size", str(DP_SHARD_SIZE)]
+    counts.reset()
+    t0 = time.perf_counter()
+    feature_extraction.main(argv)
+    first_s = time.perf_counter() - t0
+    shards = out / "features" / "shards"
+    manifests = sorted(shards.glob("*.manifest.json"))
+    manifests[-1].unlink()
+    t0 = time.perf_counter()
+    feature_extraction.main(argv)
+    again_s = time.perf_counter() - t0
+    launches = counts.read()
+    log = (out / "logs" / "feature_extraction.log").read_text().split("Extraction over")[-1]
+    reused, recomputed = log.count("reusing completed shard"), log.count(": extracting ")
+    ref = run_extraction(ExtractionConfig(data_dir=data, output_dir=single, device="cuda", batch_size=BATCH)).embeddings
+    emb = np.load(out / "features" / "embeddings.npy")
+    meta = json.loads((out / "features" / "metadata.json").read_text())
+    largest = float(np.abs(emb - ref).max()) if emb.shape == ref.shape else float("inf")
+    say("dp", part="c", images=int(emb.shape[0]), shard_size=DP_SHARD_SIZE, shards=len(manifests), reused=reused,
+        recomputed=recomputed, weights=meta["weights"], bitwise=bool(np.array_equal(emb, ref)), largest_diff=largest,
+        first_s=f"{first_s:.2f}", resumed_s=f"{again_s:.2f}", launches={k: v for k, v in launches.items() if v})
+    if (len(manifests) != 3 or reused != 2 or recomputed != 1 or meta["weights"] != "sharded"
+            or emb.shape != ref.shape or largest > 1e-4 * float(np.abs(ref).max())):
+        raise AssertionError(f"dp (c): {len(manifests)} shards, {reused} reused, {recomputed} recomputed, "
+                             f"embeddings {emb.shape} off by {largest}")
+
+
+def _dp_orbax(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
+    """(d): ``SSIP_SNAPSHOT_FORMAT=orbax``: resnet18 float32
+    ``run_supervised`` cut after 2 of 4 epochs and resumed, the restore bit
+    for bit the snapshot directory. ``[resume]``'s runs differ from run to
+    run on the card (cuDNN picks kernels that sum with atomics), so a
+    resumed run there is held to twice their spread; here cuDNN's
+    deterministic mode is on, which makes the run reproducible, and the
+    resumed run must equal an uninterrupted one bit for bit (history and
+    final checkpoint). A resume from the file form at the same point of the
+    process must equal it too: whatever gap a resume shows in
+    ``[resume]`` is the card's spread, not the snapshot's form."""
+    from ssip_tpu_torch.pipelines.supervised import TrainingConfig, run_supervised
+    from ssip_tpu_torch.train import engine
+
+    def supervised(name, epochs, form=None):  # form: None (no snapshot), "file" or "orbax"
+        cfg = TrainingConfig(strong_data_dir=data, output_dir=tmp / f"dp_{name}", device="cuda",
+                             batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE, baseline_epochs=epochs,
+                             compute_dtype="float32", resume=form is not None)
+        if form == "orbax":
+            os.environ["SSIP_SNAPSHOT_FORMAT"] = form
+        try:
+            run_supervised(cfg)
+        finally:
+            os.environ.pop("SSIP_SNAPSHOT_FORMAT", None)
+        hist = json.loads(cfg.artifacts.training_history_json.read_text())["baseline"]
+        return hist, torch.load(cfg.artifacts.baseline_checkpoint, map_location="cpu", weights_only=True), cfg
+
+    def resumed(name, form, seen):
+        *_, cfg = supervised(name, DP_RESUME_EPOCHS // 2, form)
+        real = _restore_spy(torch, engine, seen)
+        try:
+            return supervised(name, DP_RESUME_EPOCHS, form)[:2], cfg.resume_path("baseline")
+        finally:
+            engine.restore_resume_state = real
+
+    def gap(a, b):
+        return {"history": max(_max_diff(np, a[0][k], b[0][k]) for k in ("train_loss", "val_loss")),
+                "weights": _state_diff(torch, a[1], b[1])}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    seen: dict = {}
+    seen_file: dict = {}
+    try:
+        counts.reset()
+        dcp, snap = resumed("orbax", "orbax", seen)
+        launches = counts.read()
+        straight = supervised("straight", DP_RESUME_EPOCHS)[:2]
+        from_file, _ = resumed("file", "file", seen_file)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    to_straight, file_to_straight = gap(dcp, straight), gap(from_file, straight)
+    files = sorted(p.name for p in snap.iterdir())
+    say("dp", part="d", format="orbax (torch.distributed.checkpoint)", cudnn_deterministic=True,
+        snapshot_is_dir=snap.is_dir(), files=files, restored_bitwise=seen.get("restored_bitwise"),
+        resumed_vs_uninterrupted=to_straight, file_form_restored_bitwise=seen_file.get("restored_bitwise"),
+        file_form_resumed_vs_uninterrupted=file_to_straight, launches={k: v for k, v in launches.items() if v})
+    if (not snap.is_dir() or not seen.get("restored_bitwise") or not seen_file.get("restored_bitwise")
+            or len(dcp[0]["val_loss"]) != DP_RESUME_EPOCHS or any(to_straight.values())
+            or any(file_to_straight.values())):
+        raise AssertionError(f"dp (d): restored {seen} (file form {seen_file}), resumed against uninterrupted "
+                             f"{to_straight} (file form {file_to_straight}): bit for bit expected")
+
+
+def phase_dp(torch, np, tmp: Path, train_tree: Path, counts: LaunchCounts) -> None:
+    """Data parallelism on the card: (c) ``--shard-size``, (d) the sharded
+    snapshots, (b) two gloo ranks sharing the card, (a) the FSDP step at
+    world size 1 over NCCL, in process and through the CLI under torchrun."""
+    import torch.distributed as dist
+
+    from ssip_tpu_torch.parallel.mesh import training_mesh
+
+    laps = {}
+
+    def timed(part, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        laps[part] = round(laps.get(part, 0.0) + time.perf_counter() - t0, 1)
+
+    timed("c", _dp_shards, torch, np, tmp, counts)
+    timed("d", _dp_orbax, torch, np, tmp, train_tree, counts)
+    timed("b", _dp_two_ranks_on_one_card, torch, np, tmp)
+    timed("a_cli", _dp_cli, np, train_tree, tmp)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = training_mesh(device_type="cuda")
+        for arch in (VIT_ARCH, "resnet18"):
+            timed("a_step", _dp_step_pair, torch, np, arch, mesh, counts)
+    finally:
+        dist.destroy_process_group()
+    say("dp", seconds=laps)
+
+
 def phase_imports() -> None:
     """The run loaded nothing of jax and nothing of the JAX package: the
     port keeps its own copies of the jax-free modules it needs."""
@@ -3932,6 +4309,8 @@ def phase_imports() -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-cli"]:  # [dp]'s torchrun worker
+        return dp_cli_worker(*sys.argv[2:4])
     import torch
 
     if not torch.cuda.is_available():
@@ -3983,21 +4362,23 @@ def main() -> int:
         del corpus, dense, resnet
         lap("cli", phase_cli, np, tmp)
         train_tree = make_train_tree(np, tmp)
+        # the training CLIs run in [workflow] (in process) and under
+        # torchrun in [dp], not as subprocesses here
         lap("train", phase_train, torch, np, tmp, train_tree, counts, "resnet18",
-            (("float32", TRAIN_EPOCHS), ("bfloat16", TRAIN_EPOCHS)), "resnet18")
+            (("float32", TRAIN_EPOCHS), ("bfloat16", TRAIN_EPOCHS)))
         lap("train", phase_train, torch, np, tmp, train_tree, counts, VIT_ARCH,
-            (("bfloat16", TRAIN_EPOCHS), ("float32", 1)), "vit_t16")
+            (("bfloat16", TRAIN_EPOCHS), ("float32", 1)))
+        # the narrow ViT (width 192, 3 heads), whose CLIs no longer run here
+        lap("train", phase_train, torch, np, tmp, train_tree, counts, "vit_t16", (("bfloat16", 1),))
         # vit_b16 past 224²: 257 and 1,025 tokens, where the attention kernels
         # once refused sequences the reference trains
-        lap("vit_long", phase_train, torch, np, tmp, train_tree, counts, VIT_ARCH, VIT_LONG_RUNS, VIT_ARCH,
-            cli_size=256, tag="vit_long")
+        lap("vit_long", phase_train, torch, np, tmp, train_tree, counts, VIT_ARCH, VIT_LONG_RUNS, tag="vit_long")
         pool = make_unlabeled_pool(np, train_tree)
-        lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"),
-            "resnet18")
-        lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",), "vit_t16")
+        lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, "resnet18", ("float32", "bfloat16"))
+        lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, VIT_ARCH, ("bfloat16",))
         moe_lap("train", phase_train, torch, np, tmp, train_tree, counts, MOE_ARCH, (("bfloat16", TRAIN_EPOCHS),),
-                MOE_ARCH, tag="moe")
-        moe_lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, MOE_ARCH, ("bfloat16",), None)
+                tag="moe")
+        moe_lap("semi", phase_semi, torch, np, tmp, train_tree, pool, counts, MOE_ARCH, ("bfloat16",))
         moe_lap("serve", phase_moe_serve, torch, np, tmp, pool)
         lap("resume", phase_resume, torch, np, tmp, train_tree, pool)
         lap("seeds", phase_seeds, torch, np, tmp, train_tree, counts)
@@ -4009,6 +4390,7 @@ def main() -> int:
         lap("analysis_scale", phase_analysis_scale, torch, np)
         lap("workflow", phase_workflow, torch, np, tmp, counts, host)
         lap("stream", phase_stream, torch, np, tmp, counts, host)
+        lap("dp", phase_dp, torch, np, tmp, train_tree, counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lap("step", phase_step, torch, np, counts)

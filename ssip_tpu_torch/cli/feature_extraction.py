@@ -4,9 +4,20 @@ Counterpart of ``src/feature_extraction.py``, with the same flags and
 defaults. ``--streaming always`` (and ``auto`` above the host budget) takes
 the streamed shape; ``--host-preproc`` (exact) and ``--fast-decode``
 (approximate) resize and crop on the host and imply it, and need the native
-decoder, built at first use with g++ and libjpeg. ``--shard-size > 0`` is
-accepted by the parser and refused with an error naming its ROADMAP entry
-(item 22).
+decoder, built at first use with g++ and libjpeg. ``--shard-size N``
+(N > 0) is the resumable form (``pipelines/sharded_extraction.py``): shards
+of N images under ``features/shards/`` with a manifest each, reused on a
+re-run when they verify, merged into the same artifact set.
+
+Launch on N cards (a launch difference, not a flag): one process a card,
+started by ``torchrun --nproc-per-node N -m
+ssip_tpu_torch.cli.feature_extraction ...`` or by N processes with
+``SSIP_COORDINATOR=host:port``, ``SSIP_NUM_PROCESSES=N`` and
+``SSIP_PROCESS_ID=i`` (``parallel/distributed.py``); each runs on
+``cuda:LOCAL_RANK`` and embeds its share of every global batch, and rank 0
+writes the outputs. Started alone, the CLI is one process on one card, as
+the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
+gloo.
 
 ``--compute-dtype int8`` (with a ResNet or with ``vit_t16``, ``vit_s16`` or
 ``vit_b16``; refused with the MoE archs, as in JAX) is post-training int8
@@ -22,7 +33,9 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from ssip_tpu_torch.parallel import distributed
 from ssip_tpu_torch.pipelines.extraction import ExtractionConfig, run_extraction
+from ssip_tpu_torch.pipelines.sharded_extraction import run_sharded_extraction
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -71,18 +84,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--shard-size", type=int, default=0,
-        help="sharded resumable extraction (not ported yet; 0 = single-shot)",
+        help="sharded resumable extraction: shards of this many images with a manifest each, "
+        "reused on a re-run (0 = single-shot)",
     )
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.shard_size > 0:
-        raise ValueError(
-            "--shard-size > 0 is not ported to ssip_tpu_torch yet (ROADMAP.md, "
-            "Queue 1 item 22: sharded extraction with parallelism)"
-        )
     cfg = ExtractionConfig(
         data_dir=args.data_dir,
         output_dir=args.output_dir,
@@ -97,11 +106,19 @@ def main(argv=None) -> None:
         fast_decode=args.fast_decode,
         host_preproc=args.host_preproc,
     )
-    summary = run_extraction(cfg)
-    print(
-        f"Extracted {summary.embeddings.shape[0]} embeddings "
-        f"({summary.embeddings.shape[1]}-D) in {summary.total_seconds:.2f}s"
-    )
+    distributed.initialize(device=cfg.device)
+    try:
+        if args.shard_size > 0:
+            summary = run_sharded_extraction(cfg, shard_size=args.shard_size)
+        else:
+            summary = run_extraction(cfg)
+    finally:
+        distributed.shutdown()
+    if distributed.is_primary():
+        print(
+            f"Extracted {summary.embeddings.shape[0]} embeddings "
+            f"({summary.embeddings.shape[1]}-D) in {summary.total_seconds:.2f}s"
+        )
 
 
 if __name__ == "__main__":

@@ -4,9 +4,17 @@ Counterpart of ``src/semi_supervised_training.py``, with the same flags and
 defaults (copied here: that module imports the JAX pipeline) and the shared
 flags of ``cli/supervised_training.py`` (``--resume`` and the MoE archs
 included), ``--num-seeds`` and ``--cv-folds``, and ``--strong-augment
-randaugment``. Flags whose code paths are not ported yet are accepted by
-the parser and refused with an error naming the ROADMAP entry: what the
-supervised CLI refuses (``--mesh-model > 1``, ``--fsdp``).
+randaugment``, and ``--fsdp``. ``--mesh-model > 1`` is accepted by the
+parser and refused as the supervised CLI refuses it (ROADMAP item 32).
+
+Launch on N cards (a launch difference, not a flag): one process a card,
+started by ``torchrun --nproc-per-node N -m ssip_tpu_torch.cli.semi_supervised_training ...``
+or by N processes with ``SSIP_COORDINATOR=host:port``,
+``SSIP_NUM_PROCESSES=N`` and ``SSIP_PROCESS_ID=i``
+(``parallel/distributed.py``); each runs on ``cuda:LOCAL_RANK`` and rank 0
+writes the outputs. Started alone, the CLI is one process on one card, as
+the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
+gloo.
 
     python -m ssip_tpu_torch.cli.semi_supervised_training \\
         --strong-data-dir DATA/avec_labels --weak-data-dir DATA/sans_label --device cuda
@@ -18,7 +26,8 @@ import argparse
 import logging
 from pathlib import Path
 
-from ssip_tpu_torch.cli.supervised_training import add_common_training_flags, config_from_args
+from ssip_tpu_torch.cli.supervised_training import add_common_training_flags, config_from_args, run_distributed
+from ssip_tpu_torch.parallel import distributed
 from ssip_tpu_torch.pipelines.semi_supervised import run_pipeline
 
 
@@ -54,7 +63,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
-    print(run_pipeline(config_from_args(parse_args(argv))))
+    result = run_distributed(config_from_args(parse_args(argv)), run_pipeline)
+    if distributed.is_primary():
+        print(result)
 
 
 if __name__ == "__main__":

@@ -6,10 +6,20 @@ pipeline). ``--resume`` snapshots the run every epoch and resumes an
 interrupted one; the MoE archs (``vit_moe_t16``, ``vit_moe_s16``) train with
 their auxiliary losses. ``--num-seeds N`` trains N seeds and keeps the best
 (``tables/seed_sweep.csv``); ``--cv-folds k`` runs a stratified k-fold CV
-first (``tables/cv_results.csv``). Flags whose code paths are not ported yet
-are accepted by the parser and refused with an error naming the ROADMAP
-entry: ``--mesh-model > 1`` and ``--fsdp`` (item 22). ``--remat`` checkpoints the ViT encoder blocks and is
-ignored for the ResNet archs, as in JAX.
+first (``tables/cv_results.csv``). ``--fsdp`` shards the model and its
+AdamW moments over the ranks (FSDP2). ``--mesh-model > 1`` is accepted by
+the parser and refused before any data is read with an error naming its
+ROADMAP entry (item 32, the model axis). ``--remat`` checkpoints the ViT
+encoder blocks and is ignored for the ResNet archs, as in JAX.
+
+Launch on N cards (a launch difference, not a flag): one process a card,
+started by ``torchrun --nproc-per-node N -m ssip_tpu_torch.cli.supervised_training ...``
+or by N processes with ``SSIP_COORDINATOR=host:port``,
+``SSIP_NUM_PROCESSES=N`` and ``SSIP_PROCESS_ID=i``
+(``parallel/distributed.py``); each runs on ``cuda:LOCAL_RANK`` and rank 0
+writes the outputs. Started alone, the CLI is one process on one card, as
+the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
+gloo.
 
     python -m ssip_tpu_torch.cli.supervised_training --strong-data-dir DATA/avec_labels --device cuda
 """
@@ -20,7 +30,8 @@ import argparse
 import logging
 from pathlib import Path
 
-from ssip_tpu_torch.pipelines.supervised import run_supervised
+from ssip_tpu_torch.parallel import distributed
+from ssip_tpu_torch.pipelines.supervised import run_supervised, refuse_unported
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 
 
@@ -64,7 +75,10 @@ def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
     )
     parser.add_argument("--mesh-model", type=int, default=1, help="values above 1 are not ported yet")
     parser.add_argument("--remat", action="store_true", help="ViT only; ignored for resnet archs")
-    parser.add_argument("--fsdp", action="store_true", help="not ported yet")
+    parser.add_argument(
+        "--fsdp", action="store_true",
+        help="shard parameters and AdamW moments over the ranks' data axis (FSDP2)",
+    )
     parser.add_argument(
         "--compute-dtype", choices=["float32", "bfloat16"], default="float32",
         help="activation dtype for the train/eval forwards (params, BN stats, "
@@ -130,9 +144,22 @@ def config_from_args(args: argparse.Namespace) -> TrainingConfig:
     )
 
 
+def run_distributed(config: TrainingConfig, pipeline):
+    """Join the launcher's process group (if any), run ``pipeline`` and
+    leave the group; a refused setting raises before the join."""
+    refuse_unported(config)
+    distributed.initialize(device=config.device)
+    try:
+        return pipeline(config)
+    finally:
+        distributed.shutdown()
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
-    print(run_supervised(config_from_args(parse_args(argv))))
+    result = run_distributed(config_from_args(parse_args(argv)), run_supervised)
+    if distributed.is_primary():
+        print(result)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,10 @@ LayerNorm and attention kernels as the dense ViT does.
   leaves none. The training steps add them to the loss
   (``train/engine.py``, ``train/consistency.py``). ``mask`` is accepted and
   ignored, as in the JAX module, so padded rows count in the balance loss.
+  Inside ``parallel.distributed.synced_batch(group)`` (a data-parallel
+  step) ``f_e`` is the global batch's and each rank's terms are its share
+  of the global ones: summed over the ranks they are the JAX step's terms
+  over the sharded batch, and so are their gradients.
 
 Parameter names are the port's own (no torchvision topology exists for an
 MoE): the dense blocks carry the ViT's torchvision names, an expert block
@@ -45,10 +49,12 @@ import math
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ssip_tpu_torch.models.vit import LayerNorm, SelfAttention, VisionTransformer
+from ssip_tpu_torch.parallel.distributed import sync_group
 
 ROUTINGS = ("token_choice", "expert_choice")
 
@@ -118,9 +124,16 @@ class MoEMlp(nn.Module):
         # the router in float32: the softmax must not see bf16 rounding
         logits = F.linear(y.to(torch.float32), self.router.weight, self.router.bias)  # [B, S, E]
         probs = torch.softmax(logits, dim=-1)
+        group = sync_group()
+        if group is not None:
+            # data parallel: a rank's term is its share of the global batch's,
+            # the shares summing to the term over all ranks' tokens
+            tokens = float(b * s * dist.get_world_size(group))
         if self.router_z_loss_coef > 0.0:
             z = torch.logsumexp(logits, dim=-1)
-            aux["router_z"] = self.router_z_loss_coef * torch.mean(torch.square(z))
+            z2 = torch.square(z)
+            aux["router_z"] = self.router_z_loss_coef * (
+                torch.mean(z2) if group is None else z2.sum() / tokens)
 
         if self.routing == "expert_choice":
             cap_ec = min(s, max(1, math.ceil(s * self.capacity_factor / e)))
@@ -135,8 +148,14 @@ class MoEMlp(nn.Module):
             gate = top_probs if k == 1 else top_probs / top_probs.sum(dim=-1, keepdim=True)
             onehot = _one_hot(top_idx, e)  # [B, S, K, E]
             # load balance before the capacity drops: f_e over all K ranks, P_e
-            frac = onehot.sum(dim=2).mean(dim=(0, 1))
-            mean_prob = probs.mean(dim=(0, 1))
+            if group is None:
+                frac = onehot.sum(dim=2).mean(dim=(0, 1))
+                mean_prob = probs.mean(dim=(0, 1))
+            else:  # f_e of the global batch (no gradient), P_e this rank's share
+                frac = onehot.sum(dim=(0, 1, 2))
+                dist.all_reduce(frac, group=group)
+                frac = frac / tokens
+                mean_prob = probs.sum(dim=(0, 1)) / tokens
             aux["load_balance"] = self.aux_loss_coef * (e / k) * torch.sum(frac * mean_prob)
 
             sk = s * k

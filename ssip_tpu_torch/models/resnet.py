@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssip_tpu_torch.parallel.distributed import all_reduce_sum, sync_group
+
 RESNET18_STAGES: tuple[int, ...] = (2, 2, 2, 2)
 RESNET34_STAGES: tuple[int, ...] = (3, 4, 6, 3)
 RESNET50_STAGES: tuple[int, ...] = (3, 4, 6, 3)
@@ -73,7 +75,10 @@ class BatchNorm(nn.Module):
     ``count = max(Σmask·H·W, 1)`` values (not ``F.batch_norm``, which cannot
     leave rows out); normalization uses this biased variance, and the
     running buffers move as ``0.9·old + 0.1·new`` with the unbiased
-    variance ``var·count/max(count − 1, 1)``.
+    variance ``var·count/max(count − 1, 1)``. Inside
+    ``parallel.distributed.synced_batch(group)`` the sums and the count are
+    the global batch's, so every rank normalizes alike and moves its
+    buffers alike, as the JAX step's statistics over a sharded batch do.
     """
 
     def __init__(self, features: int, compute_dtype: torch.dtype):
@@ -97,7 +102,19 @@ class BatchNorm(nn.Module):
 
     def _batch_stats(self, xf: torch.Tensor, mask: Optional[torch.Tensor]):
         axes = (0, 2, 3)
-        if mask is None:
+        group = sync_group()
+        if group is not None:
+            # data parallel: the global batch's Σw·x, Σw·x² and count, summed
+            # over the ranks with autograd (``parallel/distributed.py``)
+            w = (torch.ones(xf.shape[0], device=xf.device) if mask is None else mask.to(torch.float32)).view(-1, 1, 1, 1)
+            local = torch.cat([(xf * w).sum(axes), (xf * xf * w).sum(axes),
+                               (w.sum() * float(xf.shape[2] * xf.shape[3])).view(1)])
+            sums = all_reduce_sum(local, group)
+            c = xf.shape[1]
+            count = torch.clamp(sums[2 * c], min=1.0)
+            mean = sums[:c] / count
+            var = sums[c : 2 * c] / count - mean * mean
+        elif mask is None:
             count = torch.tensor(float(xf.numel() // xf.shape[1]), device=xf.device)
             mean = xf.mean(axes)
             var = (xf * xf).mean(axes) - mean * mean

@@ -52,9 +52,14 @@ forward, as does every other type. The JAX package folds with its
 space-to-depth stem, a TPU layout; the port computes the same function with
 the plain 7×7 stride-2 stem.
 
-Not ported yet (refused with an error naming the ROADMAP entry): sharded
-extraction (item 22). int8 with an MoE arch is refused with the JAX
-package's own message.
+Data parallelism (one process a card, ``parallel/distributed.py``): the
+global batch is ``pad_to_multiple(batch_size, world)`` records (JAX
+``:550, 632-697``) and each rank embeds its share of every global batch
+through the same shapes as above (its own decode cache); int8 calibrates
+on the corpus's first 32 images on every rank. Rank 0 gathers the rows in
+record order and alone writes the artifacts and the log file.
+``pipelines/sharded_extraction.py`` is the resumable ``--shard-size`` form.
+int8 with an MoE arch is refused with the JAX package's own message.
 """
 
 from __future__ import annotations
@@ -90,6 +95,8 @@ from ssip_tpu_torch.models.resnet import MODEL_STAGES
 from ssip_tpu_torch.models.vit import VIT_CONFIGS
 from ssip_tpu_torch.ops.preproc import preprocess_images
 from ssip_tpu_torch.ops.resize import IMAGENET_MEAN, IMAGENET_STD
+from ssip_tpu_torch.parallel.distributed import is_primary, rank, world_size
+from ssip_tpu_torch.parallel.mesh import pad_to_multiple
 from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
 from ssip_tpu_torch.runtime.logging import configure_logging, get_logger
@@ -406,7 +413,7 @@ def _embed_fn(cfg: ExtractionConfig, model: nn.Module, dtype: torch.dtype, resiz
 
 def _extract_streaming(
     records: List[ImageRecord], cfg: ExtractionConfig, model: nn.Module, dtype: torch.dtype,
-    weights_source: str, device: torch.device,
+    weights_source: str, device: torch.device, calibration: List[Path],
 ) -> "ExtractionSummary":
     """The constant-host-memory shape: decode ∥ copy ∥ embed
     (``ssip_tpu/pipelines/extraction.py:512-620``)."""
@@ -425,7 +432,7 @@ def _extract_streaming(
         shape = _probe_majority_shape(paths, sample_size=max(cfg.batch_size, 64))
         resize_for_device = cfg.resize
     if cfg.compute_dtype == "int8":
-        arrays, _ = decode_batch(paths[:_CALIBRATION_IMAGES], num_threads=cfg.num_decode_threads)
+        arrays, _ = decode_batch(calibration, num_threads=cfg.num_decode_threads)
         model = _quantize_variables(cfg, model, arrays, device)
         weights_source += "+int8_ptq"
     embed = _embed_fn(cfg, model, dtype, resize_for_device)
@@ -494,7 +501,75 @@ def extract_embeddings(
 ) -> ExtractionSummary:
     """Embed ``records``. ``store`` may hold the corpus already decoded
     (in dataset order); otherwise the corpus streams (``_should_stream``)
-    or is decoded here (or read from the decode cache)."""
+    or is decoded here (or read from the decode cache). Under a process
+    group of more than one rank each rank embeds its share of every global
+    batch and every rank returns the whole summary, in record order."""
+    if world_size() > 1:
+        if store is not None:
+            raise ValueError("a prebuilt ImageStore holds one process's corpus: extract without it under a group")
+        return _extract_data_parallel(records, cfg)
+    return _extract_local(records, cfg, store)
+
+
+def rank_positions(n: int, batch_size: int, ranks: int, index: int) -> np.ndarray:
+    """Positions (into ``n`` records) of rank ``index``'s share: of every
+    global batch of ``pad_to_multiple(batch_size, ranks)`` records, the
+    ``index``-th of ``ranks`` equal slices."""
+    g = pad_to_multiple(batch_size, ranks)
+    per = g // ranks
+    starts = np.arange(0, n, g)[:, None] + index * per + np.arange(per)[None, :]
+    return starts.reshape(-1)[starts.reshape(-1) < n]
+
+
+def _extract_data_parallel(records: List[ImageRecord], cfg: ExtractionConfig) -> ExtractionSummary:
+    """This rank's share through ``_extract_local``, then every rank's rows
+    gathered and put back in record order."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    ranks = world_size()
+    mine = rank_positions(len(records), cfg.batch_size, ranks, rank())
+    local_cfg = dataclasses.replace(cfg, batch_size=pad_to_multiple(cfg.batch_size, ranks) // ranks)
+    calibration = [r.absolute_path for r in records[:_CALIBRATION_IMAGES]]
+    local = None  # a rank whose share is empty (a short last batch) embeds nothing
+    if len(mine):
+        part = _extract_local([records[int(i)] for i in mine], local_cfg, None, calibration)
+        position = {str(r.absolute_path): i for i, r in enumerate(records)}
+        local = (
+            part.embeddings, [position[str(r.absolute_path)] for r in part.records],
+            [position[str(p)] for p in part.failures], part.per_image_seconds, part.total_seconds,
+            part.embed_seconds, part.weights_source,
+        )
+    parts: List[Any] = [None] * ranks
+    dist.all_gather_object(parts, local)
+    parts = [p for p in parts if p is not None]
+    kept = np.concatenate([np.asarray(p[1], np.int64) for p in parts])
+    order = np.argsort(kept, kind="stable")
+    embeddings = np.concatenate([p[0] for p in parts], axis=0)[order]
+    kept_records = [records[int(i)] for i in kept[order]]
+    per_image = [t for p in parts for t in p[3]]
+    per_image = [per_image[int(i)] for i in order]
+    failures = [records[i].absolute_path for i in sorted(i for p in parts for i in p[2])]
+    stats = run_sanity_checks(embeddings)
+    probe = nearest_neighbor_probe(embeddings, kept_records, sample_size=cfg.neighbor_sample, seed=cfg.seed)
+    return ExtractionSummary(
+        embeddings=embeddings, records=kept_records, failures=failures, stats=stats, neighbor_probe=probe,
+        total_seconds=max(p[4] for p in parts), per_image_seconds=per_image, weights_source=parts[0][6],
+        embed_seconds=max(p[5] for p in parts),
+    )
+
+
+def _extract_local(
+    records: List[ImageRecord],
+    cfg: ExtractionConfig,
+    store: Optional[ImageStore] = None,
+    calibration: Optional[List[Path]] = None,
+) -> ExtractionSummary:
+    """``extract_embeddings`` in this process. ``calibration``: the int8
+    calibration images (default: the first 32 of ``records``)."""
+    if calibration is None:
+        calibration = [r.absolute_path for r in records[:_CALIBRATION_IMAGES]]
     if cfg.fast_decode or cfg.host_preproc:
         from ssip_tpu_torch.native import decoder as native
 
@@ -513,7 +588,7 @@ def extract_embeddings(
         model = model.to(memory_format=torch.channels_last)
 
     if store is None and _should_stream(cfg, [r.absolute_path for r in records], compute_dataset_digest(records)):
-        return _extract_streaming(records, cfg, model, dtype, weights_source, device)
+        return _extract_streaming(records, cfg, model, dtype, weights_source, device, calibration)
     t_start = time.perf_counter()
     if store is None:
         digest = compute_dataset_digest(records)
@@ -531,7 +606,10 @@ def extract_embeddings(
     batch = cfg.batch_size
 
     if int8:
-        arrays = [store.get(int(i)) for i in valid if i < _CALIBRATION_IMAGES]
+        if calibration == [r.absolute_path for r in records[:_CALIBRATION_IMAGES]]:
+            arrays = [store.get(int(i)) for i in valid if i < _CALIBRATION_IMAGES]
+        else:
+            arrays, _ = decode_batch(calibration, num_threads=cfg.num_decode_threads)
         model = _quantize_variables(cfg, model, arrays, device)
         weights_source += "+int8_ptq"
     embed = _embed_fn(cfg, model, dtype, cfg.resize)
@@ -689,10 +767,12 @@ def save_artifacts(
 
 
 def run_extraction(cfg: ExtractionConfig, store: Optional[ImageStore] = None) -> ExtractionSummary:
-    """Discover, embed and write the artifact set under ``cfg.output_dir``."""
+    """Discover, embed and write the artifact set under ``cfg.output_dir``
+    (rank 0 writes, and keeps the log file)."""
     reg = ArtifactRegistry(Path(cfg.output_dir))
-    reg.logs_dir.mkdir(parents=True, exist_ok=True)
-    configure_logging("DEBUG" if cfg.verbose else "INFO", log_file=reg.extraction_log)
+    if is_primary():
+        reg.logs_dir.mkdir(parents=True, exist_ok=True)
+    configure_logging("DEBUG" if cfg.verbose else "INFO", log_file=reg.extraction_log if is_primary() else None)
 
     records = discover_image_records(Path(cfg.data_dir))
     LOGGER.info(
@@ -703,5 +783,6 @@ def run_extraction(cfg: ExtractionConfig, store: Optional[ImageStore] = None) ->
     )
     digest = compute_dataset_digest(records)
     summary = extract_embeddings(records, cfg, store=store)
-    save_artifacts(summary, cfg, digest, device_label(resolve_device(cfg.device)))
+    if is_primary():
+        save_artifacts(summary, cfg, digest, device_label(resolve_device(cfg.device)))
     return summary

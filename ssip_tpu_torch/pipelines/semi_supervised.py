@@ -29,7 +29,11 @@ With ``--resume`` each of the streams ``baseline``, ``semi_pretrain`` and
 ``semi_finetune`` (the FixMatch fine-tune or the plain one) snapshots every
 epoch and restores an interrupted run, as the JAX pipeline's do.
 
-Not ported yet: what ``pipelines/supervised.py`` refuses. The eight figures
+Data parallelism and ``--fsdp`` as in ``pipelines/supervised.py``: the
+pool's probabilities are split over the data axis and gathered in pool
+order, the FixMatch fine-tune's unlabeled batches are split like the
+labeled ones, and rank 0 alone writes the artifacts. Not ported yet: what
+``pipelines/supervised.py`` refuses. The eight figures
 of the JAX run are not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is
 not installed on the card's machine, where a figure call would stop the run.
 """
@@ -47,6 +51,7 @@ import torch
 
 from ssip_tpu_torch.data.discovery import unlabeled_files
 from ssip_tpu_torch.ops.metrics import binary_confusion_metrics
+from ssip_tpu_torch.parallel.distributed import is_primary
 from ssip_tpu_torch.pipelines.supervised import (
     build_classifier_state, check_cv_folds, prepare_datasets, refuse_unported, run_cross_validation,
     threshold_and_eval, train_baseline, write_results_csv,
@@ -123,6 +128,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         raise ValueError("semi-supervised pipeline requires weak_data_dir")
     device = resolve_device(config.device)
     configure_precision(config.compute_dtype)
+    mesh = config.build_mesh(device)
     LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
     reg = config.artifacts
 
@@ -139,11 +145,11 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         return time.time() - t0
 
     if config.cv_folds:
-        run_cross_validation(config, datasets, len(classes), device)
+        run_cross_validation(config, datasets, len(classes), device, mesh)
 
     # ---- Phase A: baseline ------------------------------------------------
-    baseline_state, baseline_history, baseline_time = train_baseline(config, datasets, len(classes), device)
-    base = threshold_and_eval(baseline_state.model, datasets, config, pos_index, "baseline")
+    baseline_state, baseline_history, baseline_time = train_baseline(config, datasets, len(classes), device, mesh)
+    base = threshold_and_eval(baseline_state.model, datasets, config, pos_index, "baseline", mesh=mesh)
     base.arg_metrics["training_time_sec"] = baseline_time
     base.thr_metrics["training_time_sec"] = baseline_time
 
@@ -154,7 +160,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         keep_paths=keep_paths, num_threads=config.num_workers,
     )
     keep_idx, pseudo_labels, _conf = generate_pseudo_labels(
-        baseline_state.model, pool_images, config.batch_size, config.pseudo_label_threshold
+        baseline_state.model, pool_images, config.batch_size, config.pseudo_label_threshold, mesh
     )
     if len(keep_idx) == 0:
         raise RuntimeError("No pseudo-labelled samples were generated. Try lowering the threshold.")
@@ -167,7 +173,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     )
 
     # ---- Phase C: weak pretrain (backbone frozen) ------------------------
-    semi_state = build_classifier_state(config, len(classes), config.learning_rate, device)
+    semi_state = build_classifier_state(config, len(classes), config.learning_rate, device, mesh=mesh)
     t0 = time.time()
     semi_state, pretrain_history = train_model(
         semi_state,
@@ -185,7 +191,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     )
 
     # ---- Phase D: fine-tune (unfrozen, a fresh optimizer at lr/2) ---------
-    semi_state = TrainState.create(semi_state.model, config.learning_rate / 2, config.weight_decay)
+    semi_state = TrainState.create(semi_state.model, config.learning_rate / 2, config.weight_decay, mesh=mesh)
     if config.consistency_weight > 0:
         LOGGER.info(
             "Fine-tuning with augmentation-consistency (λ=%.2f, τ=%.2f)",
@@ -228,7 +234,7 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         )
     semi_time = timed(t0)
     semi_model = semi_state.model
-    semi = threshold_and_eval(semi_model, datasets, config, pos_index, "semi")
+    semi = threshold_and_eval(semi_model, datasets, config, pos_index, "semi", mesh=mesh)
     semi.arg_metrics["training_time_sec"] = semi_time
     semi.thr_metrics["training_time_sec"] = semi_time
 
@@ -242,8 +248,9 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         "splits": {k: np.asarray(v).tolist() for k, v in splits.items()},
         "pseudo_label_count": int(len(keep_idx)),
     }
-    reg.notes_dir.mkdir(parents=True, exist_ok=True)
-    reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
+    if is_primary():
+        reg.notes_dir.mkdir(parents=True, exist_ok=True)
+        reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
 
     target_recall = None if config.target_recall is None else float(config.target_recall)
     detailed_rows: Dict[str, Dict[str, Any]] = {}
@@ -283,7 +290,8 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         "seed": config.seed,
     }
     try:
-        reg.operating_point_json.write_text(json.dumps(op_payload, indent=2))
+        if is_primary():
+            reg.operating_point_json.write_text(json.dumps(op_payload, indent=2))
     except OSError as exc:
         LOGGER.warning("Failed to write operating_point.json: %s", exc)
 
@@ -298,16 +306,18 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
             )
         else:
             triage_images, triage_paths = pool_images, pool_paths
-        probs = pool_probabilities(semi_model, triage_images, config.batch_size)[:, pos_index]
+        probs = pool_probabilities(semi_model, triage_images, config.batch_size, mesh)[:, pos_index]
         flagged = probs >= float(triage_thr)
         try:
-            with open(reg.triage_csv, "w", newline="") as fh:
-                writer = csv.writer(fh, lineterminator="\n")
-                writer.writerow(["path", "prob_positive", "flagged"])
-                writer.writerows(zip(map(str, triage_paths), probs, flagged))
-            LOGGER.info(
-                "Wrote triage CSV with %d rows (%d flagged) to %s", len(probs), int(flagged.sum()), reg.triage_csv
-            )
+            if is_primary():
+                with open(reg.triage_csv, "w", newline="") as fh:
+                    writer = csv.writer(fh, lineterminator="\n")
+                    writer.writerow(["path", "prob_positive", "flagged"])
+                    writer.writerows(zip(map(str, triage_paths), probs, flagged))
+                LOGGER.info(
+                    "Wrote triage CSV with %d rows (%d flagged) to %s", len(probs), int(flagged.sum()),
+                    reg.triage_csv,
+                )
         except OSError as exc:
             LOGGER.warning("Failed to write triage CSV: %s", exc)
 

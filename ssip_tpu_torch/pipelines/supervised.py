@@ -25,8 +25,16 @@ same init, and writes ``tables/cv_results.csv`` (one row a fold, then the
 mean and the ddof-0 std). Both tables are written with the ``csv`` module
 in the bytes pandas' ``to_csv(index=False)`` writes for the JAX run's rows.
 
-Not ported yet, refused with an error naming the ROADMAP entry: tensor
-parallelism and FSDP (item 22).
+Data parallelism (one process a card, launched by torchrun or the
+``SSIP_*`` variables, ``parallel/distributed.py``): the mesh spans the
+process group (``TrainingConfig.build_mesh``), each step and each
+evaluation is split over its data axis with the one-process results
+(``train/engine.py``), ``--fsdp`` shards the model (``parallel/fsdp.py``),
+the seed lanes and folds are split over the ranks when their count divides
+it (``train/multi_seed.py``), and rank 0 alone writes the checkpoint, the
+tables and the notes. Not ported yet, refused before any data is read with
+an error naming the ROADMAP entry: the model axis (``--mesh-model > 1``,
+item 32).
 The four training figures (``report/plots.py``) are
 not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is not installed on the
 card's machine, where a figure call would stop the run.
@@ -52,6 +60,8 @@ from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import load_state_dict_arrays, read_torch_checkpoint, state_dict_from_flax
 from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
 from ssip_tpu_torch.ops.thresholds import select_operating_threshold
+from ssip_tpu_torch.parallel.distributed import is_primary
+from ssip_tpu_torch.parallel.fsdp import shard_model
 from ssip_tpu_torch.pipelines.extraction import DEFAULT_WEIGHTS_ENV
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
@@ -70,8 +80,7 @@ _NOT_PORTED = "is not ported to ssip_tpu_torch yet (ROADMAP.md, {item})"
 def refuse_unported(config: TrainingConfig) -> None:
     """Raise for a setting whose code path the port does not have yet."""
     for setting, on, item in (
-        ("--mesh-model > 1", config.mesh_model > 1, "Queue 1 item 22: parallelism"),
-        ("--fsdp", config.mesh_fsdp, "Queue 1 item 22: parallelism"),
+        ("--mesh-model > 1", config.mesh_model > 1, "Queue 1 item 32: the model axis"),
     ):
         if on:
             raise ValueError(f"{setting} " + _NOT_PORTED.format(item=item))
@@ -85,7 +94,7 @@ def check_cv_folds(config: TrainingConfig) -> None:
 
 def build_classifier_state(
     config: TrainingConfig, num_classes: int, learning_rate: float, device: torch.device,
-    seed: Optional[int] = None,
+    seed: Optional[int] = None, mesh=None,
 ) -> TrainState:
     """Fresh classifier on ``device``: the seeded init with its ``fc`` head
     (bit for bit the JAX package's), or a ported torchvision backbone from
@@ -93,7 +102,8 @@ def build_classifier_state(
     head (``fc``, or a ViT's ``heads.head``) kept. ``--remat`` checkpoints a
     ViT's encoder blocks (``ssip_tpu/pipelines/supervised.py:53-56``).
     ``seed`` overrides ``config.seed`` for the init: each lane of the seed
-    fan-out has its own."""
+    fan-out has its own. ``mesh``: the data-parallel mesh the state trains
+    on; with ``--fsdp`` the model is sharded over it before AdamW is made."""
     model = build_model(
         config.arch, num_classes=num_classes, compute_dtype=compute_dtype(config.compute_dtype),
         remat=config.remat, image_size=config.image_size,
@@ -111,7 +121,9 @@ def build_classifier_state(
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
-    return TrainState.create(model, learning_rate, config.weight_decay)
+    if mesh is not None and config.mesh_fsdp:
+        model = shard_model(model, mesh)
+    return TrainState.create(model, learning_rate, config.weight_decay, mesh=mesh)
 
 
 def prepare_datasets(
@@ -130,7 +142,9 @@ def write_results_csv(path: Path, rows: Dict[str, Dict[str, Any]]) -> None:
     """``pandas.DataFrame.from_dict(rows, orient="index").to_csv(path)``'s
     text for rows of numbers, strings and None, without pandas: the union of
     the rows' keys in first-seen order, an empty cell for a missing key and
-    for None."""
+    for None. Rank 0 writes."""
+    if not is_primary():
+        return
     columns: List[str] = []
     for row in rows.values():
         columns.extend(key for key in row if key not in columns)
@@ -160,7 +174,9 @@ def _column_cells(values: List[Any]) -> List[str]:
 def write_table_csv(path: Path, rows: List[Dict[str, Any]]) -> None:
     """``pandas.DataFrame(rows).to_csv(path, index=False)``'s text for rows
     of numbers, booleans and strings, without pandas: the union of the
-    rows' keys in first-seen order."""
+    rows' keys in first-seen order. Rank 0 writes."""
+    if not is_primary():
+        return
     columns: List[str] = []
     for row in rows:
         columns.extend(key for key in row if key not in columns)
@@ -173,7 +189,7 @@ def write_table_csv(path: Path, rows: List[Dict[str, Any]]) -> None:
 
 
 def train_baseline_multi_seed(
-    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device
+    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device, mesh=None
 ) -> Tuple[TrainState, Dict[str, List[float]], float]:
     """``--num-seeds``: seeds ``seed + i`` trained side by side, the lane of
     least validation loss (the reference's checkpoint criterion) kept and
@@ -189,11 +205,13 @@ def train_baseline_multi_seed(
     states, histories, summary = train_multi_seed(
         states, datasets["train"], datasets["val"], seeds=seeds, num_epochs=config.baseline_epochs,
         batch_size=config.batch_size, stream_name="baseline", balanced=True, augment=True,
-        early_stopping_patience=config.early_stopping_patience,
+        early_stopping_patience=config.early_stopping_patience, mesh=mesh,
     )
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     train_time = time.time() - t0
+    for state in states:  # every rank holds every lane's model: evaluations split over the mesh
+        state.mesh = mesh
     best_lane = int(np.argmin([row["best_val_loss"] for row in summary]))
     for row in summary:
         row["selected"] = row["seed"] == seeds[best_lane]
@@ -207,7 +225,7 @@ def train_baseline_multi_seed(
 
 
 def run_cross_validation(
-    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device
+    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device, mesh=None
 ) -> List[Dict[str, Any]]:
     """``--cv-folds``: stratified k-fold over the train + val pool (the test
     split held out), every fold from the same init, trained side by side;
@@ -224,7 +242,7 @@ def run_cross_validation(
         states, pool, pool, seeds=[config.seed] * len(folds), num_epochs=config.baseline_epochs,
         batch_size=config.batch_size, stream_name="cv", balanced=True, augment=True,
         early_stopping_patience=config.early_stopping_patience,
-        lane_train_pools=[f[0] for f in folds], lane_val_pools=[f[1] for f in folds],
+        lane_train_pools=[f[0] for f in folds], lane_val_pools=[f[1] for f in folds], mesh=mesh,
     )
     rows: List[Dict[str, Any]] = []
     for f, (h, row, (tr, va)) in enumerate(zip(histories, summary, folds)):
@@ -261,18 +279,19 @@ class EvalPair:
 
 def threshold_and_eval(
     model: nn.Module, datasets: Dict[str, DeviceDataset], config: TrainingConfig, pos_index: int, label: str,
-    arg_extras: Optional[Dict[str, float]] = None,
+    arg_extras: Optional[Dict[str, float]] = None, mesh=None,
 ) -> EvalPair:
     """Evaluate ``model`` on the test split by argmax and at its operating
     threshold. With ``target_recall`` the threshold is calibrated on the
     validation split (``select_operating_threshold``); without it the
     thresholded metrics are the argmax ones. ``arg_extras`` joins the argmax
-    metrics before the thresholded ones derive from them."""
-    arg_metrics, arg_y_true, arg_y_pred, _ = evaluate_model(model, datasets["test"], config.batch_size)
+    metrics before the thresholded ones derive from them. ``mesh``: the
+    evaluations split over its data axis."""
+    arg_metrics, arg_y_true, arg_y_pred, _ = evaluate_model(model, datasets["test"], config.batch_size, mesh=mesh)
     arg_metrics.update(arg_extras or {})
     if config.target_recall is not None:
         _m, y_true_val, _p, y_prob_val = evaluate_model(
-            model, datasets["val"], config.batch_size, pos_index=pos_index
+            model, datasets["val"], config.batch_size, pos_index=pos_index, mesh=mesh
         )
         thr, thr_meta = select_operating_threshold(
             (y_true_val == pos_index).astype(int),
@@ -283,7 +302,7 @@ def threshold_and_eval(
             f_beta=config.f_beta,
         )
         thr_metrics, thr_y_true, thr_y_pred, _ = evaluate_model(
-            model, datasets["test"], config.batch_size, pos_index=pos_index, threshold=thr
+            model, datasets["test"], config.batch_size, pos_index=pos_index, threshold=thr, mesh=mesh
         )
         thr_metrics.update(
             threshold=float(thr),
@@ -309,6 +328,7 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     check_cv_folds(config)
     device = resolve_device(config.device)
     configure_precision(config.compute_dtype)
+    mesh = config.build_mesh(device)
     LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
     reg = config.artifacts
 
@@ -320,10 +340,11 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     pos_index = classes.index(config.positive_class)
 
     if config.cv_folds:
-        run_cross_validation(config, datasets, len(classes), device)
-    state, history, train_time = train_baseline(config, datasets, len(classes), device)
+        run_cross_validation(config, datasets, len(classes), device, mesh)
+    state, history, train_time = train_baseline(config, datasets, len(classes), device, mesh)
     evals = threshold_and_eval(
-        state.model, datasets, config, pos_index, "baseline", arg_extras={"training_time_sec": train_time}
+        state.model, datasets, config, pos_index, "baseline", arg_extras={"training_time_sec": train_time},
+        mesh=mesh,
     )
     arg_metrics, thr_metrics = evals.arg_metrics, evals.thr_metrics
     thr_metrics["training_time_sec"] = train_time
@@ -331,7 +352,6 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     write_results_csv(reg.results_comparison_csv, {"baseline_thresholded": thr_metrics})
 
     # split indices for post-hoc tooling (the threshold sweep)
-    reg.notes_dir.mkdir(parents=True, exist_ok=True)
     history_payload = {
         "arch": config.arch,
         "image_size": int(config.image_size),
@@ -340,21 +360,23 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     }
     if config.num_seeds > 1:
         history_payload["num_seeds"] = config.num_seeds
-    reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
+    if is_primary():
+        reg.notes_dir.mkdir(parents=True, exist_ok=True)
+        reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
 
     return {"baseline_thresholded": thr_metrics, "baseline_argmax": arg_metrics}
 
 
 def train_baseline(
-    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device
+    config: TrainingConfig, datasets: Dict[str, DeviceDataset], num_classes: int, device: torch.device, mesh=None
 ) -> Tuple[TrainState, Dict[str, List[float]], float]:
     """The baseline classifier, the seed fan-out's best lane with
     ``--num-seeds > 1``: (state at its best validation loss, history,
     training seconds). Both pipelines' phase A."""
     if config.num_seeds > 1:
-        return train_baseline_multi_seed(config, datasets, num_classes, device)
+        return train_baseline_multi_seed(config, datasets, num_classes, device, mesh)
     reg = config.artifacts
-    state = build_classifier_state(config, num_classes, config.learning_rate, device)
+    state = build_classifier_state(config, num_classes, config.learning_rate, device, mesh=mesh)
     t0 = time.time()
     state, history = train_model(
         state,

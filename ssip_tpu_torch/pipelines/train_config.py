@@ -5,10 +5,11 @@ same defaults — with artifact paths derived from ``output_dir`` through the
 ArtifactRegistry instead of hard-coded strings.
 
 The port's own copy of ``ssip_tpu/pipelines/train_config.py`` (the port
-imports nothing of the JAX package): the same fields and defaults, without
-``build_mesh`` (the mesh is not ported), and ``resume_path`` names the
-port's snapshot file. Comments that name jax mechanisms
-describe the JAX package's settings; the port refuses the ones it lacks.
+imports nothing of the JAX package): the same fields and defaults;
+``build_mesh`` is the process group's mesh (``parallel/mesh.py``), and
+``resume_path`` names the port's snapshot. Comments that name jax
+mechanisms describe the JAX package's settings; the port refuses the ones
+it lacks.
 """
 
 from __future__ import annotations
@@ -103,10 +104,19 @@ class TrainingConfig:
     # tables/cv_results.csv. 0 = off (reference behavior).
     cv_folds: int = 0
 
+    def build_mesh(self, device):
+        """The training mesh over the process group (``mesh_data``
+        processes on the data axis, default all), or None for a process
+        that joined no group."""
+        from ssip_tpu_torch.parallel.mesh import training_mesh
+
+        return training_mesh(self.mesh_data, model=self.mesh_model, device_type=device.type)
+
     def resume_path(self, stream: str):
         """The stream's resume snapshot: the JAX package's directory and
         stream name, the port's own format and suffix
-        (``train/checkpoints.py``)."""
+        (``train/checkpoints.py``; a directory with
+        ``SSIP_SNAPSHOT_FORMAT=orbax``)."""
         if not self.resume:
             return None
         return self.artifacts.models_dir / "checkpoints" / f"{stream}.torchsnap"

@@ -3,7 +3,9 @@
 Counterpart of ``ssip_tpu/runtime/device.py:31-55`` (``resolve_devices``,
 ``device_label``) and of the precision half of ``runtime/jaxconfig.py``.
 The reference CLI flag ``--device auto|cpu|cuda`` maps onto exactly one
-``torch.device``; there is no mesh in this slice.
+``torch.device`` a process: under a process group
+(``parallel/distributed.py``) each rank runs on its own card,
+``cuda:LOCAL_RANK``, and the mesh is the group's.
 
 Dtype policy (``ssip_tpu/models/resnet.py:9-12``): parameters and BN
 statistics stay float32; activations run in float32 (parity mode) or
@@ -25,7 +27,8 @@ def resolve_device(device: str = "auto") -> torch.device:
 
     With no card visible, ``auto`` and ``cuda`` raise: the port's entry
     points run on the card unless the caller asks for the CPU, and a run
-    never carries on quietly there.
+    never carries on quietly there. Under a process group ``auto`` and
+    ``cuda`` are the rank's card.
     """
     name = (device or "auto").lower()
     if name == "cpu":
@@ -36,14 +39,20 @@ def resolve_device(device: str = "auto") -> torch.device:
                 f"--device {device or 'auto'} needs a CUDA device and none is visible; "
                 "pass --device cpu to run on the CPU"
             )
-        return torch.device("cuda" if name == "auto" else name)
+        if name in ("auto", "cuda"):
+            from ssip_tpu_torch.parallel.distributed import is_distributed, local_rank
+
+            return torch.device(f"cuda:{local_rank() % torch.cuda.device_count()}" if is_distributed() else "cuda")
+        return torch.device(name)
     raise ValueError(f"--device must be auto|cpu|cuda, got {device!r}")
 
 
 def device_label(device: torch.device) -> str:
     """``metadata.json`` device string, in the JAX package's
-    ``platform:count`` form (one device per run here)."""
-    return f"{device.type}:1"
+    ``platform:count`` form: the processes of the group, one device each."""
+    from ssip_tpu_torch.parallel.distributed import world_size
+
+    return f"{device.type}:{world_size()}"
 
 
 def compute_dtype(name: str) -> torch.dtype:

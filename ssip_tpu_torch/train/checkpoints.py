@@ -30,9 +30,18 @@ The format is the port's own, because flax's msgpack needs flax: the magic
 driver JSON, then ``torch.save`` of the state. Neither package misreads the
 other's snapshot: the JAX loader finds no magic of its own and no legacy
 ``.driver.json`` beside it and calls it unreadable, and so does this one of a
-JAX snapshot. The JAX package's sharded snapshots
-(``SSIP_SNAPSHOT_FORMAT=orbax``, a snapshot path that is a directory) are
-refused with their ROADMAP item: they go with parallelism.
+JAX snapshot.
+
+``SSIP_SNAPSHOT_FORMAT=orbax`` writes the sharded form instead, a directory
+of ``torch.distributed.checkpoint`` shards (``train/orbax_ckpt.py``); a
+snapshot path that is a directory restores that way whatever the variable
+says.
+
+Under a process group every rank runs the same epoch loop: each call here
+is made on every rank. The files (the ``.pt``, a one-file snapshot) are
+written by rank 0 alone; under ``--fsdp`` the state is gathered whole first
+(a collective), so ``export_model``, ``predict`` and the sweep read them
+unchanged, and a restore puts each tensor back in its live placement.
 """
 
 from __future__ import annotations
@@ -50,22 +59,23 @@ import torch
 from torch import nn
 
 from ssip_tpu_torch.models.port import load_state_dict_arrays
+from ssip_tpu_torch.parallel.distributed import is_primary
+from ssip_tpu_torch.parallel.fsdp import full_tensor, placed_like
 from ssip_tpu_torch.runtime.logging import get_logger
 
 LOGGER = get_logger(__name__)
 
 _SNAPSHOT_MAGIC = b"SSIPTORCHSNAP1\n"
-_ORBAX_NOT_PORTED = (
-    "sharded (orbax) resume snapshots are not ported to ssip_tpu_torch yet "
-    "(ROADMAP.md, Queue 1 item 22: parallelism)"
-)
 
 
 def save_checkpoint(path: Path, model: nn.Module) -> None:
-    """Write ``model``'s state_dict to ``path`` as float32/int64 CPU tensors."""
+    """Write ``model``'s state_dict to ``path`` as float32/int64 CPU tensors
+    (gathered whole under FSDP; rank 0 writes)."""
     path = Path(path)
+    state = {k: full_tensor(v).detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    if not is_primary():
+        return
     path.parent.mkdir(parents=True, exist_ok=True)
-    state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
     tmp = path.with_name(path.name + ".tmp")
     torch.save(state, tmp)
     tmp.replace(path)
@@ -97,23 +107,38 @@ class Snapshot:
         )
 
     def restore(self, state) -> None:
-        state.model.load_state_dict(self.model)
-        state.optimizer.load_state_dict(self.optimizer)
+        """Load into ``state``; a whole tensor read from a file goes back
+        into its live parameter's FSDP placement."""
+        live = state.model.state_dict()
+        state.model.load_state_dict({k: _placed(v, live[k]) for k, v in self.model.items()})
+        params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        optimizer = dict(self.optimizer)
+        optimizer["state"] = {
+            i: {k: _placed(v, params[int(i)]) if torch.is_tensor(v) and v.shape == params[int(i)].shape else v
+                for k, v in entry.items()}
+            for i, entry in self.optimizer["state"].items()
+        }
+        state.optimizer.load_state_dict(optimizer)
         state.step = self.step
 
 
-def check_snapshot_format(path: Path) -> None:
-    """Raise for the JAX package's sharded snapshot format, which the port
-    does not have."""
-    if os.environ.get("SSIP_SNAPSHOT_FORMAT") == "orbax":
-        raise ValueError(f"SSIP_SNAPSHOT_FORMAT=orbax: {_ORBAX_NOT_PORTED}")
-    if Path(path).is_dir():
-        raise ValueError(f"the resume snapshot {path} is a directory: {_ORBAX_NOT_PORTED}")
+def _placed(value: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return placed_like(value, like) if isinstance(like, DTensor) else value
+
+
+def snapshot_exists(path: Path) -> bool:
+    """A snapshot (a file, a directory, or a directory whose replacement
+    was cut between its two renames) is at ``path``."""
+    from ssip_tpu_torch.train.orbax_ckpt import committed_path
+
+    return committed_path(Path(path)) is not None
 
 
 def _to_cpu(obj: Any) -> Any:
     if torch.is_tensor(obj):
-        return obj.detach().to("cpu", copy=True)
+        return full_tensor(obj).detach().to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -121,27 +146,46 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
+def _sharded_form(path: Path) -> bool:
+    """Write the sharded form: asked for by the variable, or kept where the
+    snapshot (for a ``.best`` sidecar, its stream's) is a directory."""
+    stream = path.with_name(path.name[: -len(".best")]) if path.name.endswith(".best") else path
+    return os.environ.get("SSIP_SNAPSHOT_FORMAT") == "orbax" or path.is_dir() or stream.is_dir()
+
+
 def save_train_snapshot(path: Path, snapshot: Snapshot, driver: Dict[str, Any]) -> None:
     """Write ``snapshot`` and the driver dict to ``path`` in one file,
-    committed by an atomic rename."""
-    check_snapshot_format(path)
+    committed by an atomic rename (rank 0 writes); with
+    ``SSIP_SNAPSHOT_FORMAT=orbax``, or where the snapshot is a directory
+    already, a directory of shards, every rank writing its own."""
+    if _sharded_form(Path(path)):
+        from ssip_tpu_torch.train.orbax_ckpt import save_train_snapshot_orbax
+
+        save_train_snapshot_orbax(path, snapshot, driver)
+        return
     path = Path(path)
+    whole = {"step": int(snapshot.step), "model": _to_cpu(snapshot.model), "optimizer": _to_cpu(snapshot.optimizer)}
+    if not is_primary():
+        return
     path.parent.mkdir(parents=True, exist_ok=True)
     driver_bytes = json.dumps(driver).encode()
     state = io.BytesIO()
-    torch.save(
-        {"step": int(snapshot.step), "model": _to_cpu(snapshot.model), "optimizer": _to_cpu(snapshot.optimizer)},
-        state,
-    )
+    torch.save(whole, state)
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_bytes(_SNAPSHOT_MAGIC + len(driver_bytes).to_bytes(8, "big") + driver_bytes + state.getvalue())
     os.replace(tmp, path)
 
 
-def load_train_snapshot(path: Path) -> Tuple[Snapshot, Dict[str, Any]]:
-    """(snapshot with CPU tensors, driver dict); raises on a missing,
-    corrupt or foreign file."""
-    check_snapshot_format(path)
+def load_train_snapshot(path: Path, template=None) -> Tuple[Snapshot, Dict[str, Any]]:
+    """(snapshot, driver dict); raises on a missing, corrupt or foreign
+    snapshot. A file gives CPU tensors; a directory (the sharded form)
+    restores into the placements of ``template``'s tensors (a
+    ``TrainState``; CPU tensors without one)."""
+    from ssip_tpu_torch.train.orbax_ckpt import committed_path, load_train_snapshot_orbax
+
+    found = committed_path(Path(path))
+    if found is not None and found.is_dir():
+        return load_train_snapshot_orbax(found, template)
     raw = Path(path).read_bytes()
     if not raw.startswith(_SNAPSHOT_MAGIC):
         raise ValueError(f"{path} is not a resume snapshot of ssip_tpu_torch")
@@ -163,10 +207,9 @@ def restore_resume_state(resume_path: Path, state) -> Tuple[Optional[Dict[str, A
     resume point must never brick the run it protects).
     """
     path = Path(resume_path)
-    check_snapshot_format(path)
     fresh = Snapshot.take(state)
     try:
-        snapshot, driver = load_train_snapshot(path)
+        snapshot, driver = load_train_snapshot(path, state)
         snapshot.restore(state)
     except Exception as exc:  # noqa: BLE001 — any unreadable snapshot starts the run fresh
         fresh.restore(state)
@@ -176,9 +219,9 @@ def restore_resume_state(resume_path: Path, state) -> Tuple[Optional[Dict[str, A
     best_path = Path(str(path) + ".best")
     best = Snapshot.take(state)
     best_val = driver.get("best_val_loss", math.inf)
-    if best_path.exists():
+    if snapshot_exists(best_path):
         try:
-            best, _ = load_train_snapshot(best_path)
+            best, _ = load_train_snapshot(best_path, state)
         except Exception as exc:  # noqa: BLE001
             LOGGER.warning("Unreadable best-state snapshot %s (%s) — using current", best_path, exc)
     elif math.isfinite(best_val):

@@ -28,8 +28,14 @@ jitter, whose rotation is the CUDA kernel of ``ops/rotate.py:
 rotate_images`` on the card, or ``"randaugment"``, the FixMatch paper's
 RandAugment + Cutout policy of ``ops/randaugment.py`` (plain PyTorch, as
 the JAX package computes it in plain XLA); the labeled view's rotation is
-``augment_images``. The mesh is not ported; the whole-epoch ``lax.scan``
-is a Python loop of steps. ``resume_path`` snapshots the student every epoch, as
+``augment_images``. The whole-epoch ``lax.scan`` is a Python loop of steps.
+
+Under data parallelism (``TrainState.mesh``) the unlabeled batch and its
+view draws are padded and split over the data axis like the labeled batch
+(``train/engine.py``): the padding rows are out of the strong view's
+BatchNorm statistics and out of ``keep``, the consistency term is divided
+by the global ``Σkeep``, and the EMA teacher is a copy of the parameters in
+their placement (FSDP shards included), updated alike on every rank. ``resume_path`` snapshots the student every epoch, as
 ``train_model`` does (``:295-400``); with an EMA teacher the resumed run
 reseeds the average from the ``.best`` sidecar, which holds the EMA
 parameters, the JAX package's approximation.
@@ -52,12 +58,15 @@ from ssip_tpu_torch.ops.augment import augment_coeffs, strong_augment, weak_augm
 from ssip_tpu_torch.ops.metrics import accuracy_f1
 from ssip_tpu_torch.ops.randaugment import draws_geometry, strong_augment_randaugment
 from ssip_tpu_torch.ops.rotate import augment_images
+from ssip_tpu_torch.parallel.distributed import synced_batch
+from ssip_tpu_torch.parallel.fsdp import placed_like
+from ssip_tpu_torch.parallel.mesh import data_size, local_rows, pad_to_multiple
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.runtime.prng import RandAugmentDraws, fixmatch_draws, host_rng
-from ssip_tpu_torch.train.checkpoints import Snapshot, check_snapshot_format, restore_resume_state, save_train_snapshot
+from ssip_tpu_torch.train.checkpoints import Snapshot, restore_resume_state, save_train_snapshot, snapshot_exists
 from ssip_tpu_torch.train.engine import (
-    ROTATE_DEGREES, DeviceDataset, TrainState, aux_loss_terms, get_lr, masked_cross_entropy, run_eval_epoch, set_lr,
-    stacked_epoch,
+    ROTATE_DEGREES, DeviceDataset, TrainState, aux_loss_terms, gather_steps, get_lr, masked_cross_entropy,
+    run_eval_epoch, set_lr, stacked_epoch, sync_gradients,
 )
 
 LOGGER = get_logger(__name__)
@@ -100,30 +109,49 @@ class ViewDraws:
     def to(self, device: torch.device) -> "ViewDraws":
         return self._map(lambda t: t.to(device))
 
+    def columns(self, rows: slice, u_rows: slice) -> "ViewDraws":
+        """The draws of the labeled ``rows`` and unlabeled ``u_rows`` (the
+        batch axis is the last of every field)."""
+        view = self._map(lambda t: t[..., u_rows])
+        view.sup_coeffs = self.sup_coeffs[..., rows]
+        return view
+
+
+def _pad_last(a: np.ndarray, width: Optional[int]) -> np.ndarray:
+    """``a`` padded along its last (batch) axis to ``width`` with copies of
+    its last row: valid draws for rows that are masked out."""
+    if width is None or a.shape[-1] == width:
+        return a
+    return np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, width - a.shape[-1])], mode="edge")
+
 
 def epoch_view_draws(
     seed: int, stream: str, epoch: int, steps: int, batch: int, unlabeled_batch: int, device: torch.device,
     strong_aug: str = "jitter", image_size: Optional[Tuple[int, int]] = None,
+    row_width: Optional[int] = None, u_row_width: Optional[int] = None,
 ) -> ViewDraws:
     """Every step's draws of one epoch (``runtime/prng.py:fixmatch_draws``),
     stacked and sent to ``device`` in one copy each. RandAugment's warp
     matrices are made here on the host, from the draws, for images of
-    ``image_size`` (H, W)."""
+    ``image_size`` (H, W). ``row_width``/``u_row_width``: the batches
+    padded to a multiple of the data axis (the draws of the real rows
+    unchanged)."""
     draws = [fixmatch_draws(seed, stream, epoch, s, batch, unlabeled_batch, ROTATE_DEGREES, strong_aug, image_size)
              for s in range(steps)]
-    sup = np.stack([augment_coeffs(d.sup_flip, d.sup_angles) for d in draws])
-    weak = np.stack([d.weak_flip for d in draws])
+    sup = _pad_last(np.stack([augment_coeffs(d.sup_flip, d.sup_angles) for d in draws]), row_width)
+    weak = _pad_last(np.stack([d.weak_flip for d in draws]), u_row_width)
     if strong_aug == "randaugment":
         ra = RandAugmentDraws(*(np.stack(column) for column in zip(*(
             [getattr(d.randaugment, f.name) for f in fields(RandAugmentDraws)] for d in draws))))
-        view = ViewDraws(torch.from_numpy(sup), torch.from_numpy(weak), None, None, None,
-                         ra.map(torch.from_numpy), torch.from_numpy(draws_geometry(ra, *image_size)))
+        geo = _pad_last(draws_geometry(ra, *image_size), u_row_width)
+        ra = ra.map(lambda a: torch.from_numpy(_pad_last(a, u_row_width)))
+        view = ViewDraws(torch.from_numpy(sup), torch.from_numpy(weak), None, None, None, ra, torch.from_numpy(geo))
         return view.to(device)
     stacked = (
         sup, weak,
-        np.stack([augment_coeffs(d.strong_flip, d.strong_angles) for d in draws]),
-        np.stack([d.brightness for d in draws]),
-        np.stack([d.contrast for d in draws]),
+        _pad_last(np.stack([augment_coeffs(d.strong_flip, d.strong_angles) for d in draws]), u_row_width),
+        _pad_last(np.stack([d.brightness for d in draws]), u_row_width),
+        _pad_last(np.stack([d.contrast for d in draws]), u_row_width),
     )
     return ViewDraws(*map(torch.from_numpy, stacked)).to(device)
 
@@ -140,11 +168,27 @@ def strong_view(unlabeled_u8: torch.Tensor, draws: ViewDraws, dtype) -> torch.Te
 def swapped_parameters(model: nn.Module, params: Optional[Dict[str, torch.Tensor]]) -> Iterator[None]:
     """Within the block the model's parameters are ``params`` (name →
     tensor; None leaves the model as it is), its buffers the live ones: the
-    EMA teacher's forward, validation and snapshot without a second model."""
+    EMA teacher's forward, validation and snapshot without a second model.
+    FSDP gathers a sharded parameter from its own storage, so there the
+    values are copied in and back rather than swapped."""
     if params is None:
         yield
         return
     named = dict(model.named_parameters())
+    from ssip_tpu_torch.parallel.fsdp import is_sharded
+
+    if is_sharded(model):
+        with torch.no_grad():
+            saved = {name: p.detach().clone() for name, p in named.items()}
+            for name, p in named.items():
+                p.copy_(params[name])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for name, p in named.items():
+                    p.copy_(saved[name])
+        return
     live = {name: p.data for name, p in named.items()}
     try:
         for name, p in named.items():
@@ -162,12 +206,16 @@ def init_ema(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def update_ema(ema_params: Dict[str, torch.Tensor], model: nn.Module, ema_decay: float) -> None:
-    """``ema = d·ema + (1 − d)·params``, in place."""
-    names = list(ema_params)
+    """``ema = d·ema + (1 − d)·params``, in place (FSDP's sharded and whole
+    parameters in separate groups: a foreach op takes one kind)."""
     live = dict(model.named_parameters())
-    averages = [ema_params[name] for name in names]
-    torch._foreach_mul_(averages, ema_decay)
-    torch._foreach_add_(averages, [live[name].detach() for name in names], alpha=1.0 - ema_decay)
+    groups: Dict[type, List[str]] = {}
+    for name in ema_params:
+        groups.setdefault(type(live[name].data), []).append(name)
+    for names in groups.values():
+        averages = [ema_params[name] for name in names]
+        torch._foreach_mul_(averages, ema_decay)
+        torch._foreach_add_(averages, [live[name].detach() for name in names], alpha=1.0 - ema_decay)
 
 
 def fixmatch_step(
@@ -182,11 +230,19 @@ def fixmatch_step(
     consistency_weight: float,
     confidence_threshold: float,
     ema_decay: float = 0.0,
+    n_valid: Optional[float] = None,
+    u_valid: Optional[torch.Tensor] = None,
+    n_unlabeled: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One FixMatch optimizer step; returns (loss, supervised loss,
     consistency loss, keep rate, argmax predictions of the labeled batch), on
     the device. ``ema_params`` (None: the teacher is the live student) is
-    updated in place after the optimizer step; gradients stay in ``.grad``."""
+    updated in place after the optimizer step; gradients stay in ``.grad``.
+
+    Under data parallelism the batches are this rank's rows, ``n_valid``
+    the labeled batch's global valid count, ``u_valid`` marks this rank's
+    real unlabeled rows and ``n_unlabeled`` is the global unlabeled batch;
+    the four numbers returned are this rank's shares of the global ones."""
     model = state.model
     dtype = model.compute_dtype
     x_sup = augment_images(images_u8, draws.sup_coeffs, dtype)
@@ -198,23 +254,31 @@ def fixmatch_step(
         probs_weak = torch.softmax(model(x_weak).to(torch.float32), dim=1)
     conf, pseudo = probs_weak.max(dim=1)
     keep = conf >= confidence_threshold
+    group = state.group
+    keep_total = None
+    if group is not None:
+        keep = keep & u_valid
+        keep_total = keep.to(torch.float32).sum()
+        torch.distributed.all_reduce(keep_total, group=group)
 
     model.train()
-    logits_sup = model(x_sup, mask=valid)
-    aux_terms = aux_loss_terms(model)  # the labeled view's; the strong view's are dropped
-    sup_loss = masked_cross_entropy(logits_sup, labels, valid)
-    cons_loss = masked_cross_entropy(model(x_strong), pseudo, keep)
+    with synced_batch(group):
+        logits_sup = model(x_sup, mask=valid)
+        aux_terms = aux_loss_terms(model)  # the labeled view's; the strong view's are dropped
+        sup_loss = masked_cross_entropy(logits_sup, labels, valid, n_valid)
+        cons_loss = masked_cross_entropy(model(x_strong, mask=u_valid), pseudo, keep, keep_total)
     loss = sup_loss + consistency_weight * cons_loss
     for term in aux_terms:
         loss = loss + term
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    sync_gradients(state)
     state.optimizer.step()
     state.step += 1
     if ema_params is not None:
         update_ema(ema_params, model, ema_decay)
-    return (loss.detach(), sup_loss.detach(), cons_loss.detach(), keep.to(torch.float32).mean(),
-            logits_sup.detach().argmax(dim=1))
+    kept = keep.to(torch.float32).mean() if group is None else keep.to(torch.float32).sum() / n_unlabeled
+    return loss.detach(), sup_loss.detach(), cons_loss.detach(), kept, logits_sup.detach().argmax(dim=1)
 
 
 def train_fixmatch(
@@ -266,15 +330,18 @@ def train_fixmatch(
     plateau_best, plateau_bad = math.inf, 0
     n_unlabeled = int(unlabeled_images.shape[0])
     epoch_start = 0
+    group = state.group
+    row_width = pad_to_multiple(batch_size, data_size(state.mesh))
+    u_row_width = pad_to_multiple(unlabeled_batch_size, data_size(state.mesh))
 
     if resume_path is not None:
-        check_snapshot_format(resume_path)
-        if Path(resume_path).exists():
+        if snapshot_exists(resume_path):
             driver, best_r = restore_resume_state(resume_path, state)
             if driver is not None:
                 best = best_r
                 if ema_params is not None:  # the .best parameters are EMA parameters
-                    ema_params = {name: best.model[name].detach().to(dev, copy=True) for name in ema_params}
+                    ema_params = {name: placed_like(best.model[name].detach(), live).clone()
+                                  for name, live in ema_params.items()}
                 history = driver["history"]
                 best_val = driver["best_val_loss"]
                 early = driver["early_patience"]
@@ -290,14 +357,24 @@ def train_fixmatch(
         order = balanced_epoch_indices(
             train_dataset.labels, seed=seed, epoch=epoch, num_samples=len(train_dataset)
         )
-        pidx, valid = stacked_epoch(order, batch_size)
+        pidx, valid = stacked_epoch(order, batch_size, row_width)
         steps = pidx.shape[0]
         u_rng = host_rng(seed, f"{stream_name}/unlabeled/{epoch}")
         u_idx = u_rng.integers(0, n_unlabeled, size=(steps, unlabeled_batch_size))
         draws = epoch_view_draws(seed, stream_name, epoch, steps, batch_size, unlabeled_batch_size, dev,
-                                 strong_aug, tuple(unlabeled_images.shape[1:3]))
-        pidx_dev = torch.from_numpy(pidx.astype(np.int64)).to(dev)
-        valid_dev = torch.from_numpy(valid).to(dev)
+                                 strong_aug, tuple(unlabeled_images.shape[1:3]), row_width, u_row_width)
+        totals = [None] * steps
+        local_pidx, local_valid, u_valid_dev = pidx, valid, [None] * steps
+        if group is not None:
+            rows, u_rows = local_rows(state.mesh, row_width), local_rows(state.mesh, u_row_width)
+            totals = [float(v) for v in valid.sum(axis=1)]
+            local_pidx, local_valid = pidx[:, rows], valid[:, rows]
+            u_valid = np.arange(u_row_width)[None, :].repeat(steps, 0) < unlabeled_batch_size
+            u_idx = np.pad(u_idx, [(0, 0), (0, u_row_width - unlabeled_batch_size)])[:, u_rows]
+            u_valid_dev = torch.from_numpy(u_valid[:, u_rows]).to(dev)
+            draws = draws.columns(rows, u_rows)
+        pidx_dev = torch.from_numpy(local_pidx.astype(np.int64)).to(dev)
+        valid_dev = torch.from_numpy(local_valid).to(dev)
         u_idx_dev = torch.from_numpy(u_idx.astype(np.int64)).to(dev)
         metrics = []
         for s in range(steps):
@@ -306,16 +383,22 @@ def train_fixmatch(
                 state, ema_params, train_dataset.images_u8[idx], train_dataset.labels_dev[idx], valid_dev[s],
                 unlabeled_images[u_idx_dev[s]], draws[s], consistency_weight=consistency_weight,
                 confidence_threshold=confidence_threshold, ema_decay=ema_decay,
+                n_valid=totals[s], u_valid=u_valid_dev[s], n_unlabeled=unlabeled_batch_size,
             ))
         # one copy to the host per epoch, so the step loop never waits on it
-        losses, _sup, cons, keep, preds = (torch.stack(column).cpu().numpy() for column in zip(*metrics))
+        columns = [torch.stack(column) for column in zip(*metrics)]
+        if group is not None:
+            shares = torch.stack(columns[:4])
+            torch.distributed.all_reduce(shares, group=group)
+            columns = [*shares, gather_steps(columns[4], group)]
+        losses, _sup, cons, keep, preds = (column.cpu().numpy() for column in columns)
         train_loss = float(np.mean(losses))
         valid_flat = valid.reshape(-1)
         train_acc, train_f1 = accuracy_f1(
             train_dataset.labels[pidx.reshape(-1)[valid_flat]], preds.reshape(-1)[valid_flat]
         )
         with swapped_parameters(model, ema_params):
-            val_loss, vy, vp, _ = run_eval_epoch(model, val_dataset, batch_size)
+            val_loss, vy, vp, _ = run_eval_epoch(model, val_dataset, batch_size, state.mesh)
         val_acc, val_f1 = accuracy_f1(vy, vp)
         improved = val_loss < best_val
         if improved:

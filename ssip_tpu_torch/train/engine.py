@@ -36,8 +36,26 @@ such drivers side by side.
   epoch, and a ``.best`` sidecar at each new best; an existing snapshot
   restores the run mid-stream (``train/checkpoints.py``, ``:488-606``).
 
-Not ported: the mesh and FSDP, and the fused whole-epoch program (a Python
-loop over steps takes its place).
+- Data parallelism (``TrainState.mesh``, one process a card over
+  ``torch.distributed``): the JAX step sees the global batch, so the port
+  rebuilds its semantics by hand. Every rank builds the same global
+  ``epoch_plan`` (the batch padded to a multiple of the data axis, the
+  augmentation drawn for the batch's rows and the identity for the
+  padding) and takes its rows (``parallel/mesh.py:local_rows``). The masked
+  BatchNorm sums its statistics over the ranks with autograd and the MoE
+  layers their routing statistics (``synced_batch``); the cross-entropy is
+  the global ``Σ(ce·w)/max(Σw, 1)``, each rank's loss its share of it; the
+  gradients are summed over the ranks by hand after the backward (a
+  wrapper's reducer would fix its gradient set at wrap time, and the
+  head-only pretrain changes it each stage), so they equal the
+  single-process gradient, and every rank's AdamW takes the same step.
+  Predictions are gathered in order at the end of the epoch.
+  ``run_eval_epoch`` shards each batch the same way. With ``--fsdp`` the
+  model is FSDP2-sharded (``parallel/fsdp.py``) and only the parameters it
+  keeps whole need the hand sum.
+
+Not ported: the fused whole-epoch program (a Python loop over steps takes
+its place), and the tensor-parallel model axis (ROADMAP Queue 1 item 32).
 """
 
 from __future__ import annotations
@@ -46,7 +64,7 @@ import math
 from contextlib import contextmanager
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,9 +75,12 @@ from ssip_tpu_torch.data.splits import balanced_epoch_indices
 from ssip_tpu_torch.ops.augment import augment_coeffs, eval_preprocess
 from ssip_tpu_torch.ops.metrics import accuracy_f1
 from ssip_tpu_torch.ops.rotate import augment_images
+from ssip_tpu_torch.parallel.distributed import gather_rows, synced_batch
+from ssip_tpu_torch.parallel.fsdp import replicated_params
+from ssip_tpu_torch.parallel.mesh import data_group, data_size, local_rows, pad_to_multiple
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.runtime.prng import augment_draws, host_rng
-from ssip_tpu_torch.train.checkpoints import Snapshot, check_snapshot_format, restore_resume_state, save_train_snapshot
+from ssip_tpu_torch.train.checkpoints import Snapshot, restore_resume_state, save_train_snapshot, snapshot_exists
 
 LOGGER = get_logger(__name__)
 
@@ -68,21 +89,36 @@ ROTATE_DEGREES = 10.0  # torchvision RandomRotation(10), the train transform
 
 @dataclass
 class TrainState:
-    """The model, its AdamW optimizer and the count of optimizer steps."""
+    """The model, its AdamW optimizer and the count of optimizer steps;
+    ``mesh`` is the data-parallel ``DeviceMesh`` (None: one process)."""
 
     model: nn.Module  # a ported arch of models/registry.py
     optimizer: torch.optim.AdamW
     step: int = 0
+    mesh: Any = None
 
     @classmethod
-    def create(cls, model: nn.Module, learning_rate: float, weight_decay: float) -> "TrainState":
+    def create(cls, model: nn.Module, learning_rate: float, weight_decay: float, mesh=None) -> "TrainState":
         """AdamW with torch's default betas and eps, decay on every
-        parameter (``make_optimizer``, ``ssip_tpu/train/engine.py:58-69``)."""
+        parameter (``make_optimizer``, ``ssip_tpu/train/engine.py:58-69``).
+        Under FSDP ``model`` is sharded already, so the moments are too; its
+        sharded and its whole parameters are two parameter groups (the same
+        settings), since a foreach kernel takes one kind of tensor."""
+        from torch.distributed.tensor import DTensor
+
+        params = list(model.parameters())
+        sharded = [p for p in params if isinstance(p, DTensor)]
+        groups = [sharded, [p for p in params if not isinstance(p, DTensor)]] if sharded else [params]
         optimizer = torch.optim.AdamW(
-            model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+            [{"params": g} for g in groups if g], lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=weight_decay,
         )
-        return cls(model, optimizer)
+        return cls(model, optimizer, mesh=mesh)
+
+    @property
+    def group(self):
+        """The data axis' group when it spans more than one process, else None."""
+        return data_group(self.mesh) if data_size(self.mesh) > 1 else None
 
 
 def get_lr(state: TrainState) -> float:
@@ -111,11 +147,35 @@ class DeviceDataset:
         return int(self.images_u8.shape[0])
 
 
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over the valid rows: ``Σ(ce·w)/max(Σw, 1)``."""
+def masked_cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor, total=None
+) -> torch.Tensor:
+    """Mean cross-entropy over the valid rows: ``Σ(ce·w)/max(Σw, 1)``.
+    ``total``: the global batch's ``Σw`` (a number or a tensor) under data
+    parallelism, where this rank's rows give its share of the global mean."""
     w = valid.to(torch.float32)
     ce = F.cross_entropy(logits.to(torch.float32), labels, reduction="none")
-    return (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    if total is None:
+        total = w.sum()
+    return (ce * w).sum() / torch.clamp(torch.as_tensor(total, dtype=torch.float32, device=w.device), min=1.0)
+
+
+def sync_gradients(state: "TrainState") -> None:
+    """Sum the gradients over the data axis, in one flat buffer: all of
+    them under data parallelism, those FSDP keeps whole under ``--fsdp``
+    (it reduce-scatters the others itself). A no-op for one process."""
+    group = state.group
+    if group is None:
+        return
+    grads = [p.grad for p in replicated_params(state.model) if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
 
 
 def aux_loss_terms(model: nn.Module) -> List[torch.Tensor]:
@@ -168,9 +228,13 @@ def train_step(
     valid: torch.Tensor,
     coeffs: Optional[torch.Tensor],
     trainable_mask: Optional[Dict[str, bool]] = None,
+    n_valid: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step; returns (loss, argmax predictions), on the device.
     The loss is the masked cross-entropy plus the model's auxiliary terms.
+    Under data parallelism the arguments are this rank's rows, ``n_valid``
+    the global batch's valid count, and the loss returned is this rank's
+    share (summed over the ranks, the global loss).
 
     ``coeffs`` is the int32 [3, B] augmentation of ``ops/augment.py:
     augment_coeffs`` on the images' device, or None for no augmentation
@@ -184,25 +248,31 @@ def train_step(
         x = eval_preprocess(images_u8, model.compute_dtype)
     else:
         x = augment_images(images_u8, coeffs, model.compute_dtype)
-    with only_trainable(model, trainable_mask):
+    with only_trainable(model, trainable_mask), synced_batch(state.group):
         logits = model(x, mask=valid)
-        loss = masked_cross_entropy(logits, labels, valid)
+        loss = masked_cross_entropy(logits, labels, valid, n_valid)
         for term in aux_loss_terms(model):
             loss = loss + term
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+    sync_gradients(state)
     state.optimizer.step()
     state.step += 1
     return loss.detach(), logits.detach().argmax(dim=1)
 
 
-def stacked_epoch(order: np.ndarray, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """[steps, batch] index and valid arrays; padding rows are invalid
-    (``_stacked_epoch``, ``ssip_tpu/train/engine.py:270-291``)."""
+def stacked_epoch(
+    order: np.ndarray, batch_size: int, row_width: Optional[int] = None
+) -> Tuple[np.ndarray, np.ndarray]:
+    """[steps, row] index and valid arrays; padding rows are invalid
+    (``_stacked_epoch``, ``ssip_tpu/train/engine.py:270-291``).
+    ``row_width`` (>= batch_size) pads every step to a multiple of the
+    data axis."""
     order = np.asarray(order)
+    row = batch_size if row_width is None else row_width
     steps = max(1, (len(order) + batch_size - 1) // batch_size)
-    pidx = np.zeros((steps, batch_size), order.dtype if order.size else np.int64)
-    valid = np.zeros((steps, batch_size), bool)
+    pidx = np.zeros((steps, row), order.dtype if order.size else np.int64)
+    valid = np.zeros((steps, row), bool)
     for s in range(steps):
         chunk = order[s * batch_size : (s + 1) * batch_size]
         pidx[s, : len(chunk)] = chunk
@@ -220,9 +290,12 @@ def epoch_plan(
     batch_size: int,
     pool: Optional[np.ndarray] = None,
     num_samples: Optional[int] = None,
+    row_width: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """One epoch's plan: (pidx [steps, B], valid [steps, B], coeffs
-    int32 [steps, 3, B]).
+    """One epoch's plan: (pidx [steps, R], valid [steps, R], coeffs
+    int32 [steps, 3, R]), R the batch or ``row_width`` (the batch padded to
+    a multiple of the data axis; the padding rows get the identity
+    augmentation, so the real rows are the one-process plan's).
 
     The index and valid arrays are ``ssip_tpu``'s ``epoch_plan``'s, bit for
     bit; the augmentation keys become ``runtime/prng.py:augment_draws`` of
@@ -243,47 +316,116 @@ def epoch_plan(
             order = np.resize(order, n)  # truncated or cycled to n
     if pool is not None:
         order = np.asarray(pool)[order]
-    pidx, valid = stacked_epoch(order, batch_size)
+    pidx, valid = stacked_epoch(order, batch_size, row_width)
+    pad = pidx.shape[1] - batch_size
+    identity = augment_coeffs(np.zeros(pad, bool), np.zeros(pad, np.float32))
     coeffs = np.stack([
-        augment_coeffs(*augment_draws(seed, stream_name, epoch, step, batch_size, ROTATE_DEGREES))
+        np.concatenate([augment_coeffs(*augment_draws(seed, stream_name, epoch, step, batch_size, ROTATE_DEGREES)),
+                        identity], axis=1)
         for step in range(pidx.shape[0])
     ])
     return pidx, valid, coeffs
+
+
+def gather_steps(x: torch.Tensor, group) -> torch.Tensor:
+    """[steps, local, ...] of every rank → [steps, ranks·local, ...], the
+    rows of each step in global order."""
+    g = gather_rows(x, group)  # [ranks, steps, local, ...]
+    return g.transpose(0, 1).reshape(x.shape[0], -1, *x.shape[2:])
 
 
 def run_train_epoch(
     state: TrainState, dataset: DeviceDataset, pidx: np.ndarray, valid: np.ndarray,
     coeffs: Optional[np.ndarray], trainable_mask: Optional[Dict[str, bool]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Every step of one epoch plan; (per-step losses, predictions [steps, B])."""
+    """Every step of one epoch plan; (per-step losses, predictions [steps, R]).
+
+    Under data parallelism the plan is the global one: each rank steps on
+    its rows, and the losses and predictions come back whole, in one
+    collective each at the end of the epoch."""
     dev = dataset.images_u8.device
+    group = state.group
+    totals = [None] * pidx.shape[0]
+    if group is not None:
+        rows = local_rows(state.mesh, pidx.shape[1])
+        totals = [float(v) for v in valid.sum(axis=1)]
+        pidx, valid = pidx[:, rows], valid[:, rows]
+        coeffs = None if coeffs is None else coeffs[:, :, rows]
     pidx_dev = torch.from_numpy(pidx.astype(np.int64)).to(dev)
     valid_dev = torch.from_numpy(valid).to(dev)
-    coeffs_dev = None if coeffs is None else torch.from_numpy(coeffs).to(dev)
+    coeffs_dev = None if coeffs is None else torch.from_numpy(np.ascontiguousarray(coeffs)).to(dev)
     losses, preds = [], []
     for s in range(pidx.shape[0]):
         idx = pidx_dev[s]
         loss, pred = train_step(
             state, dataset.images_u8[idx], dataset.labels_dev[idx], valid_dev[s],
-            None if coeffs_dev is None else coeffs_dev[s], trainable_mask,
+            None if coeffs_dev is None else coeffs_dev[s], trainable_mask, totals[s],
         )
         losses.append(loss)
         preds.append(pred)
-    return torch.stack(losses).cpu().numpy(), torch.stack(preds).cpu().numpy()
+    losses, preds = torch.stack(losses), torch.stack(preds)
+    if group is not None:
+        torch.distributed.all_reduce(losses, group=group)
+        preds = gather_steps(preds, group)
+    return losses.cpu().numpy(), preds.cpu().numpy()
+
+
+def sharded_eval_batches(
+    model: nn.Module, images_u8: torch.Tensor, batch_size: int, mesh, labels: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor], np.ndarray]:
+    """Eval-mode forward of ``images_u8`` in batches of ``batch_size``, each
+    padded to a multiple of the data axis and split over it (JAX
+    ``run_eval_epoch`` with a mesh): (predictions [N], probabilities
+    [N, C], the per-batch cross-entropy sums against ``labels`` [batches]
+    or None, the per-batch valid counts), gathered on every rank in input
+    order. Every rank runs every batch (FSDP gathers its parameters in
+    each forward)."""
+    group = data_group(mesh)
+    n = int(images_u8.shape[0])
+    pidx, valid = stacked_epoch(np.arange(n), batch_size, pad_to_multiple(batch_size, data_size(mesh)))
+    rows = local_rows(mesh, pidx.shape[1])
+    dev = images_u8.device
+    pidx_dev = torch.from_numpy(pidx[:, rows].astype(np.int64)).to(dev)
+    valid_dev = torch.from_numpy(valid[:, rows]).to(dev)
+    sums, preds, probs = [], [], []
+    for b in range(pidx.shape[0]):
+        idx = pidx_dev[b]
+        logits = model(eval_preprocess(images_u8[idx], model.compute_dtype)).to(torch.float32)
+        if labels is not None:
+            ce = F.cross_entropy(logits, labels[idx], reduction="none")
+            sums.append((ce * valid_dev[b].to(torch.float32)).sum())
+        preds.append(logits.argmax(dim=1))
+        probs.append(torch.softmax(logits, dim=1))
+    keep = torch.from_numpy(valid.reshape(-1)).to(dev)
+    preds = gather_steps(torch.stack(preds), group).reshape(-1)[keep]
+    probs = gather_steps(torch.stack(probs), group)
+    probs = probs.reshape(-1, probs.shape[-1])[keep]
+    ce_sums = None
+    if labels is not None:
+        ce_sums = torch.stack(sums)
+        torch.distributed.all_reduce(ce_sums, group=group)
+    return preds, probs, ce_sums, valid.sum(axis=1)
 
 
 @torch.no_grad()
 def run_eval_epoch(
-    model: nn.Module, dataset: DeviceDataset, batch_size: int
+    model: nn.Module, dataset: DeviceDataset, batch_size: int, mesh=None
 ) -> Tuple[float, np.ndarray, np.ndarray, np.ndarray]:
     """(avg_loss, y_true, y_pred, y_prob [N, C]) over the dataset in order.
 
     Eval-mode forward (running statistics) batch by batch; the loss is the
     mean of the per-batch mean losses, as the reference averages it
     (``ssip_tpu/train/engine.py:379-419``). The last batch is run short
-    rather than padded: in eval mode no row affects another.
+    rather than padded: in eval mode no row affects another. With a
+    ``mesh`` of more than one process each batch is split over the data
+    axis (``sharded_eval_batches``); the metrics are the one-process ones.
     """
     model.eval()
+    if data_size(mesh) > 1:
+        preds, probs, ce_sums, counts = sharded_eval_batches(
+            model, dataset.images_u8, batch_size, mesh, dataset.labels_dev)
+        avg_loss = float((ce_sums / torch.from_numpy(counts.astype(np.float32)).to(ce_sums.device)).mean())
+        return avg_loss, dataset.labels.copy(), preds.cpu().numpy(), probs.cpu().numpy()
     losses, preds, probs = [], [], []
     for start in range(0, len(dataset), batch_size):
         images = dataset.images_u8[start : start + batch_size]
@@ -338,8 +480,7 @@ def train_model(
     epoch_start = 0
 
     if resume_path is not None:
-        check_snapshot_format(resume_path)
-        if Path(resume_path).exists():
+        if snapshot_exists(resume_path):
             driver, best_r = restore_resume_state(resume_path, state)
             if driver is not None:
                 best = best_r
@@ -354,10 +495,11 @@ def train_model(
                     best.restore(state)
                     return state, history
 
+    row_width = pad_to_multiple(batch_size, data_size(state.mesh))
     for epoch in range(epoch_start, num_epochs):
         pidx, valid, coeffs = epoch_plan(
             train_dataset, seed=seed, epoch=epoch, stream_name=stream_name,
-            balanced=balanced, batch_size=batch_size,
+            balanced=balanced, batch_size=batch_size, row_width=row_width,
         )
         losses, preds = run_train_epoch(
             state, train_dataset, pidx, valid, coeffs if augment else None, trainable_mask
@@ -368,7 +510,7 @@ def train_model(
             train_dataset.labels[pidx.reshape(-1)[valid_flat]], preds.reshape(-1)[valid_flat]
         )
 
-        val_loss, vy, vp, _ = run_eval_epoch(state.model, val_dataset, batch_size)
+        val_loss, vy, vp, _ = run_eval_epoch(state.model, val_dataset, batch_size, state.mesh)
         val_acc, val_f1 = accuracy_f1(vy, vp)
 
         # ReduceLROnPlateau(mode=min, threshold_mode=rel 1e-4): improvement

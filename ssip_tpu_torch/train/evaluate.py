@@ -4,7 +4,8 @@ Counterpart of ``ssip_tpu/train/evaluate.py:19-69`` (reference semantics:
 common.py:439-506): positive-class softmax probabilities; predictions by
 argmax or, for a binary problem with a threshold, by ``prob >= thr`` mapped
 back onto class indices; metrics binarized against the positive class when
-one is given.
+one is given. With a data-parallel ``mesh`` the forward is split over the
+ranks (``run_eval_epoch``) and the metrics are the one-process ones.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ def evaluate_model(
     batch_size: int,
     pos_index: Optional[int] = None,
     threshold: Optional[float] = None,
+    mesh=None,
 ) -> Tuple[Dict[str, float], np.ndarray, np.ndarray, np.ndarray]:
     """(metrics, y_true, y_pred, y_prob_positive)."""
-    _, y_true, y_pred_argmax, probs_full = run_eval_epoch(model, dataset, batch_size)
+    _, y_true, y_pred_argmax, probs_full = run_eval_epoch(model, dataset, batch_size, mesh)
     num_classes = probs_full.shape[1] if probs_full.ndim == 2 else 2
     pos_col = pos_index if pos_index is not None else (1 if num_classes > 1 else 0)
     y_prob = probs_full[:, pos_col]

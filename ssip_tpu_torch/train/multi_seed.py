@@ -20,7 +20,15 @@ package. ``LaneControl`` keeps the per-lane decisions on the host, a numpy
 copy of the JAX class.
 
 Not in this mode, as in the JAX package: resume snapshots and the
-per-improvement checkpoint callback. The mesh is not ported.
+per-improvement checkpoint callback.
+
+With a data-parallel ``mesh`` the lanes are split over the data axis when
+their count divides it (JAX ``:181-210``): each rank trains its share of
+the lanes alone, then the histories and summary rows are gathered in lane
+order and each lane's model state (parameters and BatchNorm statistics)
+and learning rate are sent from its rank to all, so every rank holds every
+lane's best model (its optimizer state stays on its rank). Otherwise the
+JAX warning is logged and every rank runs every lane, unsharded.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from ssip_tpu_torch.ops.metrics import accuracy_f1
+from ssip_tpu_torch.parallel.mesh import data_group, data_rank, data_size
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.train.checkpoints import Snapshot
 from ssip_tpu_torch.train.engine import (
@@ -111,6 +120,8 @@ def train_multi_seed(
     trainable_mask: Optional[Dict[str, bool]] = None,
     lane_train_pools: Optional[Sequence[np.ndarray]] = None,
     lane_val_pools: Optional[Sequence[np.ndarray]] = None,
+    mesh=None,
+    num_samples: Optional[int] = None,
 ) -> Tuple[List[TrainState], List[Dict[str, List[float]]], List[Dict[str, Any]]]:
     """Train ``len(seeds)`` independent models, lane ``i`` from
     ``states[i]`` with seed ``seeds[i]``.
@@ -124,8 +135,25 @@ def train_multi_seed(
     sets into ``train_dataset``, the cross-validation shape. Every lane's
     epoch has the largest fold's length, and each lane validates on its own
     indices of ``train_dataset``; ``val_dataset`` is then not read.
+    ``num_samples`` overrides that epoch length (a rank's share of the
+    lanes keeps the length of all of them).
     """
     n_lanes = len(states)
+    kwargs = dict(
+        num_epochs=num_epochs, batch_size=batch_size, stream_name=stream_name, balanced=balanced, augment=augment,
+        early_stopping_patience=early_stopping_patience, plateau_patience=plateau_patience,
+        plateau_factor=plateau_factor, trainable_mask=trainable_mask,
+    )
+    n_data = data_size(mesh)
+    if n_data > 1:
+        if n_lanes % n_data == 0:
+            return _train_lanes_sharded(states, train_dataset, val_dataset, seeds, lane_train_pools,
+                                        lane_val_pools, mesh, kwargs)
+        LOGGER.warning(
+            "num_seeds=%d does not divide the mesh data axis (%d) — running "
+            "the seed fan-out unsharded on the default device",
+            n_lanes, n_data,
+        )
     assert n_lanes == len(seeds) and n_lanes >= 1
     assert lane_train_pools is None or len(lane_train_pools) == n_lanes
     assert (lane_val_pools is None) == (lane_train_pools is None), (
@@ -134,7 +162,9 @@ def train_multi_seed(
     if lane_val_pools is not None and any(len(p) == 0 for p in lane_val_pools):
         # an empty validation fold gives a NaN loss and meaningless control flow
         raise ValueError("every lane's validation pool must be non-empty")
-    train_samples = None if lane_train_pools is None else max(len(p) for p in lane_train_pools)
+    train_samples = num_samples
+    if train_samples is None and lane_train_pools is not None:
+        train_samples = max(len(p) for p in lane_train_pools)
     if lane_val_pools is None:
         val_sets = [val_dataset] * n_lanes
     else:
@@ -209,4 +239,31 @@ def train_multi_seed(
     ]
     for snapshot, state in zip(best, states):
         snapshot.restore(state)
+    return list(states), histories, summary
+
+
+def _train_lanes_sharded(states, train_dataset, val_dataset, seeds, lane_train_pools, lane_val_pools, mesh, kwargs):
+    """Each rank trains its contiguous share of the lanes; results gathered in lane order."""
+    import torch.distributed as dist
+
+    n_lanes, n_data = len(states), data_size(mesh)
+    per = n_lanes // n_data
+    group = data_group(mesh)
+    mine = slice(data_rank(mesh) * per, (data_rank(mesh) + 1) * per)
+    pick = (lambda xs: None if xs is None else list(xs)[mine])
+    samples = None if lane_train_pools is None else max(len(p) for p in lane_train_pools)
+    _, histories, summary = train_multi_seed(
+        list(states)[mine], train_dataset, val_dataset, seeds=list(seeds)[mine],
+        lane_train_pools=pick(lane_train_pools), lane_val_pools=pick(lane_val_pools),
+        num_samples=samples, **kwargs,
+    )
+    gathered: List[Any] = [None] * n_data
+    dist.all_gather_object(gathered, (histories, summary), group=group)
+    histories = [h for part in gathered for h in part[0]]
+    summary = [row for part in gathered for row in part[1]]
+    for lane, state in enumerate(states):
+        src = dist.get_global_rank(group, lane // per)
+        for tensor in state.model.state_dict().values():
+            dist.broadcast(tensor, src=src, group=group)
+        set_lr(state, summary[lane]["final_lr"] if lane // per != data_rank(mesh) else get_lr(state))
     return list(states), histories, summary

@@ -101,17 +101,18 @@ def test_bf16_slice_tracks_jax_bf16(tiny_image_tree, tmp_path):
     ],
 )
 def test_unported_flags_refused(extra, tiny_image_tree, tmp_path):
-    """``--shard-size`` (sharded extraction) is refused with its ROADMAP
-    item; the flags this slice ported (the MoE archs, the streamed shape,
-    ``--fast-decode``, ``--host-preproc``) run and write the artifact set,
-    one embedding per image, as wide as the arch."""
+    """The name is older than the ports: none of these flags is refused now.
+    The flags ported since the first slice (the MoE archs, the streamed
+    shape, ``--fast-decode``, ``--host-preproc``, ``--shard-size``) run and
+    write the artifact set, one embedding per image, as wide as the arch;
+    ``--shard-size 4`` leaves a shard and a manifest a 4 images."""
     argv = ["--data-dir", str(tiny_image_tree), "--device", "cpu", "--output-dir", str(tmp_path / "o"),
             "--batch-size", "8", "--no-cache", *extra]
-    if extra[0] == "--shard-size":
-        with pytest.raises(ValueError, match="ROADMAP.*item 22"):
-            port_main(argv)
-        return
     port_main(argv)
+    if extra[0] == "--shard-size":
+        shards = sorted((tmp_path / "o" / "features" / "shards").glob("shard_*.manifest.json"))
+        assert len(shards) == 6  # 22 images in shards of 4
+        assert json.loads((tmp_path / "o" / "features" / "metadata.json").read_text())["weights"] == "sharded"
     meta = json.loads((tmp_path / "o" / "features" / "metadata.json").read_text())
     width = {"vit_moe_s16": 384, "vit_moe_t16": 192}.get(extra[-1], 512)
     emb = np.load(tmp_path / "o" / "features" / "embeddings.npy")

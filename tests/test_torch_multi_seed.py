@@ -189,7 +189,7 @@ def test_stopped_lane_freezes_as_its_solo_run_stops(monkeypatch):
         trained[state.lane] = trained.get(state.lane, 0) + 1
         return np.zeros(pidx.shape[0], np.float32), np.zeros(pidx.shape, np.int64)
 
-    def fake_eval(model, dataset, batch_size):
+    def fake_eval(model, dataset, batch_size, mesh=None):
         lane = model.lane
         loss = script[lane][model.epochs]
         model.epochs += 1

@@ -1,7 +1,7 @@
 """``--resume`` in the port: interrupted and resumed runs of ``train_model``
 and ``train_fixmatch`` against uninterrupted ones, the snapshot file and its
 ``.best`` sidecar, their failure modes, the driver dict against the JAX
-package's, the refused sharded format, and the CLIs.
+package's, the sharded (DCP) form through both drivers, and the CLIs.
 """
 
 import json
@@ -233,17 +233,38 @@ def test_driver_dict_matches_the_jax_snapshot_and_neither_package_misreads_the_o
 
 
 @pytest.mark.parametrize("how", ["env", "directory"])
-def test_sharded_snapshots_are_refused_with_their_item(how, tmp_path, monkeypatch):
-    data = _data(0)
-    snap = tmp_path / "s.torchsnap"
+def test_sharded_snapshots_are_refused_with_their_item(how, tmp_path, monkeypatch, caplog):
+    """The name is older than the feature: the sharded form
+    (``train/orbax_ckpt.py``, ROADMAP item 22's data axis) now runs through
+    both drivers. With ``SSIP_SNAPSHOT_FORMAT=orbax``, or at a snapshot path
+    that is already a directory (an empty one is an unreadable snapshot: a
+    warning, a fresh start), each stream leaves a directory snapshot and its
+    ``.best`` sidecar after one epoch, and the run resumed from it to two
+    epochs equals an uninterrupted two-epoch run bit for bit: the history
+    and the returned state (parameters, BN statistics, AdamW's moments and
+    learning rate, the step), for ``train_model`` and ``train_fixmatch``."""
+    data, val, pool = _data(0), _data(1), _pool()
+    snaps = {"train": tmp_path / "s.torchsnap", "fixmatch": tmp_path / "f.torchsnap"}
     if how == "env":
         monkeypatch.setenv("SSIP_SNAPSHOT_FORMAT", "orbax")
     else:
-        snap.mkdir()
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue 1 item 22"):
-        engine.train_model(_state(), data, data, num_epochs=1, resume_path=snap, **COMMON)
-    with pytest.raises(ValueError, match="item 22"):
-        consistency.train_fixmatch(_state(), data, data, _pool(), num_epochs=1, resume_path=snap, **FIXMATCH)
+        for snap in snaps.values():
+            snap.mkdir()
+    with caplog.at_level(logging.WARNING):
+        engine.train_model(_state(), data, val, num_epochs=1, resume_path=snaps["train"], **COMMON)
+        consistency.train_fixmatch(_state(), data, val, pool, num_epochs=1, resume_path=snaps["fixmatch"], **FIXMATCH)
+    assert ("Unreadable resume snapshot" in caplog.text) == (how == "directory")
+    for snap in snaps.values():
+        assert snap.is_dir() and (snap / "driver.json").exists() and (tmp_path / f"{snap.name}.best").is_dir()
+    straight, straight_hist = engine.train_model(_state(), data, val, num_epochs=2, **COMMON)
+    resumed, hist = engine.train_model(_state(), data, val, num_epochs=2, resume_path=snaps["train"], **COMMON)
+    assert hist == straight_hist and len(hist["train_loss"]) == 2
+    _assert_states_equal(resumed, straight)
+    straight, straight_hist = consistency.train_fixmatch(_state(), data, val, pool, num_epochs=2, **FIXMATCH)
+    resumed, hist = consistency.train_fixmatch(_state(), data, val, pool, num_epochs=2,
+                                               resume_path=snaps["fixmatch"], **FIXMATCH)
+    assert hist == straight_hist and len(hist["consistency_loss"]) == 2
+    _assert_states_equal(resumed, straight)
 
 
 def _jpeg_tree(root, per_class: int = 6, pool: int = 6):

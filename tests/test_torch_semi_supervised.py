@@ -364,15 +364,16 @@ def test_phase_c_moves_only_the_head_and_the_statistics(runs, monkeypatch):
         (["--resume"], None),
         (["--num-seeds", "2"], None),
         (["--cv-folds", "3"], None),
-        (["--mesh-model", "2"], "item 22"),
-        (["--fsdp"], "item 22"),
+        (["--mesh-model", "2"], "item 32"),
+        (["--fsdp"], None),
         (["--arch", "vit_moe_t16"], None),
     ],
 )
 def test_cli_refuses_unported_flags(runs, tmp_path, argv, item):
     """A flag whose code path the port lacks is refused with its ROADMAP
-    item; the ported ones (RandAugment, ``--resume``, the fan-outs, the MoE
-    archs) run the pipeline for one epoch a phase and write its artifacts:
+    item (``--mesh-model > 1``, before any data is read); the ported ones
+    (RandAugment, ``--resume``, the fan-outs, the MoE archs, ``--fsdp``)
+    run the pipeline for one epoch a phase and write its artifacts:
     the history names the arch, ``--resume`` leaves the three streams'
     snapshots, ``--num-seeds`` the seed sweep and ``--cv-folds`` the CV
     table; RandAugment's FixMatch fine-tune writes the semi checkpoint."""

@@ -204,16 +204,18 @@ def test_jax_threshold_sweep_consumes_the_port_outputs(port_run, capsys):
         (["--resume"], None),
         (["--num-seeds", "2"], None),
         (["--cv-folds", "3"], None),
-        (["--mesh-model", "2"], "item 22"),
-        (["--fsdp"], "item 22"),
+        (["--mesh-model", "2"], "item 32"),
+        (["--fsdp"], None),
         (["--arch", "vit_moe_t16"], None),
         (["--arch", "vit_moe_s16"], None),
     ],
 )
 def test_cli_refuses_unported_flags(port_run, tmp_path, argv, item):
     """A flag whose code path the port lacks is refused with its ROADMAP
-    item; the ported ones (``--resume``, the fan-outs, the MoE archs) run
-    one epoch and write their artifacts: the history names the arch,
+    item (``--mesh-model > 1``, before any data is read); the ported ones
+    (``--resume``, the fan-outs, the MoE archs, ``--fsdp``, which one
+    process runs unsharded) run one epoch and write their artifacts: the
+    history names the arch,
     ``--resume`` leaves the stream's snapshot, ``--num-seeds`` the seed
     sweep and ``--cv-folds`` the CV table."""
     if item is None:
