@@ -4,8 +4,9 @@ threshold sweep, the analysis stack, serving and export, and the whole workflow
 once on one NVIDIA GPU, for the ResNet family, the ViT family and the MoE ViT,
 int8 extraction included, with resumed training, the streamed extraction
 shape, the seed and cross-validation fan-outs, FixMatch's RandAugment strong
-view, the folded-BN extraction, and data parallelism (FSDP, two ranks on the
-card, ``--shard-size``, the sharded snapshots).
+view, the folded-BN extraction, data parallelism (FSDP, two ranks on the
+card, ``--shard-size``, the sharded snapshots) and the model axis (tensor and
+expert parallelism, GPipe, ring attention, on two ranks sharing the card).
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
@@ -250,7 +251,10 @@ non-zero without printing the final line:
            f32, 25 LayerNorm and 12 attention launches a forward, a profiled
            bf16 run; bf16 vs f32 cosine > 0.98 per image and > 0.995 on
            average, ``MOE_COSINE_FLOOR``: a top-1 choice that flips under
-           bf16 sends a token to another expert, in the JAX package too); ``run_supervised`` in bf16;
+           bf16 sends a token to another expert, in the JAX package too;
+           the tokens an image whose top-1 expert differs between bf16 and
+           f32, and whether the images below 0.995 are those with flips);
+           ``run_supervised`` in bf16;
            ``run_pipeline`` with the FixMatch fine-tune in bf16; the
            ``[semi]`` MoE run through ``export_model`` (f32 and bf16 against
            the in-process predictor) and ``predict``; one f32 train step
@@ -262,18 +266,18 @@ non-zero without printing the final line:
            profiled. The MoE window must launch the LayerNorm and packed
            attention pairs (rows 5, 6, 9, 10). ``ln`` and ``attn`` also time
            the kernels at the MoE width: [25216, 384] and [128, 197, 1152];
-15. resume  ``--resume`` on the card: ``run_supervised`` of resnet18 f32
-           for 4 epochs three times, then 2 epochs with snapshots and resumed
-           to 4; the restored state equal to the snapshot bit for bit, the
-           resumed run within twice the uninterrupted runs' own spread (the
-           card's cuDNN backward is not bitwise reproducible); the same for
-           ``train_fixmatch`` (EMA off, 3 epochs, cut after 1); with an EMA
-           teacher, the teacher after the resume equal to the ``.best``
-           sidecar's parameters;
+15. resume  ``--resume`` on the card under cuDNN's deterministic mode:
+           ``run_supervised`` of resnet18 f32 for 4 epochs, then 2 epochs
+           with snapshots and resumed to 4; the restored state equal to the
+           snapshot and the resumed run to the uninterrupted one, bit for
+           bit (where not, two more uninterrupted runs and the old bar:
+           within twice their spread); the same for ``train_fixmatch`` (EMA
+           off, 3 epochs, cut after 1); with an EMA teacher, the teacher
+           after the resume equal to the ``.best`` sidecar's parameters;
    seeds   ``run_supervised`` with ``num_seeds=4`` (resnet18 f32, 224²,
-           batch 16, 3 epochs); each lane against a solo ``train_model`` of
-           its seed: the JAX test's envelope, else the median distance to
-           three solo runs within twice their spread; ``seed_sweep.csv``
+           batch 16, 3 epochs), deterministic cuDNN; each lane bit for bit
+           a solo ``train_model`` of its seed (where not, the old bars on
+           three solo runs); ``seed_sweep.csv``
            equal to the lanes' summary, the checkpoint to the selected
            lane's state; the lanes' seconds beside four solo runs';
    cv      ``run_supervised`` with ``cv_folds=3``: ``cv_results.csv`` with
@@ -311,6 +315,16 @@ non-zero without printing the final line:
            without FSDP (the same contiguous parameter layout), bitwise or
            within twice the card's run-to-run spread (two plain steps),
            then each timed with its peak memory;
+   tp      the model axis: two gloo ranks sharing the card (data 1 ×
+           model 2) run one f32 SGD step of each path at full width against
+           one process at the multichip dryrun's bound (loss 1e-4 relative,
+           every parameter 1e-3 relative norm): resnet-tp (224², batch 32),
+           vit-tp (vit_b16, 6 heads a rank, batch 16), vit-ep (vit_moe_s16,
+           4 of 8 experts a rank, router choices equal), vit-pp (vit_b16 in
+           2 GPipe stages, 4 microbatches), vit-sp (vit_b16 at 512², ring
+           attention); launches counted a rank; bf16 extractor features of
+           vit-tp and vit-ep against one process at the cosine gates; ms a
+           step beside one process's (gloo through host memory);
 18. imports no jax module and no module of the JAX package;
 19. a ``[seconds]`` line (each phase's seconds), the kernels JSON line (all
     eleven kernels), then ``{"ok": true, "device": {...}}`` last.
@@ -1702,6 +1716,8 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
     floor, mean_floor = (MOE_COSINE_FLOOR, MOE_COSINE_MEAN_FLOOR) if arch == MOE_ARCH else (0.995, 0.995)
     if cos.min() <= floor or cos.mean() <= mean_floor:
         raise AssertionError(f"{arch}: bf16 vs f32 per-image cosine min {cos.min()}, mean {cos.mean()}")
+    if arch == MOE_ARCH:
+        _moe_router_flips(torch, np, images, cos)
 
     model = build_model(arch, compute_dtype=torch.float32)
     load_flax_variables(model, seeded_init_host(arch, 42))
@@ -1716,6 +1732,47 @@ def phase_slice(torch, np, tmp: Path, corpus, counts: LaunchCounts, arch: str, w
         cuda_vs_cpu_f32_rel=rel,
         cpu_checked=n_cpu)
     return {dtype: (embeddings[dtype], *rates[dtype]) for dtype in embeddings}
+
+
+def _moe_router_flips(torch, np, images, cos) -> None:
+    """Queue 3 #12: the tokens of each image whose top-1 expert differs
+    between the bfloat16 and the float32 extractor (every expert layer),
+    and whether the images whose bf16 vs f32 cosine is below 0.995 are the
+    ones with such flips."""
+    from ssip_tpu_torch.models.host_init import seeded_init_host
+    from ssip_tpu_torch.models.port import load_flax_variables
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.ops.preproc import preprocess_images
+
+    flips = np.zeros(len(images), np.int64)
+    tokens = 0
+    models = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_model(MOE_ARCH, compute_dtype=dtype)
+        load_flax_variables(model, seeded_init_host(MOE_ARCH, 42))
+        models[dtype] = model.cuda().eval()
+    with torch.inference_mode():
+        for start in range(0, len(images), BATCH):
+            x = torch.from_numpy(images[start : start + BATCH]).cuda()
+            seen = {}
+            for dtype, model in models.items():
+                seen[dtype], handles = _router_choices(torch, model)
+                try:
+                    model(preprocess_images(x, RESIZE, CROP, dtype))
+                finally:
+                    for h in handles:
+                        h.remove()
+            for a, c in zip(seen[torch.bfloat16], seen[torch.float32]):
+                flips[start : start + len(x)] += (a != c).sum(dim=1).numpy()
+            tokens = sum(int(a.shape[1]) for a in seen[torch.float32])  # routed tokens of one image
+    low = cos < 0.995
+    flipped = flips > 0
+    say("moe", check="bf16_vs_f32_router_flips", arch=MOE_ARCH, images=len(images), tokens_per_image=tokens,
+        images_with_flips=int(flipped.sum()), flipped_tokens=int(flips.sum()), max_flips_per_image=int(flips.max()),
+        below_0995=int(low.sum()), below_0995_with_flips=int((low & flipped).sum()),
+        cos_mean_with_flips=f"{cos[flipped].mean():.6f}" if flipped.any() else "none",
+        cos_mean_without_flips=f"{cos[~flipped].mean():.6f}" if (~flipped).any() else "none",
+        cos_min_without_flips=f"{cos[~flipped].min():.6f}" if (~flipped).any() else "none")
 
 
 def phase_slice_int8(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense: dict) -> None:
@@ -2005,22 +2062,30 @@ def phase_train(torch, np, tmp: Path, data: Path, counts: LaunchCounts, arch: st
             launches={k: v for k, v in launches.items() if v})
 
 
+def _kink_free(torch, model) -> None:
+    """A ResNet's seeded weights moved off the ReLU kinks, in place: every
+    BatchNorm bias raised by ``KINK_FREE_BN_BIAS``, every conv filter
+    re-centred (``tests/test_torch_train.py:_kink_free``)."""
+    from ssip_tpu_torch.models.resnet import BatchNorm, Conv
+
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, BatchNorm):
+                module.bias.add_(KINK_FREE_BN_BIAS)
+            elif isinstance(module, Conv):
+                module.weight.sub_(module.weight.mean(dim=(1, 2, 3), keepdim=True))
+
+
 def _seeded_state(torch, device, dtype, arch: str = "resnet18", kink_free: bool = False, remat: bool = False):
     from ssip_tpu_torch.models.host_init import seeded_init_host
     from ssip_tpu_torch.models.port import load_flax_variables
     from ssip_tpu_torch.models.registry import build_model
-    from ssip_tpu_torch.models.resnet import BatchNorm, Conv
     from ssip_tpu_torch.train.engine import TrainState
 
     model = build_model(arch, num_classes=2, compute_dtype=dtype, remat=remat, image_size=TRAIN_SIZE)
     load_flax_variables(model, seeded_init_host(arch, 42, num_classes=2, image_size=TRAIN_SIZE))
     if kink_free:
-        with torch.no_grad():
-            for module in model.modules():
-                if isinstance(module, BatchNorm):
-                    module.bias.add_(KINK_FREE_BN_BIAS)
-                elif isinstance(module, Conv):
-                    module.weight.sub_(module.weight.mean(dim=(1, 2, 3), keepdim=True))
+        _kink_free(torch, model)
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -3455,7 +3520,7 @@ def _state_diff(torch, a: dict, b: dict) -> float:
     return max(float((a[k].double() - b[k].double()).abs().max()) for k in a if a[k].is_floating_point())
 
 
-RESUME_RUNS = 3  # uninterrupted runs of each resumed one: the card's own run-to-run spread
+RESUME_RUNS = 3  # uninterrupted runs where a resumed one is not bitwise: the card's own run-to-run spread
 
 
 def _restore_spy(torch, module, seen: dict):
@@ -3496,23 +3561,45 @@ def _resume_bar(torch, np, uninterrupted: list, resumed) -> tuple:
     return bar, got
 
 
+def _bitwise_gap(torch, np, a, b) -> dict:
+    """The largest differences of two runs' histories (train and val
+    losses) and final weights; all zero when they are bit for bit equal."""
+    return {"history": max(_max_diff(np, a[0][k], b[0][k]) for k in ("train_loss", "val_loss")),
+            "weights": _state_diff(torch, a[1], b[1])}
+
+
+def _bitwise_or_spread(torch, np, run, straight, resumed) -> tuple:
+    """Queue 3 #11: under cuDNN's deterministic mode a resumed (or lane)
+    run is held bit for bit to one uninterrupted (or solo) run ``straight``;
+    where it is not, ``RESUME_RUNS - 1`` more uninterrupted runs
+    (``run()``) give the card's spread and the old bar holds it (the median
+    distance within twice the largest distance between two of them).
+    Returns (bar's name, the gap to ``straight``, whether the bar holds)."""
+    gap = _bitwise_gap(torch, np, resumed, straight)
+    if not any(gap.values()):
+        return "bitwise", gap, True
+    bar, got = _resume_bar(torch, np, [straight] + [run() for _ in range(RESUME_RUNS - 1)], resumed)
+    return f"twice_spread {bar}, median {got}", gap, all(got[k] <= 2 * bar[k] for k in got)
+
+
 def phase_resume(torch, np, tmp: Path, data: Path, pool: Path) -> None:
-    """``--resume`` on the card. resnet18 float32 ``run_supervised``: 4
-    epochs three times without snapshots, then 2 epochs with ``resume`` and
-    resumed to 4. The restored train state must equal the snapshot file bit
-    for bit; past the cut the card's cuDNN backward (atomics in the max-pool
-    and weight gradients) is not bitwise reproducible, so the resumed run is
-    held to the card's own spread: the median of its distances to the three
-    uninterrupted runs (final checkpoint, val losses) within twice the
-    largest distance between two of them (bit for bit is the CPU test's
-    bar). ``train_fixmatch`` (EMA off) likewise, 3 epochs, cut after 1; and
-    with an EMA teacher, the teacher at the first step after the resume
-    equal to the ``.best`` sidecar's parameters."""
+    """``--resume`` on the card, with cuDNN's deterministic mode on
+    (Queue 3 #11). resnet18 float32 ``run_supervised``: 4 epochs without
+    snapshots, then 2 epochs with ``resume`` and resumed to 4. The restored
+    train state must equal the snapshot file bit for bit, and the resumed
+    run the uninterrupted one (history and final checkpoint); where it is
+    not bitwise the old bar takes over (``_bitwise_or_spread``: two more
+    uninterrupted runs, the resumed run within twice their spread) and the
+    line says so. ``train_fixmatch`` (EMA off) likewise, 3 epochs, cut
+    after 1; and with an EMA teacher, the teacher at the first step after
+    the resume equal to the ``.best`` sidecar's parameters."""
     from ssip_tpu_torch.pipelines.supervised import TrainingConfig, build_classifier_state, prepare_datasets, run_supervised
     from ssip_tpu_torch.runtime.device import configure_precision
     from ssip_tpu_torch.train import consistency, engine
     from ssip_tpu_torch.train.checkpoints import load_train_snapshot
     from ssip_tpu_torch.train.data import load_unlabeled_dataset
+
+    runs = iter(range(100))
 
     def supervised(name, epochs, resume):
         out = tmp / f"resume_{name}"
@@ -3523,67 +3610,73 @@ def phase_resume(torch, np, tmp: Path, data: Path, pool: Path) -> None:
         return hist, torch.load(cfg.artifacts.baseline_checkpoint, map_location="cpu", weights_only=True)
 
     configure_precision("float32")
-    seen: dict = {}
-    t0 = time.perf_counter()
-    straight = [supervised(f"u{i}", 4, False) for i in range(RESUME_RUNS)]
-    supervised("r", 2, True)
-    real = _restore_spy(torch, engine, seen)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     try:
-        resumed = supervised("r", 4, True)
+        seen: dict = {}
+        t0 = time.perf_counter()
+        straight = supervised("u", 4, False)
+        supervised("r", 2, True)
+        real = _restore_spy(torch, engine, seen)
+        try:
+            resumed = supervised("r", 4, True)
+        finally:
+            engine.restore_resume_state = real
+        bar, gap, held = _bitwise_or_spread(torch, np, lambda: supervised(f"u{next(runs)}", 4, False),
+                                            straight, resumed)
+        say("resume", arch="resnet18", dtype="float32", run="run_supervised", epochs="2+2 vs 4",
+            cudnn_deterministic=True, restored_bitwise=seen.get("restored_bitwise"), bar=bar,
+            resumed_vs_uninterrupted=gap, seconds=f"{time.perf_counter() - t0:.2f}")
+        if not seen.get("restored_bitwise") or len(resumed[0]["val_loss"]) != 4 or not held:
+            raise AssertionError(f"resume run_supervised: restored {seen}, resumed {gap}, bar {bar}")
+
+        cfg = TrainingConfig(strong_data_dir=data, device="cuda", batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE)
+        datasets, _, _ = prepare_datasets(cfg, torch.device("cuda"))
+        pool_images, _ = load_unlabeled_dataset(pool, TRAIN_SIZE, torch.device("cuda"), num_threads=8)
+        kw = dict(batch_size=TRAIN_BATCH, unlabeled_batch_size=TRAIN_BATCH, seed=42, stream_name="semi_finetune",
+                  consistency_weight=1.0, confidence_threshold=SEMI_THRESHOLD)
+
+        def fixmatch(epochs, resume_path=None, ema_decay=0.0):
+            state = build_classifier_state(cfg, 2, 1e-4, torch.device("cuda"))
+            state, hist = consistency.train_fixmatch(state, datasets["train"], datasets["val"], pool_images,
+                                                     num_epochs=epochs, resume_path=resume_path, ema_decay=ema_decay,
+                                                     **kw)
+            return hist, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+        seen.clear()
+        straight = fixmatch(3)
+        snap = tmp / "resume_fixmatch" / "semi_finetune.torchsnap"
+        fixmatch(1, snap)
+        real = _restore_spy(torch, consistency, seen)
+        try:
+            resumed = fixmatch(3, snap)
+        finally:
+            consistency.restore_resume_state = real
+        bar, gap, held = _bitwise_or_spread(torch, np, lambda: fixmatch(3), straight, resumed)
+        say("resume", arch="resnet18", dtype="float32", run="train_fixmatch", ema_decay=0.0, epochs="1+2 vs 3",
+            cudnn_deterministic=True, restored_bitwise=seen.get("restored_bitwise"), bar=bar,
+            resumed_vs_uninterrupted=gap)
+        if not seen.get("restored_bitwise") or len(resumed[0]["val_loss"]) != 3 or not held:
+            raise AssertionError(f"resume train_fixmatch: restored {seen}, resumed {gap}, bar {bar}")
+
+        snap = tmp / "resume_ema" / "semi_finetune.torchsnap"
+        fixmatch(1, snap, SEMI_EMA_DECAY)
+        best, _ = load_train_snapshot(str(snap) + ".best")
+        teacher = []
+        real_step = consistency.fixmatch_step
+
+        def step_spy(state, ema_params, *args, **kwargs):
+            if not teacher:
+                teacher.append({k: v.detach().cpu().clone() for k, v in ema_params.items()})
+            return real_step(state, ema_params, *args, **kwargs)
+
+        consistency.fixmatch_step = step_spy
+        try:
+            fixmatch(2, snap, SEMI_EMA_DECAY)
+        finally:
+            consistency.fixmatch_step = real_step
     finally:
-        engine.restore_resume_state = real
-    bar, got = _resume_bar(torch, np, straight, resumed)
-    say("resume", arch="resnet18", dtype="float32", run="run_supervised", epochs="2+2 vs 4",
-        restored_bitwise=seen.get("restored_bitwise"), uninterrupted_spread=bar, resumed_vs_uninterrupted=got,
-        seconds=f"{time.perf_counter() - t0:.2f}")
-    if (not seen.get("restored_bitwise") or len(resumed[0]["val_loss"]) != 4
-            or any(got[k] > 2 * bar[k] for k in got)):
-        raise AssertionError(f"resume run_supervised: restored {seen}, resumed {got} against the card's spread {bar}")
-
-    cfg = TrainingConfig(strong_data_dir=data, device="cuda", batch_size=TRAIN_BATCH, image_size=TRAIN_SIZE)
-    datasets, _, _ = prepare_datasets(cfg, torch.device("cuda"))
-    pool_images, _ = load_unlabeled_dataset(pool, TRAIN_SIZE, torch.device("cuda"), num_threads=8)
-    kw = dict(batch_size=TRAIN_BATCH, unlabeled_batch_size=TRAIN_BATCH, seed=42, stream_name="semi_finetune",
-              consistency_weight=1.0, confidence_threshold=SEMI_THRESHOLD)
-
-    def fixmatch(epochs, resume_path=None, ema_decay=0.0):
-        state = build_classifier_state(cfg, 2, 1e-4, torch.device("cuda"))
-        state, hist = consistency.train_fixmatch(state, datasets["train"], datasets["val"], pool_images,
-                                                 num_epochs=epochs, resume_path=resume_path, ema_decay=ema_decay, **kw)
-        return hist, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-
-    seen.clear()
-    straight = [fixmatch(3) for _ in range(RESUME_RUNS)]
-    snap = tmp / "resume_fixmatch" / "semi_finetune.torchsnap"
-    fixmatch(1, snap)
-    real = _restore_spy(torch, consistency, seen)
-    try:
-        resumed = fixmatch(3, snap)
-    finally:
-        consistency.restore_resume_state = real
-    bar, got = _resume_bar(torch, np, straight, resumed)
-    say("resume", arch="resnet18", dtype="float32", run="train_fixmatch", ema_decay=0.0, epochs="1+2 vs 3",
-        restored_bitwise=seen.get("restored_bitwise"), uninterrupted_spread=bar, resumed_vs_uninterrupted=got)
-    if (not seen.get("restored_bitwise") or len(resumed[0]["val_loss"]) != 3
-            or any(got[k] > 2 * bar[k] for k in got)):
-        raise AssertionError(f"resume train_fixmatch: restored {seen}, resumed {got} against the card's spread {bar}")
-
-    snap = tmp / "resume_ema" / "semi_finetune.torchsnap"
-    fixmatch(1, snap, SEMI_EMA_DECAY)
-    best, _ = load_train_snapshot(str(snap) + ".best")
-    teacher = []
-    real_step = consistency.fixmatch_step
-
-    def step_spy(state, ema_params, *args, **kwargs):
-        if not teacher:
-            teacher.append({k: v.detach().cpu().clone() for k, v in ema_params.items()})
-        return real_step(state, ema_params, *args, **kwargs)
-
-    consistency.fixmatch_step = step_spy
-    try:
-        fixmatch(2, snap, SEMI_EMA_DECAY)
-    finally:
-        consistency.fixmatch_step = real_step
+        torch.backends.cudnn.deterministic = deterministic
     equal = all(torch.equal(teacher[0][k], best.model[k]) for k in teacher[0])
     say("resume", arch="resnet18", run="train_fixmatch", ema_decay=SEMI_EMA_DECAY,
         teacher_after_resume_equals_best_sidecar=equal, parameters=len(teacher[0]))
@@ -3702,7 +3795,7 @@ def phase_stream(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> None
 
 
 SEEDS_LANES, SEEDS_EPOCHS = 4, 3
-SEEDS_SOLO_RUNS = 3  # solo runs of each seed: the card's spread is the largest distance between two
+SEEDS_SOLO_RUNS = 3  # solo runs of each seed where a lane is not bitwise: the card's spread
 # lane against its solo run (tests/test_multi_seed.py:180-210): the losses of
 # epoch 0 and of later epochs (relative), the best weights (rtol, atol)
 SEEDS_ENVELOPE = {"epoch0": 1e-4, "later": 5e-2, "weights": (5e-2, 5e-4)}
@@ -3723,14 +3816,15 @@ def _within_envelope(np, torch, lane, solo) -> bool:
 def phase_seeds(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
     """``run_supervised`` with ``--num-seeds 4`` (resnet18 float32 at 224²,
     batch 16, 3 epochs), its lanes read through a wrap of
-    ``train_multi_seed``; then three solo ``train_model`` runs of each seed
-    on the same split. Each lane is held to its seed's first solo run at the
-    JAX test's envelope where the card allows it, else as ``[resume]``
-    holds a resumed run (Queue 3 #11): the median of its distances to the
-    three solo runs within twice the largest distance between two of them
-    (val losses, weights). The seed sweep
-    CSV to the lanes' summary and the saved checkpoint to the selected
-    lane's state, bit for bit."""
+    ``train_multi_seed``; then one solo ``train_model`` run of each seed on
+    the same split, all with cuDNN's deterministic mode on (Queue 3 #11).
+    Each lane is held bit for bit to its seed's solo run (history and
+    weights); where one is not, two more solo runs of each seed are made
+    and the lanes held to the older bars: to the JAX test's envelope where the
+    card allows it, else the median of each lane's distances to the three
+    solo runs within twice the largest distance between two of them. The
+    seed sweep CSV to the lanes' summary and the saved checkpoint to the
+    selected lane's state, bit for bit."""
     import csv
 
     from ssip_tpu_torch.models.registry import build_model
@@ -3756,37 +3850,45 @@ def phase_seeds(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
         seen["summary"] = [dict(row) for row in summary]
         return states, histories, summary
 
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     supervised.train_multi_seed = spy
     counts.reset()  # count only the main path's launches
     try:
         supervised.run_supervised(cfg)
+        launches = counts.read()
+        datasets, _, splits = prepare_datasets(cfg, dev)
+        steps = -(-len(splits["train"]) // TRAIN_BATCH)
+        if launches["augment_images"] != SEEDS_LANES * SEEDS_EPOCHS * steps:
+            raise AssertionError(f"seeds: the lanes launched {launches}")
+
+        def solo(seed):
+            state = build_classifier_state(cfg, 2, cfg.learning_rate, dev, seed=seed)
+            t0 = time.perf_counter()
+            state, hist = train_model(state, datasets["train"], datasets["val"], num_epochs=SEEDS_EPOCHS,
+                                      batch_size=TRAIN_BATCH, seed=seed, stream_name="baseline", balanced=True,
+                                      augment=True, early_stopping_patience=cfg.early_stopping_patience)
+            torch.cuda.synchronize()
+            return (hist, {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
+                    time.perf_counter() - t0)
+
+        solos = [[solo(seed)] for seed in seeds]
+        gaps = [_bitwise_gap(torch, np, run, refs[0][:2]) for run, refs in zip(seen["lanes"], solos)]
+        rows = [{"seed": seed, "bitwise_gap": gap} for seed, gap in zip(seeds, gaps)]
+        bar = "bitwise" if not any(any(g.values()) for g in gaps) else None
+        if bar is None:  # the old bars, on three solo runs of each seed
+            for refs, seed in zip(solos, seeds):
+                refs.extend(solo(seed) for _ in range(SEEDS_SOLO_RUNS - 1))
+            for row, run, refs in zip(rows, seen["lanes"], solos):
+                spread, dist = _resume_bar(torch, np, [r[:2] for r in refs], run)
+                row.update(envelope=_within_envelope(np, torch, run, refs[0]),
+                           within_twice_spread=all(dist[k] <= 2 * spread[k] for k in dist),
+                           median_distance=dist, spread=spread)
+            bar = ("envelope" if all(r["envelope"] for r in rows)
+                   else "twice_spread" if all(r["within_twice_spread"] for r in rows) else None)
     finally:
         supervised.train_multi_seed = real
-    launches = counts.read()
-    datasets, _, splits = prepare_datasets(cfg, dev)
-    steps = -(-len(splits["train"]) // TRAIN_BATCH)
-    if launches["augment_images"] != SEEDS_LANES * SEEDS_EPOCHS * steps:
-        raise AssertionError(f"seeds: the lanes launched {launches}")
-
-    def solo(seed):
-        state = build_classifier_state(cfg, 2, cfg.learning_rate, dev, seed=seed)
-        t0 = time.perf_counter()
-        state, hist = train_model(state, datasets["train"], datasets["val"], num_epochs=SEEDS_EPOCHS,
-                                  batch_size=TRAIN_BATCH, seed=seed, stream_name="baseline", balanced=True,
-                                  augment=True, early_stopping_patience=cfg.early_stopping_patience)
-        torch.cuda.synchronize()
-        return (hist, {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()},
-                time.perf_counter() - t0)
-
-    solos = [[solo(seed) for _ in range(SEEDS_SOLO_RUNS)] for seed in seeds]
-    rows = []
-    for lane, (run, refs) in enumerate(zip(seen["lanes"], solos)):
-        spread, dist = _resume_bar(torch, np, [r[:2] for r in refs], run)
-        rows.append({"seed": seeds[lane], "envelope": _within_envelope(np, torch, run, refs[0]),
-                     "within_twice_spread": all(dist[k] <= 2 * spread[k] for k in dist),
-                     "median_distance": dist, "spread": spread})
-    bar = ("envelope" if all(r["envelope"] for r in rows)
-           else "twice_spread" if all(r["within_twice_spread"] for r in rows) else None)
+        torch.backends.cudnn.deterministic = deterministic
     for r in rows:
         say("seeds", lane_vs_solo=r)
 
@@ -3801,7 +3903,7 @@ def phase_seeds(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
     history = json.loads(cfg.artifacts.training_history_json.read_text())
     solo_seconds = sum(refs[0][2] for refs in solos)
     say("seeds", arch="resnet18", dtype="float32", lanes=SEEDS_LANES, epochs=SEEDS_EPOCHS, batch=TRAIN_BATCH,
-        bar=bar, solo_runs=SEEDS_SOLO_RUNS, envelope=SEEDS_ENVELOPE, selected_seed=seeds[best],
+        bar=bar, solo_runs=len(solos[0]), envelope=SEEDS_ENVELOPE, selected_seed=seeds[best],
         csv_equals_summary=written == want, checkpoint_is_selected_lane=checkpoint_is_lane,
         history_num_seeds=history.get("num_seeds"), lanes_seconds=f"{seen['seconds']:.2f}",
         four_solo_seconds=f"{solo_seconds:.2f}", lanes_over_solo=f"{seen['seconds'] / solo_seconds:.3f}",
@@ -4299,6 +4401,224 @@ def phase_dp(torch, np, tmp: Path, train_tree: Path, counts: LaunchCounts) -> No
     say("dp", seconds=laps)
 
 
+# [tp]: the model axis, two gloo ranks sharing the card (data 1 × model 2)
+TP_PATHS = {  # path → (arch, image size, batch)
+    "resnet-tp": ("resnet18", 224, 32),
+    "vit-tp": (VIT_ARCH, 224, 16),
+    "vit-ep": (MOE_ARCH, 224, 16),  # 4 of 8 experts a rank
+    "vit-pp": (VIT_ARCH, 224, 16),  # 2 stages of 6 blocks
+    "vit-sp": (VIT_ARCH, 512, 4),  # 1,025 tokens, 513 a rank
+}
+TP_MICROBATCHES = 4
+TP_TIMED_STEPS = 3  # after the checked step, timed
+TP_LR = 1e-3  # the multichip dryrun's SGD step
+TP_BF16_IMAGES = 16
+TP_BF16_PATHS = ("vit-tp", "vit-ep")
+
+
+def _tp_model(torch, path: str, mesh, dtype=None, num_classes=2):
+    """The path's model on the card at the seeded weights: sliced over the
+    mesh's model axis (TP, EP), pipelined (PP) or token-split (SP), or
+    whole without a mesh."""
+    from ssip_tpu_torch.models.host_init import seeded_init_host
+    from ssip_tpu_torch.models.port import load_flax_variables
+    from ssip_tpu_torch.models.registry import build_model
+    from ssip_tpu_torch.parallel import tensor
+    from ssip_tpu_torch.parallel.pipeline import make_pp_apply_fn
+    from ssip_tpu_torch.parallel.sequence import make_sp_apply_fn
+
+    arch, size, _ = TP_PATHS[path]
+    model = build_model(arch, num_classes=num_classes, compute_dtype=dtype or torch.float32, image_size=size)
+    load_flax_variables(model, seeded_init_host(arch, 42, num_classes=num_classes, image_size=size))
+    if arch.startswith("resnet"):  # a step compared by its gradients: off the ReLU kinks, as in [dp] (b)
+        _kink_free(torch, model)
+    model = model.cuda()
+    if mesh is None:
+        return model.to(memory_format=torch.channels_last) if arch.startswith("resnet") else model
+    if path == "vit-pp":
+        return make_pp_apply_fn(model, mesh, TP_MICROBATCHES)
+    if path == "vit-sp":
+        return make_sp_apply_fn(model, mesh)
+    return tensor.shard_model(model, mesh)
+
+
+def _tp_inputs(torch, np, path: str):
+    """(images uint8, labels, valid, coeffs [1 + timed, 3, b]) on the CPU, seeded."""
+    from ssip_tpu_torch.ops.augment import augment_coeffs
+    from ssip_tpu_torch.runtime.prng import augment_draws
+
+    _, size, b = TP_PATHS[path]
+    rng = np.random.default_rng(SEED + 18 + b + size)
+    images = torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 2, b).astype(np.int64))
+    coeffs = torch.from_numpy(np.stack([augment_coeffs(*augment_draws(SEED, "smoke_tp", 0, s, b))
+                                        for s in range(1 + TP_TIMED_STEPS)]))
+    return images, labels, torch.ones(b, dtype=torch.bool), coeffs
+
+
+def _tp_step(torch, np, path: str, mesh) -> dict:
+    """The path's checked float32 SGD step through ``run_train_epoch``
+    (the train augment kernel, the forward, the loss, the backward and the
+    step), then ``TP_TIMED_STEPS`` more, timed: loss, the whole state after
+    the checked step on the CPU, the router choices of an MoE, ms a step."""
+    from ssip_tpu_torch.parallel.tensor import whole_state_dict
+    from ssip_tpu_torch.train.engine import DeviceDataset, TrainState, run_train_epoch
+
+    model = _tp_model(torch, path, mesh)
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=TP_LR), mesh=mesh)
+    images, labels, valid, coeffs = _tp_inputs(torch, np, path)
+    dataset = DeviceDataset.create(images.cuda(), labels.numpy())
+    b = len(labels)
+    pidx, valid = np.arange(b)[None], valid.numpy()[None]
+    choices, handles = _router_choices(torch, model)
+    try:
+        loss, _ = run_train_epoch(state, dataset, pidx, valid, coeffs[:1].numpy())
+    finally:
+        for h in handles:
+            h.remove()
+    after = {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in whole_state_dict(model).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_train_epoch(state, dataset, np.repeat(pidx, TP_TIMED_STEPS, 0), np.repeat(valid, TP_TIMED_STEPS, 0),
+                    coeffs[1:].numpy())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TP_TIMED_STEPS
+    del state, model
+    torch.cuda.empty_cache()
+    return {"loss": float(loss[0]), "state": after, "choices": [c.numpy() for c in choices], "ms": ms}
+
+
+def _tp_features(torch, np, path: str, mesh):
+    """The path's bfloat16 extractor (features, no head) on
+    ``TP_BF16_IMAGES`` seeded images, eval mode, on the CPU as float32."""
+    from ssip_tpu_torch.ops.augment import eval_preprocess
+
+    model = _tp_model(torch, path, mesh, torch.bfloat16, num_classes=None).eval()
+    images = _tp_inputs(torch, np, path)[0][:TP_BF16_IMAGES]
+    with torch.inference_mode():
+        out = model(eval_preprocess(images.cuda(), torch.bfloat16)).float().cpu()
+    del model
+    return out
+
+
+def _tp_rank(index: int, world: int, init_file: str, out_dir: str) -> None:
+    """One of two gloo ranks sharing the card at data 1 × model 2: every
+    path's checked step and timed steps, and the bf16 forwards; each
+    path's launches counted on this rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ssip_tpu_torch.parallel.mesh import training_mesh
+    from ssip_tpu_torch.runtime.device import configure_precision
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on the one card
+    torch.cuda.set_device(0)
+    configure_precision("float32")
+    torch.backends.cudnn.deterministic = True  # replicated leaves computed alike on both ranks
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=index, world_size=world)
+    try:
+        mesh = training_mesh(1, 2, device_type="cuda")
+        counts = LaunchCounts()
+        out = {"steps": {}, "launches": {}, "features": {}}
+        for path in TP_PATHS:
+            counts.reset()
+            out["steps"][path] = _tp_step(torch, np, path, mesh)
+            out["launches"][path] = counts.read()
+        for path in TP_BF16_PATHS:
+            counts.reset()
+            out["features"][path] = _tp_features(torch, np, path, mesh)
+            out["launches"][path + "-bf16"] = counts.read()
+        torch.save(out, Path(out_dir) / f"tp_rank{index}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel_norm(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()).clamp_min(1e-12))
+
+
+def phase_tp(torch, np, tmp: Path, counts: LaunchCounts) -> None:
+    """The model axis on the card: two gloo ranks sharing it (data 1 ×
+    model 2) run each path's float32 SGD step at full width, held to the
+    same step in one process at the multichip dryrun's bound (loss 1e-4
+    relative, every parameter and statistic within 1e-3 relative norm):
+    resnet18 (tensor parallel, 224², batch 32, kink-free seeded weights:
+    at the seeded init a BatchNorm bias's gradient moves by 0.2 % with the
+    convolutions' summation order), vit_b16 (tensor parallel,
+    6 heads a rank, batch 16), vit_moe_s16 (4 of 8 experts a rank, batch
+    16; its router choices equal to one process's), vit_b16 in 2 GPipe
+    stages of 6 blocks (4 microbatches of 4) and vit_b16 at 512² with its
+    1,025 tokens split 513 a rank (ring attention). Then the bf16
+    extractors of vit-tp and vit-ep against one process at the bf16
+    cosine gates. ms a step beside one process's: gloo through host
+    memory, not a speed figure."""
+    import torch.multiprocessing as mp
+
+    from ssip_tpu_torch.runtime.device import configure_precision
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_tp_rank, args=(2, str(tmp / "tp_init"), str(tmp)), nprocs=2, start_method="spawn",
+                             join=False)
+    while not ctx.join(timeout=600):
+        pass
+    ranks = [torch.load(tmp / f"tp_rank{i}.pt", weights_only=False) for i in range(2)]
+    ranks_s = time.perf_counter() - t0
+    for rank in ranks:  # the main path's launches: both ranks'
+        for launches in rank["launches"].values():
+            for name, n in launches.items():
+                counts.total[name] += n
+    configure_precision("float32")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    failures = []
+    try:
+        for path, (arch, size, b) in TP_PATHS.items():
+            want = _tp_step(torch, np, path, None)
+            got = [rank["steps"][path] for rank in ranks]
+            loss_rel = max(abs(g["loss"] - want["loss"]) / abs(want["loss"]) for g in got)
+            worst = max(((_rel_norm(torch, g["state"][k], v), k) for g in got for k, v in want["state"].items()
+                         if v.is_floating_point()), default=(0.0, ""))
+            ranks_equal = all(torch.equal(got[0]["state"][k], got[1]["state"][k]) for k in want["state"])
+            flips = sum(int((a != c).sum()) for g in got for a, c in zip(g["choices"], want["choices"]))
+            launches = [rank["launches"][path] for rank in ranks]
+            say("tp", path=path, arch=arch, image=size, batch=b, ranks=2, backend="gloo", dtype="float32",
+                loss=f"{got[0]['loss']:.6f}", one_process=f"{want['loss']:.6f}", loss_rel=loss_rel,
+                worst_param_rel_norm=worst[0], at=worst[1], ranks_bitwise_equal=ranks_equal,
+                router_choices=sum(c.size for c in want["choices"]), router_flips=flips,
+                launches_per_rank=[{k: v for k, v in n.items() if v} for n in launches],
+                ms_per_step=f"{got[0]['ms']:.1f}", one_process_ms=f"{want['ms']:.1f}",
+                timing="gloo through host memory, not a speed figure")
+            steps = 1 + TP_TIMED_STEPS
+            expected = {"resnet-tp": {"augment_images": steps},
+                        "vit-tp": {"attention_qkv": VIT_BLOCKS * steps, "attention_qkv_bwd": VIT_BLOCKS * steps},
+                        "vit-ep": {"attention_qkv": VIT_BLOCKS * steps, "attention_qkv_bwd": VIT_BLOCKS * steps},
+                        "vit-pp": {"attention_qkv": VIT_BLOCKS // 2 * TP_MICROBATCHES * steps,
+                                   "layer_norm": (VIT_BLOCKS * TP_MICROBATCHES + 1) * steps},
+                        "vit-sp": {"layer_norm": VIT_LN_PER_FORWARD * steps, "attention_qkv": 0}}[path]
+            if (loss_rel > 1e-4 or worst[0] > 1e-3 or flips
+                    or any({k: n[k] for k in expected} != expected for n in launches)):
+                failures.append(f"{path}: loss {loss_rel}, param {worst}, router flips {flips}, launches {launches} "
+                                f"(want {expected} a rank)")
+        for path in TP_BF16_PATHS:
+            want = _tp_features(torch, np, path, None)
+            floor, mean_floor = (MOE_COSINE_FLOOR, MOE_COSINE_MEAN_FLOOR) if path == "vit-ep" else (0.995, 0.995)
+            for i, rank in enumerate(ranks):
+                got = rank["features"][path]
+                cos = (_unit(np, got.numpy()) * _unit(np, want.numpy())).sum(axis=1)
+                say("tp", path=path, check="bf16 features vs one process", rank=i, images=TP_BF16_IMAGES,
+                    cos_min=f"{cos.min():.6f}", cos_mean=f"{cos.mean():.6f}", floor=floor, mean_floor=mean_floor,
+                    launches={k: v for k, v in rank["launches"][path + "-bf16"].items() if v})
+                if not (cos.min() > floor and cos.mean() > mean_floor and np.isfinite(got.numpy()).all()):
+                    failures.append(f"{path} bf16 rank {i}: cosine min {cos.min()}, mean {cos.mean()}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    say("tp", ranks_seconds=f"{ranks_s:.1f}", seconds=f"{time.perf_counter() - t0:.1f}")
+    if failures:
+        raise AssertionError("tp: " + "; ".join(failures))
+
+
 def phase_imports() -> None:
     """The run loaded nothing of jax and nothing of the JAX package: the
     port keeps its own copies of the jax-free modules it needs."""
@@ -4391,6 +4711,7 @@ def main() -> int:
         lap("workflow", phase_workflow, torch, np, tmp, counts, host)
         lap("stream", phase_stream, torch, np, tmp, counts, host)
         lap("dp", phase_dp, torch, np, tmp, train_tree, counts)
+        lap("tp", phase_tp, torch, np, tmp, counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lap("step", phase_step, torch, np, counts)

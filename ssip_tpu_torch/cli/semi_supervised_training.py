@@ -4,8 +4,8 @@ Counterpart of ``src/semi_supervised_training.py``, with the same flags and
 defaults (copied here: that module imports the JAX pipeline) and the shared
 flags of ``cli/supervised_training.py`` (``--resume`` and the MoE archs
 included), ``--num-seeds`` and ``--cv-folds``, and ``--strong-augment
-randaugment``, and ``--fsdp``. ``--mesh-model > 1`` is accepted by the
-parser and refused as the supervised CLI refuses it (ROADMAP item 32).
+randaugment``, ``--fsdp`` and ``--mesh-model`` (the model axis, as in
+the supervised CLI).
 
 Launch on N cards (a launch difference, not a flag): one process a card,
 started by ``torchrun --nproc-per-node N -m ssip_tpu_torch.cli.semi_supervised_training ...``

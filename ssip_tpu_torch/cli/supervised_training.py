@@ -7,9 +7,11 @@ interrupted one; the MoE archs (``vit_moe_t16``, ``vit_moe_s16``) train with
 their auxiliary losses. ``--num-seeds N`` trains N seeds and keeps the best
 (``tables/seed_sweep.csv``); ``--cv-folds k`` runs a stratified k-fold CV
 first (``tables/cv_results.csv``). ``--fsdp`` shards the model and its
-AdamW moments over the ranks (FSDP2). ``--mesh-model > 1`` is accepted by
-the parser and refused before any data is read with an error naming its
-ROADMAP entry (item 32, the model axis). ``--remat`` checkpoints the ViT
+AdamW moments over the ranks (FSDP2). ``--mesh-model M`` puts M ranks on
+the mesh's model axis (tensor parallelism for the ResNets and ViTs, expert
+parallelism for the MoE ViTs; the world size must be a multiple of M, the
+data axis the rest); a process started alone raises before any data is
+read. ``--remat`` checkpoints the ViT
 encoder blocks and is ignored for the ResNet archs, as in JAX.
 
 Launch on N cards (a launch difference, not a flag): one process a card,
@@ -19,7 +21,8 @@ or by N processes with ``SSIP_COORDINATOR=host:port``,
 (``parallel/distributed.py``); each runs on ``cuda:LOCAL_RANK`` and rank 0
 writes the outputs. Started alone, the CLI is one process on one card, as
 the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
-gloo.
+gloo. Data 2 × model 2 on four cards:
+``torchrun --nproc-per-node 4 -m ssip_tpu_torch.cli.supervised_training ... --mesh-model 2``.
 
     python -m ssip_tpu_torch.cli.supervised_training --strong-data-dir DATA/avec_labels --device cuda
 """
@@ -71,9 +74,13 @@ def add_common_training_flags(parser: argparse.ArgumentParser) -> None:
         default="resnet18",
         help="backbone architecture (recorded in artifacts so threshold_sweep/predict "
         "rebuild the right model); vit_* need --image-size divisible by 16; vit_moe_* "
-        "are Switch-style mixture-of-experts towers",
+        "are Switch-style mixture-of-experts towers (expert-parallel under --mesh-model)",
     )
-    parser.add_argument("--mesh-model", type=int, default=1, help="values above 1 are not ported yet")
+    parser.add_argument(
+        "--mesh-model", type=int, default=1,
+        help="ranks on the mesh's model axis (tensor / expert parallelism); the world size "
+        "must be a multiple of it, and the data axis gets the rest",
+    )
     parser.add_argument("--remat", action="store_true", help="ViT only; ignored for resnet archs")
     parser.add_argument(
         "--fsdp", action="store_true",

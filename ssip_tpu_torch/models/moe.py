@@ -36,6 +36,14 @@ LayerNorm and attention kernels as the dense ViT does.
   of the global ones: summed over the ranks they are the JAX step's terms
   over the sharded batch, and so are their gradients.
 
+Expert parallelism (``--mesh-model``, ``parallel/tensor.py:shard_model``):
+each rank of the model axis holds ``E / model`` experts (the expert
+leaves sliced on ``[E]``) and the router whole. The routing, the capacity
+(of the global E) and the auxiliary terms are computed whole on every
+rank; each rank runs its experts on its slice of the dispatch and the
+partial combines are reduced. The model ranks hold the same rows, so this
+is an all-reduce, not an all-to-all.
+
 Parameter names are the port's own (no torchvision topology exists for an
 MoE): the dense blocks carry the ViT's torchvision names, an expert block
 ``encoder.layers.encoder_layer_{i}.moe.{router.weight, router.bias, w_in,
@@ -54,6 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ssip_tpu_torch.models.vit import LayerNorm, SelfAttention, VisionTransformer
+from ssip_tpu_torch.parallel import tensor
 from ssip_tpu_torch.parallel.distributed import sync_group
 
 ROUTINGS = ("token_choice", "expert_choice")
@@ -73,6 +82,8 @@ def top_k_lower_index_first(x: torch.Tensor, k: int):
 
 class MoEMlp(nn.Module):
     """Routed expert MLP over tokens ``[B, S, D] -> [B, S, D]``."""
+
+    tp = None  # the model axis, set by parallel/tensor.py:shard_model
 
     def __init__(
         self,
@@ -110,6 +121,19 @@ class MoEMlp(nn.Module):
         out_e = torch.einsum("ebcf,efd->ebcd", h, self.w_out.to(ct))
         return out_e + self.b_out[:, None, None, :].to(ct)
 
+    def _local(self, y: torch.Tensor, dispatch: torch.Tensor, combine: torch.Tensor, dim: int):
+        """(tokens, dispatch, combine) of this rank's experts (axis ``dim``
+        of the dispatch); all three whole without a model axis."""
+        if self.tp is None:
+            return y, dispatch, combine
+        n = self.w_in.shape[0]
+        lo = self.tp.rank * n
+        return (tensor.copy(y, self.tp), dispatch.narrow(dim, lo, n),
+                tensor.copy(combine, self.tp).narrow(dim, lo, n))
+
+    def _reduced(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.tp is None else tensor.reduce(out, self.tp)
+
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         b, s, d = y.shape
         e, k = self.num_experts, self.router_top_k
@@ -140,8 +164,9 @@ class MoEMlp(nn.Module):
             gates_ec, tok_idx = top_k_lower_index_first(probs.transpose(1, 2), cap_ec)  # [B, E, C]
             dispatch = _one_hot(tok_idx, s)  # [B, E, C, S]
             combine = dispatch * gates_ec[..., None]
-            xe = torch.einsum("becs,bsd->ebcd", dispatch.to(ct), y.to(ct))
-            out = torch.einsum("ebcd,becs->bsd", self._expert_ffn(xe), combine.to(ct))
+            y_e, dispatch, combine = self._local(y, dispatch, combine, 1)
+            xe = torch.einsum("becs,bsd->ebcd", dispatch.to(ct), y_e.to(ct))
+            out = self._reduced(torch.einsum("ebcd,becs->bsd", self._expert_ffn(xe), combine.to(ct)))
         else:
             top_probs, top_idx = top_k_lower_index_first(probs, k)  # [B, S, K]
             # Switch: the argmax expert's raw probability; GShard: the pair renormalized
@@ -167,8 +192,9 @@ class MoEMlp(nn.Module):
             dispatch = kept[..., None] * slot_oh
             combine = dispatch * gate[..., None, None]
             y_rep = torch.repeat_interleave(y, k, dim=1) if k > 1 else y
+            y_rep, dispatch, combine = self._local(y_rep, dispatch, combine, 2)
             xe = torch.einsum("btec,btd->ebcd", dispatch.to(ct), y_rep.to(ct))
-            out = torch.einsum("ebcd,btec->btd", self._expert_ffn(xe), combine.to(ct))
+            out = self._reduced(torch.einsum("ebcd,btec->btd", self._expert_ffn(xe), combine.to(ct)))
             if k > 1:
                 out = out.reshape(b, s, k, d).sum(dim=2)
         self.aux = aux if self.training else {}

@@ -22,6 +22,10 @@ with ``load_state_dict``.
   (``resnet.py:349``).
 - Convolutions, pooling and the mean are plain PyTorch (cuDNN on the card),
   as the JAX package left them to XLA.
+- On a model axis (``--mesh-model``, ``parallel/tensor.py:shard_model``)
+  each conv of 128 output channels or more holds its slice of them and
+  gathers them before its BatchNorm, which stays replicated; ``fc`` holds
+  its slice of the input features and reduces its partial product.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ssip_tpu_torch.parallel import tensor
 from ssip_tpu_torch.parallel.distributed import all_reduce_sum, sync_group
 
 RESNET18_STAGES: tuple[int, ...] = (2, 2, 2, 2)
@@ -50,17 +55,21 @@ MODEL_STAGES = {
 
 class Conv(nn.Conv2d):
     """Bias-free conv whose input and kernel are cast to the compute dtype
-    (``nn.Conv(dtype=…)`` in Flax); the parameter stays float32."""
+    (``nn.Conv(dtype=…)`` in Flax); the parameter stays float32. With
+    ``tp`` set the weight is this rank's output channels, gathered after
+    the product."""
+
+    tp = None  # the model axis, set by parallel/tensor.py:shard_model
 
     def __init__(self, cin: int, cout: int, k: int, stride: int, compute_dtype: torch.dtype):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2, bias=False)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(
-            x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-            None, self.stride, self.padding,
-        )
+        x, w = x.to(self.compute_dtype), self.weight.to(self.compute_dtype)
+        if self.tp is None:
+            return F.conv2d(x, w, None, self.stride, self.padding)
+        return tensor.gather(F.conv2d(tensor.copy(x, self.tp), w, None, self.stride, self.padding), self.tp, dim=1)
 
 
 class BatchNorm(nn.Module):
@@ -227,7 +236,7 @@ class ResNet(nn.Module):
             for block in getattr(self, f"layer{stage + 1}"):
                 x = block(x, mask)
         feats = x.to(torch.float32).mean(dim=(2, 3)).to(self.compute_dtype).to(torch.float32)
-        return feats if self.fc is None else self.fc(feats)
+        return feats if self.fc is None else tensor.linear(self.fc, feats)
 
 
 def build_resnet(

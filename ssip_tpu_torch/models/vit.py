@@ -30,6 +30,14 @@ Counterpart of ``ssip_tpu/models/vit.py``: ``VIT_CONFIGS``, ``EncoderBlock``,
   The kernels' ``kv_len`` mask is still part of their function.
 - ``remat`` wraps each block in ``torch.utils.checkpoint`` while gradients
   are recorded (``nn.remat`` in Flax, ``vit.py:203``).
+- On a model axis (``--mesh-model``, ``parallel/tensor.py:shard_model``)
+  the patch conv holds a slice of its output channels (gathered, then its
+  bias), ``qkv`` and ``mlp.0`` are column-parallel, ``out_proj``,
+  ``mlp.3`` and the head row-parallel (biases added once, after the
+  reduce). Where the heads divide the axis each rank holds its heads' qkv
+  rows and runs the attention kernel on them; otherwise the qkv columns
+  are gathered, the attention runs whole, and ``out_proj`` takes this
+  rank's columns of its output.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ssip_tpu_torch.ops.attention import fused_attention_qkv
 from ssip_tpu_torch.ops.layernorm import LN_EPS, layer_norm
+from ssip_tpu_torch.parallel import tensor
 
 # (hidden, layers, heads, mlp). b16 is torchvision vit_b_16; s16/t16 follow
 # the ViT-S/Ti recipe with the same 64-wide heads.
@@ -67,7 +76,13 @@ class LayerNorm(nn.Module):
 
 class Dense(nn.Linear):
     """Linear whose input, kernel and bias are cast to the compute type
-    (``nn.Dense(dtype=…)`` in Flax); the parameters stay float32."""
+    (``nn.Dense(dtype=…)`` in Flax); the parameters stay float32. With
+    ``tp`` set it is column-parallel (``tp_dim`` 0: a replicated input, this
+    rank's output columns) or row-parallel (``tp_dim`` 1: this rank's input
+    columns, the partial products reduced, the bias added once)."""
+
+    tp = None  # the model axis, set by parallel/tensor.py:shard_model
+    tp_dim = None
 
     def __init__(self, cin: int, cout: int, compute_dtype: torch.dtype):
         super().__init__(cin, cout)
@@ -75,12 +90,19 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        x, w, b = x.to(dt), self.weight.to(dt), self.bias.to(dt)
+        if self.tp is None:
+            return F.linear(x, w, b)
+        if self.tp_dim == 0:
+            return F.linear(tensor.copy(x, self.tp), w, b)
+        return tensor.row_linear(x, w, b, self.tp)
 
 
 class SelfAttention(nn.Module):
     """The fused qkv projection (``in_proj_weight`` [3·D, D], rows ordered
     [3, H, Dh]), the attention core and ``out_proj``."""
+
+    tp = None  # the model axis, set by parallel/tensor.py:shard_model
 
     def __init__(self, hidden_dim: int, num_heads: int, compute_dtype: torch.dtype):
         super().__init__()
@@ -95,10 +117,16 @@ class SelfAttention(nn.Module):
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        qkv = F.linear(y.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt))
-        # the packed qkv goes straight into the attention kernel: the
-        # per-head column slicing happens inside it
-        return self.out_proj(fused_attention_qkv(qkv, self.num_heads))
+        y, w, b = y.to(dt), self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        if self.tp is None:
+            # the packed qkv goes straight into the attention kernel: the
+            # per-head column slicing happens inside it
+            return self.out_proj(fused_attention_qkv(F.linear(y, w, b), self.num_heads))
+        qkv = F.linear(tensor.copy(y, self.tp), w, b)  # this rank's qkv columns
+        if self.num_heads % self.tp.size == 0:  # its heads' rows (tensor.qkv_view)
+            return self.out_proj(fused_attention_qkv(qkv, self.num_heads // self.tp.size))
+        o = fused_attention_qkv(tensor.gather(qkv, self.tp), self.num_heads)
+        return self.out_proj(tensor.split(o, self.tp))
 
 
 class EncoderBlock(nn.Module):
@@ -169,31 +197,43 @@ class VisionTransformer(nn.Module):
         self, x_nhwc: torch.Tensor, mask: Optional[torch.Tensor] = None, return_features: bool = False
     ):
         del mask  # no batch statistics: padded rows cannot touch real ones
-        b, h, w, _ = x_nhwc.shape
+        _, h, w, _ = x_nhwc.shape
         if h != self.image_size or w != self.image_size:
             raise ValueError(
                 f"this model's position embedding is for {self.image_size}x{self.image_size} "
                 f"images, got {h}x{w}"
             )
-        dt = self.compute_dtype
-        x = F.conv2d(
-            x_nhwc.permute(0, 3, 1, 2).to(dt),  # channels_last NCHW view
-            self.conv_proj.weight.to(dt), self.conv_proj.bias.to(dt), stride=self.patch_size,
-        )
-        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.num_features)  # [B, tokens, D], row-major patches
-        x = torch.cat([self.class_token.to(dt).expand(b, -1, -1), x], dim=1)
-        x = x + self.encoder.pos_embedding.to(dt)
-
+        x = self.embed(x_nhwc)
         remat = self.remat and torch.is_grad_enabled()
         for block in self.encoder.layers.values():
             x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+        return self.head(x[:, 0], return_features)
 
-        # LayerNorm is per row, so normalizing only the class token equals
-        # torchvision's normalize-then-slice at 1/tokens of the work
-        features = self.encoder.ln(x[:, 0].to(torch.float32).contiguous())
+    def embed(self, x_nhwc: torch.Tensor) -> torch.Tensor:
+        """The patch conv, the class token and the position embedding:
+        the token stream [B, tokens, D] in the compute type."""
+        b = x_nhwc.shape[0]
+        dt = self.compute_dtype
+        x = x_nhwc.permute(0, 3, 1, 2).to(dt)  # channels_last NCHW view
+        w, bias = self.conv_proj.weight.to(dt), self.conv_proj.bias.to(dt)
+        axis = getattr(self.conv_proj, "tp", None)
+        if axis is None:
+            x = F.conv2d(x, w, bias, stride=self.patch_size)
+        else:  # this rank's output channels, gathered, then the bias
+            x = tensor.gather(F.conv2d(tensor.copy(x, axis), w, None, stride=self.patch_size), axis, dim=1)
+            x = x + bias.view(1, -1, 1, 1)
+        x = x.permute(0, 2, 3, 1).reshape(b, -1, self.num_features)  # [B, tokens, D], row-major patches
+        x = torch.cat([self.class_token.to(dt).expand(b, -1, -1), x], dim=1)
+        return x + self.encoder.pos_embedding.to(dt)
+
+    def head(self, cls: torch.Tensor, return_features: bool = False):
+        """The final LayerNorm of the class token [B, D] and the head. The
+        LayerNorm is per row, so normalizing only the class token equals
+        torchvision's normalize-then-slice at 1/tokens of the work."""
+        features = self.encoder.ln(cls.to(torch.float32).contiguous())
         if self.heads is None:
             return features
-        logits = self.heads["head"](features)
+        logits = tensor.linear(self.heads["head"], features)
         return (logits, features) if return_features else logits
 
 

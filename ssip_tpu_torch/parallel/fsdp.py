@@ -16,6 +16,11 @@ forward and backward and freed after. Gradients are reduced by SUM
 (``set_gradient_divide_factor(1.0)``, SUM collectives): the engine's loss
 is each rank's share of the global loss, so the summed gradient is the
 single-process one.
+
+With a model axis (``--mesh-model``) the model is sliced over it first
+(``parallel/tensor.py``) and FSDP shards the slices over the data sub-mesh,
+each on the dimension ``fsdp_param_spec`` gives its whole leaf next to the
+model axis' dimension, as the JAX package composes the two rules.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import List
 import torch
 from torch import nn
 
-from ssip_tpu_torch.parallel.mesh import DATA_AXIS, data_size, fsdp_shard_dim
+from ssip_tpu_torch.parallel.mesh import DATA_AXIS, data_size, fsdp_shard_dim, model_size
 
 
 def _blocks(model: nn.Module) -> List[nn.Module]:
@@ -48,14 +53,17 @@ def contiguous_parameters(model: nn.Module) -> nn.Module:
 
 
 def shard_model(model: nn.Module, mesh) -> nn.Module:
-    """Apply ``fully_shard`` to ``model`` (already on its device) in place
-    over the mesh's data axis and return it."""
+    """Apply ``fully_shard`` to ``model`` (already on its device, and
+    sliced over the mesh's model axis if it has one) in place over the
+    mesh's data axis and return it."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     contiguous_parameters(model)
-    n = data_size(mesh)
-    dims = {p: fsdp_shard_dim(name, tuple(p.shape), n) for name, p in model.named_parameters()}
+    n, m = data_size(mesh), model_size(mesh)
+    sliced = getattr(model, "_ssip_tp", {})  # a leaf the model axis sliced: its whole shape
+    dims = {p: fsdp_shard_dim(name, sliced[name][0] if name in sliced else tuple(p.shape), n, m)
+            for name, p in model.named_parameters()}
     whole = {p for p, d in dims.items() if d is None}
     data_mesh = mesh[DATA_AXIS]
 

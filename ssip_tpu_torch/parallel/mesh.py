@@ -16,9 +16,13 @@ written out by hand (``train/engine.py``).
   rules as pure functions of a leaf's Flax key path (a sequence of names)
   and its Flax-layout shape, returning the ``PartitionSpec`` entries as a
   tuple (trailing ``None`` dropped, as ``P()`` prints). ``torch_layout`` maps
-  a port parameter's shape onto its Flax layout, so ``fsdp_shard_dim``
-  gives the dimension of the torch parameter that ``--fsdp`` shards. The
-  tensor-parallel rules are not applied yet (ROADMAP Queue 1 item 32).
+  a port parameter's shape onto its Flax layout and ``flax_names`` its
+  name onto the Flax names the rules read, so ``fsdp_shard_dim`` and
+  ``tp_shard_dim`` give the dimension of the torch parameter that
+  ``--fsdp`` and ``--mesh-model`` shard. ``parallel/tensor.py`` applies
+  the tensor-parallel rules, ``parallel/fsdp.py`` the FSDP ones.
+- ``model_size``, ``model_rank``, ``model_group``: the model axis, as
+  ``data_*`` are the data axis.
 """
 
 from __future__ import annotations
@@ -94,6 +98,19 @@ def data_rank(mesh) -> int:
 def data_group(mesh):
     """The data axis' process group (None without a mesh)."""
     return None if mesh is None else mesh.get_group(DATA_AXIS)
+
+
+def model_size(mesh) -> int:
+    return 1 if mesh is None else int(mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS)))
+
+
+def model_rank(mesh) -> int:
+    return 0 if mesh is None else int(mesh.get_local_rank(MODEL_AXIS))
+
+
+def model_group(mesh):
+    """The model axis' process group (None without a mesh)."""
+    return None if mesh is None else mesh.get_group(MODEL_AXIS)
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -201,11 +218,50 @@ def torch_layout(name: str, shape: Sequence[int]) -> Tuple[int, ...]:
     return tuple(range(len(shape)))
 
 
-def fsdp_shard_dim(name: str, shape: Sequence[int], data_par: int) -> Optional[int]:
-    """The dimension ``--fsdp`` shards of the torch parameter ``name`` of
-    ``shape`` (``fsdp_param_spec`` on its Flax layout; model axis 1), or
-    None for a leaf that stays whole. At model 1 the rule reads shapes
-    only, so the Flax path is not needed."""
+# torch module names → the Flax module names the tensor-parallel rules read
+_FLAX_MODULES = {"fc": "fc", "head": "fc", "out_proj": "out", "mlp.0": "mlp_1", "mlp.3": "mlp_2"}
+_FLAX_QKV = {"in_proj_weight": ("qkv", "kernel"), "in_proj_bias": ("qkv", "bias")}
+
+
+def flax_names(name: str) -> Tuple[str, ...]:
+    """The Flax key path (as far as the rules read it) of the port
+    parameter ``name``: the ResNet's ``fc`` and the ViT's ``heads.head``
+    are ``fc``; ``in_proj_{weight,bias}`` is ``qkv``; ``out_proj``,
+    ``mlp.0`` and ``mlp.3`` are ``out``, ``mlp_1`` and ``mlp_2``; an MoE
+    block's leaves sit under ``moe``; a ``weight`` is a ``kernel`` (the
+    rules read the kernels' names only)."""
+    parts = name.split(".")
+    if parts[-1] in _FLAX_QKV:
+        return (*parts[:-1], *_FLAX_QKV[parts[-1]])
+    leaf = "kernel" if parts[-1] == "weight" else parts[-1]
+    for n in (2, 1):  # "mlp.0", then "fc", "head", "out_proj"
+        module = ".".join(parts[-1 - n : -1])
+        if len(parts) > n and module in _FLAX_MODULES:
+            return (*parts[: -1 - n], _FLAX_MODULES[module], leaf)
+    return tuple(parts)
+
+
+def _flax_shape(name: str, shape: Sequence[int]) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
     perm = torch_layout(name, shape)
-    spec = fsdp_param_spec((), [shape[p] for p in perm], data_par, 1)
+    return perm, tuple(shape[p] for p in perm)
+
+
+def tp_shard_dim(name: str, shape: Sequence[int], model_par: int) -> Optional[int]:
+    """The dimension ``--mesh-model`` shards of the torch parameter
+    ``name`` of (whole) ``shape`` (``tp_param_spec`` on its Flax names and
+    layout), or None for a leaf every model rank holds whole."""
+    if model_par <= 1:
+        return None
+    perm, flax_shape = _flax_shape(name, shape)
+    spec = tp_param_spec(flax_names(name), flax_shape, model_par)
+    return perm[spec.index(MODEL_AXIS)] if MODEL_AXIS in spec else None
+
+
+def fsdp_shard_dim(name: str, shape: Sequence[int], data_par: int, model_par: int = 1) -> Optional[int]:
+    """The dimension ``--fsdp`` shards of the torch parameter ``name`` of
+    (whole) ``shape`` (``fsdp_param_spec`` on its Flax names and layout,
+    the tensor-parallel rules first at ``model_par`` > 1), or None for a
+    leaf that stays whole."""
+    perm, flax_shape = _flax_shape(name, shape)
+    spec = fsdp_param_spec(flax_names(name), flax_shape, data_par, model_par)
     return perm[spec.index(DATA_AXIS)] if DATA_AXIS in spec else None

@@ -32,9 +32,14 @@ evaluation is split over its data axis with the one-process results
 (``train/engine.py``), ``--fsdp`` shards the model (``parallel/fsdp.py``),
 the seed lanes and folds are split over the ranks when their count divides
 it (``train/multi_seed.py``), and rank 0 alone writes the checkpoint, the
-tables and the notes. Not ported yet, refused before any data is read with
-an error naming the ROADMAP entry: the model axis (``--mesh-model > 1``,
-item 32).
+tables and the notes. ``--mesh-model M`` makes the mesh data × M: each
+model is sliced over M ranks (tensor parallelism for the ResNets and ViTs,
+expert parallelism for the MoE ViTs, ``parallel/tensor.py``), composes
+with ``--fsdp`` over the data axis, and is gathered whole for the
+checkpoint. As in the JAX package, ``--cv-folds`` then runs its folds
+unsharded (with a warning) and ``--num-seeds > 1`` raises; a process
+started alone cannot make a model axis and raises before any data is
+read.
 The four training figures (``report/plots.py``) are
 not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is not installed on the
 card's machine, where a figure call would stop the run.
@@ -60,8 +65,10 @@ from ssip_tpu_torch.models.host_init import seeded_init_host
 from ssip_tpu_torch.models.port import load_state_dict_arrays, read_torch_checkpoint, state_dict_from_flax
 from ssip_tpu_torch.models.registry import build_model, refuse_unported_arch
 from ssip_tpu_torch.ops.thresholds import select_operating_threshold
+from ssip_tpu_torch.parallel import tensor
 from ssip_tpu_torch.parallel.distributed import is_primary
 from ssip_tpu_torch.parallel.fsdp import shard_model
+from ssip_tpu_torch.parallel.mesh import model_size
 from ssip_tpu_torch.pipelines.extraction import DEFAULT_WEIGHTS_ENV
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
@@ -74,16 +81,8 @@ from ssip_tpu_torch.train.multi_seed import train_multi_seed
 
 LOGGER = get_logger(__name__)
 
-_NOT_PORTED = "is not ported to ssip_tpu_torch yet (ROADMAP.md, {item})"
-
-
 def refuse_unported(config: TrainingConfig) -> None:
-    """Raise for a setting whose code path the port does not have yet."""
-    for setting, on, item in (
-        ("--mesh-model > 1", config.mesh_model > 1, "Queue 1 item 32: the model axis"),
-    ):
-        if on:
-            raise ValueError(f"{setting} " + _NOT_PORTED.format(item=item))
+    """Raise for an ``--arch`` whose code path the port does not have."""
     refuse_unported_arch(config.arch)
 
 
@@ -103,7 +102,9 @@ def build_classifier_state(
     ViT's encoder blocks (``ssip_tpu/pipelines/supervised.py:53-56``).
     ``seed`` overrides ``config.seed`` for the init: each lane of the seed
     fan-out has its own. ``mesh``: the data-parallel mesh the state trains
-    on; with ``--fsdp`` the model is sharded over it before AdamW is made."""
+    on; on its model axis the model is sliced (``parallel/tensor.py``) and
+    then, with ``--fsdp``, sharded over its data axis, before AdamW is
+    made."""
     model = build_model(
         config.arch, num_classes=num_classes, compute_dtype=compute_dtype(config.compute_dtype),
         remat=config.remat, image_size=config.image_size,
@@ -121,6 +122,7 @@ def build_classifier_state(
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
+    model = tensor.shard_model(model, mesh)
     if mesh is not None and config.mesh_fsdp:
         model = shard_model(model, mesh)
     return TrainState.create(model, learning_rate, config.weight_decay, mesh=mesh)
@@ -232,6 +234,13 @@ def run_cross_validation(
     writes and returns ``tables/cv_results.csv``'s rows (``ssip_tpu/
     pipelines/supervised.py:159-236``)."""
     reg = config.artifacts
+    if model_size(mesh) > 1:
+        LOGGER.warning(
+            "--cv-folds repurposes the mesh data axis for the fold fan-out "
+            "and cannot combine with --mesh-model; running CV lanes "
+            "unsharded (the main run keeps its tensor-parallel mesh)"
+        )
+        mesh = None
     pool = DeviceDataset.create(
         torch.cat([datasets["train"].images_u8, datasets["val"].images_u8]),
         np.concatenate([datasets["train"].labels, datasets["val"].labels]),

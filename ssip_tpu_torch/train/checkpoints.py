@@ -39,9 +39,13 @@ says.
 
 Under a process group every rank runs the same epoch loop: each call here
 is made on every rank. The files (the ``.pt``, a one-file snapshot) are
-written by rank 0 alone; under ``--fsdp`` the state is gathered whole first
-(a collective), so ``export_model``, ``predict`` and the sweep read them
-unchanged, and a restore puts each tensor back in its live placement.
+written by rank 0 alone; under ``--fsdp`` and ``--mesh-model`` the state
+is gathered whole first (collectives over the data and the model axis), so
+``export_model``, ``predict`` and the sweep read them unchanged, and a
+restore puts each tensor back in its live placement: this rank's slice on
+the model axis (``parallel/tensor.py:local_part``), then its FSDP shard.
+On a model axis a ``Snapshot`` holds the whole tensors, AdamW's moments
+included.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ import torch
 from torch import nn
 
 from ssip_tpu_torch.models.port import load_state_dict_arrays
-from ssip_tpu_torch.parallel.distributed import is_primary
+from ssip_tpu_torch.parallel import tensor
+from ssip_tpu_torch.parallel.distributed import barrier, is_primary
 from ssip_tpu_torch.parallel.fsdp import full_tensor, placed_like
 from ssip_tpu_torch.runtime.logging import get_logger
 
@@ -72,7 +77,7 @@ def save_checkpoint(path: Path, model: nn.Module) -> None:
     """Write ``model``'s state_dict to ``path`` as float32/int64 CPU tensors
     (gathered whole under FSDP; rank 0 writes)."""
     path = Path(path)
-    state = {k: full_tensor(v).detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    state = {k: v.detach().to("cpu", copy=True) for k, v in tensor.whole_state_dict(model).items()}
     if not is_primary():
         return
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -100,22 +105,36 @@ class Snapshot:
 
     @classmethod
     def take(cls, state) -> "Snapshot":
-        return cls(
-            state.step,
-            {k: v.detach().clone() for k, v in state.model.state_dict().items()},
-            copy.deepcopy(state.optimizer.state_dict()),
-        )
+        model = state.model
+        if not tensor.is_tensor_parallel(model):
+            return cls(state.step, {k: v.detach().clone() for k, v in model.state_dict().items()},
+                       copy.deepcopy(state.optimizer.state_dict()))
+        # a model axis: the whole tensors (collectives), moments like their parameters
+        names = tensor.parameter_names(model, state.optimizer)
+        optimizer = state.optimizer.state_dict()
+        optimizer = {**optimizer, "state": {
+            i: {k: tensor.whole_tensor(model, names[int(i)], full_tensor(v)).clone()
+                if torch.is_tensor(v) and v.dim() > 0 else copy.deepcopy(v) for k, v in entry.items()}
+            for i, entry in optimizer["state"].items()}, "param_groups": copy.deepcopy(optimizer["param_groups"])}
+        return cls(state.step, {k: v.clone() for k, v in tensor.whole_state_dict(model).items()}, optimizer)
 
     def restore(self, state) -> None:
         """Load into ``state``; a whole tensor read from a file goes back
-        into its live parameter's FSDP placement."""
-        live = state.model.state_dict()
-        state.model.load_state_dict({k: _placed(v, live[k]) for k, v in self.model.items()})
+        into its live parameter's placement (this rank's slice on a model
+        axis, then its FSDP shard)."""
+        model = state.model
+        live = model.state_dict()
+        model.load_state_dict({k: _placed(tensor.local_part(model, k, v), live[k]) for k, v in self.model.items()})
         params = [p for group in state.optimizer.param_groups for p in group["params"]]
+        names = tensor.parameter_names(model, state.optimizer)
+
+        def placed(i, v):
+            v = tensor.local_part(model, names[int(i)], v)
+            return _placed(v, params[int(i)]) if v.shape == params[int(i)].shape else v
+
         optimizer = dict(self.optimizer)
         optimizer["state"] = {
-            i: {k: _placed(v, params[int(i)]) if torch.is_tensor(v) and v.shape == params[int(i)].shape else v
-                for k, v in entry.items()}
+            i: {k: placed(i, v) if torch.is_tensor(v) else v for k, v in entry.items()}
             for i, entry in self.optimizer["state"].items()
         }
         state.optimizer.load_state_dict(optimizer)
@@ -155,7 +174,8 @@ def _sharded_form(path: Path) -> bool:
 
 def save_train_snapshot(path: Path, snapshot: Snapshot, driver: Dict[str, Any]) -> None:
     """Write ``snapshot`` and the driver dict to ``path`` in one file,
-    committed by an atomic rename (rank 0 writes); with
+    committed by an atomic rename (rank 0 writes; every rank returns after
+    the rename); with
     ``SSIP_SNAPSHOT_FORMAT=orbax``, or where the snapshot is a directory
     already, a directory of shards, every rank writing its own."""
     if _sharded_form(Path(path)):
@@ -165,15 +185,15 @@ def save_train_snapshot(path: Path, snapshot: Snapshot, driver: Dict[str, Any]) 
         return
     path = Path(path)
     whole = {"step": int(snapshot.step), "model": _to_cpu(snapshot.model), "optimizer": _to_cpu(snapshot.optimizer)}
-    if not is_primary():
-        return
-    path.parent.mkdir(parents=True, exist_ok=True)
-    driver_bytes = json.dumps(driver).encode()
-    state = io.BytesIO()
-    torch.save(whole, state)
-    tmp = path.with_name(path.name + ".tmp")
-    tmp.write_bytes(_SNAPSHOT_MAGIC + len(driver_bytes).to_bytes(8, "big") + driver_bytes + state.getvalue())
-    os.replace(tmp, path)
+    if is_primary():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        driver_bytes = json.dumps(driver).encode()
+        state = io.BytesIO()
+        torch.save(whole, state)
+        tmp = path.with_name(path.name + ".tmp")
+        tmp.write_bytes(_SNAPSHOT_MAGIC + len(driver_bytes).to_bytes(8, "big") + driver_bytes + state.getvalue())
+        os.replace(tmp, path)
+    barrier()  # every rank leaves with the snapshot committed: a restore in the same processes reads it
 
 
 def load_train_snapshot(path: Path, template=None) -> Tuple[Snapshot, Dict[str, Any]]:

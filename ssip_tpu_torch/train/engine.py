@@ -53,9 +53,20 @@ such drivers side by side.
   ``run_eval_epoch`` shards each batch the same way. With ``--fsdp`` the
   model is FSDP2-sharded (``parallel/fsdp.py``) and only the parameters it
   keeps whole need the hand sum.
+- The model axis (``--mesh-model``, a mesh of data × model processes):
+  ``TrainState.create`` slices the model over it (``parallel/tensor.py``),
+  the ranks of one model group hold the same rows, and every statistic,
+  gradient sum, loss and prediction above is over the data group only.
+  A leaf the model axis does not slice is computed alike on every model
+  rank (its gradient too: ``tests/test_torch_tensor_parallel.py`` holds
+  them equal); a sliced one has this rank's slice of the gradient, and
+  AdamW steps each rank's slices. A sequence-parallel ViT
+  (``parallel/sequence.py``) lists the leaves whose gradients are
+  partial sums over the model axis (``model_axis_partial``); they are
+  summed over it first.
 
 Not ported: the fused whole-epoch program (a Python loop over steps takes
-its place), and the tensor-parallel model axis (ROADMAP Queue 1 item 32).
+its place).
 """
 
 from __future__ import annotations
@@ -103,9 +114,14 @@ class TrainState:
         parameter (``make_optimizer``, ``ssip_tpu/train/engine.py:58-69``).
         Under FSDP ``model`` is sharded already, so the moments are too; its
         sharded and its whole parameters are two parameter groups (the same
-        settings), since a foreach kernel takes one kind of tensor."""
+        settings), since a foreach kernel takes one kind of tensor. On a
+        mesh with a model axis the model is sliced over it first, unless it
+        is already (``parallel/tensor.py:shard_model``)."""
         from torch.distributed.tensor import DTensor
 
+        from ssip_tpu_torch.parallel.tensor import shard_model
+
+        model = shard_model(model, mesh)
         params = list(model.parameters())
         sharded = [p for p in params if isinstance(p, DTensor)]
         groups = [sharded, [p for p in params if not isinstance(p, DTensor)]] if sharded else [params]
@@ -160,14 +176,9 @@ def masked_cross_entropy(
     return (ce * w).sum() / torch.clamp(torch.as_tensor(total, dtype=torch.float32, device=w.device), min=1.0)
 
 
-def sync_gradients(state: "TrainState") -> None:
-    """Sum the gradients over the data axis, in one flat buffer: all of
-    them under data parallelism, those FSDP keeps whole under ``--fsdp``
-    (it reduce-scatters the others itself). A no-op for one process."""
-    group = state.group
-    if group is None:
-        return
-    grads = [p.grad for p in replicated_params(state.model) if p.grad is not None]
+def _sum_gradients(params, group) -> None:
+    """Sum the gradients of ``params`` over ``group``, in one flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
@@ -176,6 +187,28 @@ def sync_gradients(state: "TrainState") -> None:
     for g in grads:
         g.copy_(flat[offset : offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def sync_gradients(state: "TrainState") -> None:
+    """Sum the gradients over the data axis: all of them under data
+    parallelism, those FSDP keeps whole under ``--fsdp`` (it
+    reduce-scatters the others itself). Before that, the gradients a
+    model lists as partial over the model axis (``model_axis_partial``)
+    are summed over it. A no-op for one process."""
+    partial = model_axis_partial(state.model)
+    if partial:
+        from ssip_tpu_torch.parallel.mesh import model_group
+
+        _sum_gradients(partial, model_group(state.mesh))
+    if state.group is not None:
+        _sum_gradients(replicated_params(state.model), state.group)
+
+
+def model_axis_partial(model: nn.Module) -> List[nn.Parameter]:
+    """The parameters whose gradient each model rank holds a part of (a
+    sequence-parallel ViT's: each rank's tokens give part of it); none for
+    any other model."""
+    return list(getattr(model, "_ssip_model_partial", ()))
 
 
 def aux_loss_terms(model: nn.Module) -> List[torch.Tensor]:

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ssip_tpu_torch.ops.metrics import accuracy_f1
-from ssip_tpu_torch.parallel.mesh import data_group, data_rank, data_size
+from ssip_tpu_torch.parallel.mesh import data_group, data_rank, data_size, model_size
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.train.checkpoints import Snapshot
 from ssip_tpu_torch.train.engine import (
@@ -144,6 +144,12 @@ def train_multi_seed(
         early_stopping_patience=early_stopping_patience, plateau_patience=plateau_patience,
         plateau_factor=plateau_factor, trainable_mask=trainable_mask,
     )
+    if model_size(mesh) > 1:
+        raise ValueError(
+            "multi-seed training repurposes the mesh data axis for the seed "
+            "fan-out; tensor parallelism (mesh model axis > 1) is not "
+            "combinable with num_seeds > 1"
+        )
     n_data = data_size(mesh)
     if n_data > 1:
         if n_lanes % n_data == 0:

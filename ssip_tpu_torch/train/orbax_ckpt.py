@@ -15,7 +15,8 @@ snapshot a training stream) but:
   ``committed_path`` finds under ``.old``.
 - restore: the tensors are read straight into the template's placements
   (its ``DeviceMesh`` and ``Shard`` dims under FSDP, its device otherwise),
-  no gather on one rank.
+  no gather on one rank. On a model axis the snapshot holds whole tensors
+  (``checkpoints.py:Snapshot``), read whole and sliced on restore.
 
 Opt in with ``SSIP_SNAPSHOT_FORMAT=orbax`` (``checkpoints.py`` dispatches);
 the snapshot path then names a directory. Loads detect the form: a
@@ -102,7 +103,8 @@ def _template(path: Path, state) -> Dict[str, Any]:
         top, rest = key.split(".", 1)
         if top == "model":
             like = live.get(rest) if state is not None else None
-            tree["model"][rest] = torch.empty(shape, dtype=dtype) if like is None else torch.empty_like(like)
+            fits = like is not None and tuple(like.shape) == shape  # a model axis saves whole tensors
+            tree["model"][rest] = torch.empty_like(like) if fits else torch.empty(shape, dtype=dtype)
         else:
             index, name = rest.split(".", 1)
             like = params[int(index)] if state is not None else None

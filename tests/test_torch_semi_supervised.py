@@ -364,14 +364,15 @@ def test_phase_c_moves_only_the_head_and_the_statistics(runs, monkeypatch):
         (["--resume"], None),
         (["--num-seeds", "2"], None),
         (["--cv-folds", "3"], None),
-        (["--mesh-model", "2"], "item 32"),
+        (["--mesh-model", "2"], "needs that many processes"),
         (["--fsdp"], None),
         (["--arch", "vit_moe_t16"], None),
     ],
 )
 def test_cli_refuses_unported_flags(runs, tmp_path, argv, item):
-    """A flag whose code path the port lacks is refused with its ROADMAP
-    item (``--mesh-model > 1``, before any data is read); the ported ones
+    """``--mesh-model 2`` started as one process is refused before any
+    data is read (a model axis needs two processes or more; the missing
+    data directory would fail later); the other flags
     (RandAugment, ``--resume``, the fan-outs, the MoE archs, ``--fsdp``)
     run the pipeline for one epoch a phase and write its artifacts:
     the history names the arch, ``--resume`` leaves the three streams'
@@ -396,7 +397,7 @@ def test_cli_refuses_unported_flags(runs, tmp_path, argv, item):
             assert [r["fold"] for r in csv.DictReader(cv.read_text().splitlines())] == ["0", "1", "2", "mean", "std"]
         assert (out / "models" / "semi_resnet18.pt").is_file()
         return
-    with pytest.raises(ValueError, match=rf"not ported to ssip_tpu_torch yet \(ROADMAP\.md, Queue 1 {item}"):
+    with pytest.raises(RuntimeError, match=item):
         cli.main(["--strong-data-dir", str(tmp_path / "missing"), "--weak-data-dir", str(tmp_path / "missing"),
                   "--device", "cpu", *argv])
 

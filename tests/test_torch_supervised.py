@@ -204,15 +204,16 @@ def test_jax_threshold_sweep_consumes_the_port_outputs(port_run, capsys):
         (["--resume"], None),
         (["--num-seeds", "2"], None),
         (["--cv-folds", "3"], None),
-        (["--mesh-model", "2"], "item 32"),
+        (["--mesh-model", "2"], "needs that many processes"),
         (["--fsdp"], None),
         (["--arch", "vit_moe_t16"], None),
         (["--arch", "vit_moe_s16"], None),
     ],
 )
 def test_cli_refuses_unported_flags(port_run, tmp_path, argv, item):
-    """A flag whose code path the port lacks is refused with its ROADMAP
-    item (``--mesh-model > 1``, before any data is read); the ported ones
+    """``--mesh-model 2`` started as one process is refused before any
+    data is read (a model axis needs two processes or more; the missing
+    data directory would fail later); the other flags
     (``--resume``, the fan-outs, the MoE archs, ``--fsdp``, which one
     process runs unsharded) run one epoch and write their artifacts: the
     history names the arch,
@@ -234,7 +235,7 @@ def test_cli_refuses_unported_flags(port_run, tmp_path, argv, item):
         if argv[0] == "--cv-folds":
             assert pd.read_csv(cv)["fold"].astype(str).tolist() == ["0", "1", "2", "mean", "std"]
         return
-    with pytest.raises(ValueError, match=rf"not ported to ssip_tpu_torch yet \(ROADMAP\.md, Queue 1 {item}"):
+    with pytest.raises(RuntimeError, match=item):
         cli.main(["--strong-data-dir", str(tmp_path / "missing"), "--device", "cpu", *argv])
 
 
