@@ -176,7 +176,8 @@ non-zero without printing the final line:
            pretrain (the semi-supervised CLI runs in ``workflow``);
    serve   from the run directories of ``semi`` (resnet18 float32,
            vit_b16 bfloat16): the card's resize of 128 pool JPEGs 512→224
-           against the CPU's (values off counted), ``ScreeningPredictor`` on
+           against the CPU's, bit for bit (a value off raises; both add
+           each output's taps in one order), ``ScreeningPredictor`` on
            the card against the CPU (float32, products pinned, 8 images,
            1e-4), the ``export_model`` CLI's artifact (``torch.export``,
            traced on the card) against the in-process predictor at batch 1, 3
@@ -244,7 +245,11 @@ non-zero without printing the final line:
            launches. A stage that needs a host package this machine lacks
            (the audit and the figures need matplotlib) is named on its own
            line and not started: clustering then runs as
-           ``cli.clustering.run_analysis``, everything but its figures;
+           ``cli.clustering.run_analysis``, everything but its figures. The
+           supervised and semi-supervised stages write the JAX run's 4 and
+           9 training figures where matplotlib is installed, and otherwise
+           warn once and write none (checked either way; which of the two
+           is printed before the stages);
 14. moe     ``vit_moe_s16`` at full width (hidden 384, 12 layers, every
            other block an 8-expert block, 6 heads of 64, 197 tokens): the
            extraction slice as ``slice`` runs it (bf16 and f32, cuda vs CPU
@@ -346,6 +351,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import os
 import re
 import shutil
@@ -2509,11 +2515,22 @@ def phase_serve(torch, np, tmp: Path, pool: Path, counts: LaunchCounts) -> None:
 
     pool_paths = sorted(pool.glob("*.jpg"))
     arrays, _ = decode_batch(pool_paths[:SERVE_BATCH], num_threads=8, convert_rgb=True)
-    card_u8 = resize_on_device(arrays, TRAIN_SIZE, torch.device("cuda"))
-    cpu_u8 = resize_on_device(arrays, TRAIN_SIZE, torch.device("cpu"))
+
+    def timed_resize(device: str):
+        t0 = time.perf_counter()
+        resized = resize_on_device(arrays, TRAIN_SIZE, torch.device(device))
+        torch.cuda.synchronize()
+        return resized, time.perf_counter() - t0
+
+    timed_resize("cuda")  # the first call on the card also warms it
+    card_u8, card_s = timed_resize("cuda")
+    cpu_u8, cpu_s = timed_resize("cpu")
     resize_diff = card_u8.cpu() != cpu_u8
     say("serve", resize=f"{SIZE}->{TRAIN_SIZE}", images=len(arrays), card_vs_cpu_values_off=int(resize_diff.sum()),
-        of=resize_diff.numel(), largest_step=int((card_u8.cpu().int() - cpu_u8.int()).abs().max()))
+        of=resize_diff.numel(), largest_step=int((card_u8.cpu().int() - cpu_u8.int()).abs().max()),
+        card_s=f"{card_s:.4f}", cpu_s=f"{cpu_s:.4f}", cpu_threads=torch.get_num_threads())
+    if resize_diff.any():
+        raise AssertionError(f"serve: the card's training resize is {int(resize_diff.sum())} values off the CPU's")
     images = cpu_u8.numpy()  # one set of eval-resized inputs for every comparison below
 
     for arch, run in (("resnet18", "semi_out_resnet18_float32"), (VIT_ARCH, "semi_out_vit_b16_bfloat16")):
@@ -2889,7 +2906,7 @@ def phase_host_packages() -> dict:
     found = {name: importlib.util.find_spec(name) is not None for name in ("pandas", "matplotlib")}
     missing = [name for name, ok in found.items() if not ok]
     gxx, header = _shutil.which("g++") is not None, Path("/usr/include/jpeglib.h").is_file()
-    not_run = (["the audit, the clustering figures, scripts/generate_*"] if missing else []) + (
+    not_run = (["the audit, the clustering and training figures, scripts/generate_*"] if missing else []) + (
         [] if gxx and header else ["[stream]'s --host-preproc and --fast-decode"])
     say("host", **{name: "installed" if ok else "missing" for name, ok in found.items()},
         gxx="installed" if gxx else "missing", jpeglib_h="present" if header else "missing",
@@ -3245,7 +3262,9 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
     script's defaults are 10 + 5 + 8) and a pseudo-label threshold of 0.5
     (seeded weights after an epoch keep their confidences near it). Without
     matplotlib the audit is not run and the clustering stage runs through
-    ``cli.clustering.run_analysis`` (everything but its figures)."""
+    ``cli.clustering.run_analysis`` (everything but its figures), and the
+    two training stages must warn once and write no figure; with it they
+    must write the JAX run's 4 and 9 figures."""
     from ssip_tpu_torch.cli import clustering, data_audit, export_unlabeled_cohort, feature_extraction
     from ssip_tpu_torch.cli import semi_supervised_training, standardize_features, supervised_training
     from ssip_tpu_torch.cli import export_model, predict, threshold_sweep
@@ -3288,6 +3307,11 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
         ("predict", lambda: predict.main(["--images", str(data / "sans_label"), "--model", "semi", *o,
                                           "--output", str(tables / "predictions_semi.csv")])),
     ]
+    training_figures = _training_figures(out)
+    figure_log = _FigureWarnings()
+    say("workflow", training_figures=(
+        "drawn: 4 supervised + 9 semi-supervised, matplotlib installed" if host["matplotlib"]
+        else "not drawn: matplotlib missing, each training stage must warn once and write none"))
     n = ANALYSIS_LABELED + ANALYSIS_UNLABELED
     for name, run in stages:
         if run is None:
@@ -3296,6 +3320,8 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
             continue
         counts.reset()
         torch.cuda.reset_peak_memory_stats()
+        figure_log.messages.clear()
+        started_ns = time.time_ns()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -3303,13 +3329,57 @@ def phase_workflow(torch, np, tmp: Path, counts: LaunchCounts, host: dict) -> No
         launched = {k: v for k, v in counts.read().items() if v}
         if name == "extraction" and launched.get("preprocess_images") != -(-n // 32):
             raise AssertionError(f"workflow extraction: launches {launched}")
-        if name in ("supervised", "semi") and not launched.get("augment_images"):
-            raise AssertionError(f"workflow {name}: no augment launch: {launched}")
+        figures = {}
+        if name in ("supervised", "semi"):
+            if not launched.get("augment_images"):
+                raise AssertionError(f"workflow {name}: no augment launch: {launched}")
+            written = sorted(p.name for p in out.glob("figures/*.png") if p.stat().st_mtime_ns >= started_ns)
+            want = training_figures[name] if host["matplotlib"] else []
+            warned = len(figure_log.messages)
+            if written != want or warned != (0 if host["matplotlib"] else 1):
+                raise AssertionError(f"workflow {name}: figures {written} (want {want}), {warned} warnings")
+            figures = {"figures_written": len(written), "matplotlib_warnings": warned}
         say("workflow", stage=name, seconds=f"{seconds:.2f}",
-            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=launched)
+            peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", launches=launched, **figures)
+    figure_log.close()
     say("workflow", stage="comparison, reporting, readme (scripts/generate_*), after export",
         run="not on the card: they draw with matplotlib and read the JAX package's artifact registry")
     _check_workflow_outputs(np, data, out, n)
+
+
+def _training_figures(out: Path) -> dict:
+    """The figure names the JAX run's supervised and semi-supervised
+    pipelines write, by stage."""
+    from ssip_tpu_torch.pipelines.supervised import PR_CURVES_BASELINE
+    from ssip_tpu_torch.runtime.artifacts import ArtifactRegistry
+
+    reg = ArtifactRegistry(out)
+    baseline = [reg.baseline_curves_png, reg.baseline_confusion_png, reg.roc_curves_png]
+    semi = baseline + [
+        reg.semi_curves_png, reg.baseline_confusion_thresholded_png, reg.semi_confusion_png,
+        reg.semi_confusion_thresholded_png, reg.pr_curves_png, reg.metrics_comparison_png,
+    ]
+    return {"supervised": sorted([p.name for p in baseline] + [PR_CURVES_BASELINE]),
+            "semi": sorted(p.name for p in semi)}
+
+
+class _FigureWarnings(logging.Handler):
+    """Collects the training pipelines' no-matplotlib warnings (the CLIs
+    reset the root logger's handlers, not this logger's)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+        self.logger = logging.getLogger("ssip_tpu_torch.pipelines.supervised")
+        self.logger.addHandler(self)
+
+    def emit(self, record):
+        if "matplotlib is not installed" in record.getMessage():
+            self.messages.append(record.getMessage())
+
+    def close(self):
+        self.logger.removeHandler(self)
+        super().close()
 
 
 def _check_workflow_outputs(np, data: Path, out: Path, n: int) -> None:

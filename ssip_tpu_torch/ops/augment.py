@@ -157,14 +157,19 @@ def strong_augment(
     ``brightness`` (U(−32, 32)) and ``contrast``
     (U(0.7, 1.3)) are float32 [B] on the images' device. The rotation is
     ``ops/rotate.py:rotate_images``: the CUDA kernel on the card,
-    ``rotate_nearest`` on the CPU. The mean is over H, W and C in float32;
-    the jitter and the normalize stay plain PyTorch (plain XLA in the JAX
-    package); bfloat16 is the float32 result rounded.
+    ``rotate_nearest`` on the CPU. The mean over H, W and C is taken as
+    ``jnp.mean`` is on XLA's CPU, a float32 sum times ``f32(1/n)``: the sum
+    of the integer-valued view is exact in float64, then rounded to float32,
+    so the mean is the JAX package's bit for bit while the sum stays below
+    2^24 (past it XLA's float32 order of adds is not known). The jitter and
+    the normalize stay plain PyTorch (plain XLA in the JAX package);
+    bfloat16 is the float32 result rounded.
     """
     from ssip_tpu_torch.ops.rotate import rotate_images  # it imports this module
 
     x = rotate_images(images_u8, coeffs).to(torch.float32)
-    mean = x.mean(dim=(1, 2, 3), keepdim=True)
+    inv_n = np.float32(1.0) / np.float32(x.shape[1] * x.shape[2] * x.shape[3])
+    mean = x.sum(dim=(1, 2, 3), keepdim=True, dtype=torch.float64).to(torch.float32) * float(inv_n)
     shape = (-1, 1, 1, 1)
     x = ((x - mean) * contrast.view(shape) + mean + brightness.view(shape)).clamp(0.0, 255.0)
     return normalize_imagenet_u8(x, dtype=dtype)

@@ -61,6 +61,12 @@ def accuracy_f1(y_true: np.ndarray, y_pred: np.ndarray) -> tuple[float, float]:
     return float(accuracy(y_true, y_pred)), float(f1)
 
 
+def confusion_matrix_2x2(y_true_bin: np.ndarray, y_pred_bin: np.ndarray) -> np.ndarray:
+    """[[tn, fp], [fn, tp]] in float32: scikit-learn's labels=[0, 1] layout."""
+    tp, fp, tn, fn = binary_counts(y_true_bin, y_pred_bin)
+    return np.array([[tn, fp], [fn, tp]], np.float32)
+
+
 def binary_confusion_metrics(y_true: np.ndarray, y_pred: np.ndarray, pos_index: int) -> Dict[str, float]:
     """Confusion-derived metrics, with the key set of
     ``results_comparison_detailed.csv``."""
@@ -114,3 +120,11 @@ def pr_curve(y_true_bin: np.ndarray, y_prob: np.ndarray):
     precision = np.where(denom > 0, tps / np.maximum(denom, 1), 0.0)
     recall = tps / max(int(y_true_bin.sum()), 1)
     return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thr[::-1]
+
+
+def average_precision(y_true_bin: np.ndarray, y_prob: np.ndarray) -> float:
+    """AP = Σ (Rₙ − Rₙ₋₁)·Pₙ over the PR curve, scikit-learn's
+    ``average_precision_score`` (the PR figure's legend): recall falls
+    along ``pr_curve``'s points, hence the sign."""
+    precision, recall, _ = pr_curve(y_true_bin, y_prob)
+    return float(-np.sum(np.diff(recall) * precision[:-1]))

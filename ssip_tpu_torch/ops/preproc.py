@@ -28,31 +28,9 @@ import numpy as np
 import torch
 
 from ssip_tpu_torch.ops.quant import quantize
-from ssip_tpu_torch.ops.resize import crop_weights, extraction_preprocess, normalize_constants
+from ssip_tpu_torch.ops.resize import crop_weights, extraction_preprocess, normalize_constants, tap_table
 
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def tap_table(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Sparse form of a [dst, src] resample matrix.
-
-    Returns (start int32 [dst], count int32 [dst], taps float32 [dst, K]):
-    row ``i``'s nonzeros are ``weights[i, start[i]:start[i] + count[i]]``,
-    stored in ``taps[i, :count[i]]`` and zero-padded to the widest row's K.
-    """
-    dst = weights.shape[0]
-    start = np.zeros(dst, np.int32)
-    count = np.zeros(dst, np.int32)
-    spans = []
-    for i, row in enumerate(weights):
-        nz = np.flatnonzero(row)
-        lo, hi = int(nz[0]), int(nz[-1]) + 1
-        start[i], count[i] = lo, hi - lo
-        spans.append(row[lo:hi])
-    taps = np.zeros((dst, int(count.max())), np.float32)
-    for i, span in enumerate(spans):
-        taps[i, : len(span)] = span
-    return start, count, taps
 
 
 # Shared memory a block of the band kernel may take: three blocks an SM

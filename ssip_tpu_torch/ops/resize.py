@@ -8,10 +8,16 @@ expression for expression, because the JAX module imports ``jax.numpy``.
 against the triangle-filter matrices, PIL's clip8 after each pass, then
 one affine normalize — and is what the CUDA kernel in ``ops/preproc.py`` is
 held against, and what its wrapper runs for a tensor on the CPU.
-``training_resize`` is the same matmul pair without the crop; it runs once
-per corpus, off the hot path. At sizes whose taps are not dyadic (512→224)
-the summation order can move a pixel by one uint8 step against the JAX
-package, as the JAX package documents against PIL.
+``resize_bilinear`` and ``training_resize`` accumulate in XLA's CPU order
+instead: each output adds its taps in ascending source order, one fused
+multiply-add a tap (``ssip_tpu/ops/resize.py:77,80``), emulated as
+``acc = f32(f64(x_k) · f64(w_k) + f64(acc))`` — the float32 product is exact
+in float64 — so the training and serving resize is the JAX package's bit for
+bit from 512² sources, and the card's is the CPU's at any size. A matmul adds
+in another order and, where the taps are not dyadic (512→224), moves a pixel
+by one uint8 step. At some other source widths (640; past 512, the outputs
+whose taps straddle column 512) XLA's CPU sums in an order not matched yet,
+which can move a few pixels by one step (ROADMAP Queue 3 #14).
 
 Rounding rules carried over exactly:
 
@@ -114,11 +120,71 @@ def _resample(images: torch.Tensor, wv_np: np.ndarray, wh_np: np.ndarray) -> tor
     return clip8(torch.matmul(wv, t)).movedim(-3, -1)  # [..., out_h, out_w, 3]
 
 
+def tap_table(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sparse form of a [dst, src] resample matrix.
+
+    Returns (start int32 [dst], count int32 [dst], taps float32 [dst, K]):
+    row ``i``'s nonzeros are ``weights[i, start[i]:start[i] + count[i]]``,
+    stored in ``taps[i, :count[i]]`` and zero-padded to the widest row's K.
+    """
+    dst = weights.shape[0]
+    start = np.zeros(dst, np.int32)
+    count = np.zeros(dst, np.int32)
+    spans = []
+    for i, row in enumerate(weights):
+        nz = np.flatnonzero(row)
+        lo, hi = int(nz[0]), int(nz[-1]) + 1
+        start[i], count[i] = lo, hi - lo
+        spans.append(row[lo:hi])
+    taps = np.zeros((dst, int(count.max())), np.float32)
+    for i, span in enumerate(spans):
+        taps[i, : len(span)] = span
+    return start, count, taps
+
+
+@lru_cache(maxsize=64)
+def _ascending_taps(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
+    """(index int64 [dst, K], weight float64 [dst, K]): each output's taps
+    in ascending source order, the shorter rows padded with weight 0 at a
+    clamped index (a zero product leaves the sum exact)."""
+    start, _count, taps = tap_table(triangle_weights(src, dst))
+    index = np.minimum(start[:, None] + np.arange(taps.shape[1]), src - 1)
+    return index.astype(np.int64), taps.astype(np.float64)
+
+
+def _ordered_pass(x: torch.Tensor, src_dim: int, dst: int) -> torch.Tensor:
+    """float64 uint8-valued ``x`` resampled along ``src_dim`` to ``dst``:
+    the ascending-tap FMA chain in float32, then clip8."""
+    index_np, taps_np = _ascending_taps(x.shape[src_dim], dst)
+    index = torch.from_numpy(index_np).to(x.device)
+    taps = torch.from_numpy(taps_np).to(x.device)
+    shape = [1] * x.dim()
+    shape[src_dim] = dst
+    acc = None
+    for k in range(index.shape[1]):
+        term = torch.index_select(x, src_dim, index[:, k]) * taps[:, k].view(shape)
+        acc = (term if acc is None else term + acc.to(torch.float64)).to(torch.float32)
+    return clip8(acc)
+
+
+# The float64 chain is bound by memory traffic: on the CPU the images go
+# through it a few at a time, so that each pass's operands stay in cache
+# (about 8× faster for a batch of 512² images); the card takes them whole.
+_CPU_CHUNK_BYTES = 16 << 20
+
+
 def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Antialiased bilinear resize of NHWC images, float32 0..255 result
-    (``ssip_tpu/ops/resize.py:54-83`` with ``quantize=True``)."""
-    h, w = images.shape[-3], images.shape[-2]
-    return _resample(images, triangle_weights(h, out_h), triangle_weights(w, out_w))
+    (``ssip_tpu/ops/resize.py:54-83`` with ``quantize=True``): horizontal
+    pass first, then vertical — PIL's order — with clip8 after each, every
+    output's taps summed in XLA's CPU order (module docstring)."""
+    if images.device.type == "cpu" and images.dim() == 4:
+        chunk = max(1, _CPU_CHUNK_BYTES // (8 * images.shape[1] * images.shape[2] * images.shape[3]))
+        if chunk < images.shape[0]:
+            return torch.cat([resize_bilinear(part, out_h, out_w) for part in images.split(chunk)])
+    x = images.to(torch.float64).movedim(-1, -3)  # [..., 3, H, W]
+    t = _ordered_pass(x, -1, out_w).to(torch.float64)  # [..., 3, H, out_w]
+    return _ordered_pass(t, -2, out_h).movedim(-3, -1)  # [..., out_h, out_w, 3]
 
 
 def training_resize(images_u8: torch.Tensor, image_size: int = 224) -> torch.Tensor:

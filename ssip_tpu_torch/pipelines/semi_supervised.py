@@ -33,9 +33,15 @@ Data parallelism and ``--fsdp`` as in ``pipelines/supervised.py``: the
 pool's probabilities are split over the data axis and gathered in pool
 order, the FixMatch fine-tune's unlabeled batches are split like the
 labeled ones, and rank 0 alone writes the artifacts. Not ported yet: what
-``pipelines/supervised.py`` refuses. The eight figures
-of the JAX run are not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is
-not installed on the card's machine, where a figure call would stop the run.
+``pipelines/supervised.py`` refuses.
+
+Rank 0 draws the JAX run's nine figures in its places (``report/plots.py``):
+the baseline's curves after phase A; then the semi-supervised curves over
+the pretrain and the fine-tune, the four confusion matrices, ROC and PR
+with both models, and the metric bars over the detailed rows. Without
+matplotlib, which the JAX package cannot train without, the run warns once
+before reading any data, naming the figures, and trains on and writes every
+table (``pipelines/supervised.py:check_figures``).
 """
 
 from __future__ import annotations
@@ -53,10 +59,11 @@ from ssip_tpu_torch.data.discovery import unlabeled_files
 from ssip_tpu_torch.ops.metrics import binary_confusion_metrics
 from ssip_tpu_torch.parallel.distributed import is_primary
 from ssip_tpu_torch.pipelines.supervised import (
-    build_classifier_state, check_cv_folds, prepare_datasets, refuse_unported, run_cross_validation,
+    build_classifier_state, check_cv_folds, check_figures, prepare_datasets, refuse_unported, run_cross_validation,
     threshold_and_eval, train_baseline, write_results_csv,
 )
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
+from ssip_tpu_torch.report import plots
 from ssip_tpu_torch.runtime.device import configure_precision, device_label, resolve_device
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.train.checkpoints import save_checkpoint
@@ -129,8 +136,13 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     device = resolve_device(config.device)
     configure_precision(config.compute_dtype)
     mesh = config.build_mesh(device)
-    LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
     reg = config.artifacts
+    figures = check_figures([path.name for path in (
+        reg.baseline_curves_png, reg.semi_curves_png, reg.baseline_confusion_png,
+        reg.baseline_confusion_thresholded_png, reg.semi_confusion_png, reg.semi_confusion_thresholded_png,
+        reg.roc_curves_png, reg.pr_curves_png, reg.metrics_comparison_png,
+    )]) and is_primary()
+    LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
 
     datasets, classes, splits = prepare_datasets(config, device)
     if config.positive_class not in classes:
@@ -149,6 +161,8 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
 
     # ---- Phase A: baseline ------------------------------------------------
     baseline_state, baseline_history, baseline_time = train_baseline(config, datasets, len(classes), device, mesh)
+    if figures:
+        plots.plot_training_curves(baseline_history, reg.baseline_curves_png, "Baseline")
     base = threshold_and_eval(baseline_state.model, datasets, config, pos_index, "baseline", mesh=mesh)
     base.arg_metrics["training_time_sec"] = baseline_time
     base.thr_metrics["training_time_sec"] = baseline_time
@@ -252,6 +266,25 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
         reg.notes_dir.mkdir(parents=True, exist_ok=True)
         reg.training_history_json.write_text(json.dumps(history_payload, indent=2))
 
+    if figures:
+        plots.plot_training_curves(
+            {key: pretrain_history[key] + finetune_history[key] for key in pretrain_history},
+            reg.semi_curves_png,
+            "Semi-supervised",
+        )
+        for evals, argmax_png, thresholded_png in (
+            (base, reg.baseline_confusion_png, reg.baseline_confusion_thresholded_png),
+            (semi, reg.semi_confusion_png, reg.semi_confusion_thresholded_png),
+        ):
+            plots.plot_confusion_matrix(evals.arg_y_true, evals.arg_y_pred, classes, argmax_png)
+            plots.plot_confusion_matrix(evals.thr_y_true, evals.thr_y_pred, classes, thresholded_png)
+        curves = {
+            name: ((evals.thr_y_true == pos_index).astype(int), evals.thr_y_prob)
+            for name, evals in (("Baseline", base), ("Semi-supervised", semi))
+        }
+        plots.plot_roc_curves(curves, reg.roc_curves_png)
+        plots.plot_pr_curves(curves, reg.pr_curves_png)
+
     target_recall = None if config.target_recall is None else float(config.target_recall)
     detailed_rows: Dict[str, Dict[str, Any]] = {}
     for name, evals, seconds in (("baseline", base, baseline_time), ("semi", semi, semi_time)):
@@ -268,6 +301,10 @@ def run_pipeline(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
             "max_fpr": evals.thr_metrics.get("max_fpr"),
         }
     write_results_csv(reg.results_comparison_detailed_csv, detailed_rows)
+    if figures:
+        plots.plot_metrics_bars(
+            detailed_rows, reg.metrics_comparison_png, keys=["TPR", "FPR", "TNR", "precision", "accuracy"]
+        )
     write_results_csv(
         reg.results_comparison_csv,
         {"baseline_thresholded": base.thr_metrics, "semi_thresholded": semi.thr_metrics},

@@ -40,9 +40,14 @@ checkpoint. As in the JAX package, ``--cv-folds`` then runs its folds
 unsharded (with a warning) and ``--num-seeds > 1`` raises; a process
 started alone cannot make a model axis and raises before any data is
 read.
-The four training figures (``report/plots.py``) are
-not drawn yet (ROADMAP Queue 1 item 15d): matplotlib is not installed on the
-card's machine, where a figure call would stop the run.
+The JAX run's four figures (``report/plots.py``: ``train_curves_baseline``,
+``confusion_matrix_baseline``, ``roc_curves`` and ``pr_curves_baseline``)
+are drawn by rank 0 after the evaluation, with the best lane's history
+under ``--num-seeds``. The JAX package imports matplotlib with the pipeline
+and cannot train without it; the port asks ``plots.available()`` once,
+before any data is read, and where matplotlib is not installed warns once,
+naming the figures it will not write, and trains on and writes every table.
+An error while drawing stops the run, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from ssip_tpu_torch.parallel.fsdp import shard_model
 from ssip_tpu_torch.parallel.mesh import model_size
 from ssip_tpu_torch.pipelines.extraction import DEFAULT_WEIGHTS_ENV
 from ssip_tpu_torch.pipelines.train_config import TrainingConfig
+from ssip_tpu_torch.report import plots
 from ssip_tpu_torch.runtime.device import compute_dtype, configure_precision, device_label, resolve_device
 from ssip_tpu_torch.runtime.logging import get_logger
 from ssip_tpu_torch.train.checkpoints import save_checkpoint
@@ -81,6 +87,9 @@ from ssip_tpu_torch.train.multi_seed import train_multi_seed
 
 LOGGER = get_logger(__name__)
 
+PR_CURVES_BASELINE = "pr_curves_baseline.png"  # a name the JAX run writes outside its registry
+
+
 def refuse_unported(config: TrainingConfig) -> None:
     """Raise for an ``--arch`` whose code path the port does not have."""
     refuse_unported_arch(config.arch)
@@ -89,6 +98,20 @@ def refuse_unported(config: TrainingConfig) -> None:
 def check_cv_folds(config: TrainingConfig) -> None:
     if config.cv_folds and config.cv_folds < 2:
         raise ValueError(f"--cv-folds must be >= 2 (or 0 to disable), got {config.cv_folds}")
+
+
+def check_figures(names: List[str]) -> bool:
+    """Whether the run draws its figures: ``plots.available()``, asked once
+    before any data is read. Without matplotlib rank 0 warns, naming the
+    figures the run will not write; the run trains on."""
+    if plots.available():
+        return True
+    if is_primary():
+        LOGGER.warning(
+            "matplotlib is not installed: this run writes no figures (%s); it trains and writes every table",
+            ", ".join(names),
+        )
+    return False
 
 
 def build_classifier_state(
@@ -284,6 +307,7 @@ class EvalPair:
     thr_metrics: Dict[str, Any]
     thr_y_true: np.ndarray
     thr_y_pred: np.ndarray
+    thr_y_prob: np.ndarray  # the positive column the JAX run plots: pos_index's, class 1's without target_recall
 
 
 def threshold_and_eval(
@@ -296,7 +320,7 @@ def threshold_and_eval(
     thresholded metrics are the argmax ones. ``arg_extras`` joins the argmax
     metrics before the thresholded ones derive from them. ``mesh``: the
     evaluations split over its data axis."""
-    arg_metrics, arg_y_true, arg_y_pred, _ = evaluate_model(model, datasets["test"], config.batch_size, mesh=mesh)
+    arg_metrics, arg_y_true, arg_y_pred, y_prob = evaluate_model(model, datasets["test"], config.batch_size, mesh=mesh)
     arg_metrics.update(arg_extras or {})
     if config.target_recall is not None:
         _m, y_true_val, _p, y_prob_val = evaluate_model(
@@ -310,7 +334,7 @@ def threshold_and_eval(
             max_fpr=config.max_fpr,
             f_beta=config.f_beta,
         )
-        thr_metrics, thr_y_true, thr_y_pred, _ = evaluate_model(
+        thr_metrics, thr_y_true, thr_y_pred, thr_y_prob = evaluate_model(
             model, datasets["test"], config.batch_size, pos_index=pos_index, threshold=thr, mesh=mesh
         )
         thr_metrics.update(
@@ -328,8 +352,8 @@ def threshold_and_eval(
             threshold=None, target_recall=None, min_precision=None,
             max_fpr=None, threshold_policy="disabled",
         )
-        thr_y_true, thr_y_pred = arg_y_true, arg_y_pred
-    return EvalPair(arg_metrics, arg_y_true, arg_y_pred, thr, thr_metrics, thr_y_true, thr_y_pred)
+        thr_y_true, thr_y_pred, thr_y_prob = arg_y_true, arg_y_pred, y_prob
+    return EvalPair(arg_metrics, arg_y_true, arg_y_pred, thr, thr_metrics, thr_y_true, thr_y_pred, thr_y_prob)
 
 
 def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
@@ -338,8 +362,11 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     device = resolve_device(config.device)
     configure_precision(config.compute_dtype)
     mesh = config.build_mesh(device)
-    LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
     reg = config.artifacts
+    figures = check_figures(
+        [reg.baseline_curves_png.name, reg.baseline_confusion_png.name, reg.roc_curves_png.name, PR_CURVES_BASELINE]
+    ) and is_primary()
+    LOGGER.info("Training on %s (%s)", device_label(device), config.compute_dtype)
 
     datasets, classes, splits = prepare_datasets(config, device)
     if config.positive_class not in classes:
@@ -357,6 +384,13 @@ def run_supervised(config: TrainingConfig) -> Dict[str, Dict[str, float]]:
     )
     arg_metrics, thr_metrics = evals.arg_metrics, evals.thr_metrics
     thr_metrics["training_time_sec"] = train_time
+
+    if figures:
+        plots.plot_training_curves(history, reg.baseline_curves_png, "Baseline")
+        plots.plot_confusion_matrix(evals.arg_y_true, evals.arg_y_pred, classes, reg.baseline_confusion_png)
+        curves = {"Baseline": ((evals.thr_y_true == pos_index).astype(int), evals.thr_y_prob)}
+        plots.plot_roc_curves(curves, reg.roc_curves_png)
+        plots.plot_pr_curves(curves, reg.figures_dir / PR_CURVES_BASELINE)
 
     write_results_csv(reg.results_comparison_csv, {"baseline_thresholded": thr_metrics})
 

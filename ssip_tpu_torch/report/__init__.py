@@ -1,4 +1,5 @@
-"""Figures of the analysis stage.
+"""Figures of the training runs (``plots.py``) and the analysis stage
+(``cluster_plots.py``).
 
 matplotlib is imported only when a figure is drawn (``pyplot``), so that
 ``import ssip_tpu_torch`` and the extraction and training paths run where it

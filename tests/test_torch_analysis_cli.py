@@ -230,7 +230,7 @@ def test_pandas_and_matplotlib_stay_out_of_the_main_paths():
         "import ssip_tpu_torch.pipelines.semi_supervised, ssip_tpu_torch.pipelines.sweep\n"
         "import ssip_tpu_torch.cli.clustering, ssip_tpu_torch.cli.standardize_features\n"
         "import ssip_tpu_torch.cli.export_unlabeled_cohort, ssip_tpu_torch.cli.threshold_sweep\n"
-        "import ssip_tpu_torch.report.cluster_plots\n"
+        "import ssip_tpu_torch.report.cluster_plots, ssip_tpu_torch.report.plots\n"
         "loaded = sorted({m.split('.')[0] for m in sys.modules} & {'pandas', 'matplotlib', 'jax', 'ssip_tpu'})\n"
         "assert not loaded, loaded\n"
         "import ssip_tpu_torch.analysis.audit, ssip_tpu_torch.cli.data_audit\n"

@@ -5,7 +5,7 @@ makes them) and handed to both packages, so every comparison is of the same
 function on the same inputs: the fixed-point rotation index map, the
 rotation itself (against ``_rotate_gather`` and the Pallas kernel
 ``_rotate_mxu`` in interpret mode) and the whole ``train_augment`` are held
-bit for bit; the training resize to one uint8 step.
+bit for bit, and so is the training resize at 512².
 """
 
 import jax
@@ -155,14 +155,28 @@ def test_augment_wrapper_rejects_bad_inputs():
         augment_images(torch.zeros((0, 10924, 10924, 3), dtype=torch.uint8), _coeffs(np.zeros(0, np.float32)))
 
 
-def test_training_resize_within_one_step_of_jax():
-    """512→224: the taps are not dyadic, so the two packages' summation
-    orders may put a pixel one uint8 step apart: 2 of the 301 056 values
-    at this seed (a share of 6.6e-6); the bound is one step and 1 %."""
-    images = np.random.default_rng(1).integers(0, 256, (2, 512, 512, 3), np.uint8)
+@pytest.mark.parametrize("seed, count", [(1, 2), (7, 16)])
+def test_training_resize_within_one_step_of_jax(seed, count):
+    """512→224, bit for bit: the port adds each output's taps in ascending
+    source order with one fused multiply-add a tap, XLA's CPU order, so the
+    non-dyadic taps round as the JAX package's do (the matmul form this
+    replaced put 2 of the 301 056 values of seed 1 one uint8 step apart)."""
+    images = np.random.default_rng(seed).integers(0, 256, (count, 512, 512, 3), np.uint8)
     want = np.asarray(jnp.round(jax_resize_bilinear(jnp.asarray(images), 224, 224, quantize=True)).astype(jnp.uint8))
     got = training_resize(torch.from_numpy(images), 224).numpy()
-    assert got.dtype == np.uint8 and got.shape == (2, 224, 224, 3)
+    assert got.dtype == np.uint8 and got.shape == (count, 224, 224, 3)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 427, 640, 3), (4, 300, 300, 3)])
+def test_training_resize_away_from_512_within_one_step_of_jax(shape):
+    """Away from 512² sources XLA's CPU does not add the taps in ascending
+    order at every width (ROADMAP Queue 3 #14): observed at this seed, 379
+    of the 602,112 values one uint8 step off at 427×640 and none at
+    300×300; the bound is one step on under 2e-3 of the values."""
+    images = np.random.default_rng(3).integers(0, 256, shape, np.uint8)
+    want = np.asarray(jnp.round(jax_resize_bilinear(jnp.asarray(images), 224, 224, quantize=True)).astype(jnp.uint8))
+    got = training_resize(torch.from_numpy(images), 224).numpy()
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1
-    assert (diff > 0).mean() < 0.01
+    assert (diff > 0).mean() < 2e-3

@@ -83,10 +83,11 @@ def test_weak_augment_matches_jax_bitwise(seed):
 
 @pytest.mark.parametrize("seed,shape", [(1, (8, 48, 48, 3)), (2, (4, 64, 36, 3))])
 def test_strong_augment_matches_jax(seed, shape):
-    """The rotation is bit-exact; the per-image mean sums H·W·3 floats in
-    another order, so the float32 view is held to 1e-4 absolute on
-    normalized values (one uint8 step is 0.017 there) and the bfloat16 view
-    to one bfloat16 step of values below 4 (2⁻⁶)."""
+    """The rotation is bit-exact; the per-image mean is held in general
+    (past a sum of 2^24 XLA's float32 order of adds is not known) to 1e-4
+    absolute on normalized values (one uint8 step is 0.017 there) and the
+    bfloat16 view to one bfloat16 step of values below 4 (2⁻⁶); the test
+    below holds it bit for bit where the sum stays below 2^24."""
     images = np.random.default_rng(seed).integers(0, 256, shape, np.uint8)
     key = jax.random.PRNGKey(seed)
     coeffs, brightness, contrast = (torch.from_numpy(a) for a in _strong_draws(key, shape[0]))
@@ -100,6 +101,23 @@ def test_strong_augment_matches_jax(seed, shape):
     got16 = strong_augment(torch.from_numpy(images), coeffs, brightness, contrast, torch.bfloat16)
     assert got16.dtype == torch.bfloat16
     np.testing.assert_allclose(got16.float().numpy(), want16, rtol=0, atol=2.0**-6)
+
+
+@pytest.mark.parametrize("seed,shape,high", [(4, (8, 48, 48, 3), 256), (5, (4, 96, 80, 3), 256), (6, (3, 224, 224, 3), 100)])
+def test_strong_augment_matches_jax_bitwise_below_2_24(seed, shape, high):
+    """Where each image's sum over H, W and C stays below 2^24 (224² at
+    values below 100 too), XLA's float32 sum is exact, and the port's exact
+    sum times ``f32(1/n)`` is ``jnp.mean``: the float32 view is the JAX
+    package's bit for bit, and its bfloat16 rounding too."""
+    images = np.random.default_rng(seed).integers(0, high, shape, np.uint8)
+    assert images.reshape(shape[0], -1).sum(axis=1, dtype=np.int64).max() < 2**24
+    key = jax.random.PRNGKey(seed)
+    coeffs, brightness, contrast = (torch.from_numpy(a) for a in _strong_draws(key, shape[0]))
+    for jdtype, tdtype in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(jax_strong_augment(jnp.asarray(images), key, DEGREES, dtype=jdtype).astype(jnp.float32))
+        got = strong_augment(torch.from_numpy(images), coeffs, brightness, contrast, tdtype)
+        assert got.dtype == tdtype
+        np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_fixmatch_draws_are_seeded_ranged_and_apart():

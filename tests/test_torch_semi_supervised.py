@@ -272,7 +272,8 @@ def test_run_pipeline_writes_the_jax_artifact_set(runs, run):
     thresholded = run == "fixmatch"
     for rel in ARTIFACTS:
         assert (out / rel).is_file() == (thresholded or rel != "tables/unlabeled_predictions_semi.csv"), rel
-    assert not (out / "figures").exists()  # the eight figures are not drawn yet
+    # the JAX run's nine figures, by name (tests/test_torch_plots.py holds their pixels)
+    assert sorted(p.name for p in (out / "figures").iterdir()) == sorted(p.name for p in (jax_out / "figures").iterdir())
     assert set(results[run]) == {"baseline_thresholded", "semi_thresholded"}
 
     for rel in ("tables/results_comparison.csv", "tables/results_comparison_detailed.csv"):

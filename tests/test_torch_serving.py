@@ -6,12 +6,10 @@ Tolerances: probabilities within 1e-5 (two float32 convolution orders) on the
 same eval-resized uint8 inputs, and against the run's own triage CSV. The
 ``predict`` CLIs are fed 224² JPEGs, where the resize to the 224² training
 size is the identity, so their CSVs hold the same rows. At 512² JPEGs the
-port's ``training_resize`` and the JAX package's differ by one uint8 step on
-a few values (ROADMAP Queue 3 #1; observed: 4 of the 1,204,224 resized
-values of the eight images here), which with the two convolution orders
-moves ``prob_positive`` by far less than 1e-3 (observed: 2.7e-6 at most);
-``flagged`` is held equal wherever the probability is more than 1e-3 from
-the threshold.
+two packages' training resizes are equal bit for bit (ROADMAP Queue 3 #1,
+closed), and the two convolution orders move ``prob_positive`` by far less
+than 1e-3; ``flagged`` is held equal wherever the probability is more than
+1e-3 from the threshold.
 """
 
 import json
@@ -176,10 +174,18 @@ def test_predict_cli_csv_matches_jax(run_224, tmp_path, capsys):
 
 def test_predict_paths_at_512_against_jax(run_224, tmp_path):
     """512² JPEGs through each package's decode → training resize → predict.
-    The resize differs by one uint8 step on a few values (ROADMAP Queue 3
-    #1); ``flagged`` is equal wherever ``prob_positive`` is more than 1e-3
-    from the threshold, and the probabilities stay within 1e-5."""
+    The resized images are equal bit for bit; ``flagged`` is equal wherever
+    ``prob_positive`` is more than 1e-3 from the threshold, and the
+    probabilities stay within 1e-5."""
+    from ssip_tpu.data.decode import decode_batch as jax_decode_batch
+    from ssip_tpu.train.data import _resize_on_device as jax_resize_on_device
+    from ssip_tpu_torch.serving import decode_and_resize
+
     paths = sorted(_jpeg_tree(tmp_path / "big", 512, 8, 9).glob("*.jpg"))
+    kept, resized, failures = decode_and_resize(paths, 224, torch.device("cpu"))
+    arrays, jax_failures = jax_decode_batch(paths, convert_rgb=True)
+    assert kept == paths and not failures and not jax_failures
+    np.testing.assert_array_equal(resized.numpy(), np.asarray(jax_resize_on_device(arrays, 224)))
     port = ScreeningPredictor.from_artifacts(run_224, batch_size=8, device="cpu").predict_paths(paths)
     jax = JaxScreeningPredictor.from_artifacts(run_224, batch_size=8).predict_paths(paths)
     assert port.paths == [str(p) for p in paths] == jax.paths

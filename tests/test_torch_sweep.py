@@ -3,8 +3,8 @@
 same training outputs, on the CPU.
 
 Both read the port's ``training_history.json`` and ``.pt`` and evaluate the
-test split in float32. Their images differ where the port's training resize
-is one uint8 step off the JAX package's (ROADMAP Queue 3 #1), so the
+test split in float32. Their images are equal (the training resize is the
+JAX package's bit for bit), but the two forwards sum in other orders, so the
 probabilities are held to 1e-4 and each row's confusion counts exactly where
 no two probabilities lie within that of each other.
 """
