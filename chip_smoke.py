@@ -371,11 +371,14 @@ N_CPU_CHECK = 16
 TIMED_LAUNCHES = 20
 # what the packed pair's bf16 times below are of
 ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: any length; forward float32 FMA scores in cuBLAS's order, "
-                   "torch-order softmax, bf16 p, P.V on mma.sync m16n8k16: up to 256 tokens a block per head with "
-                   "K and V staged whole and a row's scores in registers, past 256 a block per 32 query rows with "
-                   "K and V streamed in 64-key cp.async tiles (scores cached in shared memory while they fit, else "
-                   "three sweeps over K); backward two launches (dq by 64 query rows, dk and dv by 64 key rows, "
-                   "the other operand streamed), every product on mma.sync with p and ds rounded to bf16")
+                   "torch-order softmax, bf16 p, P.V on mma.sync m16n8k16: up to 256 tokens a block of 4 warps per "
+                   "head, K staged whole as float32 (transposed by 4-d groups) and V as bf16 behind the block's only "
+                   "barrier, each warp its own groups of 16 query rows (a last one of at most 8) from Q to the stored "
+                   "output (scores in registers, a last key chunk of at most 8 real keys worked on all lanes, P.V as "
+                   "vT.pT with the rows as n), past 256 a block per 32 query rows with K and V streamed in 64-key "
+                   "cp.async tiles (scores cached in shared memory while they fit, else three sweeps over K); "
+                   "backward two launches (dq by 64 query rows, dk and dv by 64 key rows, the other operand "
+                   "streamed), every product on mma.sync with p and ds rounded to bf16")
 ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel",
                     "attn_qkv_fwd_stream_kernel")
 # what the unpacked pair's bf16 times below are of
@@ -459,6 +462,9 @@ KERNELS = {
 # products each (the float32 attention kernels).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32x3": 495e12 / 3}
+# float32 FMA lanes: 132 SMs x 128 lanes x 2 operations x 1.98 GHz, the rate
+# the bf16 packed forward's exact scores (a float32 FMA chain each) run at best
+FP32_FMA_OPS_PER_S = 66.9e12
 ATTN_OPS_TYPE = {"bfloat16": "bfloat16", "float32": "tf32x3"}  # the attention rows' products by input type
 VIT_ARCH, VIT_WIDTH, VIT_TOKENS, VIT_HEADS, VIT_MLP = "vit_b16", 768, 197, 12, 3072
 VIT_LN_PER_FORWARD, VIT_ATTN_PER_FORWARD, VIT_BLOCKS = 25, 12, 12
@@ -522,6 +528,8 @@ ATTN_SHAPES = (
     (4, 1025, 12, 0, "float32"), (2, 1297, 12, 0, "bfloat16"), (2, 1297, 12, 1200, "float32"),
     (128, 197, 6, 0, "bfloat16"),  # vit_moe_s16: [128, 197, 1152]
 )
+# the streamed bf16 shapes whose device times [attn] reads too
+ATTN_DEVICE_STREAMED = ((16, 577, 12, 0, "bfloat16"), (4, 1024, 12, 0, "bfloat16"))
 # the rotation body's two epilogues as torch.profiler names them (csrc/rotation.cu)
 AUGMENT_KERNELS = ("rotate_kernel<float>", "rotate_kernel<__nv_bfloat16>")
 ROTATE_U8_KERNELS = ("rotate_kernel<unsigned char>",)
@@ -1182,11 +1190,12 @@ def phase_attention_kernels(torch, np) -> dict:
         if not named:
             raise AssertionError(f"ptxas reported nothing for {fragment}")
         for name, r in sorted(named.items()):
-            # template arguments: the head width, and for the forwards the key chunks of 32 (whole
-            # head) or whether the scores are cached (streamed)
-            args = re.search(r"ILi(\d+)E(?:Li(\d+)E|Lb(\d)E)?", name)
-            say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", score_cache=args[3] or "-",
-                **r)
+            # template arguments: the head width, and for the forwards the key chunks of 32 and
+            # whether the last holds at most 8 real keys (whole head), or whether the scores are
+            # cached (streamed)
+            args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", name)
+            flag = {"narrow_tail" if args[2] else "score_cache": args[3] or "-"}
+            say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", **flag, **r)
     rounded_info = load_library().ssip_attention_rounded_info  # the bf16 kernels at a sequence and key count
     rounded_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     for which, kernel in ((1, ATTN_MMA_KERNELS[1]), (2, ATTN_MMA_KERNELS[2])):
@@ -1245,8 +1254,9 @@ def phase_attention_kernels(torch, np) -> dict:
         fwd_bound = bound_ms((qkv.numel() + out.numel()) * item, 4 * b * heads * s * kv * dh, ops_type)
         bwd_bound = bound_ms((2 * qkv.numel() + d_o.numel()) * item, 10 * b * heads * s * kv * dh, ops_type)
         device = {}
-        # the main shape in both types, and the MoE width (rows 9-10's device times there)
-        if (b, s, heads, kv_len, dtype_name) in ATTN_SHAPES[:2] + ATTN_SHAPES[-1:]:
+        # the main shape in both types, the MoE width and the streamed bf16 shapes at 577 and 1024
+        # tokens (rows 9-10's device times there)
+        if (b, s, heads, kv_len, dtype_name) in ATTN_SHAPES[:2] + ATTN_SHAPES[-1:] + ATTN_DEVICE_STREAMED:
             device = _attention_device_times(
                 torch, "attn", f"{b}x{s}x{3 * d}", dtype_name,
                 (lambda: fused_attention_qkv(qkv, heads, kv_len),
@@ -1264,8 +1274,14 @@ def phase_attention_kernels(torch, np) -> dict:
             fwd_res = (ctypes.c_int * 5)()
             if rounded_info(0, dh, s, kv, fwd_res) != 0:
                 raise AssertionError(f"{tag}: ssip_attention_rounded_info failed")
+            # what the gate costs: the score FMAs (2·B·H·S·kv·Dh operations) at the card's float32 rate
+            fma_floor_ms = 2 * b * heads * s * kv * dh / FP32_FMA_OPS_PER_S * 1e3
+            floor = {"fwd_fma_floor_ms": f"{fma_floor_ms:.4f}"}
+            if device:
+                floor["fwd_fma_floor_share_of_device"] = f"{fma_floor_ms / device['fwd']:.4f}"
+                floor["fwd_device_vs_library_device"] = f"{device['fwd'] / device['lib_fwd']:.4f}"
             say("attn", design=repr(ATTN_MMA_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
-                fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}",
+                fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}", **floor,
                 fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}",
                 bwd_gbytes_per_s=f"{(2 * qkv.numel() + d_o.numel()) * item / bwd_ms / 1e6:.1f}",
                 bwd_bound_share=f"{bwd_bound['bound_ms'] / bwd_ms:.4f}", bwd_vs_library=f"{bwd_ms / lib_bwd_ms:.4f}",

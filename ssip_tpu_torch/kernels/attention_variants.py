@@ -15,6 +15,11 @@ Every variant then runs at each shape in turns (first to last, last to
 first) and the smaller of its two medians of CUDA-event times is printed,
 with ``scaled_dot_product_attention``'s beside (the float32 backward is
 timed from the forward's output and row statistics, as autograd runs it).
+With ``--rounded`` the packed entry is timed at its main shape too, beside
+diagnostic copies of the whole-head forward with a phase cut out (printed
+with ``diagnostic=1``: not checked, their output is not the function's), and
+the kernel's device time there is printed, with the SM clock and power draw
+``nvidia-smi`` reads while it runs back to back.
 
     python -m ssip_tpu_torch.kernels.attention_variants          # one CUDA card
     python -m ssip_tpu_torch.kernels.attention_variants --f32
@@ -27,6 +32,7 @@ import ctypes
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -67,8 +73,53 @@ TIMED = 20
 
 ROUNDED_SOURCE = CSRC_DIR / "attention_mma.cu"
 # the streamed forward's designs: scores cached in shared memory while they
-# fit (the kernel), or always three sweeps over K; its tiles; and the packed
-# entry streamed at 197 tokens too, where it runs the whole-head kernel
+# fit (the kernel), or always three sweeps over K; its tiles; the packed
+# entry streamed at 197 tokens too, where it runs the whole-head kernel; and
+# the whole-head kernel's warps a block and score-loop unrolling
+_SCORE_LOOP = "#pragma unroll 1\n    for (int dg = 0; dg < DG; ++dg) {"
+# the streamed forward with the whole-head kernel's warp-owned rows: each warp
+# works P V on its own 8 rows of the p tile (the upper half of m16n8k16's A,
+# all DH columns), so the p tile needs no block barrier
+_STREAM_PV_OWNED = [
+    ("""  const int rt = 16 * (warp >> 1), half = warp & 1;
+  const bool pv = q0 + rt < s_len;  // the same for the whole warp
+  float out[DH / 16][4];
+  zero(out);""", """  float out[DH / 8][4];  // the warp's 8 rows, all DH columns
+  zero(out);"""),
+    ("""    __syncthreads();  // the p tile complete
+    if (pv) {
+      for (int ks = 0; 16 * ks < valid; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, smem_addr(p_s + (rt + (lane & 15)) * kPPitch + 16 * ks + ((lane >> 4) << 3)));
+        weighted<DH, DH / 32>(out, a, v_s, 16 * ks, half * (DH / 32), lane);
+      }
+    }""", """    __syncwarp();  // the warp's own rows of the p tile
+    if (live) {
+      for (int ks = 0; 16 * ks < valid; ++ks) {
+        uint32_t a[4] = {0u, 0u, 0u, 0u};
+        ldsm_x2(a[0], a[2], smem_addr(p_s + (r0 + (lane & 7)) * kPPitch + 16 * ks + ((lane >> 3) & 1) * 8));
+        weighted<DH, DH / 16>(out, a, v_s, 16 * ks, 0, lane);
+      }
+    }"""),
+    ("""  if (pv) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+      for (int n = 0; n < DH / 16; ++n) {
+        *reinterpret_cast<uint32_t*>(o_s + swz<DH>(rt + g + 8 * hr, half * (CH / 2) + n) + 2 * t) =
+            pack_bf16(out[n][2 * hr], out[n][2 * hr + 1]);
+      }
+    }
+  }
+  __syncthreads();""", """  __syncthreads();  // every warp's last read of q_f done
+  if (live) {
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(o_s + swz<DH>(r0 + g, n) + 2 * t) = pack_bf16(out[n][0], out[n][1]);
+    }
+  }
+  __syncthreads();"""),
+]
 ROUNDED_VARIANTS = {
     "kernel": [],
     "streamed at any length": [("constexpr int kWholeMaxSeq = 256;", "constexpr int kWholeMaxSeq = 0;")],
@@ -76,6 +127,31 @@ ROUNDED_VARIANTS = {
     "128-key tiles": [("constexpr int kKeyTile = 64;", "constexpr int kKeyTile = 128;")],
     "128-key tiles, 3 blocks an SM": [("constexpr int kKeyTile = 64;", "constexpr int kKeyTile = 128;"),
                                       ("constexpr int kFwdBlocksPerSm = 4;", "constexpr int kFwdBlocksPerSm = 3;")],
+    "whole head, groups of 8 rows": [("constexpr int kWholeRows = 16;", "constexpr int kWholeRows = 8;")],
+    "streamed, warp-owned P V rows": _STREAM_PV_OWNED,
+    "whole head, 5 warps a block": [("constexpr int kWholeWarps = 4;", "constexpr int kWholeWarps = 5;")],
+    "whole head, last chunk a key a lane": [("constexpr bool narrow_tail(int kv) { return kv > 32 &&",
+                                             "constexpr bool narrow_tail(int kv) { return false &&")],
+    "whole head, score loop unrolled 2": [(_SCORE_LOOP, _SCORE_LOOP.replace("unroll 1", "unroll 2"))],
+}
+# diagnostics of the whole-head kernel: copies with a phase cut out, timed at
+# the packed entry's main shape beside the kernel (their output is not the
+# function's; only their time is read)
+_NO_EXP = [("numerator(s[r][c], mx[r])", "__fsub_rn(s[r][c], mx[r])"),
+           ("div_unit(s[r][c], sum[r])", "__fmul_rn(s[r][c], sum[r])")]
+_NO_PV = [("const int steps = kvp / 16;", "const int steps = 0;")]
+ROUNDED_DIAGNOSTICS = {
+    "no exp or division": _NO_EXP,
+    "no P V": _NO_PV,
+    "scores and p stores only": [*_NO_EXP, *_NO_PV, ("for (int off = 16; off > 0; off >>= 1) {",
+                                                     "for (int off = 16; off > 16; off >>= 1) {")],
+    "K staged without loads": [("if (idx < KEYS * CH && key < kv) {", "if (false) {")],
+    "P V, V without .trans": [("ldsm_x4_trans(va[mt], v_addr[mt] + 32 * DH * ks)", "ldsm_x4(va[mt], v_addr[mt] + 32 * DH * ks)")],
+    "P V, mma on the first step's fragments": [
+        ("if (ks + 1 < steps) load_step(pf[1], vf[1], ks + 1);", "if (false) load_step(pf[1], vf[1], ks + 1);"),
+        ("if (ks + 2 < steps) load_step(pf[0], vf[0], ks + 2);", "if (false) load_step(pf[0], vf[0], ks + 2);")],
+    "P V, loads without mma": [("mma_bf16(acc[n][mt], va[mt], pb[2 * n], pb[2 * n + 1]);",
+                                "acc[n][mt][0] += __uint_as_float((va[mt][0] ^ va[mt][3]) & pb[2 * n] & 0x3f800000u);")],
 }
 ROUNDED_ENTRIES = ENTRIES.replace("attention_fwd_bf16", "attention_rounded_fwd_bf16").replace(
     "attention_bwd_bf16", "attention_rounded_bwd_bf16") + r'''
@@ -85,8 +161,9 @@ extern "C" int variant_qkv_fwd(const void* qkv, void* o, int batch, int heads, i
 }
 '''
 PACKED_SHAPE = (128, 197, 12, 64)  # the packed entry's main path: batch, tokens, heads, head width
-# vit_b16's heads at 224², 384², 512² and 576², and 1024 tokens
-ROUNDED_SHAPES = ((128, 12, 197, 64), (16, 12, 577, 64), (4, 12, 1024, 64), (4, 12, 1025, 64), (2, 12, 1297, 64))
+# vit_b16's heads at 224², 256², 384², 512² and 576², and 1024 tokens
+ROUNDED_SHAPES = ((128, 12, 197, 64), (64, 12, 257, 64), (16, 12, 577, 64), (4, 12, 1024, 64), (4, 12, 1025, 64),
+                  (2, 12, 1297, 64))
 
 F32_SOURCE = CSRC_DIR / "attention_f32_mma.cu"
 F32_VARIANTS = {
@@ -125,7 +202,8 @@ F32_SHAPES = ((128, 12, 197, 64), (128, 12, 192, 64), (128, 12, 256, 64), (16, 1
 
 
 def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES, f32: bool = False) -> dict:
-    """name -> (forward, backward) C entries, built in parallel."""
+    """name -> (forward, backward) C entries (and the packed forward where
+    ``entries_src`` has one), built in parallel."""
     out_dir = BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     text = source.read_text()
@@ -224,6 +302,23 @@ def device_ms(fn, reps: int = 5) -> dict:
     return out
 
 
+def clocks_under(fn, seconds: float = 2.0) -> tuple:
+    """(median SM clock in MHz, median power draw in W) that ``nvidia-smi``
+    reads every 100 ms while ``fn`` runs back to back for ``seconds``."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+                            "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        start = time.perf_counter()
+        while time.perf_counter() - start < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    rows = [line.split(",") for line in smi.communicate()[0].splitlines() if line.count(",") == 1]
+    return tuple(float(np.median([float(row[i]) for row in rows[2:-1] or rows])) for i in range(2))
+
+
 def main_f32() -> None:
     """The float32 kernels' variants: each checked against the plain
     versions at [4, 12, 197, 64] (output within 2e-5, gradients within 1e-5
@@ -281,8 +376,9 @@ def main(rounded: bool = False) -> None:
     one step of ``attention_plain`` and its gradients to 1e-2 of each one's
     largest entry, the packed pair's gates."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true float32
-    entries = (build_variants(ROUNDED_SOURCE, ROUNDED_VARIANTS, ROUNDED_ENTRIES) if rounded
-               else build_variants())
+    entries = (build_variants(ROUNDED_SOURCE, {**ROUNDED_VARIANTS, **ROUNDED_DIAGNOSTICS}, ROUNDED_ENTRIES)
+               if rounded else build_variants())
+    diagnostics = {name: entries.pop(name) for name in ROUNDED_DIAGNOSTICS} if rounded else {}
     rng = np.random.default_rng(0)
     operands = [torch.from_numpy(rng.standard_normal((4, 12, 197, 64)).astype(np.float32)).cuda().bfloat16()
                 for _ in range(4)]
@@ -316,12 +412,19 @@ def main(rounded: bool = False) -> None:
             packed(entry)
             if not within_one_step(o, ref):
                 raise AssertionError(f"variant {name!r}: the packed forward is not within one bf16 step")
-        packed_ms = {name: [] for name in entries}
-        for name in [*entries, *reversed(entries)]:
-            packed_ms[name].append(median_ms(lambda: packed(entries[name])))
+        timed = {**entries, **diagnostics}
+        packed_ms = {name: [] for name in timed}
+        for name in [*timed, *reversed(timed)]:
+            packed_ms[name].append(median_ms(lambda: packed(timed[name])))
         for name, ms in packed_ms.items():
             print(f"[variants] packed_shape={b}x{s}x{3 * heads * dh} variant={name.replace(' ', '_')} "
-                  f"fwd_ms={min(ms):.4f}", flush=True)
+                  f"fwd_ms={min(ms):.4f} diagnostic={int(name in diagnostics)}", flush=True)
+        device = device_ms(lambda: packed(entries["kernel"]))
+        print(f"[variants] packed_shape={b}x{s}x{3 * heads * dh} variant=kernel device_ms "
+              + " ".join(f"{n}={ms:.4f}" for n, ms in device.items()), flush=True)
+        clocks = clocks_under(lambda: packed(entries["kernel"]))
+        print(f"[variants] packed_shape={b}x{s}x{3 * heads * dh} variant=kernel under_load "
+              f"sm_clock_mhz={clocks[0]:.0f} power_w={clocks[1]:.1f}", flush=True)
     for shape in ROUNDED_SHAPES if rounded else SHAPES:
         q, k, v, d_o = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().bfloat16()
                         for _ in range(4))

@@ -23,7 +23,8 @@ there too. The last tests emulate the kernels'
 arithmetic on the CPU: the bfloat16 kernels' (p and ds as bf16 hi/lo pairs)
 and the float32 kernels' (3×TF32 products, forward and backward), showing
 why each splits what it splits, and check the float32 kernels' fragment
-maps lane by lane.
+maps lane by lane; the bfloat16 whole-head forward's index maps are
+emulated in numpy too.
 """
 
 import jax
@@ -624,6 +625,214 @@ def test_f32_backward_keys_kernel_transposed_fragment_maps(dh):
     np.testing.assert_allclose(p_t, _accumulator_layout(p_dense, c), rtol=1e-12)
     np.testing.assert_allclose(_kernel_weighted(p_t, do_s, c, dh), p_dense[:, c:] @ d_o[c:], atol=1e-10)
     np.testing.assert_allclose(_kernel_weighted(s_t, q_s, c, dh), dense[:, c:] @ q[c:], atol=1e-10)
+
+
+_WHOLE_WARPS, _WHOLE_ROWS = 4, 16  # csrc/attention_mma.cu: kWholeWarps, kWholeRows
+
+
+def _distinct_units(byte_offsets: np.ndarray) -> bool:
+    """Whether 8 lanes' 16-byte accesses fall on 8 distinct bank groups."""
+    return len(set((np.asarray(byte_offsets) // 16) % 8)) == 8
+
+
+def _swz_bf16(row, chunk, dh: int):
+    """``swz<DH>`` of ``csrc/mma_common.cuh``: the element offset of a 16-byte
+    chunk in a staged bf16 [rows, DH] matrix."""
+    x = (row & 7) if dh == 64 else ((row >> 1) & 3)
+    return row * dh + ((chunk ^ x) << 3)
+
+
+def _whole_groups(s_len: int, rows: int = _WHOLE_ROWS) -> list:
+    """(first row, rows, warp) of each group: groups of ``rows`` (8 or 16)
+    round the warps, then, with 16, a last group of at most 8 rows on the
+    next warp."""
+    full = -(-s_len // rows) if rows == 8 or s_len % rows > 8 else s_len // rows
+    groups = [(rows * i, rows, i % _WHOLE_WARPS) for i in range(full)]
+    if s_len - rows * full > 0:
+        groups.append((rows * full, 8, full % _WHOLE_WARPS))
+    return groups
+
+
+def _whole_group(q, k, k_s, v_s, q0: int, rr: int, kv: int, keys: int) -> np.ndarray:
+    """One group of ``rr`` rows of ``attn_qkv_fwd_mma_kernel`` in its own index
+    formulas → its [rr, DH] output in float64 (before the bf16 rounding)."""
+    s_len, dh = q.shape
+    chunks, kvp = keys // 32, -(-kv // 16) * 16
+    pp, dgs, ch = kvp + 8, dh // 4, dh // 8
+    narrow = kv > 32 and kv - 32 * ((kv - 1) // 32) <= 8
+    fc, base, tk = chunks - narrow, 32 * (chunks - 1), 8 * rr // 32
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    # Q: piece u of a lane is row (lane + 32u) % rr, 16-byte chunk (lane +
+    # 32u) // rr, stored as float32 [DH][rr]; each store at most 32 / rr lanes a bank
+    q_s = np.zeros(dh * rr, np.float32)
+    for u in range(rr * ch // 32):
+        r, c = (lanes + 32 * u) % rr, (lanes + 32 * u) // rr
+        row = np.where((q0 + r < s_len)[:, None], q[np.minimum(q0 + r, s_len - 1)], 0.0)  # [32, DH]
+        for i in range(8):
+            at = (8 * c + i) * rr + r
+            assert np.bincount(at % 32).max() <= 32 // rr
+            q_s[at] = row[lanes, 8 * c + i]
+    q4 = q_s.reshape(-1, 4)
+    s = np.zeros((rr, chunks, 32), np.float32)  # rows, chunks, lanes: key 32c + lane
+    tr, tk0 = lanes % rr, (lanes // rr) * tk
+    tsc = np.zeros((tk, 32), np.float32)  # narrow: lane's keys base + tk0 + i of row tr
+    for dg in range(dgs):
+        kf = k_s[dg * keys + 32 * np.arange(fc)[:, None] + lanes]  # [fc, 32, 4]
+        for j in range(4):
+            d = 4 * dg + j
+            qv = q4[(rr // 4) * d:(rr // 4) * (d + 1)].reshape(rr)  # broadcast loads
+            s[:, :fc] = s[:, :fc] + qv[:, None, None] * kf[None, :, :, j]  # exact products, float32 sums
+        if narrow:
+            qt = np.stack([q_s[(4 * dg + j) * rr + tr] for j in range(4)], 1)  # [32, 4]
+            for i in range(tk):
+                kt = k_s[dg * keys + base + tk0 + i]  # [32, 4]
+                for j in range(4):
+                    tsc[i] = tsc[i] + qt[:, j] * kt[:, j]
+    if narrow:  # to lane key % 32 through x_s [rr][8]; lanes past 8 read a padding slot
+        x_s = np.zeros(rr * 8, np.float32)
+        for i in range(tk):
+            x_s[tr * 8 + tk0 + i] = tsc[i]
+        s[:, chunks - 1] = x_s.reshape(rr, 8)[:, lanes & 7]
+    live_rows = min(rr, s_len - q0)
+    chain = np.zeros((live_rows, kv), np.float32)
+    for d in range(dh):
+        chain = chain + q[q0:q0 + live_rows, None, d] * k[None, :kv, d]
+    flat = s.reshape(rr, keys)
+    assert np.array_equal(flat[:live_rows, :kv], chain)
+    # softmax in torch's warp order: a lane's keys ascending, then the butterfly
+    s = s * np.float32(1.0 / np.sqrt(dh))
+    live = (32 * np.arange(chunks)[:, None] + lanes) < kv
+    mx = np.where(live, s, -np.inf).max(axis=(1, 2))
+    e = np.where(live, np.exp((s - mx[:, None, None]).astype(np.float32)), np.float32(0.0)).astype(np.float32)
+    total = np.zeros((rr, 32), np.float32)
+    for c in range(chunks):
+        total = total + e[:, c]
+    for off in (16, 8, 4, 2, 1):
+        total = total + total[:, lanes ^ off]
+    assert (total == total[:, :1]).all()
+    p = (e / total[:, None, :]).astype(np.float32).reshape(rr, keys)
+    p_s = np.zeros((rr, pp), np.float32)
+    p_s[:, :kvp] = torch.from_numpy(p[:, :kvp]).to(torch.bfloat16).float().numpy()
+    # P V as oT = vT pT on m16n8k16. B, p's rows 8n .. 8n+7: ldmatrix rows
+    # from lanes (row lane & 7 (+8 for lanes 16-31 with two n tiles), column
+    # 16ks + 8 · bit 3 of the lane); lane (g, t) gets row g, columns 2t, 2t+1
+    # of each matrix. A, VT: the rows of V (keys) that addr_b gives
+    # ldmatrix.x4.trans for d tile mt, +16 rows (32·DH bytes) a step.
+    nt = rr // 8
+    acc = np.zeros((nt, dh // 16, 32, 4))
+    p_rows = (lanes & 7) + 8 * ((lanes >> 4) % nt)
+    for ks in range(kvp // 16):
+        addr = p_rows * pp + 16 * ks + ((lanes >> 3) & 1) * 8
+        for m in range(2 * nt):
+            assert _distinct_units(2 * addr[8 * m:8 * m + 8])
+        b_frag = [np.stack([p_s[addr[8 * m + g] // pp, addr[8 * m + g] % pp + 2 * t + e] for e in range(2)], 1)
+                  for m in range(2 * nt)]  # [32, 2] each: b0, b1 of tile 0, then of tile 1
+        for mt in range(dh // 16):
+            rows = 16 * ks + (lanes & 7) + ((lanes >> 4) << 3)
+            chunk = 2 * mt + ((lanes >> 3) & 1)
+            offs = _swz_bf16(rows, chunk, dh)
+            assert np.array_equal(offs, _swz_bf16(rows - 16 * ks, chunk, dh) + 16 * ks * dh)
+            assert all(_distinct_units(2 * offs[i:i + 8]) for i in range(0, 32, 8))
+            # .trans: matrix i's lane (g, t) gets its rows 2t, 2t+1 at column g
+            a_frag = np.stack([np.stack([v_s[offs[8 * i + 2 * t + e] + g] for e in range(2)], 1)
+                               for i in range(4)], 1)  # [32, 4 registers, 2]
+            big_a = np.zeros((16, 16))
+            for i, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
+                for e in range(2):
+                    big_a[g + dr, 2 * t + dk + e] = a_frag[:, i, e]
+            for n in range(nt):
+                big_b = np.zeros((16, 8))
+                for m, dk in enumerate((0, 8)):
+                    for e in range(2):
+                        big_b[2 * t + dk + e, g] = b_frag[2 * n + m][:, e]
+                prod = big_a @ big_b  # [16 d, 8 rows]
+                acc[n, mt] += np.stack([prod[g, 2 * t], prod[g, 2 * t + 1], prod[g + 8, 2 * t],
+                                        prod[g + 8, 2 * t + 1]], 1)
+    # the output tile: lane (g, t) writes rows 8n + 2t, 8n + 2t + 1 of d 16mt
+    # + g and 16mt + g + 8 at swz; then the rows copied out in 16-byte pieces
+    o_s = np.zeros(rr * dh)
+    for n in range(nt):
+        for mt in range(dh // 16):
+            for e in range(4):
+                row, d = 8 * n + 2 * t + (e & 1), 16 * mt + g + 8 * (e >> 1)
+                at = _swz_bf16(row, d >> 3, dh) + (d & 7)
+                assert len(set((at // 2) % 32)) == 16  # pairs of lanes share a word, no two words a bank
+                o_s[at] = acc[n, mt][:, e]
+    out = np.zeros((rr, dh))
+    for i in range(0, rr * ch, 8):
+        r, c = np.divmod(np.arange(i, i + 8), ch)
+        assert _distinct_units(2 * _swz_bf16(r, c, dh))
+        for rrow, cc in zip(r, c):
+            out[rrow, 8 * cc:8 * cc + 8] = o_s[_swz_bf16(rrow, cc, dh):_swz_bf16(rrow, cc, dh) + 8]
+    v_pad = np.zeros((kvp, dh))
+    for r in range(kvp):
+        for c in range(ch):
+            v_pad[r, 8 * c:8 * c + 8] = v_s[_swz_bf16(r, c, dh):_swz_bf16(r, c, dh) + 8]
+    np.testing.assert_allclose(out, p_s[:, :kvp] @ v_pad, rtol=1e-12, atol=1e-12)
+    return out[:live_rows]
+
+
+def _whole_head_forward(q: np.ndarray, k: np.ndarray, v: np.ndarray, kv: int, rows: int) -> np.ndarray:
+    """One (image, head) of ``attn_qkv_fwd_mma_kernel`` in numpy, in its own
+    index formulas: q, k, v [S, DH] bf16 values as float32 → o [S, DH] in
+    float64 (before the bf16 rounding). Checks on the way that the staged K
+    and Q give each score as the float32 FMA chain over d in ascending order
+    (bit for bit: a product of two bf16 values is exact in float32), the
+    narrow last chunk's too, that the lanes' sums in torch's order agree on
+    every lane, and that each phase of the K stores, the p and V ldmatrix,
+    the output stores and the output copy falls on distinct bank groups."""
+    s_len, dh = q.shape
+    keys, kvp, ch = 32 * -(-kv // 32), -(-kv // 16) * 16, dh // 8
+    # K staging: thread idx -> key idx % keys, 16-byte chunk idx // keys of the
+    # key's row, stored as float32 at d groups 2c and 2c + 1; zeros past kv
+    k_s = np.zeros((dh // 4 * keys, 4), np.float32)
+    idx = np.arange(keys * ch)
+    key, c = idx % keys, idx // keys
+    for half in range(2):
+        unit = (2 * c + half) * keys + key
+        assert all(_distinct_units(16 * unit[i:i + 8]) for i in range(0, unit.size, 8))
+        vals = k[np.minimum(key, kv - 1)[:, None], (8 * c + 4 * half)[:, None] + np.arange(4)]
+        k_s[unit] = np.where((key < kv)[:, None], vals, 0.0)
+    v_s = np.zeros(kvp * dh)
+    for r in range(kv):
+        for c in range(ch):
+            v_s[_swz_bf16(r, c, dh):_swz_bf16(r, c, dh) + 8] = v[r, 8 * c:8 * c + 8]
+    o = np.zeros((s_len, dh))
+    groups = _whole_groups(s_len, rows)
+    covered = np.concatenate([np.arange(q0, q0 + rr) for q0, rr, _ in groups])
+    assert np.array_equal(covered[:s_len], np.arange(s_len)) and covered.size < s_len + 16
+    for q0, rr, _ in groups:
+        o[q0:q0 + min(rr, s_len - q0)] = _whole_group(q, k, k_s, v_s, q0, rr, kv, keys)
+    return o
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+@pytest.mark.parametrize("s,kv,heads,dh", [(197, 197, 2, 64), (208, 197, 2, 32), (5, 5, 1, 64), (40, 1, 1, 32),
+                                          (256, 256, 1, 64), (33, 17, 1, 64), (40, 33, 1, 32), (72, 72, 1, 64)])
+def test_bf16_whole_head_kernel_maps(s, kv, heads, dh, rows):
+    """The bfloat16 whole-head forward's design (``attn_qkv_fwd_mma_kernel``),
+    emulated in numpy in the kernel's own index formulas: float32 K staged
+    by groups of 4 d and each warp's Q give every score as the FMA chain
+    over d in ascending order bit for bit, and so do the last key chunk's
+    where it holds at most 8 real keys (197, 33, 72 keys), worked on all
+    lanes and moved to lane key % 32 through shared memory; the softmax in
+    torch's lane order, p rounded to bf16, and P·V as vT·pT through
+    ldmatrix (one or two n tiles) put no output further than one bf16 step
+    from the plain version; no shared store or load phase has a bank
+    conflict (Q's stores at most 32 / rows lanes a bank). Groups of 16 rows
+    (the kernel's) and of 8 (``kWholeRows`` 8, a design variant); either
+    way 197 tokens are 56 rows on warp 0 and 48 on each other warp."""
+    if s == 197:
+        per_warp = np.bincount([w for _, rr, w in _whole_groups(s, rows) for _ in range(rr)], minlength=_WHOLE_WARPS)
+        assert per_warp.tolist() == [56, 48, 48, 48]
+    rng = np.random.default_rng(s * dh + kv)
+    qkv = torch.from_numpy(rng.standard_normal((1, s, 3 * heads * dh)).astype(np.float32)).to(torch.bfloat16)
+    parts = qkv.float().numpy()[0].reshape(s, 3, heads, dh)
+    got = np.stack([_whole_head_forward(parts[:, 0, h], parts[:, 1, h], parts[:, 2, h], kv, rows) for h in range(heads)],
+                   1)
+    got = torch.from_numpy(got.reshape(1, s, heads * dh).astype(np.float32)).to(torch.bfloat16)
+    assert _outside_one_step(got, attention_qkv_plain(qkv, heads, 0 if kv == s else kv)) == 0
 
 
 def test_residuals_on_the_cpu_are_the_plain_output():

@@ -16,6 +16,7 @@ import torch
 
 from ssip_tpu.ops import augment as jaug
 from ssip_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
+from ssip_tpu.ops.resize import triangle_weights
 from ssip_tpu_torch.ops.augment import (
     augment_coeffs,
     index_bound,
@@ -23,7 +24,7 @@ from ssip_tpu_torch.ops.augment import (
     rotation_index_map,
     train_augment,
 )
-from ssip_tpu_torch.ops.resize import training_resize
+from ssip_tpu_torch.ops.resize import _ascending_taps, training_resize
 from ssip_tpu_torch.ops.rotate import augment_images
 from ssip_tpu_torch.runtime.prng import augment_draws
 
@@ -180,3 +181,23 @@ def test_training_resize_away_from_512_within_one_step_of_jax(shape):
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1
     assert (diff > 0).mean() < 2e-3
+
+
+@pytest.mark.parametrize("rows", [512, 64, 8])
+def test_horizontal_pass_order_at_512_wide_sources_depends_on_the_rows(rows):
+    """The horizontal pass alone, ``einsum("...hwc,Ww->...hWc")`` 512 → 256
+    on uint8 values, against the port's ascending float32 FMAs before clip8
+    (ROADMAP Queue 3 #14): XLA's CPU order depends on the operand's whole
+    shape, not only the contracted width. Equal on every value at [1, 512,
+    512, 3] and [1, 64, 512, 3]; at [1, 8, 512, 3] some of the 6,144 sums
+    differ by an ulp (14 at this seed), held under 1 % and printed."""
+    x = np.random.default_rng(0).integers(0, 256, (1, rows, 512, 3)).astype(np.float32)
+    want = np.asarray(jnp.einsum("...hwc,Ww->...hWc", jnp.asarray(x), jnp.asarray(triangle_weights(512, 256))))
+    index, taps = _ascending_taps(512, 256)
+    xt, acc = torch.from_numpy(x.astype(np.float64)), None
+    for k in range(index.shape[1]):
+        term = xt[:, :, torch.from_numpy(index[:, k])] * torch.from_numpy(taps[:, k]).view(1, 1, -1, 1)
+        acc = (term if acc is None else term + acc.to(torch.float64)).to(torch.float32)
+    differ = int((acc.numpy() != want).sum())
+    print(f"[1, {rows}, 512, 3]: {differ} of {want.size} sums differ from ascending FMAs")
+    assert differ == 0 if rows >= 64 else differ < 0.01 * want.size

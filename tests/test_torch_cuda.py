@@ -387,6 +387,13 @@ def test_layer_norm_kernel_rejects_what_it_does_not_take(cuda):
      (2, 208, 2, 32, 197, torch.bfloat16), (3, 50, 2, 64, 37, torch.bfloat16), (2, 16, 2, 64, 1, torch.bfloat16),
      (1, 256, 1, 32, 0, torch.bfloat16), (1, 256, 3, 64, 0, torch.bfloat16),
      (1, 256, 12, 32, 0, torch.bfloat16), (1, 256, 12, 64, 0, torch.bfloat16),
+     # the whole-head bf16 forward's edges: S across its warps' groups of 8
+     # query rows and its 32-key chunks (the last chunk's live lanes), both
+     # head widths, 1 to 12 heads, batch 1 and 2, pad keys down to one real key
+     *[(1 + (i // 2) % 2, s, (1, 3, 6, 12)[i % 4], dh, 0, torch.bfloat16)
+       for i, (s, dh) in enumerate((s, dh) for s in (1, 5, 16, 17, 33, 64, 65, 196, 197, 256) for dh in (32, 64))],
+     (2, 208, 6, 64, 197, torch.bfloat16), (1, 208, 12, 32, 197, torch.bfloat16),
+     (2, 208, 3, 64, 1, torch.bfloat16), (1, 208, 1, 32, 1, torch.bfloat16),
      # the streamed bf16 pair past 256 tokens, at both head widths, some with
      # pad keys: the score cache up to 1297 tokens, three sweeps over K at 2000
      *[(1, s, 2, dh, kv, torch.bfloat16) for s, kv in ((255, 0), (256, 250), (257, 0), (577, 513), (1024, 0),
@@ -908,7 +915,7 @@ def test_moe_forward_and_step_on_cuda_match_cpu(cuda, arch, routing):
     for model, dev in ((cpu_model, torch.device("cpu")), (gpu_model, cuda)):
         state = TrainState.create(model, 1e-4, 1e-4)
         loss, _ = train_step(state, images.to(dev), labels.to(dev), valid.to(dev), None)
-        aux = sum(t.detach() for t in model.aux_losses())
+        aux = sum((t.detach() for t in model.aux_losses()), torch.zeros((), device=dev))  # expert choice: none
         results.append((loss.cpu(), aux.cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()}))
     (l_c, a_c, g_c), (l_g, a_g, g_g) = results
     assert abs(l_g - l_c) <= 1e-5 * abs(l_c) and abs(a_g - a_c) <= 1e-5 * abs(a_c) + 1e-9
