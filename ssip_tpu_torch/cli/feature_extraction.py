@@ -15,9 +15,9 @@ ssip_tpu_torch.cli.feature_extraction ...`` or by N processes with
 ``SSIP_COORDINATOR=host:port``, ``SSIP_NUM_PROCESSES=N`` and
 ``SSIP_PROCESS_ID=i`` (``parallel/distributed.py``); each runs on
 ``cuda:LOCAL_RANK`` and embeds its share of every global batch, and rank 0
-writes the outputs. Started alone, the CLI is one process on one card, as
-the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
-gloo.
+writes the outputs (every rank prints the summary line, as ``src/``'s CLI
+does). Started alone, the CLI is one process on one card, as the JAX CLI is
+on a one-chip host. ``--device cpu`` joins the ranks over gloo.
 
 ``--compute-dtype int8`` (with a ResNet or with ``vit_t16``, ``vit_s16`` or
 ``vit_b16``; refused with the MoE archs, as in JAX) is post-training int8
@@ -112,13 +112,14 @@ def main(argv=None) -> None:
             summary = run_sharded_extraction(cfg, shard_size=args.shard_size)
         else:
             summary = run_extraction(cfg)
-    finally:
-        distributed.shutdown()
-    if distributed.is_primary():
-        print(
-            f"Extracted {summary.embeddings.shape[0]} embeddings "
-            f"({summary.embeddings.shape[1]}-D) in {summary.total_seconds:.2f}s"
-        )
+    except BaseException:
+        distributed.shutdown(clean=False)
+        raise
+    distributed.shutdown(clean=True)
+    print(
+        f"Extracted {summary.embeddings.shape[0]} embeddings "
+        f"({summary.embeddings.shape[1]}-D) in {summary.total_seconds:.2f}s"
+    )
 
 
 if __name__ == "__main__":

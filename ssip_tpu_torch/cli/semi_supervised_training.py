@@ -12,9 +12,9 @@ started by ``torchrun --nproc-per-node N -m ssip_tpu_torch.cli.semi_supervised_t
 or by N processes with ``SSIP_COORDINATOR=host:port``,
 ``SSIP_NUM_PROCESSES=N`` and ``SSIP_PROCESS_ID=i``
 (``parallel/distributed.py``); each runs on ``cuda:LOCAL_RANK`` and rank 0
-writes the outputs. Started alone, the CLI is one process on one card, as
-the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
-gloo.
+writes the outputs (every rank prints the result, as ``src/``'s CLI does).
+Started alone, the CLI is one process on one card, as the JAX CLI is on a
+one-chip host. ``--device cpu`` joins the ranks over gloo.
 
     python -m ssip_tpu_torch.cli.semi_supervised_training \\
         --strong-data-dir DATA/avec_labels --weak-data-dir DATA/sans_label --device cuda
@@ -27,7 +27,6 @@ import logging
 from pathlib import Path
 
 from ssip_tpu_torch.cli.supervised_training import add_common_training_flags, config_from_args, run_distributed
-from ssip_tpu_torch.parallel import distributed
 from ssip_tpu_torch.pipelines.semi_supervised import run_pipeline
 
 
@@ -63,9 +62,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
-    result = run_distributed(config_from_args(parse_args(argv)), run_pipeline)
-    if distributed.is_primary():
-        print(result)
+    print(run_distributed(config_from_args(parse_args(argv)), run_pipeline))
 
 
 if __name__ == "__main__":

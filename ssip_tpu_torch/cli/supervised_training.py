@@ -19,9 +19,10 @@ started by ``torchrun --nproc-per-node N -m ssip_tpu_torch.cli.supervised_traini
 or by N processes with ``SSIP_COORDINATOR=host:port``,
 ``SSIP_NUM_PROCESSES=N`` and ``SSIP_PROCESS_ID=i``
 (``parallel/distributed.py``); each runs on ``cuda:LOCAL_RANK`` and rank 0
-writes the outputs. Started alone, the CLI is one process on one card, as
-the JAX CLI is on a one-chip host. ``--device cpu`` joins the ranks over
-gloo. Data 2 × model 2 on four cards:
+writes the outputs (every rank prints the result, as ``src/``'s CLI does).
+Started alone, the CLI is one process on one card, as the JAX CLI is on a
+one-chip host. ``--device cpu`` joins the ranks over gloo. Data 2 × model 2
+on four cards:
 ``torchrun --nproc-per-node 4 -m ssip_tpu_torch.cli.supervised_training ... --mesh-model 2``.
 
     python -m ssip_tpu_torch.cli.supervised_training --strong-data-dir DATA/avec_labels --device cuda
@@ -153,20 +154,23 @@ def config_from_args(args: argparse.Namespace) -> TrainingConfig:
 
 def run_distributed(config: TrainingConfig, pipeline):
     """Join the launcher's process group (if any), run ``pipeline`` and
-    leave the group; a refused setting raises before the join."""
+    leave the group: with the other ranks when it returns, at once when it
+    raises (``distributed.shutdown``). A refused setting raises before the
+    join."""
     refuse_unported(config)
     distributed.initialize(device=config.device)
     try:
-        return pipeline(config)
-    finally:
-        distributed.shutdown()
+        result = pipeline(config)
+    except BaseException:
+        distributed.shutdown(clean=False)
+        raise
+    distributed.shutdown(clean=True)
+    return result
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
-    result = run_distributed(config_from_args(parse_args(argv)), run_supervised)
-    if distributed.is_primary():
-        print(result)
+    print(run_distributed(config_from_args(parse_args(argv)), run_supervised))
 
 
 if __name__ == "__main__":

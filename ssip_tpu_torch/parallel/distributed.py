@@ -122,9 +122,27 @@ def initialize(
     return True
 
 
-def shutdown() -> None:
-    """Leave the process group, if this process joined one."""
-    if dist.is_available() and dist.is_initialized():
+def shutdown(clean: bool = True) -> None:
+    """Leave the process group, if this process joined one.
+
+    ``clean``: this rank finished its work. Every rank then passes a barrier
+    (on NCCL on its own card, on gloo under the group's timeout) before any
+    closes its connections: a rank that leaves alone can close them while a
+    peer is still joining the group, whose join then fails. A rank leaving
+    on an exception passes ``clean=False`` and leaves at once: the barrier
+    would wait for a peer that crashed until the group's timeout, and its
+    error would hide the first one. A rank whose peer is gone may raise
+    from the barrier; the group is destroyed either way.
+    """
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    try:
+        if clean:
+            if dist.get_backend() == "nccl":
+                dist.barrier(device_ids=[torch.cuda.current_device()])
+            else:
+                dist.barrier()
+    finally:
         dist.destroy_process_group()
 
 

@@ -26,6 +26,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -184,6 +185,141 @@ def test_two_process_group_joins(tmp_path, form):
         results.append(json.loads([line for line in out.splitlines() if line.startswith("RESULT ")][-1][7:]))
     assert all(r["ok"] and r["process_count"] == r["global_devices"] == 2 for r in results)
     assert {r["process_index"] for r in results} == {0, 1}
+
+
+def test_a_crashed_rank_leaves_at_once_and_its_peer_does_not_hang(tmp_path):
+    """Two ranks join through ``initialize(device='cpu')`` inside the
+    training CLI's ``run_distributed``; rank 1's pipeline raises, rank 0's
+    returns. Rank 1 leaves without the barrier, so its stderr ends in its
+    own exception; rank 0 leaves through the barrier, which may raise now
+    that its peer is gone, but both exit well inside the time limit."""
+    worker = (
+        "from ssip_tpu_torch.cli.supervised_training import run_distributed\n"
+        "from ssip_tpu_torch.parallel import distributed\n"
+        "from ssip_tpu_torch.pipelines.train_config import TrainingConfig\n"
+        "def pipeline(config):\n"
+        "    if distributed.rank() == 1:\n"
+        "        raise RuntimeError('rank 1 fails on purpose')\n"
+        "    return 'done'\n"
+        "print('RESULT ' + run_distributed(TrainingConfig(strong_data_dir='.', device='cpu'), pipeline))\n"
+    )
+    procs = []
+    for pid in range(2):
+        env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR")}
+        env.update(SSIP_COORDINATOR=f"file://{tmp_path / 'init'}", SSIP_NUM_PROCESSES="2", SSIP_PROCESS_ID=str(pid),
+                   PYTHONPATH=str(REPO))
+        procs.append(subprocess.Popen([sys.executable, "-c", worker], env=env, cwd=str(REPO),
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    t0 = time.monotonic()
+    (out0, err0), (out1, err1) = (p.communicate(timeout=120) for p in procs)
+    assert time.monotonic() - t0 < 60
+    assert procs[1].returncode != 0 and "RESULT" not in out1
+    # torch prefixes a rank's traceback lines with "[rank1]: "
+    assert err1.strip().splitlines()[-1].endswith("RuntimeError: rank 1 fails on purpose"), err1[-2000:]
+    assert procs[0].returncode is not None
+    if procs[0].returncode == 0:
+        assert "RESULT done" in out0
+
+
+class _FakeDist:
+    """``torch.distributed`` as ``shutdown`` sees it: a joined group on
+    ``backend``, every call recorded; ``barrier_error`` makes the barrier
+    raise, as it does when a peer is gone."""
+
+    def __init__(self, backend: str, barrier_error=None):
+        self.backend, self.barrier_error, self.calls = backend, barrier_error, []
+
+    def is_available(self):
+        return True
+
+    def is_initialized(self):
+        return ("destroy", {}) not in self.calls
+
+    def get_backend(self):
+        return self.backend
+
+    def barrier(self, **kwargs):
+        self.calls.append(("barrier", kwargs))
+        if self.barrier_error is not None:
+            raise self.barrier_error
+
+    def destroy_process_group(self):
+        self.calls.append(("destroy", {}))
+
+
+@pytest.mark.parametrize("clean,backend,want", [
+    (True, "gloo", [("barrier", {}), ("destroy", {})]),
+    (True, "nccl", [("barrier", {"device_ids": [3]}), ("destroy", {})]),
+    (False, "gloo", [("destroy", {})]),
+    (False, "nccl", [("destroy", {})]),
+])
+def test_shutdown_passes_the_barrier_only_on_the_clean_path(monkeypatch, clean, backend, want):
+    fake = _FakeDist(backend)
+    monkeypatch.setattr(distributed, "dist", fake)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    distributed.shutdown(clean=clean)
+    assert fake.calls == want
+    distributed.shutdown(clean=clean)  # the group is gone: nothing more
+    assert fake.calls == want
+
+
+def test_shutdown_destroys_the_group_when_the_barrier_raises(monkeypatch):
+    fake = _FakeDist("gloo", barrier_error=RuntimeError("Connection closed by peer"))
+    monkeypatch.setattr(distributed, "dist", fake)
+    with pytest.raises(RuntimeError, match="closed by peer"):
+        distributed.shutdown(clean=True)
+    assert fake.calls == [("barrier", {}), ("destroy", {})]
+
+
+def _record_shutdowns(monkeypatch, module) -> list:
+    calls = []
+    monkeypatch.setattr(module.distributed, "initialize", lambda **kwargs: True)
+    monkeypatch.setattr(module.distributed, "shutdown", lambda clean=True: calls.append(clean))
+    return calls
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_run_distributed_says_which_path_it_leaves_on(monkeypatch, fails):
+    from ssip_tpu_torch.cli import supervised_training
+    from ssip_tpu_torch.pipelines.train_config import TrainingConfig
+
+    calls = _record_shutdowns(monkeypatch, supervised_training)
+
+    def pipeline(config):
+        if fails:
+            raise ValueError("the pipeline's own error")
+        return "result"
+
+    config = TrainingConfig(strong_data_dir=Path("."), device="cpu")
+    if fails:
+        with pytest.raises(ValueError, match="the pipeline's own error"):
+            supervised_training.run_distributed(config, pipeline)
+    else:
+        assert supervised_training.run_distributed(config, pipeline) == "result"
+    assert calls == [not fails]
+
+
+@pytest.mark.parametrize("fails", [False, True])
+def test_extraction_cli_says_which_path_it_leaves_on(monkeypatch, capsys, fails):
+    from types import SimpleNamespace
+
+    from ssip_tpu_torch.cli import feature_extraction
+
+    calls = _record_shutdowns(monkeypatch, feature_extraction)
+
+    def extract(cfg):
+        if fails:
+            raise OSError("the extraction's own error")
+        return SimpleNamespace(embeddings=np.zeros((3, 512)), total_seconds=1.0)
+
+    monkeypatch.setattr(feature_extraction, "run_extraction", extract)
+    if fails:
+        with pytest.raises(OSError, match="the extraction's own error"):
+            feature_extraction.main(["--device", "cpu"])
+    else:
+        feature_extraction.main(["--device", "cpu"])
+        assert "Extracted 3 embeddings (512-D)" in capsys.readouterr().out
+    assert calls == [not fails]
 
 
 @pytest.mark.parametrize("augment,seed", [(True, 1), (False, 1)])
