@@ -15,7 +15,8 @@ non-zero without printing the final line:
 
 1. env     the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build   nvcc builds ``ssip_tpu_torch/csrc/*.cu`` for sm_90a, one process
-           per source (seconds);
+           per source (seconds), while phase 11's analysis stack, which
+           launches no hand kernel, runs on the card;
 3. kernels, each against its plain PyTorch version on the card, with median
    times (CUDA events) of the kernel, the plain version and, where one
    PyTorch call computes the same function, that call, beside the bound (the
@@ -58,14 +59,18 @@ non-zero without printing the final line:
            kernels of ``csrc/attention_f32_mma.cu``, 3xTF32 products on the
            tensor cores, forward and two-launch backward), at the 3 heads
            of vit_t16, and in both types at 257, 577, 1024, 1025 and 1297
-           tokens (vit_b16 at 256², 384², 512², 576²), some with pad keys;
-           pad-query rows are compared too and get a non-zero dO; also
+           tokens (vit_b16 at 256², 384², 512², 576²), some with pad keys,
+           and bfloat16 at 256 (the whole-head kernels' longest); pad-query
+           rows are compared too and get a non-zero dO; each bf16 backward
+           bitwise on a second call, one kernel a call up to 256 tokens and
+           the streamed two past it (``torch.profiler``); also
            bytes/s and bound/time, ptxas's registers, shared memory and
            spills of the tensor-core kernels, which bf16 forward runs at
            each shape and its resources, the float32 TF32 rates and times
            over the library's; at [128, 197, 2304] in both types the
            device time of a forward and a backward call and of the
-           library's two (``torch.profiler``, every kernel of the call);
+           library's two (``torch.profiler``, every kernel of the call), in
+           bfloat16 also SDPA's own backward on contiguous q, k, v;
    qmlp    ``quantized_mlp`` at [25216, 768] (hidden 3072) in bfloat16 and
            float32, [300, 192] and [1001, 384]: at most 1e-3 of the elements
            off the plain version by more than 1e-5 (absolute and relative),
@@ -129,7 +134,8 @@ non-zero without printing the final line:
            sublayer at batch 128, float32 and bfloat16, against the packed
            pair on the same values;
 5. cli     the extraction CLI on a small 512² JPEG tree (needs Pillow), with
-           resnet18 in bfloat16 and with vit_t16 in int8;
+           resnet18 in bfloat16 and with vit_t16 in int8, the two processes
+           at once;
 6. train   a seeded 100-image 512² JPEG tree ``avec_labels/{cancer,normal}``
            (50 + 50) through ``run_supervised`` on cuda at 224², 2 classes,
            batch 16, target recall 0.9: resnet18 for 1 epoch in float32
@@ -221,7 +227,9 @@ non-zero without printing the final line:
 11. analysis  the analysis stack at the reference corpus's size, 1,506
            seeded 512-D embedding-like rows (100 labeled; 20 exact
            duplicates), each function on cuda and on the CPU on the same
-           inputs, with its seconds on both: the scaler (1e-5), PCA (each
+           inputs, with its seconds on both (``beside_build``: taken while
+           the kernels build, not the function's alone): the scaler
+           (1e-5), PCA (each
            of the first 50 axes within 1e-3, axes whose variances lie within
            1 % compared as the subspace they span, the variance ratios
            within 1e-4 of the largest), t-SNE at perplexity 10,
@@ -312,7 +320,7 @@ non-zero without printing the final line:
            manifest removed: 3 shards, 2 reused, 1 recomputed, embeddings
            against the single-shot run's (bitwise expected: the same
            batches); (d) ``SSIP_SNAPSHOT_FORMAT=orbax``: resnet18 f32
-           ``run_supervised`` cut after 2 of 4 epochs and resumed from a
+           ``run_supervised`` cut after 1 of 2 epochs and resumed from a
            ``torch.distributed.checkpoint`` directory under cuDNN's
            deterministic mode, the restore bitwise and the resumed run
            bitwise an uninterrupted one, as is a resume from the file form
@@ -323,11 +331,14 @@ non-zero without printing the final line:
            final-parameter bound); (a) ``--fsdp`` at world size 1 over NCCL:
            the supervised CLI under ``torch.distributed.run --standalone``
            (vit_b16 and resnet18, bf16, batch 128, 1 epoch; the gathered
-           ``.pt`` loads), and in process one bf16 step at 128 with and
+           ``.pt`` loads; its process runs beside (d), (b) and ``tp``), and
+           in process one bf16 step at 128 with and
            without FSDP (the same contiguous parameter layout), bitwise or
            within twice the card's run-to-run spread (two plain steps),
            then each timed with its peak memory;
-   tp      the model axis: two gloo ranks sharing the card (data 1 ×
+   tp      (inside ``dp``, its ranks beside (d) and (b), its one-process
+           references after (b) while they run) the model axis: two gloo
+           ranks sharing the card (data 1 ×
            model 2) run one f32 SGD step of each path at full width against
            one process at the multichip dryrun's bound (loss 1e-4 relative,
            every parameter 1e-3 relative norm): resnet-tp (224², batch 32),
@@ -356,6 +367,7 @@ and fails if the run loaded jax, flax, optax or any module of the JAX package
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import json
 import logging
@@ -384,10 +396,17 @@ ATTN_MMA_DESIGN = ("bf16, csrc/attention_mma.cu: any length; forward float32 FMA
                    "output (scores in registers, a last key chunk of at most 8 real keys worked on all lanes, P.V as "
                    "vT.pT with the rows as n), past 256 a block per 32 query rows with K and V streamed in 64-key "
                    "cp.async tiles (scores cached in shared memory while they fit, else three sweeps over K); "
-                   "backward two launches (dq by 64 query rows, dk and dv by 64 key rows, the other operand "
-                   "streamed), every product on mma.sync with p and ds rounded to bf16")
+                   "backward every product on mma.sync with p and ds rounded to bf16: up to 256 tokens one launch, "
+                   "a block of 4 warps per head (two an SM), Q, K, V and dO staged once, a row pass (16-row groups, "
+                   "a row's scores and float32 p in registers, dp twice, dq from bf16(ds) at once, row statistics "
+                   "to shared memory) then a key pass (16-key groups, sT and dpT again 32 query rows a step, dv and "
+                   "dk), no bound check in a key or query loop, no scratch; past 256 two launches (dq by 64 query "
+                   "rows, dk and dv by 64 key rows, the other operand streamed) joined by a float32 scratch")
+# the packed pair's bf16 kernels (ssip_attention_rounded_info's `which` 0, 1,
+# 2 and 3: the whole-head forward or the streamed one, the streamed
+# backward's two, the whole-head backward)
 ATTN_MMA_KERNELS = ("attn_qkv_fwd_mma_kernel", "attn_qkv_bwd_rows_kernel", "attn_qkv_bwd_keys_kernel",
-                    "attn_qkv_fwd_stream_kernel")
+                    "attn_qkv_fwd_stream_kernel", "attn_qkv_bwd_whole_kernel")
 # what the unpacked pair's bf16 times below are of
 UNPACKED_MMA_DESIGN = ("bf16, csrc/attention_unpacked_mma.cu: every product on mma.sync m16n8k16, p and ds as bf16 "
                        "hi/lo pairs (two mma a product), keys or queries streamed in 64-row cp.async tiles, online "
@@ -533,6 +552,7 @@ ATTN_SHAPES = (
     (64, 257, 12, 0, "bfloat16"), (16, 257, 12, 250, "float32"), (16, 577, 12, 0, "bfloat16"),
     (4, 1024, 12, 0, "bfloat16"), (4, 1024, 12, 1000, "float32"), (4, 1025, 12, 1001, "bfloat16"),
     (4, 1025, 12, 0, "float32"), (2, 1297, 12, 0, "bfloat16"), (2, 1297, 12, 1200, "float32"),
+    (16, 256, 12, 0, "bfloat16"),  # the whole-head kernels' longest sequence
     (128, 197, 6, 0, "bfloat16"),  # vit_moe_s16: [128, 197, 1152]
 )
 # the streamed bf16 shapes whose device times [attn] reads too
@@ -724,10 +744,12 @@ def phase_env(torch) -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build(result=None) -> None:
+    """Load the kernels' library, built here unless ``result`` (a
+    ``BuildResult``) says it was, and print ptxas's report."""
     from ssip_tpu_torch.kernels.build import build, load_library
 
-    result = build()
+    result = result or build()
     for line in result.log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[build] ptxas: {line.strip()}")
@@ -1200,7 +1222,8 @@ def phase_attention_kernels(torch, np) -> dict:
 
     from ssip_tpu_torch.kernels.build import build, kernel_resources, load_library
     from ssip_tpu_torch.ops.attention import (
-        attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, attention_qkv_residuals, fused_attention_qkv,
+        _WHOLE_MAX_SEQ, attention_qkv_bwd, attention_qkv_bwd_plain, attention_qkv_plain, attention_qkv_residuals,
+        fused_attention_qkv,
     )
     from ssip_tpu_torch.runtime.device import configure_precision
 
@@ -1214,13 +1237,16 @@ def phase_attention_kernels(torch, np) -> dict:
         for name, r in sorted(named.items()):
             # template arguments: the head width, and for the forwards the key chunks of 32 and
             # whether the last holds at most 8 real keys (whole head), or whether the scores are
-            # cached (streamed)
+            # cached (streamed); for the whole-head backward the 16-key steps its registers hold
             args = re.search(r"ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d)E)?", name)
+            if fragment == "attn_qkv_bwd_whole_kernel":
+                say("attn", ptxas=fragment, head_width=args[1], key_steps=args[2], **r)
+                continue
             flag = {"narrow_tail" if args[2] else "score_cache": args[3] or "-"}
             say("attn", ptxas=fragment, head_width=args[1], key_chunks=args[2] or "-", **flag, **r)
     rounded_info = load_library().ssip_attention_rounded_info  # the bf16 kernels at a sequence and key count
     rounded_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    for which, kernel in ((1, ATTN_MMA_KERNELS[1]), (2, ATTN_MMA_KERNELS[2])):
+    for which, kernel in ((1, ATTN_MMA_KERNELS[1]), (2, ATTN_MMA_KERNELS[2])):  # the streamed backward's
         for dh in (32, 64):
             res = (ctypes.c_int * 5)()
             if rounded_info(which, dh, 1, 1, res) != 0:
@@ -1254,6 +1280,17 @@ def phase_attention_kernels(torch, np) -> dict:
             raise AssertionError(f"{tag}: masked keys got non-zero gradients")
         err_dqkv = (dqkv.float() - ref.float()).abs().max().item()
         del ref
+        if dtype_name == "bfloat16":
+            # no atomics: a second call gives the same bits; and the profiler sees one backward kernel a
+            # call up to 256 tokens, the streamed pair past it
+            if not torch.equal(attention_qkv_bwd(qkv, d_o, heads, kv_len, residuals), dqkv):
+                raise AssertionError(f"{tag}: a second backward call gave other bits")
+            bwd_kernels = _attention_kernels_seen(
+                torch, lambda: attention_qkv_bwd(qkv, d_o, heads, kv_len, residuals), f"{tag} backward kernels")
+            want = (["attn_qkv_bwd_whole_kernel"] if s <= _WHOLE_MAX_SEQ
+                    else ["attn_qkv_bwd_keys_kernel", "attn_qkv_bwd_rows_kernel"])
+            if bwd_kernels != want:
+                raise AssertionError(f"{tag}: a backward call ran {bwd_kernels}, want {want}")
 
         fwd_ms, fwd_plain_ms = timed_pair(
             torch, lambda: fused_attention_qkv(qkv, heads, kv_len), lambda: attention_qkv_plain(qkv, heads, kv_len))
@@ -1286,6 +1323,20 @@ def phase_attention_kernels(torch, np) -> dict:
                  lambda: F.scaled_dot_product_attention(q.detach(), k.detach(), v.detach()),
                  lambda: torch.autograd.grad(o_lib, leaf, do_view, retain_graph=True)),
                 fwd_bound, bwd_bound)
+            if dtype_name == "bfloat16":
+                # SDPA's own backward on contiguous q, k, v [B, H, S, Dh] (no scatter into a packed
+                # leaf): a second yardstick, timed here and called nowhere in the port
+                leaves = [t.contiguous().requires_grad_() for t in (q.detach(), k.detach(), v.detach())]
+                o_4 = F.scaled_dot_product_attention(*leaves)
+                do_4 = do_view.contiguous()
+                ((device["lib_bwd_unpacked"], names),) = call_device_ms(
+                    torch, [lambda: torch.autograd.grad(o_4, leaves, do_4, retain_graph=True)],
+                    f"attn {b}x{s}x{3 * d} unpacked SDPA backward")
+                say("attn", shape=f"{b}x{s}x{3 * d}", dtype=dtype_name,
+                    bwd_library_unpacked_device_ms=f"{device['lib_bwd_unpacked']:.4f}",
+                    bwd_device_vs_library_unpacked=f"{device['bwd'] / device['lib_bwd_unpacked']:.4f}",
+                    library_unpacked_kernels=names)
+                del leaves, o_4, do_4
         say("attn", shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len, dtype=dtype_name, max_abs_err=err_o,
             dq_rel=rels[0], dk_rel=rels[1], dv_rel=rels[2], fwd_ms=f"{fwd_ms:.4f}",
             fwd_plain_ms=f"{fwd_plain_ms:.4f}", fwd_library_ms=f"{lib_fwd_ms:.4f}",
@@ -1302,7 +1353,13 @@ def phase_attention_kernels(torch, np) -> dict:
             if device:
                 floor["fwd_fma_floor_share_of_device"] = f"{fma_floor_ms / device['fwd']:.4f}"
                 floor["fwd_device_vs_library_device"] = f"{device['fwd'] / device['lib_fwd']:.4f}"
+            bwd_res = (ctypes.c_int * 5)()
+            if s <= _WHOLE_MAX_SEQ and rounded_info(3, dh, s, kv, bwd_res) != 0:
+                raise AssertionError(f"{tag}: ssip_attention_rounded_info failed for the whole-head backward")
+            whole = ({"bwd_registers": bwd_res[0], "bwd_local_bytes": bwd_res[1], "bwd_smem_bytes": bwd_res[2],
+                      "bwd_blocks_per_sm": bwd_res[3]} if s <= _WHOLE_MAX_SEQ else {})
             say("attn", design=repr(ATTN_MMA_DESIGN), shape=f"{b}x{s}x{3 * d}", heads=heads, kv_len=kv_len,
+                bwd_kernels=bwd_kernels, bwd_bitwise_repeat=True, **whole,
                 fwd_gbytes_per_s=f"{(qkv.numel() + out.numel()) * item / fwd_ms / 1e6:.1f}", **floor,
                 fwd_bound_share=f"{fwd_bound['bound_ms'] / fwd_ms:.4f}", fwd_vs_library=f"{fwd_ms / lib_fwd_ms:.4f}",
                 bwd_gbytes_per_s=f"{(2 * qkv.numel() + d_o.numel()) * item / bwd_ms / 1e6:.1f}",
@@ -1323,11 +1380,25 @@ def phase_attention_kernels(torch, np) -> dict:
                                   "library_device_ms": device["lib_fwd"]},
                 "attention_qkv_bwd": {"max_abs_err": err_dqkv, "ms": bwd_ms, "device_ms": device["bwd"],
                                       "plain_ms": bwd_plain_ms, **bwd_bound, "library_ms": lib_bwd_ms,
-                                      "library_device_ms": device["lib_bwd"]},
+                                      "library_device_ms": device["lib_bwd"],
+                                      "library_unpacked_device_ms": device["lib_bwd_unpacked"]},
             }
         del qkv, d_o, out, dqkv, leaf, o_lib, residuals
         torch.cuda.empty_cache()
     return result
+
+
+def _attention_kernels_seen(torch, fn, what: str) -> list:
+    """The attention kernels (attn_*_kernel) a call of ``fn`` launches, by
+    name, sorted: ``torch.profiler``'s window of ``TIMED_LAUNCHES`` calls
+    (``checked_device_windows``, measured again once where a kernel was not
+    seen once a call)."""
+    def wrong(windows):
+        counts = {name: len(ts) for name, ts in windows[0].items()}
+        return None if all(n == TIMED_LAUNCHES for n in counts.values()) else f"launches {counts}"
+
+    (window,) = checked_device_windows(torch, [fn], wrong, what)
+    return sorted(m[0] for m in (re.search(r"attn_\w+?_kernel", name) for name in window) if m)
 
 
 def _attention_device_times(torch, phase: str, shape: str, dtype_name: str, calls, fwd_bound, bwd_bound) -> dict:
@@ -2006,7 +2077,8 @@ def phase_int8_resnet(torch, np, tmp: Path, corpus, counts: LaunchCounts, dense:
 
 def phase_cli(np, tmp: Path) -> None:
     """The extraction CLI as a subprocess, with a ResNet in bfloat16 and a ViT
-    in int8 (the extraction CLI runs in process in ``workflow`` and ``dp``)."""
+    in int8 (the extraction CLI runs in process in ``workflow`` and ``dp``).
+    The two run at once: neither times anything."""
     from PIL import Image
 
     data = tmp / "jpegs"
@@ -2015,14 +2087,25 @@ def phase_cli(np, tmp: Path) -> None:
                 "sans_label/c.jpg", "sans_label/d.jpg"):
         (data / rel).parent.mkdir(parents=True, exist_ok=True)
         Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(data / rel)
-    for arch, width, dtype in (("resnet18", 512, "bfloat16"), ("vit_t16", 192, "int8")):
+    runs = (("resnet18", 512, "bfloat16"), ("vit_t16", 192, "int8"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ssip_tpu_torch.cli.feature_extraction", "--data-dir", str(data),
+         "--device", "cuda", "--batch-size", "4", "--compute-dtype", dtype, "--arch", arch,
+         "--output-dir", str(tmp / f"cli_out_{arch}_{dtype}")],
+        cwd=Path(__file__).resolve().parent,
+    ) for arch, _, dtype in runs]
+    try:
+        rcs = [proc.wait(timeout=600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, rc in zip(procs, rcs):
+        if rc != 0:
+            raise subprocess.CalledProcessError(rc, proc.args)
+    for arch, width, dtype in runs:
         out = tmp / f"cli_out_{arch}_{dtype}"
-        subprocess.run(
-            [sys.executable, "-m", "ssip_tpu_torch.cli.feature_extraction", "--data-dir", str(data),
-             "--device", "cuda", "--batch-size", "4", "--compute-dtype", dtype, "--arch", arch,
-             "--output-dir", str(out)],
-            cwd=Path(__file__).resolve().parent, check=True, timeout=600,
-        )
         emb = np.load(out / "features" / "embeddings.npy")
         meta = json.loads((out / "features" / "metadata.json").read_text())
         if emb.shape != (4, width) or not np.isfinite(emb).all() or meta["device"] != "cuda:1":
@@ -2155,6 +2238,7 @@ _PROFILE_CLASSES = (
 # the same for the ViT paths
 _VIT_PROFILE_CLASSES = (
     ("LayerNorm kernels", LN_KERNELS),
+    # attn_qkv: the packed bf16 pair's attn_qkv_fwd_mma_kernel, attn_qkv_bwd_whole_kernel and the streamed kernels
     ("attention kernels", ("attn_qkv", "attn_f32_fwd", "attn_f32_bwd")),
     ("augment kernel", AUGMENT_KERNELS),
     ("preprocess kernel", ("preproc_",)),
@@ -2179,6 +2263,52 @@ _INT8_PROFILE_CLASSES = (
 
 
 PROFILE_LEAD_IN_GAP_S = 0.05
+
+
+class LeadInCutError(AssertionError):
+    """A step profile whose lead-in cut did not land on the sleep. ``kind``:
+    "dropped records" (the cut is the sleep, but the kept steps hold fewer
+    kernels than the lead-in step), "gap inside the steps" (a gap larger
+    than the sleep, which is still there) or "no sleep"."""
+
+    def __init__(self, message: str, kind: str):
+        super().__init__(message)
+        self.kind = kind
+
+
+def _profile_steps(torch, step, tag: str, classes) -> None:
+    """Profile the lead-in ``step(None)``, the sleep and ``STEP_TIMED``
+    steps ``step(i)``, and print ``_profile_breakdown``'s reading. A trace
+    whose cut did not land on the sleep because of dropped records or of a
+    gap inside the steps is taken once more, its kind printed: CUPTI can
+    drop records of a long window (on an H100 one run's ``vit_b16`` FixMatch
+    trace kept 1,123 kernels a step of the 1,742 launched), and one run's
+    ``vit_b16`` f32 FixMatch trace held a 384 ms gap inside its steps (cause
+    not known). A trace with no sleep-sized gap, or a second failed trace,
+    fails the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for attempt in range(2):
+        torch.cuda.synchronize()
+        # device kernels only: a CPU trace of the steps' host ops costs far
+        # more to read than the steps take, and the breakdown reads kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(None)  # the lead-in
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_LEAD_IN_GAP_S)
+            start.record()
+            for i in range(STEP_TIMED):
+                step(i)
+            end.record()
+            end.synchronize()
+        try:
+            _profile_breakdown(torch, prof, start.elapsed_time(end), tag, classes, steps=STEP_TIMED)
+            return
+        except LeadInCutError as e:
+            if attempt or e.kind == "no sleep":
+                raise
+            say("profile", run=tag, traced_again=repr(e.kind), reason=repr(str(e)))
 
 
 def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE_CLASSES, start_at=None,
@@ -2210,9 +2340,13 @@ def _profile_breakdown(torch, prof, window_ms: float, tag: str, classes=_PROFILE
         second = sorted(gaps)[-2] if len(gaps) > 1 else 0.0
         say("profile", run=tag, lead_in_kernels=lead, kernels_per_step=f"{per_step:.1f}",
             lead_in_gap_ms=f"{gaps[cut - 1] / 1e3 if cut else 0.0:.3f}", next_gap_ms=f"{second / 1e3:.3f}")
-        if not cut or gaps[cut - 1] < 0.9 * PROFILE_LEAD_IN_GAP_S * 1e6 or lead > 1.1 * per_step:
-            raise AssertionError(f"{tag}: the lead-in cut did not land on the sleep (lead-in {lead} kernels, "
-                                 f"{per_step:.1f} a kept step, gaps {gaps[cut - 1] if cut else 0} and {second} us)")
+        sleep_us = 0.9 * PROFILE_LEAD_IN_GAP_S * 1e6
+        if not cut or gaps[cut - 1] < sleep_us or lead > 1.1 * per_step:
+            kind = ("no sleep" if not cut or gaps[cut - 1] < sleep_us else
+                    "gap inside the steps" if second >= sleep_us else "dropped records")
+            raise LeadInCutError(f"{tag}: the lead-in cut did not land on the sleep (lead-in {lead} kernels, "
+                                 f"{per_step:.1f} a kept step, gaps {gaps[cut - 1] if cut else 0} and {second} us)",
+                                 kind)
     if not kernels:
         raise AssertionError("torch.profiler saw no kernel on the card")
     by_layer: dict = {}
@@ -2257,8 +2391,6 @@ def _one_step(torch, arch: str, dev, batch, coeffs, kink_free: bool = False, rem
 def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes, dtypes=("bfloat16", "float32")) -> None:
     """The steady-state step at batch 128 in each of ``dtypes``: timed,
     then profiled."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ssip_tpu_torch.ops.augment import augment_coeffs
     from ssip_tpu_torch.runtime.prng import augment_draws
     from ssip_tpu_torch.train.engine import train_step
@@ -2298,20 +2430,9 @@ def _timed_steps(torch, np, arch: str, counts: LaunchCounts, classes, dtypes=("b
         say("step", arch=arch, dtype=dtype_name, batch=b, timed_steps=STEP_TIMED, ms_per_step=f"{step_ms:.3f}",
             train_imgs_per_s=f"{b / step_ms * 1000:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
             launches_per_step=launches)
-        torch.cuda.synchronize()
-        # device kernels only: a CPU trace of the steps' host ops costs far
-        # more to read than the steps take, and the breakdown reads kernels
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            train_step(state, images, labels, valid, coeffs[n_steps - 1])  # the lead-in
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_LEAD_IN_GAP_S)
-            start.record()
-            for s in range(n_steps, n_steps + STEP_TIMED):
-                train_step(state, images, labels, valid, coeffs[s])
-            end.record()
-            end.synchronize()
-        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_step_{dtype_name}", classes,
-                           steps=STEP_TIMED)
+        _profile_steps(torch, lambda i: train_step(state, images, labels, valid,
+                                                   coeffs[n_steps - 1 if i is None else n_steps + i]),
+                       f"{arch}_step_{dtype_name}", classes)
         del state
     torch.cuda.empty_cache()
 
@@ -3019,8 +3140,6 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
     """The steady-state FixMatch step at 128 labeled + 128 unlabeled in
     each of ``dtypes`` with the ``strong_aug`` strong view: timed, the
     strong view alone beside it, then profiled."""
-    from torch.profiler import ProfilerActivity, profile
-
     from ssip_tpu_torch.train.consistency import epoch_view_draws, fixmatch_step, init_ema, strong_view
 
     b = STEP_TIMED_BATCH
@@ -3069,19 +3188,9 @@ def _timed_fixmatch_steps(torch, np, arch: str, counts: LaunchCounts, classes,
             ms_per_step=f"{step_ms:.3f}", imgs_per_s=f"{2 * b / step_ms * 1000:.1f}", peak_mem_gib=f"{peak_gib:.2f}",
             keep_rate=f"{keep.item():.3f}", strong_view_ms=f"{strong_ms:.4f}",
             strong_view_share=f"{strong_ms / step_ms:.5f}", launches_per_step=launches)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only, as in _timed_steps
-            step(n_steps - 1)  # the lead-in
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_LEAD_IN_GAP_S)
-            start.record()
-            for s in range(n_steps, n_steps + STEP_TIMED):
-                step(s)
-            end.record()
-            end.synchronize()
+        _profile_steps(torch, lambda i: step(n_steps - 1 if i is None else n_steps + i),
+                       f"{arch}_fixmatch_step_{strong_aug}_{dtype_name}", classes)
         counts.read()
-        _profile_breakdown(torch, prof, start.elapsed_time(end), f"{arch}_fixmatch_step_{strong_aug}_{dtype_name}",
-                           classes, steps=STEP_TIMED)
         del state, ema
     torch.cuda.empty_cache()
 
@@ -3273,11 +3382,14 @@ def _near_radius_pairs(torch, x, eps: float) -> int:
     return int(((torch.cdist(xs, xs) - eps).abs() <= 1e-4 * eps).sum()) // 2
 
 
-def phase_analysis(torch, np, counts: LaunchCounts) -> None:
+def phase_analysis(torch, np, counts: LaunchCounts, building) -> None:
     """The analysis stack at the reference corpus's size (100 labeled + 1,406
     unlabeled, 512-D), each function on the card and on the CPU on the same
     inputs: standardize, PCA, t-SNE, UMAP, k-means, auto-eps and the DBSCAN
-    grid, silhouette, ARI and NMI; each function's seconds on both."""
+    grid, silhouette, ARI and NMI; each function's seconds on both, with
+    ``beside_build``: whether ``building`` (the kernels' build, a future)
+    still ran when the timing began (then the seconds are not the
+    function's alone)."""
     from ssip_tpu_torch.analysis import cluster_metrics, dbscan, kmeans, pca, standardize, tsne, umap
     from ssip_tpu_torch.analysis.pca import components_for_variance
 
@@ -3289,11 +3401,12 @@ def phase_analysis(torch, np, counts: LaunchCounts) -> None:
     counts.reset()
 
     def both(fn):
+        beside = not building.done()
         card_out, card_s, card_gib = _timed(torch, lambda: fn(card))
         t0 = time.perf_counter()
         cpu_out = fn(cpu)
         return card_out, cpu_out, {"seconds": f"{card_s:.3f}", "cpu_seconds": f"{time.perf_counter() - t0:.3f}",
-                                   "peak_gib": f"{card_gib:.2f}"}
+                                   "peak_gib": f"{card_gib:.2f}", "beside_build": beside}
 
     (sc, sp, t) = both(lambda dev: standardize.fit_scaler(raw, device=dev))
     err = float(np.abs(sc["scale"] - sp["scale"]).max() / sp["scale"].max())
@@ -3361,51 +3474,59 @@ def phase_analysis(torch, np, counts: LaunchCounts) -> None:
             raise AssertionError(f"analysis auto eps ms={ms}: {ec} vs {ep}")
         say("analysis", fn="auto_eps", min_samples=ms, eps=f"{ec:.6f}", cpu_eps=f"{ep:.6f}", **t)
         grid.extend(max(1e-6, ep * f) for f in (0.8, 1.0, 1.2))
-    near_total, seconds, cpu_seconds, clusters = 0, 0.0, 0.0, []
+    near_total, seconds, cpu_seconds, clusters, beside = 0, 0.0, 0.0, [], False
     for eps in sorted(set(grid)):
         near = _near_radius_pairs(torch, sub, eps)
         near_total += near
         for ms in DBSCAN_MIN_SAMPLES:
             (dc, dp, t) = both(lambda dev: dbscan.dbscan(sub, eps, ms, device=dev))
             seconds, cpu_seconds = seconds + float(t["seconds"]), cpu_seconds + float(t["cpu_seconds"])
+            beside = beside or t["beside_build"]
             same = np.array_equal(dc.labels, dp.labels)
             if not same and (near == 0 or cluster_metrics.adjusted_rand_index(dc.labels, dp.labels) < 0.99):
                 raise AssertionError(f"analysis dbscan eps={eps} ms={ms}: labels differ with {near} pairs near eps")
             clusters.append(dc.n_clusters)
     say("analysis", fn="dbscan", scope="unlabeled", fits=len(set(grid)) * len(DBSCAN_MIN_SAMPLES),
         pairs_near_eps=near_total, clusters=clusters, seconds=f"{seconds:.3f}",
-        cpu_seconds=f"{cpu_seconds:.3f}")
+        cpu_seconds=f"{cpu_seconds:.3f}", beside_build=beside)
     launched = {k: v for k, v in counts.read().items() if v}
     if launched:
         raise AssertionError(f"analysis: the stack launched hand kernels {launched}")
 
 
-def phase_analysis_scale(torch, np) -> None:
+def phase_analysis_scale(torch, np, building) -> None:
     """Above ``DENSE_LIMIT``: 50,000 × 512 through the blocked k-distance,
     DBSCAN and silhouette paths and k-means, t-SNE and UMAP at their
     20,000-point cap; seconds and peak memory of each. The blocked paths are
-    held to the dense ones on a 4,096-row slice."""
+    held to the dense ones on a 4,096-row slice. ``beside_build`` as in
+    ``phase_analysis``."""
     from ssip_tpu_torch.analysis import cluster_metrics, dbscan, kmeans, pca, tsne, umap
     from ssip_tpu_torch.analysis.distances import pairwise_d2
 
     card = torch.device("cuda")
     x = _seeded_features(np, SCALE_N, ANALYSIS_DIM, SEED + 31, duplicates=100)
 
-    curve, s, gib = _timed(torch, lambda: dbscan.k_distance_curve(x, 5, include_self=True, device=card))
+    def timed(fn):  # _timed's (result, seconds, peak GiB) and whether the build ran at the start
+        beside = not building.done()
+        return (*_timed(torch, fn), beside)
+
+    curve, s, gib, beside = timed(lambda: dbscan.k_distance_curve(x, 5, include_self=True, device=card))
     # the 25th-percentile 4th-neighbour distance keeps neighbourhoods to a few points
     # on these features (at the median they hold thousands, all sent to the host's BFS)
     eps = float(np.quantile(curve, SCALE_EPS_QUANTILE))
-    say("analysis_scale", fn="k_distance", n=SCALE_N, k=5, seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
-    fit, s, gib = _timed(torch, lambda: dbscan.dbscan(x, eps, 5, device=card))
+    say("analysis_scale", fn="k_distance", n=SCALE_N, k=5, seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}",
+        beside_build=beside)
+    fit, s, gib, beside = timed(lambda: dbscan.dbscan(x, eps, 5, device=card))
     say("analysis_scale", fn="dbscan", eps=f"{eps:.4f}", eps_quantile=SCALE_EPS_QUANTILE, min_samples=5, clusters=fit.n_clusters,
-        noise_rate=f"{fit.noise_rate:.4f}", seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
-    km, s, gib = _timed(torch, lambda: kmeans.kmeans(x, SCALE_KMEANS_K, n_init=SCALE_KMEANS_INIT, device=card))
+        noise_rate=f"{fit.noise_rate:.4f}", seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}", beside_build=beside)
+    km, s, gib, beside = timed(lambda: kmeans.kmeans(x, SCALE_KMEANS_K, n_init=SCALE_KMEANS_INIT, device=card))
     say("analysis_scale", fn="kmeans", k=SCALE_KMEANS_K, n_init=SCALE_KMEANS_INIT, n_iter=km.n_iter,
-        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
-    sil, s, gib = _timed(torch, lambda: cluster_metrics.silhouette_score(x, km.labels, device=card))
+        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}", beside_build=beside)
+    sil, s, gib, beside = timed(lambda: cluster_metrics.silhouette_score(x, km.labels, device=card))
     if not 0 < sil <= 1:
         raise AssertionError(f"analysis_scale silhouette {sil}")
-    say("analysis_scale", fn="silhouette", value=f"{sil:.4f}", seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+    say("analysis_scale", fn="silhouette", value=f"{sil:.4f}", seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}",
+        beside_build=beside)
 
     part = x[:SCALE_SLICE]  # below DENSE_LIMIT: both paths run on it
     xt = torch.as_tensor(part, device=card)
@@ -3429,21 +3550,21 @@ def phase_analysis_scale(torch, np) -> None:
         silhouette_sums_rel_err=f"{sil_err:.2e}", neighbour_pairs_differing=differing, pairs_near_eps=near)
 
     sub = pca.fit_pca(x[:EMBED_CAP], device=card).transform(x[:EMBED_CAP], ANALYSIS_TSNE_DIM)
-    emb, s, gib = _timed(torch, lambda: tsne.tsne(sub, perplexity=30.0, device=card))
+    emb, s, gib, beside = timed(lambda: tsne.tsne(sub, perplexity=30.0, device=card))
     kl = tsne.kl_divergence(sub, emb, 30.0, device=card)
     queries = np.random.default_rng(SEED + 32).choice(EMBED_CAP, min(2000, EMBED_CAP), replace=False)
     pres = _neighbour_preservation(torch, sub, emb, queries=queries)
     if not np.isfinite(emb).all() or not np.isfinite(kl):
         raise AssertionError("analysis_scale tsne: not finite")
     say("analysis_scale", fn="tsne", n=EMBED_CAP, perplexity=30.0, kl=f"{kl:.4f}", preservation=f"{pres:.3f}",
-        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}", beside_build=beside)
     del emb
-    emb, s, gib = _timed(torch, lambda: umap.umap(sub, n_neighbors=15, min_dist=0.1, device=card))
+    emb, s, gib, beside = timed(lambda: umap.umap(sub, n_neighbors=15, min_dist=0.1, device=card))
     pres = _neighbour_preservation(torch, sub, emb, queries=queries)
     if not np.isfinite(emb).all():
         raise AssertionError("analysis_scale umap: not finite")
     say("analysis_scale", fn="umap", n=EMBED_CAP, n_neighbors=15, min_dist=0.1, preservation=f"{pres:.3f}",
-        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}")
+        seconds=f"{s:.3f}", peak_gib=f"{gib:.2f}", beside_build=beside)
     torch.cuda.empty_cache()
 
 
@@ -4353,7 +4474,7 @@ DP_STEP_BATCH = 128  # (a): the step in process and through the CLI
 DP_STEP_WARMUP, DP_STEP_TIMED = 2, 5
 DP_GLOO_ROWS, DP_GLOO_STEPS = 64, 3  # (b): two ranks of 64 rows against one of 128
 DP_SHARD_SIZE = 512  # (c)
-DP_RESUME_EPOCHS = 4  # (d): cut after half
+DP_RESUME_EPOCHS = 2  # (d): cut after half
 
 
 def _free_port() -> int:
@@ -4535,21 +4656,35 @@ def dp_cli_worker(train_tree: str, out_root: str) -> int:
     return 0
 
 
-def _dp_cli(np, train_tree: Path, tmp: Path) -> None:
+def _dp_cli_start(train_tree: Path, tmp: Path) -> tuple:
     """(a) through the supervised CLI under torchrun (one launch, one
-    process on the card), ``--fsdp``, bf16, batch 128, one epoch, for
-    vit_b16 and resnet18: the gathered ``.pt`` loads into a plain model."""
+    process on the card), ``--fsdp``, bf16, batch 128, one epoch, for each
+    of ``DP_CLI_ARCHS``: the launch, started; ``_dp_cli_check`` waits for
+    it. (start time, process)"""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+         str(Path(__file__).resolve()), "--dp-cli", str(train_tree), str(tmp)],
+        cwd=Path(__file__).resolve().parent,
+    )
+
+
+def _dp_cli_check(np, started: tuple, tmp: Path) -> None:
+    """(a)'s CLI launch, awaited: the gathered ``.pt`` loads into a plain
+    model."""
     import torch
 
     from ssip_tpu_torch.models.registry import build_model
     from ssip_tpu_torch.train.checkpoints import load_checkpoint
 
-    t0 = time.perf_counter()
-    subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
-         str(Path(__file__).resolve()), "--dp-cli", str(train_tree), str(tmp)],
-        cwd=Path(__file__).resolve().parent, check=True, timeout=600,
-    )
+    t0, proc = started
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise subprocess.CalledProcessError(rc, proc.args)
     seconds = time.perf_counter() - t0
     for arch in DP_CLI_ARCHS:
         out = tmp / f"dp_cli_{arch}"
@@ -4560,7 +4695,8 @@ def _dp_cli(np, train_tree: Path, tmp: Path) -> None:
             raise AssertionError(f"dp (a) cli {arch}: {payload['baseline']}")
         say("dp", part="a", cli="torchrun supervised_training --fsdp", arch=arch, nproc=1, epochs=1,
             val_loss=f"{payload['baseline']['val_loss'][0]:.4f}",
-            checkpoint_params=sum(p.numel() for p in model.parameters()), launch_seconds=f"{seconds:.2f}")
+            checkpoint_params=sum(p.numel() for p in model.parameters()), launch_seconds=f"{seconds:.2f}",
+            beside="(d), (b), [tp]")
 
 
 def _dp_shards(torch, np, tmp: Path, counts: LaunchCounts) -> None:
@@ -4668,7 +4804,9 @@ def _dp_orbax(torch, np, tmp: Path, data: Path, counts: LaunchCounts) -> None:
 def phase_dp(torch, np, tmp: Path, train_tree: Path, counts: LaunchCounts) -> None:
     """Data parallelism on the card: (c) ``--shard-size``, (d) the sharded
     snapshots, (b) two gloo ranks sharing the card, (a) the FSDP step at
-    world size 1 over NCCL, in process and through the CLI under torchrun."""
+    world size 1 over NCCL, in process and through the CLI under torchrun
+    (a process of its own, run beside (d) and (b)); and ``phase_tp``, whose
+    ranks run beside (d) and (b) too."""
     import torch.distributed as dist
 
     from ssip_tpu_torch.parallel.mesh import training_mesh
@@ -4681,9 +4819,18 @@ def phase_dp(torch, np, tmp: Path, train_tree: Path, counts: LaunchCounts) -> No
         laps[part] = round(laps.get(part, 0.0) + time.perf_counter() - t0, 1)
 
     timed("c", _dp_shards, torch, np, tmp, counts)
-    timed("d", _dp_orbax, torch, np, tmp, train_tree, counts)
-    timed("b", _dp_two_ranks_on_one_card, torch, np, tmp)
-    timed("a_cli", _dp_cli, np, train_tree, tmp)
+    # the torchrun CLI and [tp]'s two ranks, processes of their own, beside (d), (b) and [tp]'s references,
+    # which time nothing; (c) and (a) run with nothing beside them
+    cli = _dp_cli_start(train_tree, tmp)
+    try:
+        tp = _tp_start(torch, tmp)
+        try:
+            timed("d", _dp_orbax, torch, np, tmp, train_tree, counts)
+            timed("b", _dp_two_ranks_on_one_card, torch, np, tmp)
+        finally:
+            timed("tp", phase_tp, torch, np, tmp, counts, tp)
+    finally:
+        timed("a_cli", _dp_cli_check, np, cli, tmp)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
     try:
         mesh = training_mesh(device_type="cuda")
@@ -4703,7 +4850,7 @@ TP_PATHS = {  # path → (arch, image size, batch)
     "vit-sp": (VIT_ARCH, 512, 4),  # 1,025 tokens, 513 a rank
 }
 TP_MICROBATCHES = 4
-TP_TIMED_STEPS = 3  # after the checked step, timed
+TP_TIMED_STEPS = 1  # after the checked step, timed (gloo through host memory: not a speed figure)
 TP_LR = 1e-3  # the multichip dryrun's SGD step
 TP_BF16_IMAGES = 16
 TP_BF16_PATHS = ("vit-tp", "vit-ep")
@@ -4831,7 +4978,16 @@ def _rel_norm(torch, a, b) -> float:
     return float(torch.linalg.vector_norm((a - b).double()) / torch.linalg.vector_norm(b.double()).clamp_min(1e-12))
 
 
-def phase_tp(torch, np, tmp: Path, counts: LaunchCounts) -> None:
+def _tp_start(torch, tmp: Path) -> tuple:
+    """``phase_tp``'s two ranks, started: (start time, their context)."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    return time.perf_counter(), mp.start_processes(_tp_rank, args=(2, str(tmp / "tp_init"), str(tmp)), nprocs=2,
+                                                   start_method="spawn", join=False)
+
+
+def phase_tp(torch, np, tmp: Path, counts: LaunchCounts, started: tuple) -> None:
     """The model axis on the card: two gloo ranks sharing it (data 1 ×
     model 2) run each path's float32 SGD step at full width, held to the
     same step in one process at the multichip dryrun's bound (loss 1e-4
@@ -4845,68 +5001,66 @@ def phase_tp(torch, np, tmp: Path, counts: LaunchCounts) -> None:
     1,025 tokens split 513 a rank (ring attention). Then the bf16
     extractors of vit-tp and vit-ep against one process at the bf16
     cosine gates. ms a step beside one process's: gloo through host
-    memory, not a speed figure."""
-    import torch.multiprocessing as mp
-
+    memory, not a speed figure. ``started``: ``_tp_start``'s ranks, which
+    ran beside ``phase_dp``'s untimed parts."""
     from ssip_tpu_torch.runtime.device import configure_precision
 
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ctx = mp.start_processes(_tp_rank, args=(2, str(tmp / "tp_init"), str(tmp)), nprocs=2, start_method="spawn",
-                             join=False)
-    while not ctx.join(timeout=600):
-        pass
+    t0, ctx = started
+    configure_precision("float32")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:  # the one-process references while the ranks run: no figure of this phase is a speed
+        wants = {path: _tp_step(torch, np, path, None) for path in TP_PATHS}
+        want_features = {path: _tp_features(torch, np, path, None) for path in TP_BF16_PATHS}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        while not ctx.join(timeout=600):
+            pass
     ranks = [torch.load(tmp / f"tp_rank{i}.pt", weights_only=False) for i in range(2)]
     ranks_s = time.perf_counter() - t0
     for rank in ranks:  # the main path's launches: both ranks'
         for launches in rank["launches"].values():
             for name, n in launches.items():
                 counts.total[name] += n
-    configure_precision("float32")
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     failures = []
-    try:
-        for path, (arch, size, b) in TP_PATHS.items():
-            want = _tp_step(torch, np, path, None)
-            got = [rank["steps"][path] for rank in ranks]
-            loss_rel = max(abs(g["loss"] - want["loss"]) / abs(want["loss"]) for g in got)
-            worst = max(((_rel_norm(torch, g["state"][k], v), k) for g in got for k, v in want["state"].items()
-                         if v.is_floating_point()), default=(0.0, ""))
-            ranks_equal = all(torch.equal(got[0]["state"][k], got[1]["state"][k]) for k in want["state"])
-            flips = sum(int((a != c).sum()) for g in got for a, c in zip(g["choices"], want["choices"]))
-            launches = [rank["launches"][path] for rank in ranks]
-            say("tp", path=path, arch=arch, image=size, batch=b, ranks=2, backend="gloo", dtype="float32",
-                loss=f"{got[0]['loss']:.6f}", one_process=f"{want['loss']:.6f}", loss_rel=loss_rel,
-                worst_param_rel_norm=worst[0], at=worst[1], ranks_bitwise_equal=ranks_equal,
-                router_choices=sum(c.size for c in want["choices"]), router_flips=flips,
-                launches_per_rank=[{k: v for k, v in n.items() if v} for n in launches],
-                ms_per_step=f"{got[0]['ms']:.1f}", one_process_ms=f"{want['ms']:.1f}",
-                timing="gloo through host memory, not a speed figure")
-            steps = 1 + TP_TIMED_STEPS
-            expected = {"resnet-tp": {"augment_images": steps},
-                        "vit-tp": {"attention_qkv": VIT_BLOCKS * steps, "attention_qkv_bwd": VIT_BLOCKS * steps},
-                        "vit-ep": {"attention_qkv": VIT_BLOCKS * steps, "attention_qkv_bwd": VIT_BLOCKS * steps},
-                        "vit-pp": {"attention_qkv": VIT_BLOCKS // 2 * TP_MICROBATCHES * steps,
-                                   "layer_norm": (VIT_BLOCKS * TP_MICROBATCHES + 1) * steps},
-                        "vit-sp": {"layer_norm": VIT_LN_PER_FORWARD * steps, "attention_qkv": 0}}[path]
-            if (loss_rel > 1e-4 or worst[0] > 1e-3 or flips
-                    or any({k: n[k] for k in expected} != expected for n in launches)):
-                failures.append(f"{path}: loss {loss_rel}, param {worst}, router flips {flips}, launches {launches} "
-                                f"(want {expected} a rank)")
-        for path in TP_BF16_PATHS:
-            want = _tp_features(torch, np, path, None)
-            floor, mean_floor = (MOE_COSINE_FLOOR, MOE_COSINE_MEAN_FLOOR) if path == "vit-ep" else (0.995, 0.995)
-            for i, rank in enumerate(ranks):
-                got = rank["features"][path]
-                cos = (_unit(np, got.numpy()) * _unit(np, want.numpy())).sum(axis=1)
-                say("tp", path=path, check="bf16 features vs one process", rank=i, images=TP_BF16_IMAGES,
-                    cos_min=f"{cos.min():.6f}", cos_mean=f"{cos.mean():.6f}", floor=floor, mean_floor=mean_floor,
-                    launches={k: v for k, v in rank["launches"][path + "-bf16"].items() if v})
-                if not (cos.min() > floor and cos.mean() > mean_floor and np.isfinite(got.numpy()).all()):
-                    failures.append(f"{path} bf16 rank {i}: cosine min {cos.min()}, mean {cos.mean()}")
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
+    for path, (arch, size, b) in TP_PATHS.items():
+        want = wants[path]
+        got = [rank["steps"][path] for rank in ranks]
+        loss_rel = max(abs(g["loss"] - want["loss"]) / abs(want["loss"]) for g in got)
+        worst = max(((_rel_norm(torch, g["state"][k], v), k) for g in got for k, v in want["state"].items()
+                     if v.is_floating_point()), default=(0.0, ""))
+        ranks_equal = all(torch.equal(got[0]["state"][k], got[1]["state"][k]) for k in want["state"])
+        flips = sum(int((a != c).sum()) for g in got for a, c in zip(g["choices"], want["choices"]))
+        launches = [rank["launches"][path] for rank in ranks]
+        say("tp", path=path, arch=arch, image=size, batch=b, ranks=2, backend="gloo", dtype="float32",
+            loss=f"{got[0]['loss']:.6f}", one_process=f"{want['loss']:.6f}", loss_rel=loss_rel,
+            worst_param_rel_norm=worst[0], at=worst[1], ranks_bitwise_equal=ranks_equal,
+            router_choices=sum(c.size for c in want["choices"]), router_flips=flips,
+            launches_per_rank=[{k: v for k, v in n.items() if v} for n in launches],
+            ms_per_step=f"{got[0]['ms']:.1f}", one_process_ms=f"{want['ms']:.1f}",
+            timing="gloo through host memory, not a speed figure")
+        steps = 1 + TP_TIMED_STEPS
+        expected = {"resnet-tp": {"augment_images": steps},
+                    "vit-tp": {"attention_qkv": VIT_BLOCKS * steps, "attention_qkv_bwd": VIT_BLOCKS * steps},
+                    "vit-ep": {"attention_qkv": VIT_BLOCKS * steps, "attention_qkv_bwd": VIT_BLOCKS * steps},
+                    "vit-pp": {"attention_qkv": VIT_BLOCKS // 2 * TP_MICROBATCHES * steps,
+                               "layer_norm": (VIT_BLOCKS * TP_MICROBATCHES + 1) * steps},
+                    "vit-sp": {"layer_norm": VIT_LN_PER_FORWARD * steps, "attention_qkv": 0}}[path]
+        if (loss_rel > 1e-4 or worst[0] > 1e-3 or flips
+                or any({k: n[k] for k in expected} != expected for n in launches)):
+            failures.append(f"{path}: loss {loss_rel}, param {worst}, router flips {flips}, launches {launches} "
+                            f"(want {expected} a rank)")
+    for path in TP_BF16_PATHS:
+        want = want_features[path]
+        floor, mean_floor = (MOE_COSINE_FLOOR, MOE_COSINE_MEAN_FLOOR) if path == "vit-ep" else (0.995, 0.995)
+        for i, rank in enumerate(ranks):
+            got = rank["features"][path]
+            cos = (_unit(np, got.numpy()) * _unit(np, want.numpy())).sum(axis=1)
+            say("tp", path=path, check="bf16 features vs one process", rank=i, images=TP_BF16_IMAGES,
+                cos_min=f"{cos.min():.6f}", cos_mean=f"{cos.mean():.6f}", floor=floor, mean_floor=mean_floor,
+                launches={k: v for k, v in rank["launches"][path + "-bf16"].items() if v})
+            if not (cos.min() > floor and cos.mean() > mean_floor and np.isfinite(got.numpy()).all()):
+                failures.append(f"{path} bf16 rank {i}: cosine min {cos.min()}, mean {cos.mean()}")
     say("tp", ranks_seconds=f"{ranks_s:.1f}", seconds=f"{time.perf_counter() - t0:.1f}")
     if failures:
         raise AssertionError("tp: " + "; ".join(failures))
@@ -4955,8 +5109,17 @@ def main() -> int:
 
     lap("env", phase_env, torch)
     host = phase_host_packages()
-    lap("build", phase_build)
     counts = LaunchCounts()
+    # The kernels build (one nvcc a source, all started together; a minute and a half, most of it one
+    # source) while the analysis stack, which launches no hand kernel, runs on the card; its CPU
+    # references keep every core (on half of them they took longer still beside the compilers).
+    from ssip_tpu_torch.kernels.build import build
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build)
+        lap("analysis", phase_analysis, torch, np, counts, building)
+        lap("analysis_scale", phase_analysis_scale, torch, np, building)
+        lap("build", phase_build, building.result())
     measured = {**lap("kernel", phase_kernel, torch, np),
                 "augment_images": lap("rotate", phase_rotate_kernel, torch, np),
                 **lap("ln", phase_layer_norm_kernels, torch, np), **lap("attn", phase_attention_kernels, torch, np),
@@ -4999,12 +5162,9 @@ def main() -> int:
         lap("randaug", phase_randaug, torch, np, tmp, train_tree, pool, counts)
         lap("serve", phase_serve, torch, np, tmp, pool, counts)
         lap("sweep", phase_sweep, torch, np, tmp, train_tree, counts)
-        lap("analysis", phase_analysis, torch, np, counts)
-        lap("analysis_scale", phase_analysis_scale, torch, np)
         lap("workflow", phase_workflow, torch, np, tmp, counts, host)
         lap("stream", phase_stream, torch, np, tmp, counts, host)
-        lap("dp", phase_dp, torch, np, tmp, train_tree, counts)
-        lap("tp", phase_tp, torch, np, tmp, counts)
+        lap("dp", phase_dp, torch, np, tmp, train_tree, counts)  # [tp] inside it
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     lap("step", phase_step, torch, np, counts)

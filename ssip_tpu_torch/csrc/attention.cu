@@ -12,9 +12,11 @@
 // ds in float32 for their products, which in float32 is the same function.
 //
 // Where each form runs (all on the tensor cores, mma.sync), at any S:
-// - bfloat16, packed: attention_mma.cu (attn_qkv_fwd_mma_kernel;
-//   attn_qkv_bwd_rows_kernel + attn_qkv_bwd_keys_kernel), p and ds rounded
-//   to bf16 before their products.
+// - bfloat16, packed: attention_mma.cu (up to 256 tokens
+//   attn_qkv_fwd_mma_kernel and attn_qkv_bwd_whole_kernel, a head a block;
+//   past it attn_qkv_fwd_stream_kernel and attn_qkv_bwd_rows_kernel +
+//   attn_qkv_bwd_keys_kernel), p and ds rounded to bf16 before their
+//   products.
 // - bfloat16, unpacked: up to 1024 tokens attention_unpacked_mma.cu
 //   (attn_unpacked_fwd_kernel; attn_unpacked_bwd_rows_kernel +
 //   attn_unpacked_bwd_keys_kernel), p and ds kept to float32 precision, as
@@ -91,7 +93,8 @@ constexpr int kMaxFusedSeq = 1024;
 // backward reads them and the forward's output `o`, and takes `scratch`,
 // B·H·round16(s_len) floats. Bfloat16: the forward takes no `stats` (null),
 // the backward ignores `o` and `stats` and takes `scratch`,
-// B·H·3·round16(s_len) floats. B·H is batch * heads (packed) or batch_heads.
+// B·H·3·round16(s_len) floats (the packed entry up to 256 tokens: none, may
+// be null). B·H is batch * heads (packed) or batch_heads.
 
 extern "C" int ssip_attention_qkv_fwd(const void* qkv, void* o, void* stats,
                                       int is_bf16, int batch, int heads,
@@ -116,13 +119,13 @@ extern "C" int ssip_attention_qkv_bwd(const void* qkv, const void* d_o,
                                       int s_len, int dh, int kv, float scale,
                                       void* stream) {
   if (batch == 0 || heads == 0 || s_len == 0) return 0;
-  if (kv < 1 || kv > s_len || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv < 1 || kv > s_len) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
+  if (is_bf16) {  // checks its own scratch: none up to 256 tokens
     return attention_qkv_bwd_bf16(qkv, d_o, dqkv, scratch, batch, heads, s_len,
                                   dh, kv, scale, s);
   }
-  if (o == nullptr || stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (o == nullptr || stats == nullptr || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return attention_qkv_bwd_f32(qkv, d_o, dqkv, o, stats, scratch, batch, heads,
                                s_len, dh, kv, scale, s);
 }

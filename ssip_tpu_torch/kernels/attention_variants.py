@@ -19,7 +19,11 @@ With ``--rounded`` the packed entry is timed at its main shape too, beside
 diagnostic copies of the whole-head forward with a phase cut out (printed
 with ``diagnostic=1``: not checked, their output is not the function's), and
 the kernel's device time there is printed, with the SM clock and power draw
-``nvidia-smi`` reads while it runs back to back.
+``nvidia-smi`` reads while it runs back to back; and the packed backward's
+designs up to 256 tokens (the whole-head kernel, its variants and the
+two-kernel streamed form) are checked and timed at vit_b16's and
+vit_moe_s16's shapes, call and device time, beside SDPA's own backward
+(``packed_bwd``).
 
     python -m ssip_tpu_torch.kernels.attention_variants          # one CUDA card
     python -m ssip_tpu_torch.kernels.attention_variants --f32
@@ -40,8 +44,8 @@ import torch.nn.functional as F
 
 from ssip_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc
 from ssip_tpu_torch.ops.attention import (
-    _scale, attention_bwd_plain, attention_plain, attention_qkv_plain, attention_rounded_bwd_plain,
-    attention_unrounded_plain,
+    _scale, attention_bwd_plain, attention_plain, attention_qkv_bwd_plain, attention_qkv_plain,
+    attention_rounded_bwd_plain, attention_unrounded_plain,
 )
 
 SOURCE = CSRC_DIR / "attention_unpacked_mma.cu"
@@ -134,6 +138,26 @@ ROUNDED_VARIANTS = {
                                              "constexpr bool narrow_tail(int kv) { return false &&")],
     "whole head, score loop unrolled 2": [(_SCORE_LOOP, _SCORE_LOOP.replace("unroll 1", "unroll 2"))],
 }
+# variants that change only the packed backward up to 256 tokens, timed there
+# (packed_bwd_shape lines) and nowhere else: the two streaming launches used
+# past 256, and the whole-head kernel with 8 warps a block
+ROUNDED_BWD_VARIANTS = {
+    "bwd two kernels": [("if (s_len <= kWholeMaxSeq) {  // one launch, no scratch",
+                         "if (false) {  // one launch, no scratch")],
+    "whole bwd, 8 warps a block": [
+        ("constexpr int kBwdWholeWarps = 4;", "constexpr int kBwdWholeWarps = 8;"),
+        ("constexpr int kBwdWholeBlocksPerSm = 2;", "constexpr int kBwdWholeBlocksPerSm = 1;")],
+}
+# diagnostics of the whole-head backward, timed beside it at the packed
+# backward's shapes (their gradients are not the function's): the key pass
+# left out (the row pass and staging alone), the row pass's second dp sweep
+# (ds and dq) left out
+ROUNDED_BWD_DIAGNOSTICS = {
+    "whole bwd, no key pass": [("if (j0 < kv) {  // the same for the whole warp; key groups past kv store zeros",
+                                "if (false) {  // the same for the whole warp; key groups past kv store zeros")],
+    "whole bwd, no ds and dq sweep": [("for (int st = 0; st < KS; ++st) {\n        float ds[2][4];",
+                                       "for (int st = 0; st < 0; ++st) {\n        float ds[2][4];")],
+}
 # diagnostics of the whole-head kernel: copies with a phase cut out, timed at
 # the packed entry's main shape beside the kernel (their output is not the
 # function's; only their time is read)
@@ -159,8 +183,15 @@ extern "C" int variant_qkv_fwd(const void* qkv, void* o, int batch, int heads, i
                                float scale, void* stream) {
   return attention_qkv_fwd_bf16(qkv, o, batch, heads, s, dh, kv, scale, static_cast<cudaStream_t>(stream));
 }
+extern "C" int variant_qkv_bwd(const void* qkv, const void* d_o, void* dqkv, void* stats, int batch, int heads,
+                               int s, int dh, int kv, float scale, void* stream) {
+  return attention_qkv_bwd_bf16(qkv, d_o, dqkv, stats, batch, heads, s, dh, kv, scale,
+                                static_cast<cudaStream_t>(stream));
+}
 '''
 PACKED_SHAPE = (128, 197, 12, 64)  # the packed entry's main path: batch, tokens, heads, head width
+# the packed backward's: vit_b16's and vit_moe_s16's (batch, tokens, heads, head width)
+PACKED_BWD_SHAPES = ((128, 197, 12, 64), (128, 197, 6, 64))
 # vit_b16's heads at 224², 256², 384², 512² and 576², and 1024 tokens
 ROUNDED_SHAPES = ((128, 12, 197, 64), (64, 12, 257, 64), (16, 12, 577, 64), (4, 12, 1024, 64), (4, 12, 1025, 64),
                   (2, 12, 1297, 64))
@@ -236,7 +267,8 @@ def build_variants(source=SOURCE, variants=VARIANTS, entries_src=ENTRIES, f32: b
         entries[name] = (handle.variant_fwd, handle.variant_bwd)
         if "variant_qkv_fwd" in entries_src:
             handle.variant_qkv_fwd.argtypes = [p, p, i, i, i, i, i, f, p]
-            entries[name] += (handle.variant_qkv_fwd,)
+            handle.variant_qkv_bwd.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+            entries[name] += (handle.variant_qkv_fwd, handle.variant_qkv_bwd)
     return entries
 
 
@@ -287,16 +319,17 @@ def median_ms(fn) -> float:
     return sorted(times)[TIMED // 2]
 
 
-def device_ms(fn, reps: int = 5) -> dict:
+def device_ms(fn, reps: int = 5, pattern: str = r"attn_\w+?_kernel") -> dict:
     """Device time a call of ``fn`` by kernel (``torch.profiler``), for the
-    kernels named attn_*_kernel."""
+    kernels whose names ``pattern`` finds (by default attn_*_kernel; ".+"
+    for every kernel, by its full name)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     out: dict = {}
     for e in prof.events():
-        name = re.search(r"attn_\w+?_kernel", e.name)
+        name = re.search(pattern, e.name)
         if e.device_type == torch.autograd.DeviceType.CUDA and name:
             out[name[0]] = out.get(name[0], 0.0) + (e.time_range.end - e.time_range.start) / 1000.0 / reps
     return out
@@ -369,16 +402,80 @@ def main_f32() -> None:
         torch.cuda.empty_cache()
 
 
+def packed_bwd(entries: dict, diagnostics: dict, rng) -> None:
+    """The packed backward of each variant at ``PACKED_BWD_SHAPES``: held to
+    ``attention_qkv_bwd_plain`` (each of dq, dk, dv within 1e-2 of its
+    largest entry) and to its own first call bit for bit, then timed in
+    turns with the ``diagnostics`` (not checked; call ms by CUDA events;
+    device ms, every attention kernel of the call summed, by
+    ``torch.profiler``), SDPA's own backward on contiguous q, k, v [B, H,
+    S, Dh] in the same turns (timed only: the port never calls it); the
+    least of the turns and each turn's device ms."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, s, heads, dh in PACKED_BWD_SHAPES:
+        d = heads * dh
+        tag = f"packed_bwd_shape={b}x{s}x{3 * d}"
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * d)).astype(np.float32)).cuda().bfloat16()
+        d_o = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).cuda().bfloat16()
+        dqkv = torch.empty_like(qkv)
+        stats = torch.empty(b * heads * 3 * (-(-s // 16) * 16), device="cuda")  # the two-kernel form's scratch
+
+        def bwd(entry):
+            if entry[3](qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), b, heads, s, dh, s,
+                        _scale(dh), stream):
+                raise RuntimeError("variant packed backward launch failed")
+
+        ref = attention_qkv_bwd_plain(qkv, d_o, heads).float()
+        for name, entry in entries.items():
+            bwd(entry)
+            first = dqkv.clone()
+            bwd(entry)
+            torch.cuda.synchronize()
+            rels = [((dqkv[..., i * d:(i + 1) * d].float() - ref[..., i * d:(i + 1) * d]).abs().max()
+                     / ref[..., i * d:(i + 1) * d].abs().max()).item() for i in range(3)]
+            if max(rels) > 1e-2:
+                raise AssertionError(f"variant {name!r}: the packed backward is {rels} of max off the plain version")
+            print(f"[variants] {tag} variant={name.replace(' ', '_')} dq_dk_dv_rel={'/'.join(f'{r:.3g}' for r in rels)} "
+                  f"bitwise_repeat={torch.equal(first, dqkv)}", flush=True)
+        del ref
+        leaves = [t.contiguous().requires_grad_() for t in qkv.view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4)]
+        do_4 = d_o.view(b, s, heads, dh).transpose(1, 2).contiguous()
+        o_lib = F.scaled_dot_product_attention(*leaves)
+        # name -> (a call, the kernels device_ms sums): SDPA every kernel of its call
+        timed = {name: (lambda e=entry: bwd(e), r"attn_\w+?_kernel")
+                 for name, entry in {**entries, **diagnostics}.items()}
+        timed["sdpa unpacked"] = (lambda: torch.autograd.grad(o_lib, leaves, do_4, retain_graph=True), ".+")
+        call, device = {name: [] for name in timed}, {name: [] for name in timed}
+        for name in [*timed, *reversed(timed)]:
+            fn, pattern = timed[name]
+            call[name].append(median_ms(fn))
+            device[name].append(sum(device_ms(fn, reps=TIMED, pattern=pattern).values()))
+        for name in timed:
+            turns = "/".join(f"{x:.4f}" for x in device[name])
+            print(f"[variants] {tag} variant={name.replace(' ', '_')} bwd_ms={min(call[name]):.4f} "
+                  f"bwd_device_ms={min(device[name]):.4f} bwd_device_ms_turns={turns} "
+                  f"diagnostic={int(name in diagnostics)}", flush=True)
+        del qkv, d_o, dqkv, stats, leaves, o_lib
+        torch.cuda.empty_cache()
+
+
 def main(rounded: bool = False) -> None:
     """The bf16 kernels' variants, checked at [4, 12, 197, 64] and then
     timed at each shape beside SDPA. The unpacked pair's are held to one bf16
     step (output and gradients, element by element); the rounded pair's to
     one step of ``attention_plain`` and its gradients to 1e-2 of each one's
-    largest entry, the packed pair's gates."""
+    largest entry, the packed pair's gates. Every time is printed after the
+    card's name and power limit."""
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in true float32
-    entries = (build_variants(ROUNDED_SOURCE, {**ROUNDED_VARIANTS, **ROUNDED_DIAGNOSTICS}, ROUNDED_ENTRIES)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=False).stdout.strip()
+    print(f"[variants] card={card!r} torch={torch.__version__}", flush=True)
+    entries = (build_variants(ROUNDED_SOURCE, {**ROUNDED_VARIANTS, **ROUNDED_DIAGNOSTICS, **ROUNDED_BWD_VARIANTS,
+                                               **ROUNDED_BWD_DIAGNOSTICS}, ROUNDED_ENTRIES)
                if rounded else build_variants())
-    diagnostics = {name: entries.pop(name) for name in ROUNDED_DIAGNOSTICS} if rounded else {}
+    diagnostics = {name: entries.pop(name) for name in ROUNDED_DIAGNOSTICS if name in entries}
+    bwd_only = {name: entries.pop(name) for name in ROUNDED_BWD_VARIANTS if name in entries}
+    bwd_diagnostics = {name: entries.pop(name) for name in ROUNDED_BWD_DIAGNOSTICS if name in entries}
     rng = np.random.default_rng(0)
     operands = [torch.from_numpy(rng.standard_normal((4, 12, 197, 64)).astype(np.float32)).cuda().bfloat16()
                 for _ in range(4)]
@@ -425,6 +522,8 @@ def main(rounded: bool = False) -> None:
         clocks = clocks_under(lambda: packed(entries["kernel"]))
         print(f"[variants] packed_shape={b}x{s}x{3 * heads * dh} variant=kernel under_load "
               f"sm_clock_mhz={clocks[0]:.0f} power_w={clocks[1]:.1f}", flush=True)
+        del qkv, o, ref
+        packed_bwd({"kernel": entries["kernel"], **bwd_only}, bwd_diagnostics, rng)
     for shape in ROUNDED_SHAPES if rounded else SHAPES:
         q, k, v, d_o = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda().bfloat16()
                         for _ in range(4))

@@ -8,10 +8,12 @@ entry of the same name (``:414-442``) with its custom VJP (``:369-390``) as
 a ``torch.autograd.Function`` whose forward and backward launch the kernels
 that replace ``_attn_qkv_kernel`` and ``_attn_qkv_bwd_kernel``: for bfloat16
 those of ``csrc/attention_mma.cu`` (float32 FMA scores and ``mma.sync`` on
-bf16 operands, keys or queries streamed in tiles of 64 by ``cp.async``); for
-float32 those of ``csrc/attention_f32_mma.cu`` (3×TF32 products on
-``mma.sync``, keys or queries streamed in tiles of 64, an online softmax in
-the forward; the backward two launches).
+bf16 operands; up to 256 tokens a head a block, staged whole in shared
+memory, the backward one launch; past it keys or queries streamed in tiles
+of 64 by ``cp.async``, the backward two launches); for float32 those of
+``csrc/attention_f32_mma.cu`` (3×TF32 products on ``mma.sync``, keys or
+queries streamed in tiles of 64, an online softmax in the forward; the
+backward two launches).
 
 ``qkv`` is [B, S, 3·D] with columns ordered [3, H, Dh] (the fused Dense of
 ``models/vit.py``); the result is [B, S, D]. Per image and head:
@@ -75,6 +77,9 @@ _HEAD_WIDTHS = (32, 64)
 # the JAX entries' longest sequence for their kernels: past it the JAX
 # ``fused_attention`` computes ``attention_xla``, which rounds p (csrc/attention.cu's kMaxFusedSeq)
 _MAX_FUSED_SEQ = 1024
+# the packed bf16 pair works a whole head in a block up to this many tokens,
+# the backward in one launch with no scratch (csrc/attention_mma.cu's kWholeMaxSeq)
+_WHOLE_MAX_SEQ = 256
 
 
 @lru_cache(maxsize=None)
@@ -284,9 +289,11 @@ def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_l
     and row statistics, ``residuals`` as ``attention_qkv_residuals`` returns
     them; without them a float32 call on the card runs that forward first
     (one more forward launch). bfloat16 and the CPU ignore ``residuals``.
-    ``attention_qkv_bwd.launches`` counts calls that launch the backward
-    (one a call: two kernels, dq by query rows, then dk and dv by key
-    rows)."""
+    ``attention_qkv_bwd.launches`` counts calls that launch the backward,
+    one a call: in bfloat16 up to 256 tokens one kernel, a head a block (a
+    pass over its query rows for dq, then one over its key rows for dk and
+    dv), past it and in float32 two kernels (dq by query rows, then dk and
+    dv by key rows)."""
     b, s, d, dh, kv = _geometry(qkv, num_heads, kv_len)
     if tuple(d_o.shape) != (b, s, d) or d_o.dtype != qkv.dtype or d_o.device != qkv.device:
         raise ValueError(
@@ -310,12 +317,13 @@ def attention_qkv_bwd(qkv: torch.Tensor, d_o: torch.Tensor, num_heads: int, kv_l
         if residuals is None:
             residuals = _launch_fwd(qkv, num_heads, kv_len, with_stats=True)
         o, stats = _check_residuals(residuals, (b, s, d), b * num_heads * _round16(s), qkv)
-    # between the two launches: bf16 each row's max, 1/sum and delta; float32 delta
-    scratch = torch.empty(b * num_heads * (3 if bf16 else 1) * _round16(s), device=qkv.device)
+    # between the two launches: bf16 past 256 tokens each row's max, 1/sum and delta; float32 delta
+    scratch = None if bf16 and s <= _WHOLE_MAX_SEQ else torch.empty(
+        b * num_heads * (3 if bf16 else 1) * _round16(s), device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _kernel_entries()[1](
             qkv.data_ptr(), d_o.data_ptr(), dqkv.data_ptr(), None if o is None else o.data_ptr(),
-            None if stats is None else stats.data_ptr(), scratch.data_ptr(), int(bf16),
+            None if stats is None else stats.data_ptr(), None if scratch is None else scratch.data_ptr(), int(bf16),
             b, num_heads, s, dh, kv, _scale(dh), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

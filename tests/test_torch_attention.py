@@ -835,6 +835,243 @@ def test_bf16_whole_head_kernel_maps(s, kv, heads, dh, rows):
     assert _outside_one_step(got, attention_qkv_plain(qkv, heads, 0 if kv == s else kv)) == 0
 
 
+_BWD_WARPS = 4  # csrc/attention_mma.cu: kBwdWholeWarps
+
+
+def _bwd_key_steps(kv: int) -> int:
+    """``by_key_steps``: the 16-key steps the whole-head backward's
+    registers hold at ``kv`` keys, the first of 2, 4, 8, 14, 16 that holds them."""
+    return next(ks for ks in (2, 4, 8, 14, 16) if -(-kv // 16) <= ks)
+
+
+def _bf16(x) -> np.ndarray:
+    """Rounded to bf16, nearest even (``pack_bf16``), as float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _addr_a(row0: int, ks: int, dh: int) -> np.ndarray:
+    """``addr_a<DH>`` of each lane, an element offset."""
+    return _swz_bf16(row0 + (_LANES & 15), 2 * ks + (_LANES >> 4), dh)
+
+
+def _addr_b(row0: int, ks: int, dh: int) -> np.ndarray:
+    """``addr_b<DH>`` of each lane, an element offset."""
+    return _swz_bf16(row0 + (_LANES & 7) + ((_LANES >> 4) << 3), 2 * ks + ((_LANES >> 3) & 1), dh)
+
+
+def _ldsm(smem: np.ndarray, addr: np.ndarray, trans: bool = False) -> np.ndarray:
+    """``ldmatrix.x4`` (``.trans``): lane l gives the offset of row l & 7 of
+    matrix l >> 3, and each phase of 8 rows falls on 8 bank groups → [32
+    lanes, 4 registers, 2]: lane (g, t) gets row g, columns 2t, 2t + 1 of
+    each matrix (with .trans rows 2t, 2t + 1 of column g)."""
+    for i in range(4):
+        assert _distinct_units(2 * addr[8 * i:8 * i + 8])
+    rows = smem[addr[:, None] + np.arange(8)].reshape(4, 8, 8)  # matrix, row, column
+    pair = 2 * _T[:, None] + np.arange(2)
+    return np.stack([rows[i][pair, _G[:, None]] if trans else rows[i][_G[:, None], pair] for i in range(4)], 1)
+
+
+_M16N8 = ((0, 0), (8, 0), (0, 8), (8, 8))  # A registers 0-3: (row, k) offsets of their 8 x 8 blocks
+
+
+def _mma16816(c: np.ndarray, a: np.ndarray, b0: np.ndarray, b1: np.ndarray) -> np.ndarray:
+    """``mma.sync.m16n8k16`` from its PTX fragment layouts: A [16, 16] from
+    a [32, 4, 2] (register i: rows g (+8), k 2t, 2t+1 (+8)), B [16, 8] from
+    b0, b1 [32, 2] (k 2t, 2t+1 and +8 of column g), c [32, 4] the
+    accumulator (rows g, g + 8; columns 2t, 2t + 1), summed into float32."""
+    big_a, big_b = np.zeros((16, 16)), np.zeros((16, 8))
+    pair = 2 * _T[:, None] + np.arange(2)
+    for i, (dr, dk) in enumerate(_M16N8):
+        big_a[_G[:, None] + dr, pair + dk] = a[:, i]
+    big_b[pair, _G[:, None]], big_b[pair + 8, _G[:, None]] = b0, b1
+    d = big_a @ big_b
+    e = np.arange(4)
+    return (c + d[_G[:, None] + 8 * (e >> 1), 2 * _T[:, None] + (e & 1)]).astype(np.float32)
+
+
+def _stage_bwd(x: np.ndarray, rows: int, valid: int) -> np.ndarray:
+    """``stage_rows<DH, 128>``: thread idx → row idx // CH, 16-byte chunk
+    idx % CH at ``swz``, rows at or past ``valid`` zeros; each phase of 8
+    threads' 16-byte stores on 8 bank groups."""
+    dh = x.shape[1]
+    ch = dh // 8
+    idx = np.arange(rows * ch)
+    r, c = idx // ch, idx % ch
+    offs = _swz_bf16(r, c, dh)
+    assert all(_distinct_units(2 * offs[i:i + 8]) for i in range(0, offs.size, 8))
+    src = np.zeros((rows, dh), np.float32)
+    src[:min(valid, rows)] = x[:valid]
+    smem = np.zeros(rows * dh, np.float32)
+    smem[offs[:, None] + np.arange(8)] = src[r[:, None], 8 * c[:, None] + np.arange(8)]
+    return smem
+
+
+def _dot_rows(a: list, b_s: np.ndarray, b_row0: int, nt: int, dh: int) -> np.ndarray:
+    """``dot_rows<DH, NT>``: the A fragments ``a`` times rows b_row0 ..
+    b_row0 + 8 NT - 1 of the staged b transposed → [NT, 32, 4]."""
+    acc = np.zeros((nt, 32, 4), np.float32)
+    for kk in range(dh // 16):
+        for p in range(nt // 2):
+            bf = _ldsm(b_s, _addr_b(b_row0 + 16 * p, kk, dh))
+            acc[2 * p] = _mma16816(acc[2 * p], a[kk], bf[:, 0], bf[:, 1])
+            acc[2 * p + 1] = _mma16816(acc[2 * p + 1], a[kk], bf[:, 2], bf[:, 3])
+    return acc
+
+
+def _acc_to_a(acc: np.ndarray, s: int) -> np.ndarray:
+    """``acc_to_a``: n tiles 2s and 2s + 1 of an accumulator as an A
+    fragment, rounded to bf16."""
+    return _bf16(np.stack([acc[2 * s][:, 0:2], acc[2 * s][:, 2:4], acc[2 * s + 1][:, 0:2], acc[2 * s + 1][:, 2:4]], 1))
+
+
+def _weighted(out: np.ndarray, a: np.ndarray, m_s: np.ndarray, m_row0: int, dh: int) -> np.ndarray:
+    """``weighted<DH, DH / 16>``: out [DH / 8, 32, 4] += a (16 x 16) times
+    rows m_row0 .. m_row0 + 15 of the staged m, by ldmatrix.trans."""
+    for dp in range(dh // 16):
+        bf = _ldsm(m_s, _addr_a(m_row0, dp, dh), trans=True)
+        out[2 * dp] = _mma16816(out[2 * dp], a, bf[:, 0], bf[:, 1])
+        out[2 * dp + 1] = _mma16816(out[2 * dp + 1], a, bf[:, 2], bf[:, 3])
+    return out
+
+
+def _quad(x: np.ndarray, op) -> np.ndarray:
+    """``quad_max`` / ``quad_sum``: over the 4 lanes of each quad, on every lane."""
+    return np.repeat(op(x.reshape(8, 4), axis=1), 4)
+
+
+def _store_tile(acc: np.ndarray, mul: float, rows: int, live_rows: int, row0: int, dh: int) -> np.ndarray:
+    """``store_tile<DH>``: the warp's 16 x DH tile times ``mul``, rows at or
+    past ``live_rows`` zeros, bf16 into the staged tile (32-bit stores: no
+    two lanes of a phase on one bank) and out by 16-byte loads (each phase on
+    8 bank groups) → its first ``rows`` rows."""
+    ch = dh // 8
+    tile = np.zeros((row0 + 16) * dh, np.float32)
+    for half in range(2):
+        r = _G + 8 * half
+        for n in range(ch):
+            at = _swz_bf16(row0 + r, n, dh) + 2 * _T
+            assert len(set((at // 2) % 32)) == 32
+            vals = np.where((r < live_rows)[:, None], acc[n][:, 2 * half:2 * half + 2] * np.float32(mul), 0.0)
+            tile[at[:, None] + np.arange(2)] = _bf16(vals)
+    out = np.zeros((16, dh), np.float32)
+    for i in range(0, 16 * ch, 32):
+        idx = np.arange(i, i + 32)
+        r, c = idx // ch, idx % ch
+        offs = _swz_bf16(row0 + r, c, dh)
+        assert all(_distinct_units(2 * offs[j:j + 8]) for j in range(0, 32, 8))
+        out[r[:, None], 8 * c[:, None] + np.arange(8)] = tile[offs[:, None] + np.arange(8)]
+    return out[:rows]
+
+
+def _bwd_row_groups(sp: int) -> list:
+    """(first row, warp) of each 16-row group: round w of warp w' is rows
+    16 (w' + W w), while they start before sp (the key pass's groups too)."""
+    return [(16 * (w + _BWD_WARPS * it), w) for it in range(-(-sp // 16 // _BWD_WARPS) or 1)
+            for w in range(_BWD_WARPS) if 16 * (w + _BWD_WARPS * it) < sp]
+
+
+def _whole_head_backward(q, k, v, d_o, kv: int):
+    """One (image, head) of ``attn_qkv_bwd_whole_kernel`` in numpy, in its
+    own index formulas: q, k, v, dO [S, DH] bf16 values as float32 → dq, dk,
+    dv [S, DH] bf16 values. The row pass's scores of KS 16-key steps from
+    the staged K (rows to 16 KS, zeros past kv), p in float32, dp twice,
+    dq from bf16(ds); the key pass's sT and dpT 32 query rows a step (and a
+    last 16), p from the row statistics, dv from bf16(p), dk from bf16(ds)."""
+    s_len, dh = q.shape
+    ks_n = _bwd_key_steps(kv)
+    sp = -(-s_len // 16) * 16
+    kr = max(16 * ks_n, sp)
+    scale = np.float32(1.0 / np.sqrt(dh))
+    sl2 = np.float32(scale * np.float32(1.4426950408889634))
+    q_s, do_s = _stage_bwd(q, sp, s_len), _stage_bwd(d_o, sp, s_len)
+    k_s, v_s = _stage_bwd(k, kr, kv), _stage_bwd(v, kr, kv)
+    st_s = np.zeros((3, sp), np.float32)  # shift, 1/sum, delta
+    dq, dk, dv = (np.zeros((s_len, dh), np.float32) for _ in range(3))
+    rows_a = _G[:, None] + 8 * (np.arange(4) >> 1)  # accumulator element e: row g + 8 (e >> 1)
+    for i0, _ in _bwd_row_groups(sp):
+        qf = [_ldsm(q_s, _addr_a(i0, kk, dh)) for kk in range(dh // 16)]
+        p = np.stack([_dot_rows(qf, k_s, 16 * st, 2, dh) for st in range(ks_n)])  # [KS, 2, 32, 4]
+        keys = 16 * np.arange(ks_n)[:, None, None, None] + 8 * np.arange(2)[None, :, None, None] + \
+            2 * _T[None, None, :, None] + (np.arange(4) & 1)
+        p = np.where(keys >= kv, np.float32(-np.inf), p)
+        half = np.arange(4) >> 1
+        mx = np.stack([_quad(p[..., half == r].max(axis=(0, 1, 3)), np.max) for r in range(2)])  # [2, 32]
+        shift = (-mx * sl2).astype(np.float32)
+        e = np.exp2((p * sl2 + shift.T[:, half]).astype(np.float32)).astype(np.float32)
+        inv = (np.float32(1.0) / np.stack([_quad(e[..., half == r].sum(axis=(0, 1, 3)), np.sum)
+                                           for r in range(2)])).astype(np.float32)
+        p = (e * inv.T[:, half]).astype(np.float32)  # float32 p, the row pass keeps it
+        dof = [_ldsm(do_s, _addr_a(i0, kk, dh)) for kk in range(dh // 16)]
+        dp = np.stack([_dot_rows(dof, v_s, 16 * st, 2, dh) for st in range(ks_n)])
+        edp = (dp * p).astype(np.float32)
+        delta = np.stack([_quad(edp[..., half == r].sum(axis=(0, 1, 3)), np.sum) for r in range(2)]).astype(np.float32)
+        for r in range(2):  # lanes t == 0 store their rows' statistics: 8 consecutive words
+            at = i0 + _G[_T == 0] + 8 * r
+            assert len(set(at % 32)) == 8
+            st_s[:, at] = np.stack([shift[r], inv[r], delta[r]])[:, _T == 0]
+        dqa = np.zeros((dh // 8, 32, 4), np.float32)
+        for st in range(ks_n):
+            ds = (p[st] * (dp[st] - delta.T[:, half])).astype(np.float32)
+            dqa = _weighted(dqa, _acc_to_a(ds, 0), k_s, 16 * st, dh)  # bf16(ds) into dq
+        for n in range(dh // 8):  # dq from the registers, rows before S
+            cols = 8 * n + 2 * _T[:, None] + (np.arange(4) & 1)
+            live = i0 + rows_a < s_len
+            dq[(i0 + rows_a)[live], cols[live]] = _bf16(dqa[n] * scale)[live]
+    for j0, _ in _bwd_row_groups(sp):
+        dka, dva = np.zeros((dh // 8, 32, 4), np.float32), np.zeros((dh // 8, 32, 4), np.float32)
+        if j0 < kv:
+            kf = [_ldsm(k_s, _addr_a(j0, kk, dh)) for kk in range(dh // 16)]
+            vf = [_ldsm(v_s, _addr_a(j0, kk, dh)) for kk in range(dh // 16)]
+            for c in range(0, sp, 32):
+                nq = 4 if c + 32 <= sp else 2
+                pt, dst = _dot_rows(kf, q_s, c, nq, dh), _dot_rows(vf, do_s, c, nq, dh)
+                for n in range(nq):
+                    i = c + 8 * n + 2 * _T[:, None] + (np.arange(4) & 1)  # the float2 of each statistic: i, i + 1
+                    pe = (np.exp2((pt[n] * sl2 + st_s[0, i]).astype(np.float32)) * st_s[1, i]).astype(np.float32)
+                    dst[n] = pe * (dst[n] - st_s[2, i])
+                    pt[n] = pe
+                for kk in range(nq // 2):
+                    dva = _weighted(dva, _acc_to_a(pt, kk), do_s, c + 16 * kk, dh)  # bf16(p) into dv
+                    dka = _weighted(dka, _acc_to_a(dst, kk), q_s, c + 16 * kk, dh)  # bf16(ds) into dk
+        rows = min(16, s_len - j0)
+        dk[j0:j0 + rows] = _store_tile(dka, scale, rows, kv - j0, j0, dh)
+        dv[j0:j0 + rows] = _store_tile(dva, 1.0, rows, kv - j0, j0, dh)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("s,kv,heads,dh", [(197, 197, 2, 64), (208, 197, 2, 32), (256, 256, 1, 64), (5, 5, 1, 64),
+                                          (40, 1, 1, 32), (33, 17, 1, 64)])
+def test_bf16_whole_head_backward_maps(s, kv, heads, dh):
+    """The bfloat16 whole-head backward's design (``attn_qkv_bwd_whole_kernel``),
+    emulated in numpy in the kernel's own index formulas: the warps' 16-row
+    query groups and 16-row key groups cover every row once (197 tokens: 13
+    groups, 4 on warp 0 and 3 on each other, the last with 5 real rows); no
+    cp.async, ldmatrix, statistics or output-tile phase has a bank conflict;
+    mma.sync m16n8k16 fragments built from them give dq, dk and dv with the
+    reference's rounding points (float32 p and delta, bf16(p) into dv,
+    bf16(ds) into dq and dk) within 1e-2 of each one's largest entry of
+    ``attention_qkv_bwd_plain``, and masked key rows exactly 0."""
+    sp = -(-s // 16) * 16
+    groups = _bwd_row_groups(sp)
+    rows = np.concatenate([np.arange(i0, i0 + 16) for i0, _ in groups])
+    assert np.array_equal(np.sort(rows), np.arange(sp))
+    if s == 197:
+        assert np.bincount([w for _, w in groups]).tolist() == [4, 3, 3, 3]
+        assert groups[-1][0] == 192 and s - groups[-1][0] == 5
+    rng = np.random.default_rng(s * dh + kv)
+    qkv = torch.from_numpy(rng.standard_normal((1, s, 3 * heads * dh)).astype(np.float32)).to(torch.bfloat16)
+    d_o = torch.from_numpy(rng.standard_normal((1, s, heads * dh)).astype(np.float32)).to(torch.bfloat16)
+    parts, do_h = qkv.float().numpy()[0].reshape(s, 3, heads, dh), d_o.float().numpy()[0].reshape(s, heads, dh)
+    got = np.zeros((s, 3, heads, dh), np.float32)
+    for h in range(heads):
+        got[:, :, h] = np.stack(_whole_head_backward(parts[:, 0, h], parts[:, 1, h], parts[:, 2, h], do_h[:, h], kv), 1)
+    ref = attention_qkv_bwd_plain(qkv, d_o, heads, 0 if kv == s else kv).float().numpy()[0].reshape(s, 3, heads, dh)
+    for i, part in enumerate(("dq", "dk", "dv")):
+        err, top = np.abs(got[:, i] - ref[:, i]).max(), np.abs(ref[:, i]).max()
+        assert err <= 1e-2 * top, (part, err, top)
+    assert not got[kv:, 1:].any()
+
+
 def test_residuals_on_the_cpu_are_the_plain_output():
     """``attention_residuals`` on a CPU tensor is the plain forward and no
     statistics, and ``attention_bwd`` there ignores residuals."""

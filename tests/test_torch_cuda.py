@@ -439,24 +439,25 @@ def test_attention_kernels_match_plain_on_cuda(cuda, b, s, heads, dh, kv_len, dt
 
 @pytest.mark.cuda
 def test_attention_bf16_calls_launch_their_kernels_once(cuda):
-    """On bfloat16 a forward call runs ``attn_qkv_fwd_mma_kernel`` once on
-    the card and a backward call ``attn_qkv_bwd_rows_kernel`` and
-    ``attn_qkv_bwd_keys_kernel`` once each, and nothing else of the
-    attention kernels; each call counts one."""
+    """On bfloat16 up to 256 tokens a forward call runs
+    ``attn_qkv_fwd_mma_kernel`` once on the card and a backward call
+    ``attn_qkv_bwd_whole_kernel`` once, and nothing else of the attention
+    kernels; each call counts one, and a second backward call gives the
+    same dqkv bit for bit."""
     rng = np.random.default_rng(3)
     qkv = torch.from_numpy(rng.standard_normal((2, 197, 3 * 128)).astype(np.float32)).to(cuda, torch.bfloat16)
     d_o = torch.from_numpy(rng.standard_normal((2, 197, 128)).astype(np.float32)).to(cuda, torch.bfloat16)
     before = fused_attention_qkv.launches, attention_qkv_bwd.launches
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fused_attention_qkv(qkv, 2)
-        attention_qkv_bwd(qkv, d_o, 2)
+        dqkv = attention_qkv_bwd(qkv, d_o, 2)
         torch.cuda.synchronize()
     assert (fused_attention_qkv.launches, attention_qkv_bwd.launches) == (before[0] + 1, before[1] + 1)
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "attn" in e.name]
     assert sum("attn_qkv_fwd_mma_kernel" in n for n in names) == 1, names
-    assert sum("attn_qkv_bwd_rows_kernel" in n for n in names) == 1, names
-    assert sum("attn_qkv_bwd_keys_kernel" in n for n in names) == 1, names
-    assert len(names) == 3, names
+    assert sum("attn_qkv_bwd_whole_kernel" in n for n in names) == 1, names
+    assert len(names) == 2, names
+    assert torch.equal(attention_qkv_bwd(qkv, d_o, 2), dqkv)
 
 
 @pytest.mark.cuda
@@ -465,7 +466,8 @@ def test_attention_bf16_past_256_streams_its_keys(cuda, s):
     """Past 256 tokens a bfloat16 forward call runs
     ``attn_qkv_fwd_stream_kernel`` once (with its score cache at 257, three
     sweeps over the keys at 2000) and nothing else of the attention kernels,
-    and a backward call the same two kernels as at 197 tokens."""
+    and a backward call ``attn_qkv_bwd_rows_kernel`` and
+    ``attn_qkv_bwd_keys_kernel`` once each."""
     rng = np.random.default_rng(s)
     qkv = torch.from_numpy(rng.standard_normal((1, s, 3 * 64)).astype(np.float32)).to(cuda, torch.bfloat16)
     d_o = torch.from_numpy(rng.standard_normal((1, s, 64)).astype(np.float32)).to(cuda, torch.bfloat16)
